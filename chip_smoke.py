@@ -9,9 +9,9 @@ Run from the root of a checkout, on a machine with a CUDA card and
 2. builds every CUDA kernel of the port from the checkout's sources;
 3. holds each kernel against its plain PyTorch version on the card
    (relu / leaky_relu(0.2) / none, bf16 and f32, the four generator
-   shapes at batch 512 and two ragged shapes): f32 within 1e-5 (an FMA
-   against a separate multiply and add), bf16 within one bf16 ulp
-   plus that 1e-5;
+   shapes at serving's batch 512 and at the trainer's eval batch of 64,
+   and two ragged shapes): f32 within 1e-5 (an FMA against a separate
+   multiply and add), bf16 within one bf16 ulp plus that 1e-5;
 4. serves requests through ``GeneratorService`` at the reference's full
    width (DCGAN 64², z 100, base width 64; weights drawn from a seed and
    saved in the reference ``.pt`` format), at batch 512 in bf16, with the
@@ -23,7 +23,28 @@ Run from the root of a checkout, on a machine with a CUDA card and
    and the served images per second, beside the card's name and power
    limit, and profiles one served request (the card's busy share and its
    time by kernel);
-6. prints a ``{"kernels": [...]}`` line, then, last, the
+6. holds one train step at full width (64², z 100, base width 64, batch
+   16, f32, TF32 off) on the card against the same step on the CPU, from
+   the same weights and the same draws: the six telemetry scalars within
+   3e-3, and Adam's deltas where the CPU's gradient clears 1 % of its
+   leaf's maximum within 5 % of lr (tests/test_step_torch_parity.py:22-35)
+   on all but 0.1 % of those elements; the differentiated step launches
+   no kernel;
+7. trains through the entry point (``jckx_torch.train.main``) at the
+   reference geometry on 4096 synthetic rows, bs128, bf16, lr 2e-4, one
+   epoch of 32 steps with evals after steps 8, 16 and 32 (FID / IS over
+   the seeded InceptionV3, grids, checkpoints), with the launch counter
+   reset just before and read just after: exactly 4 launches per eval G
+   forward and none from the 32 steps. Losses must be finite and the
+   artifacts written; the trained generator's eval sample, converted to
+   uint8, must match the plain path on the card within 1 LSB, >= 99.9 %
+   exactly; a second run with ``--resume`` must start at step 32 and
+   train nothing;
+8. times training beside the card's name and power limit: img/s on the
+   host clock, one eval (the real features apart from the fake side),
+   and a profiled window of 8 steps (busy share, top 10 kernels; its
+   device busy time / 8 is the step's time on the card);
+9. prints a ``{"kernels": [...]}`` line, then, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failed phase exits nonzero before the last line is printed. Without a
@@ -36,6 +57,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -47,6 +69,15 @@ BATCH = 512
 G_LAYERS = [(4, 512), (8, 256), (16, 128), (32, 64)]  # (spatial, channels) of G's BN layers
 RAGGED = [(1000, 3), (8 * 7 * 7, 100)]                 # (rows, C)
 SLEEP_CYCLES = 20_000_000   # ~10 ms: the host enqueues a timed loop while the card waits
+TRAIN_BATCH, TRAIN_LR = 128, 2e-4  # jckx's batch; the lr bench.py:63 trains at
+EVAL_BATCH = 64             # the trainer's sample_count: G's batch at every eval
+# device kernels by kind, for the profiles: the first kind whose words a name holds
+KERNEL_KINDS = [("fused bn_act", ("bn_act",)),
+                ("convolution (cuDNN)", ("xmma", "cutlass", "cudnn", "conv", "dgrad", "wgrad",
+                                         "implicit_gemm", "nhwc", "nchw")),
+                ("copy / cast", ("copy", "Memcpy", "Memset")),
+                ("reduction", ("reduce_kernel",)),
+                ("elementwise", ("elementwise", "foreach", "multi_tensor"))]
 
 
 def fail(msg: str) -> None:
@@ -132,7 +163,7 @@ def phase_kernel_vs_plain(dev) -> float:
     from jckx_torch.kernels import fused_bn_act as fba
 
     g = torch.Generator(device=dev).manual_seed(0)
-    shapes = [(BATCH * s * s, c) for s, c in G_LAYERS] + RAGGED
+    shapes = [(n * s * s, c) for n in (BATCH, EVAL_BATCH) for s, c in G_LAYERS] + RAGGED
     worst = 0.0
     for rows, chans in shapes:
         x32 = torch.randn(rows, chans, generator=g, device=dev) * 2 + 0.5
@@ -150,19 +181,31 @@ def phase_kernel_vs_plain(dev) -> float:
                 ok = err <= 1e-5 if dtype == torch.float32 else bf16_ulp_ok(y, ref)
                 check(ok, f"kernel vs plain: rows={rows} C={chans} {dtype} {act}: max |err| {err}")
     # the whole wrapper (statistics + kernel) on the generator's NCHW channels_last tensors
-    for s, c in G_LAYERS:
-        x = torch.randn(BATCH, c, s, s, generator=g, device=dev).to(
-            torch.bfloat16, memory_format=torch.channels_last)
-        scale = torch.rand(c, generator=g, device=dev) + 0.5
-        bias = torch.randn(c, generator=g, device=dev)
-        y = fba.bn_act(x, scale, bias, act="relu")
-        ref = fba.bn_act_plain(x, scale, bias, act="relu")
-        torch.cuda.synchronize()
-        check(y.is_contiguous(memory_format=torch.channels_last), "bn_act output not channels_last")
-        check(bf16_ulp_ok(y, ref), f"bn_act vs bn_act_plain at {s}x{s}x{c}")
-    print(f"kernel vs plain: {len(shapes) * 6 + len(G_LAYERS)} comparisons passed, "
+    for n in (BATCH, EVAL_BATCH):
+        for s, c in G_LAYERS:
+            x = torch.randn(n, c, s, s, generator=g, device=dev).to(
+                torch.bfloat16, memory_format=torch.channels_last)
+            scale = torch.rand(c, generator=g, device=dev) + 0.5
+            bias = torch.randn(c, generator=g, device=dev)
+            y = fba.bn_act(x, scale, bias, act="relu")
+            ref = fba.bn_act_plain(x, scale, bias, act="relu")
+            torch.cuda.synchronize()
+            check(y.is_contiguous(memory_format=torch.channels_last), "bn_act output not channels_last")
+            check(bf16_ulp_ok(y, ref), f"bn_act vs bn_act_plain at {n}x{s}x{s}x{c}")
+    print(f"kernel vs plain: {len(shapes) * 6 + 2 * len(G_LAYERS)} comparisons passed, "
           f"max |err| {worst} (f32 <= 1e-5, bf16 <= 1 ulp + 1e-5)")
     return worst
+
+
+def check_u8_agree(got, ref, what: str) -> None:
+    """uint8 images from the kernel route against the plain route: within
+    1 LSB and >= 99.9 % exactly equal (bf16 rounding of the FMA against a
+    separate multiply and add, carried through the later layers)."""
+    diff = (got.int() - ref.int()).abs()
+    exact = (diff == 0).float().mean().item()
+    print(f"{what} vs plain path on the same z: max diff {diff.max().item()} LSB, "
+          f"{100 * exact:.4f} % exactly equal")
+    check(diff.max().item() <= 1 and exact >= 0.999, f"{what} disagree with the plain path")
 
 
 def write_reference_checkpoint(path: str, seed: int = 0):
@@ -228,11 +271,7 @@ def phase_serve_vs_plain(svc, dev):
         ref = svc.render(z)
     finally:
         tdcgan.bn_act = fba.bn_act
-    diff = (got.int() - ref.int()).abs()
-    exact = (diff == 0).float().mean().item()
-    print(f"served uint8 vs plain path on the same z: max diff {diff.max().item()} LSB, "
-          f"{100 * exact:.4f} % exactly equal")
-    check(diff.max().item() <= 1 and exact >= 0.999, "served images disagree with the plain path")
+    check_u8_agree(got, ref, "served uint8 images")
 
 
 def phase_timing(svc, dev, card: str):
@@ -311,25 +350,27 @@ def phase_timing(svc, dev, card: str):
     return out
 
 
-def phase_profile(svc, card: str) -> None:
-    """One served request of 8 batches under ``torch.profiler``: the card's
-    busy share of the window and its time by kernel. Informational: prints
-    "not measured" where the profiler sees no device activity."""
+def profile_window(run, what: str, card: str) -> dict:
+    """``run()`` under ``torch.profiler``: the card's busy share of the
+    window and its time by kernel, printed. Informational: prints "not
+    measured" where the profiler sees no device activity. → the numbers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    svc.sample(BATCH, seed=0)  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        svc.sample(8 * BATCH, seed=99)
+        run()
         torch.cuda.synchronize()
     events = prof.events()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    # device events, without the profiler's user annotations on the device
+    # timeline ("Optimizer.step#Adam.step"), which span idle time too
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and "#" not in e.name]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     if not spans:
-        print(f"profiled request: the profiler saw no device activity; busy share not measured"
+        print(f"profiled {what}: the profiler saw no device activity; busy share not measured"
               f"   [{card}]")
-        return
+        return {}
     window = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
     busy, (lo, hi) = 0.0, spans[0]
     for s, e in spans[1:]:  # union of the device intervals
@@ -337,17 +378,229 @@ def phase_profile(svc, card: str) -> None:
             busy, lo = busy + hi - lo, s
         hi = max(hi, e)
     busy += hi - lo
-    by_name = {}
-    for e in events:
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            t, k = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.time_range.end - e.time_range.start, k + 1)
+    by_name, by_kind = {}, {}
+    for e in kernels:
+        dt = e.time_range.end - e.time_range.start
+        t, k = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + dt, k + 1)
+        kind = next((kind for kind, keys in KERNEL_KINDS if any(w in e.name for w in keys)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + dt
     total = sum(t for t, _ in by_name.values())
-    print(f"profiled request of {8 * BATCH} images at batch {BATCH}, bf16: window {window / 1e3:.3f} ms, "
-          f"card busy {busy / 1e3:.3f} ms ({100 * busy / window:.1f} %, idle {100 - 100 * busy / window:.1f} %)"
-          f"   [{card}]")
-    for name, (t, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+    print(f"profiled {what}: window {window / 1e3:.3f} ms, card busy {busy / 1e3:.3f} ms "
+          f"({100 * busy / window:.1f} %, idle {100 - 100 * busy / window:.1f} %), "
+          f"{len(kernels)} device events   [{card}]")
+    print("  by kind: " + ", ".join(f"{kind} {100 * t / total:.1f} %"
+                                    for kind, t in sorted(by_kind.items(), key=lambda kv: -kv[1])))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    for name, (t, k) in top:
         print(f"  {t / 1e3:8.3f} ms {100 * t / total:5.1f} %  x{k:<4} {name[:90]}")
+    return {"window_ms": window / 1e3, "busy_ms": busy / 1e3, "events": len(kernels),
+            "by_kind": {kind: t / 1e3 for kind, t in by_kind.items()},
+            "top": [(name[:90], t / 1e3, k) for name, (t, k) in top]}
+
+
+def phase_profile(svc, card: str) -> None:
+    """One served request of 8 batches under ``torch.profiler``."""
+    svc.sample(BATCH, seed=0)  # warm
+    profile_window(lambda: svc.sample(8 * BATCH, seed=99),
+                   f"request of {8 * BATCH} images at batch {BATCH}, bf16", card)
+
+
+def phase_train_vs_cpu(dev) -> None:
+    """One full-width train step on the card against the CPU, from the same
+    weights and draws, in f32 with TF32 off (set in ``main``)."""
+    import torch
+
+    from jckx_torch.configs import Config
+    from jckx_torch.kernels import fused_bn_act as fba
+    from jckx_torch.models.dcgan import Discriminator, GANGeometry, Generator
+    from jckx_torch.train.state import create_dcgan_state
+    from jckx_torch.train.steps import METRIC_NAMES, StepDraws, make_dcgan_train_step
+
+    cfg = Config()
+    cfg.compute_dtype, cfg.max_learning_rate, cfg.batch_size = "float32", TRAIN_LR, 16
+    geo, n = GANGeometry(), 16
+    g = torch.Generator().manual_seed(7)
+    img = (n, geo.image_size, geo.image_size, geo.channels)
+    draws = StepDraws(real_noise=torch.randn(img, generator=g), z=torch.randn(n, geo.z_dim, generator=g),
+                      fake_noise=torch.randn(img, generator=g),
+                      alpha=torch.rand(n, 1, 1, 1, generator=g))
+    real = torch.rand(img, generator=g) * 2 - 1
+    out = []
+    for device in (torch.device("cpu"), dev):
+        gen = torch.Generator().manual_seed(0)
+        G, D = Generator(geo, gen=gen), Discriminator(geo, gen=gen)
+        p0 = {**{"G." + k: v.clone() for k, v in G.state_dict().items()},
+              **{"D." + k: v.clone() for k, v in D.state_dict().items()}}
+        state = create_dcgan_state(cfg, G.to(device), D.to(device))
+        before = fba.LAUNCHES
+        t0 = time.perf_counter()
+        m = make_dcgan_train_step(cfg, geo)(state, real.to(device), StepDraws(
+            *(getattr(draws, f).to(device) for f in ("real_noise", "z", "fake_noise", "alpha"))))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(fba.LAUNCHES == before, f"the differentiated train step on {device} launched the kernel")
+        params = {**{"G." + k: v.detach().cpu() for k, v in G.state_dict().items()},
+                  **{"D." + k: v.detach().cpu() for k, v in D.state_dict().items()}}
+        grads = {**{"G." + k: q.grad.cpu() for k, q in G.named_parameters()},
+                 **{"D." + k: q.grad.cpu() for k, q in D.named_parameters()}}
+        out.append(({k: float(v) for k, v in m.items()}, params, grads, dt))
+    (mc, pc, gc, dtc), (mg, pg, _, dtg) = out
+    worst = max(abs(mc[k] - mg[k]) for k in METRIC_NAMES)
+    for k in METRIC_NAMES:
+        check(math.isfinite(mg[k]) and abs(mc[k] - mg[k]) <= 3e-3 + 3e-3 * abs(mc[k]),
+              f"train step card vs CPU: {k} {mg[k]} vs {mc[k]}")
+    # At full width the f32 gradient of G's middle convolutions carries
+    # rounding error up to ~5 % of the leaf's maximum (cancellation through
+    # batch-statistic BN; f32 against f64 on the CPU flips 8 of 497,890
+    # masked elements of G.conv3.weight). So up to 0.1 % of a leaf's masked
+    # elements may disagree; a wiring fault moves whole fractions of a leaf.
+    total = covered = flipped = 0
+    for k, g_cpu in gc.items():
+        d_card, d_cpu = pg[k] - p0[k], pc[k] - p0[k]
+        check(d_card.abs().max() <= 1.01 * TRAIN_LR and d_cpu.abs().max() <= 1.01 * TRAIN_LR,
+              f"{k}: an Adam step-1 delta exceeds lr")
+        mask = g_cpu.abs() > 1e-2 * g_cpu.abs().max() + 1e-12
+        bad = int(((d_card - d_cpu).abs() > 0.05 * TRAIN_LR)[mask].sum())
+        total += mask.numel()
+        covered += int(mask.sum())
+        flipped += bad
+        check(bad <= 1e-3 * int(mask.sum()),
+              f"{k}: {bad} of {int(mask.sum())} masked Adam deltas card vs CPU differ by > 5 % of lr")
+    check(covered / total > 0.5, f"the gradient mask covers {covered}/{total} elements")
+    print(f"train step card vs CPU (64², z 100, width 64, batch {n}, f32, TF32 off): telemetry max "
+          f"|diff| {worst:.3g} (<= 3e-3); Adam deltas within {0.05 * TRAIN_LR:g} on "
+          f"{covered - flipped} of {covered} masked elements ({100 * covered / total:.1f} % of the "
+          f"parameters); 0 kernel launches; first step {dtc:.2f} s on the CPU, {dtg:.2f} s on the card")
+
+
+def phase_train(tmp: str):
+    """The main training path through the entry point. → (trainer, its
+    launch records, kernel launches during the run)."""
+    import torch
+
+    import jckx_torch.models.dcgan as tdcgan
+    from jckx_torch.kernels import fused_bn_act as fba
+    from jckx_torch.logging.main_logger import MainLogger
+    from jckx_torch.serve import tanh_to_u8
+    from jckx_torch.train import main as tmain
+
+    where = ["--save_root", os.path.join(tmp, "save"), "--data_dir", os.path.join(tmp, "data"),
+             "-pm", "smoke"]
+    argv = ["--dataset", "synthetic", "-b", str(TRAIN_BATCH), "-e", "1", "-mlr", str(TRAIN_LR),
+            "--log_every", "8", "--eval_every", "16"] + where
+    fba.LAUNCHES = 0
+    t0 = time.perf_counter()
+    tr = tmain.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fba.LAUNCHES
+    MainLogger.reset()
+    check(tr.device.type == "cuda" and tr.cd == torch.bfloat16 and tr.n_data == 4096,
+          f"trainer on {tr.device} in {tr.cd} over {tr.n_data} rows")
+    check(tr.state.step == 32 and tr.evals == [8, 16, 32], f"step {tr.state.step}, evals {tr.evals}")
+    per_forward = tr.geo.n_up
+    check(launches == per_forward * len(tr.evals),
+          f"{launches} kernel launches for {len(tr.evals)} eval G forwards; want {per_forward} "
+          f"each and none from the 32 train steps")
+    with open(os.path.join(tr.save_path, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    steps = [r for r in records if "step_ms" in r]
+    evals = [r for r in records if "fid" in r]
+    losses = [v for pair in tr._resumed_losses for v in pair]
+    check(len(losses) == 64 and all(math.isfinite(v) for v in losses), "losses not finite")
+    check(all(math.isfinite(r["fid"]) and math.isfinite(r["is"]) for r in evals), "FID/IS not finite")
+    for rel in ("latest.ckpt", "real_image.png", "loss.png", "config.json"):
+        check(os.path.isfile(os.path.join(tr.save_path, rel)), f"{rel} missing")
+    for typ in ("fid", "is"):
+        names = os.listdir(os.path.join(tr.save_path, typ))
+        check(any(f.endswith(".pt") for f in names) and any(f.endswith("_fake_image.png") for f in names),
+              f"{typ}/ lacks a checkpoint or a grid")
+    print(f"trained 32 steps at batch {TRAIN_BATCH}, bf16, through jckx_torch.train.main in {wall:.1f} s "
+          f"(data, backbone, real features and 3 evals included): evals after {tr.evals}, "
+          f"{launches} kernel launches = {per_forward} per eval G forward, 0 from the steps; "
+          f"last losses D {tr._resumed_losses[-1][0]:.4f} G {tr._resumed_losses[-1][1]:.4f}; "
+          + ", ".join(f"FID {r['fid']:.3f} IS {r['is']:.4f} @ {r['step']}" for r in evals))
+    # the kernel at the eval's shapes, on the trained weights, against the plain route
+    check(tr.cfg.sample_count == EVAL_BATCH, f"sample_count {tr.cfg.sample_count}")
+    before = fba.LAUNCHES
+    got = tanh_to_u8(tr.sample_eval())
+    check(fba.LAUNCHES == before + per_forward, "the eval sample did not launch the kernel")
+    tdcgan.bn_act = fba.bn_act_plain
+    try:
+        ref = tanh_to_u8(tr.sample_eval())
+    finally:
+        tdcgan.bn_act = fba.bn_act
+    check_u8_agree(got, ref, f"eval sample of {EVAL_BATCH} trained images (uint8)")
+
+    before = fba.LAUNCHES
+    tr2 = tmain.main(["--resume"] + where)
+    MainLogger.reset()
+    check(tr2.state.step == 32 and tr2.evals == [] and fba.LAUNCHES == before,
+          f"--resume started at step {tr2.state.step} and evaluated {tr2.evals}")
+    print("--resume on the same run dir: restored step 32, nothing left to train")
+    return tr, steps, launches
+
+
+def phase_train_timing(tr, steps, tmp: str, card: str) -> dict:
+    """Training numbers beside the card's name and power limit."""
+    import torch
+
+    from jckx_torch.data.pipeline import decode_batch
+    from jckx_torch.metrics.metrics import Metrics
+
+    rates = [r["images_per_sec"] for r in steps[1:]]
+    step_ms = [r["step_ms"] for r in steps[1:]]
+    print(f"train img/s at batch {TRAIN_BATCH}, bf16, host clock: median {statistics.median(rates):.1f} "
+          f"over the {len(rates)} launches after the first (min {min(rates):.1f}, max {max(rates):.1f}); "
+          f"{statistics.median(step_ms):.3f} ms per step   [{card}]")
+    real = decode_batch(tr.images_dev[:TRAIN_BATCH], tr.cfg.image_size, tr.cd)
+    n = 8
+    for _ in range(3):
+        tr.step_fn(tr.state, real)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        tr.step_fn(tr.state, real)
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / n
+
+    t0 = time.perf_counter()
+    Metrics(tr.data_pre.metric_source, tr.cfg, backbone=tr.metric.backbone,
+            batch_size=tr.cfg.eval_batch_size, compute_dtype=tr.cd,
+            cache_dir=os.path.join(tmp, "fresh_cache"), num_classes=tr.data_pre.num_classes,
+            device=tr.device)
+    real_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    feats = tr.metric.extract_features(tr.sample_eval())
+    tr.metric.inception_score(logits=feats)
+    tr.metric.fid(features=feats)
+    fake_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tr._evaluate(tr.state.step, [], [])
+    eval_s = time.perf_counter() - t0
+    print(f"eval: real features of {tr.n_data} images {real_s:.3f} s (once per run, then cached); "
+          f"{tr.cfg.sample_count} fakes sampled + features + IS + FID {fake_s:.3f} s; one whole "
+          f"trainer eval with its checkpoints and grids {eval_s:.3f} s   [{card}]")
+
+    prof = profile_window(lambda: [tr.step_fn(tr.state, real) for _ in range(n)],
+                          f"{n} train steps at batch {TRAIN_BATCH}, bf16", card)
+    # the card's busy time, not CUDA events: the host cannot enqueue the
+    # steps ahead of the card, so events around them time the host
+    card_ms = prof["busy_ms"] / n if prof else None
+    print(f"one train step at batch {TRAIN_BATCH}, bf16: "
+          + (f"{card_ms:.3f} ms" if prof else "not measured")
+          + f" on the card (profiler busy time / {n}), {host_ms:.3f} ms on the host clock   [{card}]")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"peak device memory {peak:.2f} GiB")
+    out = {"card": card, "batch": TRAIN_BATCH, "dtype": "bfloat16",
+           "img_per_s_host_median": statistics.median(rates), "step_ms_card": card_ms,
+           "step_ms_host": host_ms,
+           "real_features_s": real_s, "fake_side_s": fake_s, "eval_s": eval_s,
+           "profile": prof, "peak_gib": peak}
+    print("train_numbers " + json.dumps(out))
+    return out
 
 
 def main() -> None:
@@ -373,11 +626,15 @@ def main() -> None:
     phase_serve_vs_plain(svc, dev)
     t = phase_timing(svc, dev, card)
     phase_profile(svc, card)
+    phase_train_vs_cpu(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        tr, steps, train_launches = phase_train(tmp)
+        phase_train_timing(tr, steps, tmp, card)
     print(json.dumps({"kernels": [{
         "name": "fused_bn_act", "route": "cuda",
         "source": "jckx_torch/kernels/csrc/fused_bn_act.cu",
         "replaces": "jckx/kernels/fused_bn_act.py:120",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches + train_launches, "max_abs_err": max_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
     }]}))

@@ -1,0 +1,127 @@
+"""Checkpoints and resume — port of ``jckx/checkpoint/checkpoint.py``.
+
+The reference (train/dcgan_trainer.py:76-99) keeps one checkpoint per
+metric in ``save/<model>/<ts>/<metric>/``, deleting the previous one, as
+``torch.save({model_g, model_d, optimizer_g, optimizer_d})`` named
+``<iters>_<value>.pt``, beside a grid of fakes. Its resume is stubbed out
+(dcgan_trainer.py:102-107); jckx implements it with a ``latest.ckpt``
+rewritten at every eval.
+
+The port writes the reference's dict, with its own extras beside the four
+keys: ``step``, ``seed``, ``ema_g`` (when EMA is on), and what the trainer
+adds (``bests``, ``losses``, ``serve_config``, ``iters``). Every value is
+a tensor, a number, a string or a container of those, so the file loads
+with ``weights_only=True``, and the readers of the reference's format
+read it as it is: ``jckx.checkpoint.import_torch_gan_checkpoint`` (which
+takes the four keys and ignores the rest) and ``jckx_torch.serve``. The
+best-metric files are ``.pt``; ``latest.ckpt`` holds the same dict for
+``--resume``. Writes are synchronous and atomic (a temporary file, then
+``os.replace``).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Optional
+
+import torch
+
+from jckx_torch.train.state import GANTrainState, adam_count, ema_copy
+
+_EXTRA_KEYS = ("step", "seed", "ema_g")
+
+
+def _cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_cpu(v) for v in obj)
+    return obj
+
+
+def state_payload(state: GANTrainState, extra: Optional[dict] = None) -> Dict[str, Any]:
+    """A host copy of the state as the reference's dict plus the extras."""
+    out = {"model_g": _cpu(state.G.state_dict()), "model_d": _cpu(state.D.state_dict()),
+           "optimizer_g": _cpu(state.opt_g.state_dict()),
+           "optimizer_d": _cpu(state.opt_d.state_dict()),
+           "step": int(state.step), "seed": int(state.seed)}
+    if state.ema_g is not None:
+        out["ema_g"] = _cpu(state.ema_g.state_dict())
+    out.update(extra or {})
+    return out
+
+
+def save_checkpoint(path: str, payload: Dict[str, Any]) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)  # a crash mid-write cannot corrupt the file
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(ckpt, dict) or not {"model_g", "model_d"} <= set(ckpt):
+        raise KeyError(f"{path}: not a GAN checkpoint (needs 'model_g' and 'model_d')")
+    return ckpt
+
+
+def restore_checkpoint(path: str, state: GANTrainState, lr: float) -> Dict[str, Any]:
+    """Load a port or reference checkpoint into ``state`` (in place).
+
+    Weights load strictly; Adam's moments and counts come along when the
+    file has them. The step is the file's ``step``, else (a reference
+    file) the Adam count, as jckx's importer reads it. ``lr`` replaces the
+    saved learning rate, as jckx's importer takes it from its caller.
+    → the file's other keys."""
+    ckpt = load_checkpoint(path)
+    state.G.load_state_dict(ckpt["model_g"], strict=True)
+    state.D.load_state_dict(ckpt["model_d"], strict=True)
+    for key, opt in (("optimizer_g", state.opt_g), ("optimizer_d", state.opt_d)):
+        if ckpt.get(key, {}).get("state"):
+            opt.load_state_dict(ckpt[key])
+        for group in opt.param_groups:
+            group["lr"] = lr
+    state.step = int(ckpt.get("step", adam_count(state.opt_g)))
+    state.seed = int(ckpt.get("seed", state.seed))
+    has_ema, want_ema = "ema_g" in ckpt, state.ema_g is not None
+    if want_ema:
+        # a file without an EMA starts the average from G, as jckx's importer does
+        state.ema_g = ema_copy(state.G)
+        if has_ema:
+            state.ema_g.load_state_dict(ckpt["ema_g"], strict=True)
+    elif has_ema:
+        raise ValueError(f"{path} carries an EMA of G but ema_decay is 0: pass the "
+                         f"--ema_decay of the run that wrote it")
+    return {k: v for k, v in ckpt.items()
+            if k not in ("model_g", "model_d", "optimizer_g", "optimizer_d") + _EXTRA_KEYS}
+
+
+def latest_checkpoint(run_dir: str) -> Optional[str]:
+    p = os.path.join(run_dir, "latest.ckpt")
+    return p if os.path.exists(p) else None
+
+
+class BestMetricCheckpointer:
+    """One checkpoint per metric subdir, the reference's retention policy
+    (delete the previous one; the file name carries iters and values)."""
+
+    def __init__(self, run_dir: str):
+        self.run_dir = run_dir
+
+    def save(self, typ: str, iters: int, values, payload: Dict[str, Any]) -> str:
+        sub = os.path.join(self.run_dir, typ)
+        os.makedirs(sub, exist_ok=True)
+        tag = "_".join(f"{v:.04f}" for v in values)
+        path = os.path.join(sub, f"{iters}_{tag}.pt")
+        for fn in os.listdir(sub):
+            if fn.endswith(".pt"):
+                os.remove(os.path.join(sub, fn))
+        save_checkpoint(path, payload)
+        return path
+
+    def save_latest(self, payload: Dict[str, Any]) -> str:
+        path = os.path.join(self.run_dir, "latest.ckpt")
+        save_checkpoint(path, payload)
+        return path

@@ -14,17 +14,26 @@ H100 SXM's 3.35 TB/s (computed from the shapes; the source has the table).
   and ``chip_smoke.py`` hold the kernel against.
 - ``normalize_act``: the kernel's wrapper on a CUDA ``(rows, C)`` tensor;
   ``normalize_act_plain`` is its plain version on the same inputs.
-- ``bn_act``: takes ``bn_act_plain`` for a tensor on the CPU, and the
-  statistics in plain torch + the kernel for a tensor on the card. There
-  is no fallback from the card to the plain path.
+- ``bn_act``: routes by device and grad mode (below).
 
 Activations are either ``(rows, C)`` or NCHW-logical tensors in
 ``torch.channels_last`` memory, whose ``(N·H·W, C)`` row view is free.
 
-The kernel is forward-only, as the Pallas kernel is in jckx, whose train
-step keeps the differentiable ``_bn_act_xla`` because the WGAN-GP penalty
-needs grad-of-grad. On the card, ``bn_act`` refuses tensors that require
-grad under grad mode until the training path is ported.
+The kernel is forward-only, as the Pallas kernel is in jckx: jckx's train
+step keeps the differentiable ``_bn_act_xla`` (``:74-85``) because the
+WGAN-GP penalty needs grad-of-grad through D, and only its inference
+programs take the kernel (``pallas_inference``, ``:42-63``). ``bn_act``
+makes the same split by grad mode:
+
+- a tensor on the CPU: ``bn_act_plain``;
+- on the card, with grad enabled and any of x, scale, bias requiring
+  grad: ``bn_act_plain``, which autograd differentiates to any order
+  (the train step);
+- on the card otherwise (``torch.no_grad()``, inference mode, or no input
+  that requires grad): the statistics in plain torch, then the kernel.
+
+This is a rule on grad mode, not a fallback on failure: a kernel that
+does not build or launch raises.
 """
 
 from __future__ import annotations
@@ -37,7 +46,8 @@ import torch
 from jckx_torch.kernels import _build
 
 # Kernel launches since the last reset; chip_smoke.py reads it to show
-# that the serving path went through the kernel.
+# that the serving path and the trainer's eval sampling went through the
+# kernel, and the differentiated train steps did not.
 LAUNCHES = 0
 
 _ACTS = {"none": 0, "relu": 1, "leaky_relu": 2}
@@ -143,8 +153,7 @@ def bn_act(x, scale, bias, act="none", negative_slope=0.2, eps=1e-5):
     if x.device.type == "cpu":
         return bn_act_plain(x, scale, bias, act, negative_slope, eps)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)):
-        raise RuntimeError("bn_act on the card is forward-only: the training "
-                           "path is not ported yet (run under torch.no_grad())")
+        return bn_act_plain(x, scale, bias, act, negative_slope, eps)
     if x.dim() == 4 and not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("bn_act on the card needs a channels_last NCHW tensor")
     x2d = _rows(x)

@@ -1,0 +1,264 @@
+"""InceptionV3's eval forward, the FID / IS backbone — port of
+``jckx/metrics/inception_v3.py`` (``init``, ``apply``,
+``convert_torch_state_dict``).
+
+The graph is written out by hand (the card's machine has no torchvision):
+torchvision's ``inception_v3`` with ``aux_logits=False``,
+``transform_input=False`` and the classifier replaced by
+``Linear(2048, K)``, as the reference builds it (metrics.py:46-52). The
+modules carry torchvision's state-dict names (``Mixed_5b.branch1x1.conv
+.weight``, ``….bn.running_var``, ``fc.weight``), so a torchvision
+checkpoint loads with ``load_state_dict``; the reference's ``fc.0.*``
+(a Sequential-wrapped Linear) is renamed by ``from_torchvision``.
+
+Eval only: each BasicConv2d is conv → BN from its running statistics at
+eps 1e-3, folded into one f32 scale and shift (``:133-138``) → ReLU, in
+the compute dtype. The pools are jckx's: max 3×3 stride 2, and average
+3×3 stride 1 pad 1 counting the padding (``:48-65``). The train-mode BN
+of the fine-tune and the space-to-depth stem are not ported yet
+(ROADMAP A9, A10).
+
+``init(seed)`` reproduces jckx's seeded backbone: the same numpy
+``RandomState`` draws in the same order (``_bconv_init``, ``:70-89``:
+He-scaled normals clipped at ±2, identity BN statistics; then the fc
+uniform), so the two packages' seeded backbones are equal.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class _Weight(nn.Module):
+    def __init__(self, shape):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(shape), requires_grad=False)
+
+
+class _BN(nn.Module):
+    """``nn.BatchNorm2d``'s state-dict layout."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(c), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(c), requires_grad=False)
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+        self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long))
+
+
+class BasicConv2d(nn.Module):
+    def __init__(self, cin: int, cout: int, kernel, stride: int = 1, padding=0):
+        super().__init__()
+        kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
+        self.conv = _Weight((cout, cin, kh, kw))
+        self.bn = _BN(cout)
+        self.stride, self.padding = stride, padding
+
+    def forward(self, x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
+        y = F.conv2d(x, self.conv.weight.to(x.dtype), stride=self.stride, padding=self.padding)
+        bn = self.bn
+        inv = torch.rsqrt(bn.running_var.float() + eps) * bn.weight.float()
+        shift = bn.bias.float() - bn.running_mean.float() * inv
+        y = y.float() * inv[:, None, None] + shift[:, None, None]
+        return torch.relu(y).to(x.dtype)
+
+
+def _max_pool(x):
+    return F.max_pool2d(x, 3, stride=2)
+
+
+def _avg_pool(x):
+    return F.avg_pool2d(x, 3, stride=1, padding=1, count_include_pad=True)
+
+
+class InceptionA(nn.Module):
+    def __init__(self, cin: int, pool_features: int):
+        super().__init__()
+        self.branch1x1 = BasicConv2d(cin, 64, 1)
+        self.branch5x5_1 = BasicConv2d(cin, 48, 1)
+        self.branch5x5_2 = BasicConv2d(48, 64, 5, padding=2)
+        self.branch3x3dbl_1 = BasicConv2d(cin, 64, 1)
+        self.branch3x3dbl_2 = BasicConv2d(64, 96, 3, padding=1)
+        self.branch3x3dbl_3 = BasicConv2d(96, 96, 3, padding=1)
+        self.branch_pool = BasicConv2d(cin, pool_features, 1)
+
+    def forward(self, x):
+        b5 = self.branch5x5_2(self.branch5x5_1(x))
+        b3 = self.branch3x3dbl_3(self.branch3x3dbl_2(self.branch3x3dbl_1(x)))
+        return torch.cat([self.branch1x1(x), b5, b3, self.branch_pool(_avg_pool(x))], 1)
+
+
+class InceptionB(nn.Module):
+    def __init__(self, cin: int):
+        super().__init__()
+        self.branch3x3 = BasicConv2d(cin, 384, 3, stride=2)
+        self.branch3x3dbl_1 = BasicConv2d(cin, 64, 1)
+        self.branch3x3dbl_2 = BasicConv2d(64, 96, 3, padding=1)
+        self.branch3x3dbl_3 = BasicConv2d(96, 96, 3, stride=2)
+
+    def forward(self, x):
+        bd = self.branch3x3dbl_3(self.branch3x3dbl_2(self.branch3x3dbl_1(x)))
+        return torch.cat([self.branch3x3(x), bd, _max_pool(x)], 1)
+
+
+class InceptionC(nn.Module):
+    def __init__(self, cin: int, c7: int):
+        super().__init__()
+        self.branch1x1 = BasicConv2d(cin, 192, 1)
+        self.branch7x7_1 = BasicConv2d(cin, c7, 1)
+        self.branch7x7_2 = BasicConv2d(c7, c7, (1, 7), padding=(0, 3))
+        self.branch7x7_3 = BasicConv2d(c7, 192, (7, 1), padding=(3, 0))
+        self.branch7x7dbl_1 = BasicConv2d(cin, c7, 1)
+        self.branch7x7dbl_2 = BasicConv2d(c7, c7, (7, 1), padding=(3, 0))
+        self.branch7x7dbl_3 = BasicConv2d(c7, c7, (1, 7), padding=(0, 3))
+        self.branch7x7dbl_4 = BasicConv2d(c7, c7, (7, 1), padding=(3, 0))
+        self.branch7x7dbl_5 = BasicConv2d(c7, 192, (1, 7), padding=(0, 3))
+        self.branch_pool = BasicConv2d(cin, 192, 1)
+
+    def forward(self, x):
+        b7 = self.branch7x7_3(self.branch7x7_2(self.branch7x7_1(x)))
+        bd = self.branch7x7dbl_1(x)
+        for name in ("branch7x7dbl_2", "branch7x7dbl_3", "branch7x7dbl_4", "branch7x7dbl_5"):
+            bd = getattr(self, name)(bd)
+        return torch.cat([self.branch1x1(x), b7, bd, self.branch_pool(_avg_pool(x))], 1)
+
+
+class InceptionD(nn.Module):
+    def __init__(self, cin: int):
+        super().__init__()
+        self.branch3x3_1 = BasicConv2d(cin, 192, 1)
+        self.branch3x3_2 = BasicConv2d(192, 320, 3, stride=2)
+        self.branch7x7x3_1 = BasicConv2d(cin, 192, 1)
+        self.branch7x7x3_2 = BasicConv2d(192, 192, (1, 7), padding=(0, 3))
+        self.branch7x7x3_3 = BasicConv2d(192, 192, (7, 1), padding=(3, 0))
+        self.branch7x7x3_4 = BasicConv2d(192, 192, 3, stride=2)
+
+    def forward(self, x):
+        b3 = self.branch3x3_2(self.branch3x3_1(x))
+        b7 = x
+        for i in range(1, 5):
+            b7 = getattr(self, f"branch7x7x3_{i}")(b7)
+        return torch.cat([b3, b7, _max_pool(x)], 1)
+
+
+class InceptionE(nn.Module):
+    def __init__(self, cin: int):
+        super().__init__()
+        self.branch1x1 = BasicConv2d(cin, 320, 1)
+        self.branch3x3_1 = BasicConv2d(cin, 384, 1)
+        self.branch3x3_2a = BasicConv2d(384, 384, (1, 3), padding=(0, 1))
+        self.branch3x3_2b = BasicConv2d(384, 384, (3, 1), padding=(1, 0))
+        self.branch3x3dbl_1 = BasicConv2d(cin, 448, 1)
+        self.branch3x3dbl_2 = BasicConv2d(448, 384, 3, padding=1)
+        self.branch3x3dbl_3a = BasicConv2d(384, 384, (1, 3), padding=(0, 1))
+        self.branch3x3dbl_3b = BasicConv2d(384, 384, (3, 1), padding=(1, 0))
+        self.branch_pool = BasicConv2d(cin, 192, 1)
+
+    def forward(self, x):
+        b3 = self.branch3x3_1(x)
+        b3 = torch.cat([self.branch3x3_2a(b3), self.branch3x3_2b(b3)], 1)
+        bd = self.branch3x3dbl_2(self.branch3x3dbl_1(x))
+        bd = torch.cat([self.branch3x3dbl_3a(bd), self.branch3x3dbl_3b(bd)], 1)
+        return torch.cat([self.branch1x1(x), b3, bd, self.branch_pool(_avg_pool(x))], 1)
+
+
+class InceptionV3(nn.Module):
+    """Modules registered in jckx's ``init`` order, which is torchvision's."""
+
+    def __init__(self, num_classes: int = 100):
+        super().__init__()
+        self.Conv2d_1a_3x3 = BasicConv2d(3, 32, 3, stride=2)
+        self.Conv2d_2a_3x3 = BasicConv2d(32, 32, 3)
+        self.Conv2d_2b_3x3 = BasicConv2d(32, 64, 3, padding=1)
+        self.Conv2d_3b_1x1 = BasicConv2d(64, 80, 1)
+        self.Conv2d_4a_3x3 = BasicConv2d(80, 192, 3)
+        self.Mixed_5b = InceptionA(192, 32)
+        self.Mixed_5c = InceptionA(256, 64)
+        self.Mixed_5d = InceptionA(288, 64)
+        self.Mixed_6a = InceptionB(288)
+        self.Mixed_6b = InceptionC(768, 128)
+        self.Mixed_6c = InceptionC(768, 160)
+        self.Mixed_6d = InceptionC(768, 160)
+        self.Mixed_6e = InceptionC(768, 192)
+        self.Mixed_7a = InceptionD(768)
+        self.Mixed_7b = InceptionE(1280)
+        self.Mixed_7c = InceptionE(2048)
+        self.fc = nn.Linear(2048, num_classes)
+        self.requires_grad_(False)
+
+    def forward(self, x: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
+        """images (N, H, W, 3) NHWC, ImageNet-normalized (H, W ≥ 75; 299 in
+        use) → logits (N, K) in f32 — counterpart of ``apply``."""
+        x = x.to(compute_dtype).permute(0, 3, 1, 2)
+        if x.is_cuda:
+            x = x.contiguous(memory_format=torch.channels_last)
+        x = self.Conv2d_2b_3x3(self.Conv2d_2a_3x3(self.Conv2d_1a_3x3(x)))
+        x = self.Conv2d_4a_3x3(self.Conv2d_3b_1x1(_max_pool(x)))
+        x = _max_pool(x)
+        for name in ("Mixed_5b", "Mixed_5c", "Mixed_5d", "Mixed_6a", "Mixed_6b", "Mixed_6c",
+                     "Mixed_6d", "Mixed_6e", "Mixed_7a", "Mixed_7b", "Mixed_7c"):
+            x = getattr(self, name)(x)
+        x = x.mean(dim=(2, 3)).float()
+        return x @ self.fc.weight.float().t() + self.fc.bias.float()
+
+
+def init(seed: int = 0, num_classes: int = 100) -> InceptionV3:
+    """The seeded backbone of jckx's ``init(seed)``: the same draws, in the
+    same order, laid out for torch (HWIO → OIHW, fc (2048, K) → (K, 2048))."""
+    net = InceptionV3(num_classes)
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, BasicConv2d):
+                cout, cin, kh, kw = m.conv.weight.shape
+                std = math.sqrt(2.0 / (kh * kw * cin))
+                w = rng.standard_normal((kh, kw, cin, cout)).astype(np.float32)
+                w = np.clip(w, -2.0, 2.0) * std
+                m.conv.weight.copy_(torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1))))
+        bound = 1.0 / math.sqrt(2048)
+        w = rng.uniform(-bound, bound, (2048, num_classes)).astype(np.float32)
+        net.fc.weight.copy_(torch.from_numpy(np.ascontiguousarray(w.T)))
+        net.fc.bias.zero_()
+    return net
+
+
+def from_torchvision(state_dict: Dict[str, torch.Tensor]) -> InceptionV3:
+    """A torchvision ``inception_v3`` state dict with a K-class fc (the
+    reference's ``fc.0.*`` or a plain ``fc.*``) → the backbone. Keys the
+    eval graph does not use (``AuxLogits.*``) are dropped."""
+    sd = {k.replace("fc.0.", "fc.", 1) if k.startswith("fc.0.") else k: v
+          for k, v in state_dict.items() if not k.startswith("AuxLogits.")}
+    net = InceptionV3(num_classes=sd["fc.weight"].shape[0])
+    net.load_state_dict(sd, strict=True)
+    return net
+
+
+def from_jckx_flat(flat: Dict[str, np.ndarray]) -> InceptionV3:
+    """jckx's flat ``a/b/c`` backbone arrays (the fine-tune's ``.npz``,
+    HWIO kernels) → the backbone."""
+    names = {"w": "conv.weight", "bn_scale": "bn.weight", "bn_bias": "bn.bias",
+             "bn_mean": "bn.running_mean", "bn_var": "bn.running_var"}
+    sd = {}
+    for key, a in flat.items():
+        *path, leaf = key.split("/")
+        a = np.array(a, np.float32)
+        if path == ["fc"]:
+            sd[f"fc.{'weight' if leaf == 'w' else 'bias'}"] = torch.from_numpy(
+                np.ascontiguousarray(a.T if leaf == "w" else a))
+            continue
+        if leaf == "w":
+            a = a.transpose(3, 2, 0, 1)
+        sd[".".join(path) + "." + names[leaf]] = torch.from_numpy(np.ascontiguousarray(a))
+    net = InceptionV3(num_classes=sd["fc.weight"].shape[0])
+    missing, unexpected = net.load_state_dict(sd, strict=False)
+    if unexpected or [k for k in missing if not k.endswith("num_batches_tracked")]:
+        raise KeyError(f"backbone arrays do not match InceptionV3: missing {missing}, "
+                       f"unexpected {unexpected}")
+    return net

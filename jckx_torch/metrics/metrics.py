@@ -1,0 +1,188 @@
+"""The metrics engine: InceptionV3 features → FID / IS — port of
+``jckx/metrics/metrics.py`` (``Metrics``: the backbone, the real-feature
+cache, ``extract_features``, ``inception_score``, ``fid``).
+
+- Backbone: ``metric_backbone`` when given (a missing or unreadable file
+  raises), else the fine-tuned ``loss_bset.npz`` / ``loss_bset.pt`` under
+  ``<save_root>/iception_v3`` or ``./save/iception_v3`` (the reference's
+  path, sic), else the seeded random backbone of jckx's ``init(0)`` with
+  jckx's warning: FID / IS are then self-consistent, for best-metric
+  checkpoints, but not comparable to the reference's values.
+- The image path, on the device in the compute dtype: GAN output in
+  [-1, 1] (or uint8 / 255 for the real set) → [0, 1] → bilinear to 299 →
+  ImageNet normalization → InceptionV3 → logits, which are both IS's
+  class scores and FID's features, as in the reference.
+- Real features over the metric source are cached in
+  ``<cache_dir>/metric_data_jckx_torch_<fingerprint>.npz``; the
+  fingerprint covers a strided sample of the data, its labels, the class
+  count and the backbone's content, so a stale cache is never read. The
+  file name is the port's own: jckx's cache is never read or written.
+
+Intra-FID, KID and PRDC wait (ROADMAP A8, A9).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from jckx_torch.data.pipeline import resize_bilinear
+from jckx_torch.logging.main_logger import MainLogger
+from jckx_torch.metrics import inception_v3
+from jckx_torch.metrics.fid import frechet_distance, inception_score_from_probs, mean_and_cov
+from jckx_torch.utils.device import resolve_device
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def _content_sig(sd: dict) -> str:
+    """A hash of every tensor's name, shape and a ≤4096-element strided
+    sample, in sorted-key order."""
+    h = hashlib.sha1()
+    for k in sorted(sd):
+        a = sd[k].detach().cpu().reshape(-1)
+        h.update(f"{k}{tuple(sd[k].shape)}".encode())
+        stride = -(-a.numel() // 4096) if a.numel() else 1
+        h.update(a[::stride].float().numpy().tobytes())
+    return h.hexdigest()[:12]
+
+
+class Metrics:
+    def __init__(self, metric_source, config=None, backbone: Optional[inception_v3.InceptionV3] = None,
+                 batch_size: int = 256, compute_dtype=torch.bfloat16, cache_dir: str = "./data",
+                 num_classes: int = 100, device=None):
+        self._logger = MainLogger(config)
+        self.device = resolve_device(device if device is not None else getattr(config, "device", None))
+        self.batch_size = batch_size
+        self.compute_dtype = compute_dtype
+        self.num_classes = num_classes
+        if backbone is not None:
+            self._backbone_sig = _content_sig(backbone.state_dict())
+        else:
+            backbone = self._load_backbone(config)
+        self.backbone = backbone.to(self.device).eval()
+
+        real_u8, real_labels = metric_source
+        os.makedirs(cache_dir, exist_ok=True)
+        cache = os.path.join(cache_dir, f"metric_data_jckx_torch_"
+                                        f"{self._fingerprint(real_u8, real_labels)}.npz")
+        if os.path.exists(cache):
+            with np.load(cache) as z:
+                self.real_features = z["features"]
+            self._logger.debug(f"loaded cached real features {self.real_features.shape}")
+        else:
+            self._logger.debug(f"extracting real features for {len(real_labels)} images")
+            self.real_features = self._extract_u8(real_u8)
+            tmp = f"{cache}.tmp.{os.getpid()}.npz"
+            np.savez_compressed(tmp, features=self.real_features)
+            os.replace(tmp, cache)
+        self._real_mu_sigma = None
+
+    # ------------------------------------------------------------ backbone
+
+    def _load_backbone(self, config) -> inception_v3.InceptionV3:
+        path = getattr(config, "metric_backbone", "") if config is not None else ""
+        if path and not os.path.exists(path):
+            raise FileNotFoundError(
+                f"--metric_backbone {path!r} does not exist; refusing to fall back to "
+                f"another backbone for explicitly requested metrics")
+        candidates = [path] if path else []
+        roots = []
+        save_root = getattr(config, "save_root", "") if config is not None else ""
+        if save_root:
+            roots.append(os.path.join(save_root, "iception_v3"))
+        if os.path.normpath("./save/iception_v3") not in {os.path.normpath(r) for r in roots}:
+            roots.append("./save/iception_v3")
+        candidates += [os.path.join(r, f) for r in roots for f in ("loss_bset.npz", "loss_bset.pt")]
+        for c in candidates:
+            if not os.path.exists(c):
+                continue
+            if c.endswith(".npz"):
+                with np.load(c) as zf:
+                    net = inception_v3.from_jckx_flat(dict(zf))
+            else:
+                net = inception_v3.from_torchvision(
+                    torch.load(c, map_location="cpu", weights_only=True))
+            self._backbone_sig = _content_sig(net.state_dict())
+            self._logger.debug(f"metric backbone loaded from {c}")
+            return net
+        self._logger.warning(
+            "no fine-tuned InceptionV3 checkpoint found — using a seeded random backbone; "
+            "FID/IS are self-consistent but NOT comparable to the reference's absolute values")
+        self._backbone_sig = f"seeded-random-0-{self.num_classes}"
+        return inception_v3.init(0, num_classes=self.num_classes)
+
+    def _fingerprint(self, images_u8, labels) -> str:
+        h = hashlib.sha1()
+        images_u8 = np.asarray(images_u8)
+        n = images_u8.shape[0]
+        h.update(np.int64(n).tobytes())
+        # a strided sample across the whole set, not a prefix
+        h.update(np.ascontiguousarray(images_u8[:: max(1, n // 64)][:64]).tobytes())
+        h.update(np.ascontiguousarray(np.asarray(labels)).tobytes())
+        h.update(np.int32(self.num_classes).tobytes())
+        h.update(self._backbone_sig.encode())
+        return h.hexdigest()[:12]
+
+    # ------------------------------------------------------------ features
+
+    def _features01(self, x01: torch.Tensor) -> torch.Tensor:
+        """[0, 1] NHWC in the compute dtype → logits (N, K), f32."""
+        x = resize_bilinear(x01, 299)
+        if x.shape[-1] == 1:  # grayscale → 3 channels
+            x = x.repeat(1, 1, 1, 3)
+        mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
+        std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
+        return self.backbone((x - mean) / std, self.compute_dtype)
+
+    def _batched(self, images, to01) -> np.ndarray:
+        """Features of every row of ``images`` (a host array or a device
+        tensor) in batches of ``batch_size``; a short last batch is padded
+        with copies of the last row (the forward is per-sample)."""
+        n = images.shape[0]
+        if n == 0:
+            return np.zeros((0, self.num_classes), np.float32)
+        bs = min(self.batch_size, n)
+        outs = []
+        with torch.inference_mode():
+            for i in range(0, n, bs):
+                chunk = images[i:i + bs]
+                if isinstance(chunk, np.ndarray):
+                    chunk = torch.from_numpy(np.ascontiguousarray(chunk))
+                chunk = chunk.to(self.device)
+                if chunk.shape[0] < bs:
+                    chunk = torch.cat([chunk, chunk[-1:].expand(bs - chunk.shape[0], *chunk.shape[1:])])
+                outs.append(self._features01(to01(chunk)))
+            return torch.cat(outs)[:n].cpu().numpy()
+
+    def _extract_u8(self, images_u8) -> np.ndarray:
+        cd = self.compute_dtype
+        return self._batched(np.asarray(images_u8), lambda u8: u8.to(cd) / 255.0)
+
+    def extract_features(self, images_tanh) -> np.ndarray:
+        """GAN output in [-1, 1], (N, S, S, C) on any device → logits, f32."""
+        cd = self.compute_dtype
+        return self._batched(images_tanh, lambda x: 0.5 * x.to(cd) + 0.5)
+
+    # ------------------------------------------------------------- metrics
+
+    def inception_score(self, images_tanh=None, splits: int = 10,
+                        logits: Optional[np.ndarray] = None) -> float:
+        """IS (reference metrics.py:97-110); ``logits`` reuses an extraction."""
+        if logits is None:
+            logits = self.extract_features(images_tanh)
+        probs = torch.softmax(torch.as_tensor(logits, dtype=torch.float32), dim=-1)
+        return float(inception_score_from_probs(probs, splits=splits))
+
+    def fid(self, images_tanh=None, features: Optional[np.ndarray] = None) -> float:
+        """FID(real set ‖ generated) (reference metrics.py:113-129)."""
+        gen = features if features is not None else self.extract_features(images_tanh)
+        if self._real_mu_sigma is None:
+            self._real_mu_sigma = mean_and_cov(torch.from_numpy(self.real_features))
+        mu2, s2 = mean_and_cov(torch.as_tensor(gen, dtype=torch.float32))
+        return float(frechet_distance(*self._real_mu_sigma, mu2, s2))

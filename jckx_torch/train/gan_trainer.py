@@ -1,0 +1,295 @@
+"""The DCGAN trainer — port of ``_BaseGANTrainer`` + ``DCGANTrainer``
+(``jckx/train/gan_trainer.py``; reference train/dcgan_trainer.py:34-239).
+
+One host loop over single train steps (``train/steps.py``). jckx runs K
+steps per device launch with ``lax.scan``; the port keeps its grouping as
+the unit of host work and of telemetry: steps go in launches of
+``K = min(log_every, eval_every, steps_per_epoch)`` (``:516-517``), the
+six scalars of a launch come to the host once, at its end, and the checks
+and logs of jckx run there:
+
+- the data order of each epoch is ``np.random.RandomState(seed)``'s
+  permutation (``:513,659-661``), so both packages see the same batches;
+  the uint8 set lives on the device and each batch is gathered by index;
+- ``nan_guard`` aborts on non-finite telemetry, rolling back to
+  ``latest.ckpt``; SIGTERM (``preempt_save``) saves ``latest.ckpt`` at the
+  next launch boundary and returns with ``preempted`` set (the entry
+  point exits 143);
+- evals fall on launch boundaries (``:779-783``): after the first launch,
+  whenever a launch crosses a multiple of ``eval_every``, and after the
+  last step. An eval samples the fixed eval z (drawn from the seed) under
+  ``torch.no_grad()``, which on the card is where the fused BN kernel
+  runs: 4 launches per G forward at 64². Then FID / IS, best-metric
+  checkpoints and grids, and ``latest.ckpt``;
+- ``--resume`` restores ``latest.ckpt`` and fast-forwards the shuffle
+  stream; the step's draws derive from (seed, step), so the resumed run
+  continues as the uninterrupted one would.
+
+The artifacts are jckx's: ``real_image.png``, ``<metric>/<iters>_fake_image
+.png``, ``loss.png``, ``metrics.jsonl`` and the run log. Not ported yet:
+the streaming data plane, the mesh, and CGAN (ROADMAP A4, A13, A8).
+"""
+
+from __future__ import annotations
+
+import os
+import signal
+import threading
+import time
+from datetime import datetime
+from typing import Optional
+
+import numpy as np
+import torch
+
+from jckx_torch.checkpoint.checkpoint import (BestMetricCheckpointer, latest_checkpoint,
+                                              restore_checkpoint, state_payload)
+from jckx_torch.configs import Config
+from jckx_torch.data.pipeline import decode_batch
+from jckx_torch.logging.artifacts import save_image_grid, save_loss_curve
+from jckx_torch.logging.main_logger import MainLogger, time_to_str
+from jckx_torch.models.dcgan import Discriminator, Generator
+from jckx_torch.train.state import create_dcgan_state, geometry
+from jckx_torch.train.steps import (METRIC_NAMES, compute_dtype, derive_seed,
+                                    make_dcgan_train_step)
+from jckx_torch.utils.device import resolve_device
+
+
+class DCGANTrainer:
+    """``DCGANTrainer(cfg, G, D, data_pre, metrics=None).train()``; ``metrics``
+    replaces the InceptionV3 engine (the tests pass a stub)."""
+
+    def __init__(self, cfg: Config, G: Generator, D: Discriminator, data_pre, metrics=None):
+        if not cfg.save_path:
+            ts = cfg.model_path or datetime.now().strftime("%Y%m%d_%H%M%S")
+            cfg.save_path = os.path.join(cfg.save_root, "dcgan", ts)
+        os.makedirs(cfg.save_path, exist_ok=True)
+        self.logger = MainLogger(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(cfg.device)
+        self.geo = geometry(cfg)
+        self.cd = compute_dtype(cfg)
+        self.data_pre = data_pre
+        self.n_data = data_pre.images_u8.shape[0]
+        # the uint8 set, resident on the device; batches are gathered by index
+        self.images_dev = torch.from_numpy(np.ascontiguousarray(data_pre.images_u8)).to(self.device)
+        self.logger.debug(
+            f"G params: {sum(p.numel() for p in G.parameters()):,}  D params: "
+            f"{sum(p.numel() for p in D.parameters()):,}  device: {self.device}  "
+            f"compute: {cfg.compute_dtype}")
+
+        self.metric = metrics
+        if self.metric is None and cfg.eval_every > 0:
+            from jckx_torch.metrics.metrics import Metrics
+
+            self.metric = Metrics(data_pre.metric_source, cfg, batch_size=cfg.eval_batch_size,
+                                  compute_dtype=self.cd, cache_dir=cfg.data_dir,
+                                  num_classes=data_pre.num_classes, device=self.device)
+
+        if cfg.lr_schedule != "constant" and cfg.lr_decay_steps <= 0:
+            # the horizon describes the run, so a resume keeps decaying
+            cfg.lr_decay_steps = max(1, (self.n_data // cfg.batch_size) * cfg.epoch)
+            self.logger.debug(f"lr_schedule={cfg.lr_schedule}: decay horizon auto-set to "
+                              f"{cfg.lr_decay_steps} steps ({cfg.epoch} epochs)")
+        self.state = create_dcgan_state(cfg, G.to(self.device), D.to(self.device))
+        self.save_path = cfg.save_path
+        self.ckpt = BestMetricCheckpointer(self.save_path)
+        self.bests = {"fid": 1e10, "is": 0.0}
+        self._resumed_losses: list = []
+        self._poisoned: Optional[str] = None
+        self._preempt = threading.Event()
+        self.preempted = False
+        self.evals: list = []  # the iterations evaluated, in order
+        if cfg.init_from_torch:
+            self._restore(cfg.init_from_torch)
+            self.logger.info(f"warm-started from torch checkpoint {cfg.init_from_torch} "
+                             f"at step {self.state.step}")
+        if cfg.resume:  # a latest.ckpt in the run dir wins over --init_from_torch
+            path = latest_checkpoint(self.save_path)
+            if path is None:
+                self.logger.debug("resume requested but no latest.ckpt found")
+            else:
+                self._restore(path)
+                self.logger.debug(f"resumed from {path} at step {self.state.step}")
+        self.step_fn = make_dcgan_train_step(cfg, self.geo)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(derive_seed(cfg.seed, "eval", 0))
+        self.eval_z = torch.randn((cfg.sample_count, self.geo.z_dim), generator=gen,
+                                  device=self.device)
+
+    # ------------------------------------------------------------ restore
+
+    def _restore(self, path: str) -> None:
+        extra = restore_checkpoint(path, self.state, self.cfg.max_learning_rate)
+        self.bests.update(extra.get("bests", {}))
+        self._resumed_losses = [tuple(p) for p in extra.get("losses", [])]
+
+    def _rollback_after_divergence(self, step_hint: int) -> None:
+        """Restore ``latest.ckpt`` after a nan-guard abort, so that a caller
+        who catches the error and trains again continues from good state;
+        without one, refuse to train again."""
+        path = latest_checkpoint(self.save_path)
+        if path is None:
+            self._poisoned = (f"training diverged by step {step_hint} with no latest.ckpt "
+                              "to roll back to — rebuild the trainer instead of calling "
+                              "train() again")
+            return
+        self._restore(path)
+        self.logger.warning(f"rolled back to {path} (step {self.state.step}) after divergence")
+
+    def _serve_config(self) -> dict:
+        g = self.geo
+        return {"conditional": False, "num_classes": self.data_pre.num_classes,
+                "z_dim": g.z_dim, "image_size": g.image_size, "channels": g.channels,
+                "base_width": g.base_width, "ema": self.cfg.ema_decay > 0}
+
+    # --------------------------------------------------------------- train
+
+    def train(self):
+        if self._poisoned:
+            raise RuntimeError(self._poisoned)
+        cfg = self.cfg
+        bs = cfg.batch_size
+        spe = self.n_data // bs
+        if spe == 0:
+            raise ValueError(f"batch_size {bs} exceeds the dataset ({self.n_data} rows): "
+                             f"0 steps/epoch — nothing would train")
+        rng = np.random.RandomState(cfg.seed)
+        log_k = cfg.log_every if cfg.log_every > 0 else spe
+        K = max(1, min(log_k, cfg.eval_every if cfg.eval_every > 0 else log_k, spe))
+        losses_d = [p[0] for p in self._resumed_losses]
+        losses_g = [p[1] for p in self._resumed_losses]
+        save_image_grid(os.path.join(self.save_path, "real_image.png"),
+                        self.data_pre.images_u8[:64], ncol=8, padding=5)
+
+        start = time.time()
+        self.logger.debug("train start")
+        it = self.state.step
+        self.logger.scalars({"event": "session_start", "step": it})
+        last_metrics = None
+        # resume: restart at the completed epochs, advance the shuffle
+        # stream as far, and continue inside a mid-epoch checkpoint's epoch
+        start_epoch = min(it // spe, cfg.epoch)
+        resume_offset = it - start_epoch * spe
+        if it > 0 and it >= cfg.epoch * spe:
+            self.logger.warning(
+                f"resumed step {it} >= total steps for this config ({cfg.epoch} epochs x "
+                f"{spe} steps/epoch = {cfg.epoch * spe}) - nothing left to train; if the run "
+                f"is not actually complete, check that --epoch and the dataset size match")
+        for _ in range(start_epoch):
+            rng.permutation(self.n_data)
+
+        self._preempt.clear()
+        self.preempted = False
+        prev_term = None
+        rolled_back = False
+        own_handler = cfg.preempt_save and threading.current_thread() is threading.main_thread()
+        try:
+            if own_handler:
+                prev_term = signal.signal(signal.SIGTERM, lambda signum, frame: self._preempt.set())
+            for epoch in range(start_epoch, cfg.epoch):
+                order = rng.permutation(self.n_data)[: spe * bs].reshape(spe, bs)
+                done, resume_offset = resume_offset, 0
+                while done < spe:
+                    k = min(K, spe - done)
+                    t_launch = time.time()
+                    idx = torch.from_numpy(order[done:done + k].astype(np.int64)).to(self.device)
+                    ms = []
+                    for j in range(k):
+                        real = decode_batch(self.images_dev.index_select(0, idx[j]),
+                                            cfg.image_size, self.cd)
+                        m = self.step_fn(self.state, real)
+                        ms.append(torch.stack([m[n] for n in METRIC_NAMES]))
+                    vals = torch.stack(ms).cpu().numpy()  # (k, 6): the launch's one sync
+                    ms_np = {n: vals[:, i] for i, n in enumerate(METRIC_NAMES)}
+                    launch_dt = time.time() - t_launch
+                    if cfg.nan_guard:
+                        bad = [n for n, v in ms_np.items() if not np.isfinite(v).all()]
+                        if bad:
+                            self.logger.error(
+                                f"non-finite training metrics {bad} in steps {it}..{it + k} — "
+                                f"aborting (resume from latest.ckpt; --nan_guard 0 to continue)")
+                            rolled_back = True
+                            self._rollback_after_divergence(it + k)
+                            raise FloatingPointError(
+                                f"training diverged: non-finite {bad} by step {it + k}")
+                    last_metrics = {n: float(v[-1]) for n, v in ms_np.items()}
+                    losses_d += ms_np["loss_d"].tolist()
+                    losses_g += ms_np["loss_g"].tolist()
+                    for s_off in range(k):
+                        step_i = done + s_off
+                        if cfg.log_every > 0 and step_i % cfg.log_every == 0:
+                            self.logger.debug(
+                                f"[{epoch}/{cfg.epoch}][{step_i}/{spe}]\t"
+                                f"loss_d: {ms_np['loss_d'][s_off]:.4f}\t"
+                                f"loss_g: {ms_np['loss_g'][s_off]:.4f}\t"
+                                f"D(x): {ms_np['d_x'][s_off]:.4f}\t"
+                                f"D(G(z)): {ms_np['d_gz1'][s_off]:.4f} / {ms_np['d_gz2'][s_off]:.4f}")
+                    self.logger.scalars({
+                        "step": it + k, "epoch": epoch,
+                        "images_per_sec": round(bs * k / max(launch_dt, 1e-9), 1),
+                        "step_ms": round(1e3 * launch_dt / k, 3), **last_metrics})
+
+                    prev_it = it
+                    it += k
+                    done += k
+                    last_step_of_run = epoch == cfg.epoch - 1 and done >= spe
+                    if self._preempt.is_set():
+                        self.preempted = True
+                        self.logger.warning(f"SIGTERM received — saving latest.ckpt at step {it} "
+                                            f"and exiting (continue with --resume)")
+                        self.ckpt.save_latest(state_payload(self.state, {
+                            "bests": dict(self.bests), "losses": list(zip(losses_d, losses_g)),
+                            "serve_config": self._serve_config()}))
+                        if not last_step_of_run:
+                            break
+                        # the signal landed in the run's last launch: its
+                        # final eval still runs (latest.ckpt is already safe)
+                    if cfg.eval_every > 0 and (
+                            prev_it // cfg.eval_every != it // cfg.eval_every or prev_it == 0
+                            or last_step_of_run):
+                        self._evaluate(it, losses_d, losses_g)
+                if self.preempted:
+                    break
+        finally:
+            if own_handler:
+                signal.signal(signal.SIGTERM, prev_term if prev_term is not None else signal.SIG_DFL)
+            if not rolled_back:  # a second train() continues this history
+                self._resumed_losses = list(zip(losses_d, losses_g))
+        self.logger.debug(f"train finish\ttime: {time_to_str(time.time() - start)}")
+        save_loss_curve(os.path.join(self.save_path, "loss.png"), losses_d, losses_g)
+        return last_metrics
+
+    # ---------------------------------------------------------------- eval
+
+    def sample_eval(self) -> torch.Tensor:
+        """The fixed eval z through the EMA generator when on, else G, with
+        no grad: on the card, through the fused BN kernel."""
+        G = self.state.ema_g if self.state.ema_g is not None else self.state.G
+        with torch.no_grad():
+            return G(self.eval_z, self.cd)
+
+    def _evaluate(self, iters: int, losses_d, losses_g) -> None:
+        self.evals.append(iters)
+        fake = self.sample_eval()
+        feats = self.metric.extract_features(fake)
+        is_score = self.metric.inception_score(logits=feats)
+        fid = self.metric.fid(features=feats)
+        self.logger.debug(f"inception score: {is_score}\tfid: {fid}")
+        self.logger.scalars({"step": iters, "fid": fid, "is": is_score})
+        denorm = 0.5 * fake.float().cpu().numpy() + 0.5
+        base = state_payload(self.state)  # one host copy serves every save of this eval
+        for typ, value, better in (("fid", fid, fid < self.bests["fid"]),
+                                   ("is", is_score, is_score > self.bests["is"])):
+            if better:
+                self.bests[typ] = value
+                self.logger.debug(f"{iters} {'lowest' if typ == 'fid' else 'highest'} {typ}")
+                self.ckpt.save(typ, iters, (value,), {
+                    **base, "bests": dict(self.bests), "iters": iters,
+                    "serve_config": self._serve_config()})
+                save_image_grid(os.path.join(self.save_path, typ, f"{iters}_fake_image.png"),
+                                denorm, ncol=8)
+                self.logger.debug(f"{iters} model save ({typ})")
+        self.ckpt.save_latest({**base, "bests": dict(self.bests),
+                               "losses": list(zip(losses_d, losses_g)),
+                               "serve_config": self._serve_config()})

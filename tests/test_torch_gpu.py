@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from jckx_torch.kernels import fused_bn_act as fba
-from jckx_torch.models.dcgan import GANGeometry, Generator
+from jckx_torch.models.dcgan import Discriminator, GANGeometry, Generator
 
 pytestmark = pytest.mark.gpu
 
@@ -76,6 +76,10 @@ def test_misaligned_rows_take_the_element_path(dtype):
 
 
 def test_bn_act_launches_once_and_refuses_grad():
+    """Without grad, bn_act launches the kernel once; with an input that
+    requires grad under grad mode it takes the plain composition instead
+    (no launch), which is what the train step differentiates to second
+    order: its double backward on the card matches the CPU's."""
     dev = _card()
     x = torch.randn(4, 32, 8, 8, device=dev).to(memory_format=torch.channels_last)
     scale, bias = torch.rand(32, device=dev) + 0.5, torch.randn(32, device=dev)
@@ -84,10 +88,116 @@ def test_bn_act_launches_once_and_refuses_grad():
     assert fba.LAUNCHES == before + 1
     assert y.is_contiguous(memory_format=torch.channels_last)
     _assert_close(y, fba.bn_act_plain(x, scale, bias, act="relu"))
-    with pytest.raises(RuntimeError, match="not ported yet"):
-        fba.bn_act(x, scale.requires_grad_(), bias, act="relu")
+    with torch.no_grad():  # no grad mode: the kernel again
+        fba.bn_act(x, scale.clone().requires_grad_(), bias, act="relu")
+    assert fba.LAUNCHES == before + 2
     with pytest.raises(ValueError, match="channels_last"):
-        fba.bn_act(x.contiguous(), scale.detach(), bias, act="relu")
+        fba.bn_act(x.contiguous(), scale, bias, act="relu")
+
+    w = torch.randn(x.shape, device=dev)
+
+    def grads(device):
+        xs, s, b = (t.to(device).clone().requires_grad_() for t in (x, scale, bias))
+        out = fba.bn_act(xs, s, b, act="relu")
+        assert out.requires_grad
+        (gx,) = torch.autograd.grad((out * w.to(device)).sum(), xs, create_graph=True)
+        gx.square().sum().backward()  # double backward, as the gradient penalty takes it
+        return [t.grad.cpu() for t in (xs, s, b)]
+
+    on_card, on_cpu = grads(dev), grads(torch.device("cpu"))
+    assert fba.LAUNCHES == before + 2
+    for a, b in zip(on_card, on_cpu):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()) + 1e-6)
+
+
+def test_train_step_on_card_matches_cpu():
+    """The tiny train step (16², width 8, batch 8, f32, TF32 off) on the
+    card against the CPU, from the same weights and the same draws:
+    telemetry within 3e-3; Adam's deltas within 5 % of lr where the CPU's
+    gradient clears 1 % of its leaf's maximum (elsewhere the sign of a
+    first Adam step is rounding noise, tests/test_step_torch_parity.py:22-35);
+    and no kernel launch."""
+    from jckx_torch.configs import Config
+    from jckx_torch.train.state import create_dcgan_state
+    from jckx_torch.train.steps import StepDraws, make_dcgan_train_step
+
+    dev = _card()
+    geo = GANGeometry(z_dim=16, image_size=16, channels=3, base_width=8)
+    cfg = Config()
+    cfg.compute_dtype, cfg.max_learning_rate = "float32", 2e-4
+    g = torch.Generator().manual_seed(5)
+    draws = [torch.randn(8, 16, 16, 3, generator=g), torch.randn(8, 16, generator=g),
+             torch.randn(8, 16, 16, 3, generator=g), torch.rand(8, 1, 1, 1, generator=g)]
+    real = torch.rand(8, 16, 16, 3, generator=g) * 2 - 1
+    out = []
+    for device in (torch.device("cpu"), dev):
+        gen = torch.Generator().manual_seed(0)
+        G, D = Generator(geo, gen=gen), Discriminator(geo, gen=gen)
+        nets = {"G.": G, "D.": D}
+        p0 = {p + k: v.clone() for p, net in nets.items() for k, v in net.named_parameters()}
+        state = create_dcgan_state(cfg, G.to(device), D.to(device))
+        before = fba.LAUNCHES
+        m = make_dcgan_train_step(cfg, geo)(state, real.to(device),
+                                            StepDraws(*(d.to(device) for d in draws)))
+        assert fba.LAUNCHES == before
+        out.append(({k: float(v) for k, v in m.items()},
+                    {p + k: (v.detach().cpu() - p0[p + k], v.grad.cpu())
+                     for p, net in nets.items() for k, v in net.named_parameters()}))
+    (m_cpu, p_cpu), (m_card, p_card) = out
+    for k in m_cpu:
+        assert abs(m_cpu[k] - m_card[k]) <= 3e-3, k
+    covered = total = 0
+    for k, (d_cpu, g_cpu) in p_cpu.items():
+        mask = g_cpu.abs() > 1e-2 * g_cpu.abs().max() + 1e-12
+        covered, total = covered + int(mask.sum()), total + mask.numel()
+        torch.testing.assert_close(p_card[k][0][mask], d_cpu[mask], rtol=0, atol=0.05 * 2e-4, msg=k)
+    assert covered / total > 0.5
+
+
+def test_eval_sampling_launches_four_per_g_forward(tmp_path):
+    """The trainer at 64² (four G BN layers) on the card: its eval sample
+    launches the kernel 4 times, its train steps never, and its images in
+    uint8 match the plain route within 1 LSB, >= 99.9 % exactly."""
+    import numpy as np
+
+    import jckx_torch.models.dcgan as tdcgan
+    from jckx_torch.configs import Config
+    from jckx_torch.serve import tanh_to_u8
+    from jckx_torch.train.gan_trainer import DCGANTrainer
+
+    _card()
+    cfg = Config()
+    for k, v in dict(dataset="synthetic", batch_size=8, epoch=1, base_width=8,
+                     max_learning_rate=2e-4, log_every=2, eval_every=0, log_file=0,
+                     save_root=str(tmp_path), data_dir=str(tmp_path / "data"),
+                     save_path=str(tmp_path / "run")).items():
+        setattr(cfg, k, v)
+
+    class Data:
+        images_u8 = np.random.RandomState(0).randint(0, 256, (16, 32, 32, 3), np.uint8)
+        labels_np = np.zeros(16, np.int32)
+        num_classes = 10
+        metric_source = (images_u8, labels_np)
+
+    geo = GANGeometry(z_dim=100, image_size=64, channels=3, base_width=8)
+    gen = torch.Generator().manual_seed(0)
+    tr = DCGANTrainer(cfg, Generator(geo, gen=gen), Discriminator(geo, gen=gen), Data())
+    before = fba.LAUNCHES
+    last = tr.train()  # 2 steps, no eval
+    assert fba.LAUNCHES == before and tr.state.step == 2 and np.isfinite(last["loss_d"])
+    fake = tr.sample_eval()
+    torch.cuda.synchronize()
+    assert fba.LAUNCHES == before + 4
+    assert fake.shape == (64, 64, 64, 3) and fake.dtype == torch.bfloat16
+    assert torch.isfinite(fake.float()).all()
+    tdcgan.bn_act = fba.bn_act_plain
+    try:
+        ref = tr.sample_eval()
+    finally:
+        tdcgan.bn_act = fba.bn_act
+    diff = (tanh_to_u8(fake).int() - tanh_to_u8(ref).int()).abs()
+    assert diff.max().item() <= 1 and (diff == 0).float().mean().item() >= 0.999
 
 
 def test_generator_on_card_matches_cpu():
