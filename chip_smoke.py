@@ -9,43 +9,53 @@ Run from the root of a checkout, on a machine with a CUDA card and
 2. builds every CUDA kernel of the port from the checkout's sources;
 3. holds each kernel against its plain PyTorch version on the card
    (relu / leaky_relu(0.2) / none, bf16 and f32, the four generator
-   shapes at serving's batch 512 and at the trainer's eval batch of 64,
-   and two ragged shapes): f32 within 1e-5 (an FMA against a separate
-   multiply and add), bf16 within one bf16 ulp plus that 1e-5;
+   shapes at serving's batch 512, at the DCGAN trainer's eval batch of 64
+   and at the CGAN trainer's eval chunk of 500, and two ragged shapes):
+   f32 within 1e-5 (an FMA against a separate multiply and add), bf16
+   within one bf16 ulp plus that 1e-5;
 4. serves requests through ``GeneratorService`` at the reference's full
-   width (DCGAN 64², z 100, base width 64; weights drawn from a seed and
-   saved in the reference ``.pt`` format), at batch 512 in bf16, with the
-   launch counter reset just before and read just after: it must read
-   4 launches per rendered batch. The served uint8 images for one z must
-   match the plain path on the card within 1 LSB, >= 99.9 % exactly;
+   width (DCGAN 64², z 100, base width 64; then CGAN with K = 100, with
+   and without ``labels``; weights drawn from a seed and saved in the
+   reference ``.pt`` format), at batch 512 in bf16, with the launch
+   counter reset just before and read just after each: it must read 4
+   launches per rendered batch, and a labelled CGAN batch must equal its
+   z rendered with the explicit one-hot. The served uint8 images for one
+   z must be within 1 LSB of the plain route on the card, and equal to
+   the plain route whose multiply-add is rounded once, as the kernel's;
 5. times each generator layer's kernel against its bound (bytes over the
    H100 SXM's 3.35 TB/s), its plain version and ``F.batch_norm`` + ReLU,
    and the served images per second, beside the card's name and power
    limit, and profiles one served request (the card's busy share and its
    time by kernel);
 6. holds one train step at full width (64², z 100, base width 64, batch
-   16, f32, TF32 off) on the card against the same step on the CPU, from
-   the same weights and the same draws: the six telemetry scalars within
-   3e-3, and Adam's deltas where the CPU's gradient clears 1 % of its
-   leaf's maximum within 5 % of lr (tests/test_step_torch_parity.py:22-35)
-   on all but 0.1 % of those elements; the differentiated step launches
-   no kernel;
-7. trains through the entry point (``jckx_torch.train.main``) at the
-   reference geometry on 4096 synthetic rows, bs128, bf16, lr 2e-4, one
-   epoch of 32 steps with evals after steps 8, 16 and 32 (FID / IS over
-   the seeded InceptionV3, grids, checkpoints), with the launch counter
-   reset just before and read just after: exactly 4 launches per eval G
-   forward and none from the 32 steps. Losses must be finite and the
+   16, f32, TF32 off; DCGAN, then CGAN with K = 100 and its four dropout
+   masks) on the card against the same step on the CPU, from the same
+   weights and the same draws: the six telemetry scalars within 3e-3,
+   and Adam's deltas where the CPU's gradient clears 1 % of its leaf's
+   maximum within 5 % of lr (tests/test_step_torch_parity.py:22-35) on
+   all but 0.1 % of those elements; the differentiated step launches no
+   kernel;
+7. trains DCGAN, then CGAN, through the entry point
+   (``jckx_torch.train.main``) at the reference geometry on 4096
+   synthetic rows, bs128, bf16, lr 2e-4, one epoch of 32 steps with evals
+   after steps 8, 16 and 32 (FID / IS, and CGAN's intra-FID, over the
+   seeded InceptionV3; grids, checkpoints), with the launch counter reset
+   just before and read just after: exactly 4 launches per eval for
+   DCGAN (one G forward of 64), 8 for CGAN (1000 rows in chunks of 500),
+   and none from the 32 steps. Losses and metrics must be finite and the
    artifacts written; the trained generator's eval sample, converted to
-   uint8, must match the plain path on the card within 1 LSB, >= 99.9 %
-   exactly; a second run with ``--resume`` must start at step 32 and
-   train nothing;
-8. times training beside the card's name and power limit: img/s on the
-   host clock, one eval (the real features apart from the fake side),
-   and a profiled window of 8 steps (busy share, top 10 kernels; its
-   device busy time / 8 is the step's time on the card);
-9. prints a ``{"kernels": [...]}`` line, then, last, the
-   ``{"ok": true, "device": {...}}`` line.
+   uint8, is held against the plain routes as in 4; a second run with
+   ``--resume`` must start at step 32 and train nothing;
+8. scores the CGAN run's ``intra_fid/`` best checkpoint with
+   ``jckx_torch.evaluate`` and its ``latest.ckpt`` with ``-t 1``: 8
+   launches each, and the FID, IS and intra-FID the run logged at those
+   steps within 1 % relative;
+9. times training of each family beside the card's name and power limit:
+   img/s on the host clock, one eval (the real features apart from the
+   fake side), and a profiled window of 8 steps (busy share, top 10
+   kernels; its device busy time / 8 is the step's time on the card);
+10. prints a ``{"kernels": [...]}`` line, then, last, the
+    ``{"ok": true, "device": {...}}`` line.
 
 Any failed phase exits nonzero before the last line is printed. Without a
 card, or outside a checkout of the repo, it exits nonzero at once.
@@ -71,6 +81,9 @@ RAGGED = [(1000, 3), (8 * 7 * 7, 100)]                 # (rows, C)
 SLEEP_CYCLES = 20_000_000   # ~10 ms: the host enqueues a timed loop while the card waits
 TRAIN_BATCH, TRAIN_LR = 128, 2e-4  # jckx's batch; the lr bench.py:63 trains at
 EVAL_BATCH = 64             # the trainer's sample_count: G's batch at every eval
+CGAN_CHUNK = 500            # the CGAN trainer's eval rows per G forward (gan_trainer.EVAL_CHUNK)
+CGAN_CLASSES = 100          # the reference CGAN's K (model/CGAN.py)
+SERVE_LABELS = [3, 17, 42]
 # device kernels by kind, for the profiles: the first kind whose words a name holds
 KERNEL_KINDS = [("fused bn_act", ("bn_act",)),
                 ("convolution (cuDNN)", ("xmma", "cutlass", "cudnn", "conv", "dgrad", "wgrad",
@@ -163,7 +176,7 @@ def phase_kernel_vs_plain(dev) -> float:
     from jckx_torch.kernels import fused_bn_act as fba
 
     g = torch.Generator(device=dev).manual_seed(0)
-    shapes = [(n * s * s, c) for n in (BATCH, EVAL_BATCH) for s, c in G_LAYERS] + RAGGED
+    shapes = [(n * s * s, c) for n in (BATCH, EVAL_BATCH, CGAN_CHUNK) for s, c in G_LAYERS] + RAGGED
     worst = 0.0
     for rows, chans in shapes:
         x32 = torch.randn(rows, chans, generator=g, device=dev) * 2 + 0.5
@@ -181,7 +194,7 @@ def phase_kernel_vs_plain(dev) -> float:
                 ok = err <= 1e-5 if dtype == torch.float32 else bf16_ulp_ok(y, ref)
                 check(ok, f"kernel vs plain: rows={rows} C={chans} {dtype} {act}: max |err| {err}")
     # the whole wrapper (statistics + kernel) on the generator's NCHW channels_last tensors
-    for n in (BATCH, EVAL_BATCH):
+    for n in (BATCH, EVAL_BATCH, CGAN_CHUNK):
         for s, c in G_LAYERS:
             x = torch.randn(n, c, s, s, generator=g, device=dev).to(
                 torch.bfloat16, memory_format=torch.channels_last)
@@ -192,34 +205,67 @@ def phase_kernel_vs_plain(dev) -> float:
             torch.cuda.synchronize()
             check(y.is_contiguous(memory_format=torch.channels_last), "bn_act output not channels_last")
             check(bf16_ulp_ok(y, ref), f"bn_act vs bn_act_plain at {n}x{s}x{s}x{c}")
-    print(f"kernel vs plain: {len(shapes) * 6 + 2 * len(G_LAYERS)} comparisons passed, "
+    print(f"kernel vs plain: {len(shapes) * 6 + 3 * len(G_LAYERS)} comparisons passed, "
           f"max |err| {worst} (f32 <= 1e-5, bf16 <= 1 ulp + 1e-5)")
     return worst
 
 
-def check_u8_agree(got, ref, what: str) -> None:
-    """uint8 images from the kernel route against the plain route: within
-    1 LSB and >= 99.9 % exactly equal (bf16 rounding of the FMA against a
-    separate multiply and add, carried through the later layers)."""
-    diff = (got.int() - ref.int()).abs()
-    exact = (diff == 0).float().mean().item()
-    print(f"{what} vs plain path on the same z: max diff {diff.max().item()} LSB, "
-          f"{100 * exact:.4f} % exactly equal")
-    check(diff.max().item() <= 1 and exact >= 0.999, f"{what} disagree with the plain path")
+def with_bn_act(bn, render):
+    """``render()`` with every generator BN layer routed through ``bn``."""
+    import jckx_torch.models.dcgan as tdcgan
+
+    kernel_route = tdcgan.bn_act
+    tdcgan.bn_act = bn
+    try:
+        return render()
+    finally:
+        tdcgan.bn_act = kernel_route
 
 
-def write_reference_checkpoint(path: str, seed: int = 0):
-    """Random weights at the reference geometry, saved as the reference
-    trainer saves them (train/dcgan_trainer.py:86-91)."""
+def check_u8_agree(render, what: str) -> None:
+    """uint8 images of ``render()`` through the kernel against the plain
+    routes on the same inputs. The plain route rounds the multiply-add
+    twice where the kernel's FMA rounds once; under bf16 and batch
+    statistics a one-ulp difference spreads through the later layers, and
+    how far depends on the weights (ROADMAP C): so within 1 LSB of it, its
+    exact share printed. The plain route with the multiply-add rounded once
+    must give the same bytes."""
     import torch
 
+    from jckx_torch.kernels import fused_bn_act as fba
+
+    got = render()
+    plain = with_bn_act(fba.bn_act_plain, render)
+    once = with_bn_act(fba.bn_act_one_rounding, render)
+    diff = (got.int() - plain.int()).abs()
+    exact = (diff == 0).float().mean().item()
+    same = torch.equal(got, once)
+    print(f"{what} vs the plain route on the same inputs: max diff {diff.max().item()} LSB, "
+          f"{100 * exact:.4f} % exactly equal; vs the plain route rounded once: "
+          f"{'bit-identical' if same else 'DIFFERENT'}")
+    check(diff.max().item() <= 1, f"{what} differ from the plain route by more than 1 LSB")
+    check(same, f"{what} differ from the plain route with the kernel's rounding")
+
+
+def write_reference_checkpoint(path: str, seed: int = 0, conditional: bool = False):
+    """Random weights at the reference geometry, saved as the reference
+    trainers save them (train/dcgan_trainer.py:86-91, cgan_trainer.py:82-87):
+    DCGAN, or CGAN with K = 100."""
+    import torch
+
+    from jckx_torch.models.cgan import CDiscriminator, CGenerator
     from jckx_torch.models.dcgan import Discriminator, GANGeometry, Generator
 
     gen = torch.Generator().manual_seed(seed)
     geo = GANGeometry()
-    g, d = Generator(geo, gen=gen), Discriminator(geo, gen=gen)
-    n_g = sum(p.numel() for p in g.parameters())
-    check(n_g == 3_576_704, f"G has {n_g} parameters, the reference 3,576,704")
+    if conditional:
+        g, d = CGenerator(geo, CGAN_CLASSES, gen=gen), CDiscriminator(geo, CGAN_CLASSES, gen=gen)
+        want = (4_395_904, 4_926_569)
+    else:
+        g, d = Generator(geo, gen=gen), Discriminator(geo, gen=gen)
+        want = (3_576_704, 2_765_696)
+    have = tuple(sum(p.numel() for p in net.parameters()) for net in (g, d))
+    check(have == want, f"G, D have {have} parameters, the reference {want}")
     torch.save({
         "model_g": g.state_dict(), "model_d": d.state_dict(),
         "optimizer_g": torch.optim.Adam(g.parameters(), lr=2e-4, betas=(0.5, 0.999)).state_dict(),
@@ -256,22 +302,59 @@ def phase_serve(path: str, geo):
     return svc, launches
 
 
-def phase_serve_vs_plain(svc, dev):
-    """The service's uint8 output on one z against the plain path on the card."""
+def phase_serve_cgan(path: str, geo, dev):
+    """The CGAN serving path: requests with and without labels. → (service,
+    launches)."""
+    import numpy as np
     import torch
 
-    import jckx_torch.models.dcgan as tdcgan
+    from jckx_torch.data.pipeline import one_hot
     from jckx_torch.kernels import fused_bn_act as fba
+    from jckx_torch.serve import GeneratorService, _request_seed, tanh_to_u8
 
-    z = torch.randn(BATCH, svc.geo.z_dim, generator=torch.Generator(device=dev).manual_seed(123),
-                    device=dev)
-    got = svc.render(z)
-    tdcgan.bn_act = fba.bn_act_plain
-    try:
-        ref = svc.render(z)
-    finally:
-        tdcgan.bn_act = fba.bn_act
-    check_u8_agree(got, ref, "served uint8 images")
+    svc = GeneratorService(path)  # the defaults: cuda, batch 512, bf16
+    check(svc.conditional and svc.num_classes == CGAN_CLASSES and svc.batch_size == BATCH,
+          f"CGAN service: conditional {svc.conditional}, K {svc.num_classes}")
+    shape = (geo.image_size, geo.image_size, geo.channels)
+    requests = [(64, SERVE_LABELS, 1), (1000, SERVE_LABELS, None), (600, None, None),
+                (64, None, 7), (64, None, 7)]
+    fba.LAUNCHES = 0
+    out = [svc.sample(n, labels=lab, seed=seed) for n, lab, seed in requests]
+    launches = fba.LAUNCHES
+    batches = sum(math.ceil(n / svc.batch_size) for n, _, _ in requests)
+    for imgs, (n, _, _) in zip(out, requests):
+        check(imgs.dtype == np.uint8 and imgs.shape == (n, *shape), f"served {imgs.dtype} {imgs.shape}")
+        check(imgs.std() > 1.0, "served images are flat")
+    check(out[3].tobytes() == out[4].tobytes(), "the same seed gave different images")
+    check(out[0].tobytes() != out[3][:64].tobytes(), "labels changed nothing")
+    check(launches == 4 * batches, f"{launches} kernel launches for {batches} CGAN batches, "
+                                   f"want {4 * batches}")
+    # the first labelled batch, rendered from its z with the explicit one-hot
+    gen = torch.Generator(device=dev).manual_seed(_request_seed(1, 0))
+    z = torch.randn((BATCH, geo.z_dim), generator=gen, device=dev)
+    lab = torch.tensor([SERVE_LABELS[i % len(SERVE_LABELS)] for i in range(BATCH)], device=dev)
+    with torch.inference_mode():
+        explicit = tanh_to_u8(svc.G(z, one_hot(lab, CGAN_CLASSES), svc.compute_dtype))
+    check(explicit[:64].cpu().numpy().tobytes() == out[0].tobytes(),
+          "a labelled batch differs from its z rendered with the explicit one-hot")
+    print(f"CGAN served {' + '.join(str(n) for n, _, _ in requests)} images (labels "
+          f"{SERVE_LABELS} on the first two requests, random classes on the rest) in {batches} "
+          f"batches of {svc.batch_size}: {launches} kernel launches; the labelled batch equals "
+          f"its z rendered with the explicit one-hot")
+    return svc, launches
+
+
+def phase_serve_vs_plain(svc, dev):
+    """The service's uint8 output on one z (and, for CGAN, one set of
+    classes) against the plain path on the card."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(123)
+    z = torch.randn(BATCH, svc.geo.z_dim, generator=g, device=dev)
+    args = (z, torch.randint(0, svc.num_classes, (BATCH,), generator=g, device=dev)) \
+        if svc.conditional else (z,)
+    check_u8_agree(lambda: svc.render(*args),
+                   "served CGAN uint8 images" if svc.conditional else "served uint8 images")
 
 
 def phase_timing(svc, dev, card: str):
@@ -406,37 +489,52 @@ def phase_profile(svc, card: str) -> None:
                    f"request of {8 * BATCH} images at batch {BATCH}, bf16", card)
 
 
-def phase_train_vs_cpu(dev) -> None:
-    """One full-width train step on the card against the CPU, from the same
-    weights and draws, in f32 with TF32 off (set in ``main``)."""
+def phase_train_vs_cpu(dev, conditional: bool = False) -> None:
+    """One full-width train step (DCGAN, or CGAN with K = 100) on the card
+    against the CPU, from the same weights, draws, masks and labels, in f32
+    with TF32 off (set in ``main``)."""
     import torch
 
     from jckx_torch.configs import Config
+    from jckx_torch.data.pipeline import one_hot
     from jckx_torch.kernels import fused_bn_act as fba
+    from jckx_torch.models.cgan import HIDDEN, CDiscriminator, CGenerator
     from jckx_torch.models.dcgan import Discriminator, GANGeometry, Generator
-    from jckx_torch.train.state import create_dcgan_state
-    from jckx_torch.train.steps import METRIC_NAMES, StepDraws, make_dcgan_train_step
+    from jckx_torch.train.state import create_cgan_state, create_dcgan_state
+    from jckx_torch.train.steps import (METRIC_NAMES, StepDraws, make_cgan_train_step,
+                                        make_dcgan_train_step)
 
     cfg = Config()
     cfg.compute_dtype, cfg.max_learning_rate, cfg.batch_size = "float32", TRAIN_LR, 16
     geo, n = GANGeometry(), 16
     g = torch.Generator().manual_seed(7)
     img = (n, geo.image_size, geo.image_size, geo.channels)
-    draws = StepDraws(real_noise=torch.randn(img, generator=g), z=torch.randn(n, geo.z_dim, generator=g),
-                      fake_noise=torch.randn(img, generator=g),
-                      alpha=torch.rand(n, 1, 1, 1, generator=g))
+    draws = dict(real_noise=torch.randn(img, generator=g), z=torch.randn(n, geo.z_dim, generator=g),
+                 fake_noise=torch.randn(img, generator=g), alpha=torch.rand(n, 1, 1, 1, generator=g))
+    if conditional:
+        for name in ("keep_real", "keep_fake", "keep_gp", "keep_g"):
+            draws[name] = (torch.rand(n, HIDDEN, generator=g) < 0.75).float()
+        onehot = one_hot(torch.randint(0, CGAN_CLASSES, (n,), generator=g), CGAN_CLASSES)
     real = torch.rand(img, generator=g) * 2 - 1
     out = []
     for device in (torch.device("cpu"), dev):
         gen = torch.Generator().manual_seed(0)
-        G, D = Generator(geo, gen=gen), Discriminator(geo, gen=gen)
-        p0 = {**{"G." + k: v.clone() for k, v in G.state_dict().items()},
-              **{"D." + k: v.clone() for k, v in D.state_dict().items()}}
-        state = create_dcgan_state(cfg, G.to(device), D.to(device))
+        if conditional:
+            G, D = CGenerator(geo, CGAN_CLASSES, gen=gen), CDiscriminator(geo, CGAN_CLASSES, gen=gen)
+            state = create_cgan_state(cfg, G.to(device), D.to(device))
+            step = make_cgan_train_step(cfg, geo)
+            extra = (onehot.to(device),)
+        else:
+            G, D = Generator(geo, gen=gen), Discriminator(geo, gen=gen)
+            state = create_dcgan_state(cfg, G.to(device), D.to(device))
+            step = make_dcgan_train_step(cfg, geo)
+            extra = ()
+        p0 = {**{"G." + k: v.detach().cpu().clone() for k, v in G.state_dict().items()},
+              **{"D." + k: v.detach().cpu().clone() for k, v in D.state_dict().items()}}
         before = fba.LAUNCHES
         t0 = time.perf_counter()
-        m = make_dcgan_train_step(cfg, geo)(state, real.to(device), StepDraws(
-            *(getattr(draws, f).to(device) for f in ("real_noise", "z", "fake_noise", "alpha"))))
+        m = step(state, real.to(device), *extra,
+                 StepDraws(**{k: v.to(device) for k, v in draws.items()}))
         if device.type == "cuda":
             torch.cuda.synchronize()
         dt = time.perf_counter() - t0
@@ -469,27 +567,32 @@ def phase_train_vs_cpu(dev) -> None:
         check(bad <= 1e-3 * int(mask.sum()),
               f"{k}: {bad} of {int(mask.sum())} masked Adam deltas card vs CPU differ by > 5 % of lr")
     check(covered / total > 0.5, f"the gradient mask covers {covered}/{total} elements")
-    print(f"train step card vs CPU (64², z 100, width 64, batch {n}, f32, TF32 off): telemetry max "
+    print(f"{'CGAN (K 100)' if conditional else 'DCGAN'} train step card vs CPU (64², z 100, "
+          f"width 64, batch {n}, f32, TF32 off): telemetry max "
           f"|diff| {worst:.3g} (<= 3e-3); Adam deltas within {0.05 * TRAIN_LR:g} on "
           f"{covered - flipped} of {covered} masked elements ({100 * covered / total:.1f} % of the "
           f"parameters); 0 kernel launches; first step {dtc:.2f} s on the CPU, {dtg:.2f} s on the card")
 
 
-def phase_train(tmp: str):
-    """The main training path through the entry point. → (trainer, its
-    launch records, kernel launches during the run)."""
+def _run_dir_args(tmp: str, model: str) -> list:
+    return ["--save_root", os.path.join(tmp, "save"), "--data_dir", os.path.join(tmp, "data"),
+            "-pm", f"smoke_{model.lower()}"]
+
+
+def phase_train(tmp: str, model: str = "DCGAN"):
+    """The main training path through the entry point, for ``model``.
+    → (trainer, its launch records, its eval records, kernel launches
+    during the run)."""
     import torch
 
-    import jckx_torch.models.dcgan as tdcgan
     from jckx_torch.kernels import fused_bn_act as fba
     from jckx_torch.logging.main_logger import MainLogger
     from jckx_torch.serve import tanh_to_u8
     from jckx_torch.train import main as tmain
 
-    where = ["--save_root", os.path.join(tmp, "save"), "--data_dir", os.path.join(tmp, "data"),
-             "-pm", "smoke"]
-    argv = ["--dataset", "synthetic", "-b", str(TRAIN_BATCH), "-e", "1", "-mlr", str(TRAIN_LR),
-            "--log_every", "8", "--eval_every", "16"] + where
+    where = _run_dir_args(tmp, model)
+    argv = ["-m", model, "--dataset", "synthetic", "-b", str(TRAIN_BATCH), "-e", "1",
+            "-mlr", str(TRAIN_LR), "--log_every", "8", "--eval_every", "16"] + where
     fba.LAUNCHES = 0
     t0 = time.perf_counter()
     tr = tmain.main(argv)
@@ -497,106 +600,152 @@ def phase_train(tmp: str):
     wall = time.perf_counter() - t0
     launches = fba.LAUNCHES
     MainLogger.reset()
-    check(tr.device.type == "cuda" and tr.cd == torch.bfloat16 and tr.n_data == 4096,
-          f"trainer on {tr.device} in {tr.cd} over {tr.n_data} rows")
+    conditional = model == "CGAN"
+    check(tr.conditional == conditional and tr.device.type == "cuda" and tr.cd == torch.bfloat16
+          and tr.n_data == 4096, f"{model} trainer on {tr.device} in {tr.cd} over {tr.n_data} rows")
     check(tr.state.step == 32 and tr.evals == [8, 16, 32], f"step {tr.state.step}, evals {tr.evals}")
-    per_forward = tr.geo.n_up
-    check(launches == per_forward * len(tr.evals),
-          f"{launches} kernel launches for {len(tr.evals)} eval G forwards; want {per_forward} "
-          f"each and none from the 32 train steps")
+    # one G forward per eval for DCGAN; CGAN samples 10 x K rows in chunks of 500
+    n_eval = CGAN_CLASSES * 10 if conditional else EVAL_BATCH
+    forwards = math.ceil(n_eval / CGAN_CHUNK) if conditional else 1
+    per_eval = tr.geo.n_up * forwards
+    check(tr.eval_z.shape[0] == n_eval, f"{tr.eval_z.shape[0]} eval rows, want {n_eval}")
+    check(launches == per_eval * len(tr.evals),
+          f"{launches} kernel launches for {len(tr.evals)} evals; want {per_eval} each "
+          f"and none from the 32 train steps")
     with open(os.path.join(tr.save_path, "metrics.jsonl")) as f:
         records = [json.loads(line) for line in f]
     steps = [r for r in records if "step_ms" in r]
     evals = [r for r in records if "fid" in r]
+    metrics = ("fid", "is", "intra_fid") if conditional else ("fid", "is")
     losses = [v for pair in tr._resumed_losses for v in pair]
     check(len(losses) == 64 and all(math.isfinite(v) for v in losses), "losses not finite")
-    check(all(math.isfinite(r["fid"]) and math.isfinite(r["is"]) for r in evals), "FID/IS not finite")
-    for rel in ("latest.ckpt", "real_image.png", "loss.png", "config.json"):
+    check(all(math.isfinite(r[k]) for r in evals for k in metrics), f"{metrics} not all finite")
+    for rel in ("latest.ckpt", "real_image.png", "loss.png", "config.json") + tuple(
+            f"img/{it}_fake_image.png" for it in (tr.evals if conditional else ())):
         check(os.path.isfile(os.path.join(tr.save_path, rel)), f"{rel} missing")
-    for typ in ("fid", "is"):
+    for typ in metrics:
         names = os.listdir(os.path.join(tr.save_path, typ))
         check(any(f.endswith(".pt") for f in names) and any(f.endswith("_fake_image.png") for f in names),
               f"{typ}/ lacks a checkpoint or a grid")
-    print(f"trained 32 steps at batch {TRAIN_BATCH}, bf16, through jckx_torch.train.main in {wall:.1f} s "
-          f"(data, backbone, real features and 3 evals included): evals after {tr.evals}, "
-          f"{launches} kernel launches = {per_forward} per eval G forward, 0 from the steps; "
-          f"last losses D {tr._resumed_losses[-1][0]:.4f} G {tr._resumed_losses[-1][1]:.4f}; "
-          + ", ".join(f"FID {r['fid']:.3f} IS {r['is']:.4f} @ {r['step']}" for r in evals))
+    print(f"{model}: trained 32 steps at batch {TRAIN_BATCH}, bf16, through jckx_torch.train.main in "
+          f"{wall:.1f} s (data, backbone, real features and 3 evals included): evals after "
+          f"{tr.evals}, {launches} kernel launches = {per_eval} per eval ({forwards} G forward(s) "
+          f"of {min(n_eval, CGAN_CHUNK) if conditional else n_eval} rows), 0 from the steps; last "
+          f"losses D {tr._resumed_losses[-1][0]:.4f} G {tr._resumed_losses[-1][1]:.4f}; "
+          + ", ".join(" ".join(f"{k} {r[k]:.4f}" for k in metrics) + f" @ {r['step']}" for r in evals))
     # the kernel at the eval's shapes, on the trained weights, against the plain route
     check(tr.cfg.sample_count == EVAL_BATCH, f"sample_count {tr.cfg.sample_count}")
     before = fba.LAUNCHES
-    got = tanh_to_u8(tr.sample_eval())
-    check(fba.LAUNCHES == before + per_forward, "the eval sample did not launch the kernel")
-    tdcgan.bn_act = fba.bn_act_plain
-    try:
-        ref = tanh_to_u8(tr.sample_eval())
-    finally:
-        tdcgan.bn_act = fba.bn_act
-    check_u8_agree(got, ref, f"eval sample of {EVAL_BATCH} trained images (uint8)")
+    check_u8_agree(lambda: tanh_to_u8(tr.sample_eval()),
+                   f"{model} eval sample of {n_eval} trained images (uint8)")
+    check(fba.LAUNCHES == before + per_eval, "the eval sample did not launch the kernel")
 
     before = fba.LAUNCHES
     tr2 = tmain.main(["--resume"] + where)
     MainLogger.reset()
-    check(tr2.state.step == 32 and tr2.evals == [] and fba.LAUNCHES == before,
+    check(tr2.conditional == conditional and tr2.state.step == 32 and tr2.evals == []
+          and fba.LAUNCHES == before,
           f"--resume started at step {tr2.state.step} and evaluated {tr2.evals}")
-    print("--resume on the same run dir: restored step 32, nothing left to train")
-    return tr, steps, launches
+    print(f"{model} --resume on the same run dir: restored step 32, nothing left to train")
+    return tr, steps, evals, launches
+
+
+def phase_evaluate(tr, evals, tmp: str) -> int:
+    """``evaluate`` on the CGAN run's ``intra_fid/`` best checkpoint and
+    ``-t 1`` on its ``latest.ckpt``, against the FID / IS / intra-FID the
+    run logged at those steps: within 1 % relative (a fresh engine may
+    round bf16 features otherwise). → their kernel launches."""
+    from jckx_torch import evaluate
+    from jckx_torch.kernels import fused_bn_act as fba
+    from jckx_torch.logging.main_logger import MainLogger
+    from jckx_torch.train import main as tmain
+
+    where = _run_dir_args(tmp, "CGAN")
+    logged = {r["step"]: r for r in evals}
+    sub = os.path.join(tr.save_path, "intra_fid")
+    (pt,) = [f for f in os.listdir(sub) if f.endswith(".pt")]
+    fba.LAUNCHES = 0
+    scored = [evaluate.main(["--ckpt", os.path.join(sub, pt), "--dataset", "synthetic"] + where[:4])]
+    launches = [fba.LAUNCHES]
+    MainLogger.reset()
+    fba.LAUNCHES = 0
+    scored.append(tmain.main(["-t", "1"] + where))
+    launches.append(fba.LAUNCHES)
+    MainLogger.reset()
+    for what, res, n in zip((f"evaluate intra_fid/{pt}", "-t 1 on latest.ckpt"), scored, launches):
+        ref = logged.get(res["step"])
+        check(ref is not None, f"{what}: step {res['step']} was not evaluated in the run")
+        check(n == 8 and res["n"] == 10 * CGAN_CLASSES, f"{what}: {n} launches, {res['n']} samples")
+        gaps = {k: abs(res[k] - ref[k]) / abs(ref[k]) for k in ("fid", "is", "intra_fid")}
+        check(all(g <= 0.01 for g in gaps.values()), f"{what}: {res} against logged {ref}")
+        print(f"{what}: step {res['step']}, {n} kernel launches; relative gap to the logged eval "
+              + ", ".join(f"{k} {g:.3g}" for k, g in gaps.items()) + " (<= 0.01)")
+    return sum(launches)
 
 
 def phase_train_timing(tr, steps, tmp: str, card: str) -> dict:
     """Training numbers beside the card's name and power limit."""
     import torch
 
-    from jckx_torch.data.pipeline import decode_batch
+    from jckx_torch.data.pipeline import decode_batch, one_hot
+    from jckx_torch.logging.main_logger import MainLogger
     from jckx_torch.metrics.metrics import Metrics
 
+    model = "CGAN" if tr.conditional else "DCGAN"
     rates = [r["images_per_sec"] for r in steps[1:]]
     step_ms = [r["step_ms"] for r in steps[1:]]
-    print(f"train img/s at batch {TRAIN_BATCH}, bf16, host clock: median {statistics.median(rates):.1f} "
-          f"over the {len(rates)} launches after the first (min {min(rates):.1f}, max {max(rates):.1f}); "
-          f"{statistics.median(step_ms):.3f} ms per step   [{card}]")
+    print(f"{model} train img/s at batch {TRAIN_BATCH}, bf16, host clock: median "
+          f"{statistics.median(rates):.1f} over the {len(rates)} launches after the first (min "
+          f"{min(rates):.1f}, max {max(rates):.1f}); {statistics.median(step_ms):.3f} ms per step"
+          f"   [{card}]")
     real = decode_batch(tr.images_dev[:TRAIN_BATCH], tr.cfg.image_size, tr.cd)
+    extra = (one_hot(tr.labels_dev[:TRAIN_BATCH], tr.num_classes),) if tr.conditional else ()
     n = 8
     for _ in range(3):
-        tr.step_fn(tr.state, real)
+        tr.step_fn(tr.state, real, *extra)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
-        tr.step_fn(tr.state, real)
+        tr.step_fn(tr.state, real, *extra)
     torch.cuda.synchronize()
     host_ms = 1e3 * (time.perf_counter() - t0) / n
 
     t0 = time.perf_counter()
     Metrics(tr.data_pre.metric_source, tr.cfg, backbone=tr.metric.backbone,
             batch_size=tr.cfg.eval_batch_size, compute_dtype=tr.cd,
-            cache_dir=os.path.join(tmp, "fresh_cache"), num_classes=tr.data_pre.num_classes,
+            cache_dir=os.path.join(tmp, f"fresh_cache_{model}"), num_classes=tr.num_classes,
             device=tr.device)
     real_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    feats = tr.metric.extract_features(tr.sample_eval())
+    fake = tr.sample_eval()
+    feats = tr.metric.extract_features(fake)
     tr.metric.inception_score(logits=feats)
     tr.metric.fid(features=feats)
+    if tr.conditional:
+        tr.metric.intra_fid(features=feats)
     fake_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     tr._evaluate(tr.state.step, [], [])
     eval_s = time.perf_counter() - t0
-    print(f"eval: real features of {tr.n_data} images {real_s:.3f} s (once per run, then cached); "
-          f"{tr.cfg.sample_count} fakes sampled + features + IS + FID {fake_s:.3f} s; one whole "
-          f"trainer eval with its checkpoints and grids {eval_s:.3f} s   [{card}]")
+    print(f"{model} eval: real features of {tr.n_data} images {real_s:.3f} s (once per run, then "
+          f"cached); {fake.shape[0]} fakes sampled + features + IS + FID"
+          f"{' + intra-FID' if tr.conditional else ''} {fake_s:.3f} s; one whole trainer eval with "
+          f"its checkpoints and grids {eval_s:.3f} s   [{card}]")
 
-    prof = profile_window(lambda: [tr.step_fn(tr.state, real) for _ in range(n)],
-                          f"{n} train steps at batch {TRAIN_BATCH}, bf16", card)
+    prof = profile_window(lambda: [tr.step_fn(tr.state, real, *extra) for _ in range(n)],
+                          f"{n} {model} train steps at batch {TRAIN_BATCH}, bf16", card)
     # the card's busy time, not CUDA events: the host cannot enqueue the
     # steps ahead of the card, so events around them time the host
     card_ms = prof["busy_ms"] / n if prof else None
-    print(f"one train step at batch {TRAIN_BATCH}, bf16: "
+    print(f"one {model} train step at batch {TRAIN_BATCH}, bf16: "
           + (f"{card_ms:.3f} ms" if prof else "not measured")
           + f" on the card (profiler busy time / {n}), {host_ms:.3f} ms on the host clock   [{card}]")
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"peak device memory {peak:.2f} GiB")
-    out = {"card": card, "batch": TRAIN_BATCH, "dtype": "bfloat16",
+    MainLogger.reset()  # the fresh engine above bound the logger to this run's dir
+    out = {"model": model, "card": card, "batch": TRAIN_BATCH, "dtype": "bfloat16",
            "img_per_s_host_median": statistics.median(rates), "step_ms_card": card_ms,
-           "step_ms_host": host_ms,
+           "step_ms_host": host_ms, "eval_fakes": fake.shape[0],
            "real_features_s": real_s, "fake_side_s": fake_s, "eval_s": eval_s,
            "profile": prof, "peak_gib": peak}
     print("train_numbers " + json.dumps(out))
@@ -623,18 +772,27 @@ def main() -> None:
         path = os.path.join(tmp, "dcgan_seed0.pt")
         geo = write_reference_checkpoint(path)
         svc, launches = phase_serve(path, geo)
+        cgan_path = os.path.join(tmp, "cgan_seed0.pt")
+        write_reference_checkpoint(cgan_path, conditional=True)
+        csvc, cgan_launches = phase_serve_cgan(cgan_path, geo, dev)
     phase_serve_vs_plain(svc, dev)
+    phase_serve_vs_plain(csvc, dev)
     t = phase_timing(svc, dev, card)
     phase_profile(svc, card)
     phase_train_vs_cpu(dev)
+    phase_train_vs_cpu(dev, conditional=True)
     with tempfile.TemporaryDirectory() as tmp:
-        tr, steps, train_launches = phase_train(tmp)
+        tr, steps, _, train_launches = phase_train(tmp)
         phase_train_timing(tr, steps, tmp, card)
+        ctr, csteps, cevals, ctrain_launches = phase_train(tmp, "CGAN")
+        eval_launches = phase_evaluate(ctr, cevals, tmp)
+        phase_train_timing(ctr, csteps, tmp, card)
     print(json.dumps({"kernels": [{
         "name": "fused_bn_act", "route": "cuda",
         "source": "jckx_torch/kernels/csrc/fused_bn_act.cu",
         "replaces": "jckx/kernels/fused_bn_act.py:120",
-        "launches": launches + train_launches, "max_abs_err": max_err,
+        "launches": launches + train_launches + cgan_launches + ctrain_launches + eval_launches,
+        "max_abs_err": max_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
     }]}))

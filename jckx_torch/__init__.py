@@ -6,6 +6,8 @@ Each Pallas TPU kernel of ``jckx`` on a ported path becomes a CUDA C++
 kernel written by hand for ``sm_90a`` (``kernels/csrc``), built with
 ``nvcc`` at first use and bound through ``ctypes``.
 
-Ported so far: DCGAN serving (``python -m jckx_torch.serve``) through the
-fused BatchNorm + activation kernel.
+Ported so far: DCGAN and CGAN serving (``python -m jckx_torch.serve``)
+through the fused BatchNorm + activation kernel, DCGAN and CGAN training
+(``python -m jckx_torch train``) and checkpoint scoring
+(``python -m jckx_torch evaluate``).
 """

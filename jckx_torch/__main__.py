@@ -1,7 +1,8 @@
 """``python -m jckx_torch <command> [args...]`` — port of ``jckx/__main__.py``
 for the commands ported so far:
 
-    python -m jckx_torch train -m DCGAN --dataset synthetic -e 1
+    python -m jckx_torch train -m CGAN --dataset synthetic -e 1
+    python -m jckx_torch evaluate --ckpt save/cgan/<ts>/latest.ckpt
 
 Serving keeps its own module path: ``python -m jckx_torch.serve``.
 """
@@ -11,7 +12,8 @@ from __future__ import annotations
 import sys
 
 _COMMANDS = {
-    "train": "train DCGAN (the flags of main.py, plus --device)",
+    "train": "train DCGAN or CGAN, or score a run with -t 1 (the flags of main.py, plus --device)",
+    "evaluate": "FID / IS / intra-FID of a checkpoint, the trainers' eval protocol",
 }
 
 
@@ -31,6 +33,11 @@ def main(argv=None) -> int:
         from jckx_torch.train.main import main as train_main
 
         train_main(rest)
+        return 0
+    if cmd == "evaluate":
+        from jckx_torch.evaluate import main as evaluate_main
+
+        evaluate_main(rest)
         return 0
     print(f"unknown command {cmd!r}\n\n{_usage()}", file=sys.stderr)
     return 2

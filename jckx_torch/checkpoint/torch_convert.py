@@ -1,15 +1,20 @@
 """The reference's torch GAN checkpoints, and weights from the JAX package —
-port of ``jckx/checkpoint/torch_convert.py:70-99,169-195``.
+port of ``jckx/checkpoint/torch_convert.py:70-195``.
 
 The port's modules carry the reference's state-dict names, so a reference
 ``.pt`` (``torch.save({'model_g', 'model_d', 'optimizer_g',
-'optimizer_d'})``, train/dcgan_trainer.py:86-91) loads into them as it is.
-``params_from_jax`` carries a ``jckx`` param dict (numpy leaves) over:
+'optimizer_d'})``, train/dcgan_trainer.py:86-91, train/cgan_trainer.py:
+82-87) loads into them as it is. ``params_from_jax`` carries a ``jckx``
+param dict (numpy leaves) over:
 
 - ConvTranspose2d (kh, kw, Cin, Cout) → (Cin, Cout, kh, kw)
 - Conv2d          HWIO               → OIHW
 - BN              bn{i}_scale / bn{i}_bias → norm{i+1}.weight / .bias, with
-  fresh running buffers (never read: BN uses batch statistics).
+  fresh running buffers (never read: BN uses batch statistics)
+- Linear          (in, out)          → (out, in)
+- CGAN D's fc1: jckx flattens the trunk's output NHWC (H, W, C rows), the
+  reference and the port NCHW (C, H, W rows), so the image block of its
+  rows is re-ordered (``_fc1_j2t``, ``:135-146``).
 """
 
 from __future__ import annotations
@@ -32,12 +37,27 @@ def _t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32))  # a writable copy
 
 
+def _fc1_j2t(w: np.ndarray, geo: GANGeometry) -> np.ndarray:
+    """jckx fc1_w (flat + 2K, 256), image rows (H, W, C) → the reference's
+    linear1.weight (256, flat + 2K), image columns (C, H, W)."""
+    s = geo.image_size // 2 ** geo.n_up          # the trunk's spatial size (4)
+    c = geo.base_width * 2 ** (geo.n_up - 1)     # its channels (512)
+    flat = s * s * c
+    img = w[:flat].reshape(s, s, c, -1).transpose(2, 0, 1, 3).reshape(flat, -1)
+    return np.concatenate([img, w[flat:]], axis=0).T
+
+
 def params_from_jax(params: Dict[str, Any], geo: GANGeometry, which: str = "g") -> Dict[str, torch.Tensor]:
-    """jckx DCGAN params (``which`` = "g" or "d") → the port's state dict."""
-    if which not in ("g", "d"):
-        raise ValueError(f"which must be 'g' or 'd', got {which!r}")
-    conv, perm = ("convt", (2, 3, 0, 1)) if which == "g" else ("conv", (3, 2, 0, 1))
+    """jckx params → the port's state dict. ``which``: "g" / "d" for DCGAN,
+    "cg" / "cd" for CGAN (CGAN's G is DCGAN's stack on z + K inputs)."""
+    if which not in ("g", "d", "cg", "cd"):
+        raise ValueError(f"which must be 'g', 'd', 'cg' or 'cd', got {which!r}")
+    gen = which in ("g", "cg")
+    conv, perm = ("convt", (2, 3, 0, 1)) if gen else ("conv", (3, 2, 0, 1))
     sd: Dict[str, torch.Tensor] = {}
+    if which == "cd":  # registration order: the label path first
+        sd["label_embedding.weight"] = _t(_np(params["label_w"]).T)
+        sd["label_embedding.bias"] = _t(_np(params["label_b"]))
     for i in range(geo.n_up):
         sd[f"conv{i + 1}.weight"] = _t(np.transpose(_np(params[f"{conv}{i}"]), perm))
         scale = _np(params[f"bn{i}_scale"])
@@ -46,7 +66,13 @@ def params_from_jax(params: Dict[str, Any], geo: GANGeometry, which: str = "g") 
         sd[f"norm{i + 1}.running_mean"] = torch.zeros(scale.shape[0])
         sd[f"norm{i + 1}.running_var"] = torch.ones(scale.shape[0])
         sd[f"norm{i + 1}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
-    sd[f"conv{geo.n_up + 1}.weight"] = _t(np.transpose(_np(params[f"{conv}_out"]), perm))
+    if which == "cd":
+        sd["linear1.weight"] = _t(_fc1_j2t(_np(params["fc1_w"]), geo))
+        sd["linear1.bias"] = _t(_np(params["fc1_b"]))
+        sd["linear2.weight"] = _t(_np(params["fc2_w"]).T)
+        sd["linear2.bias"] = _t(_np(params["fc2_b"]))
+    else:
+        sd[f"conv{geo.n_up + 1}.weight"] = _t(np.transpose(_np(params[f"{conv}_out"]), perm))
     return sd
 
 
@@ -78,13 +104,12 @@ def infer_gan_config(model_g_sd: Dict[str, Any],
     return conditional, geo, num_classes
 
 
-def load_reference_checkpoint(path: str) -> Tuple[GANGeometry, Dict[str, Any]]:
-    """A reference DCGAN ``.pt`` → (geometry, G's state dict)."""
+def load_reference_checkpoint(path: str) -> Tuple[bool, GANGeometry, int, Dict[str, Any]]:
+    """A reference DCGAN or CGAN ``.pt`` → (conditional, geometry,
+    num_classes, G's state dict)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(ckpt, dict) or not {"model_g", "model_d"} <= set(ckpt):
         raise KeyError(f"{path}: not a reference GAN checkpoint (needs "
                        f"'model_g' and 'model_d')")
-    conditional, geo, _ = infer_gan_config(ckpt["model_g"], ckpt["model_d"])
-    if conditional:
-        raise NotImplementedError(f"{path}: CGAN serving not yet ported")
-    return geo, ckpt["model_g"]
+    conditional, geo, num_classes = infer_gan_config(ckpt["model_g"], ckpt["model_d"])
+    return conditional, geo, num_classes, ckpt["model_g"]

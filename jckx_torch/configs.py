@@ -4,7 +4,7 @@ One dataclass holds the reference's 11 CLI flags with their names and
 defaults (``main.py:40-61``; ``-mlr 0.1`` included), the trainer constants
 the reference hard-codes (lambda_gp 10, Adam betas (0.5, 0.999), labels
 0.9 / 0.1, instance noise 0.1, eval every 500, log every 100), and the
-fields of ``jckx.configs.Config`` that the port's DCGAN trainer reads.
+fields of ``jckx.configs.Config`` that the port's trainers read.
 
 The port adds ``--device`` (default ``cuda``; ``cpu`` runs the plain
 PyTorch path). The flags of ``jckx`` that have no meaning in the port yet
@@ -193,7 +193,7 @@ def get_arg_parse(argv: Optional[list] = None) -> Config:
 
     argv = sys.argv[1:] if argv is None else list(argv)
     d = Config()
-    p = argparse.ArgumentParser(description="jckx_torch - DCGAN on PyTorch/CUDA",
+    p = argparse.ArgumentParser(description="jckx_torch - DCGAN / CGAN on PyTorch/CUDA",
                                 allow_abbrev=False)
     p.add_argument("-t", "--test", type=int, default=d.test, help="test mode")
     p.add_argument("-pm", "--model_path", type=str, default=d.model_path, help="run-dir name to reuse")

@@ -1,5 +1,6 @@
-"""Input pipeline — port of ``decode_batch`` (``jckx/data/pipeline.py:34-48``)
-and ``DCGANDataPreprocessor`` (``:176-236``).
+"""Input pipeline — port of ``decode_batch`` (``jckx/data/pipeline.py:34-48``),
+``DCGANDataPreprocessor`` (``:176-236``) and ``CGANDataPreprocessor``
+(``:238-247``).
 
 As in jckx, the uint8 set is loaded once and lives on the device (the
 trainer uploads it); each step gathers its batch by index and decodes it
@@ -70,3 +71,21 @@ class DCGANDataPreprocessor:
     @property
     def metric_source(self):
         return self.images_u8, self.labels_np
+
+
+def one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """Class ids (N,) → f32 one-hot (N, K) on the labels' device."""
+    return F.one_hot(labels.long(), num_classes).float()
+
+
+class CGANDataPreprocessor(DCGANDataPreprocessor):
+    """Conditional data (reference cgan_data_preprocessor.py:11-94): adds
+    the index → class-name map and ``one_hot``. The trainer keeps the labels
+    on the device as int64 and gathers them by the images' index."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self.idx_to_labels = dict(enumerate(self.class_names))
+
+    def one_hot(self, labels: torch.Tensor) -> torch.Tensor:
+        return one_hot(labels, self.num_classes)

@@ -108,6 +108,19 @@ def bn_act_plain(x, scale, bias, act="none", negative_slope=0.2, eps=1e-5):
     return _unrows(normalize_act_plain(x2d, inv, shift, act, negative_slope), x)
 
 
+def bn_act_one_rounding(x, scale, bias, act="none", negative_slope=0.2, eps=1e-5):
+    """``bn_act_plain`` with the kernel's rounding: the multiply-add in f64,
+    rounded once to f32 as the kernel's ``fmaf`` rounds it (the product of
+    a bf16 or f32 x and an f32 inv is exact in f64). A whole render through
+    it equals the kernel's bit for bit, where the twice-rounded plain
+    version drifts by one ulp here and there and batch statistics carry
+    that through the later layers (chip_smoke.py, tests/test_torch_gpu.py)."""
+    x2d = _rows(x)
+    inv, shift = _affine(x2d, scale, bias, eps)
+    y = (x2d.double() * inv.double() + shift.double()).float()
+    return _unrows(_activate(y, act, negative_slope).to(x2d.dtype), x)
+
+
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.load("fused_bn_act").jckx_bn_act

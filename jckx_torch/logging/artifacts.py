@@ -1,10 +1,11 @@
-"""Sample grids and the loss curve as PNG files — port of
-``jckx/logging/artifacts.py:27-60,80-91``.
+"""Sample grids, the CGAN class panel and the loss curve as PNG files —
+port of ``jckx/logging/artifacts.py``.
 
-``make_grid`` is numpy, as in jckx. The PNG writer is ``zlib`` + ``struct``
-and the loss curve is drawn into a numpy raster, so that neither needs an
+``make_grid`` is numpy, as in jckx. The PNG writer is ``zlib`` + ``struct``,
+and the loss curve and the class panel are drawn into numpy rasters, the
+panel's titles in a built-in 5×7 bitmap font, so that none of them needs an
 imaging or plotting library (jckx uses PIL and matplotlib, which the
-card's machine lacks). The CGAN class panel is not ported yet (ROADMAP A8).
+card's machine lacks).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import os
 import struct
 import zlib
+from typing import Sequence
 
 import numpy as np
 
@@ -73,6 +75,70 @@ def _write_png(path: str, img: np.ndarray) -> None:
 
 def save_image_grid(path: str, images, ncol: int = 8, padding: int = 2) -> None:
     _write_png(path, make_grid(np.asarray(images), ncol=ncol, padding=padding))
+
+
+# 5×7 glyphs, one hex byte per row, top row first, bit 4 the leftmost
+# column; letters are drawn as capitals. Enough for the class names of
+# CIFAR-100, CIFAR-10 and MNIST; any other character draws as a blank.
+_GLYPHS = dict(zip("abcdefghijklmnopqrstuvwxyz0123456789_-", (
+    "0e1111111f1111", "1e11111e11111e", "0e11101010110e", "1c12111111121c",  # a b c d
+    "1f10101e10101f", "1f10101e101010", "0e11101711110f", "1111111f111111",  # e f g h
+    "0e04040404040e", "0702020202120c", "11121418141211", "1010101010101f",  # i j k l
+    "111b1515111111", "11111915131111", "0e11111111110e", "1e11111e101010",  # m n o p
+    "0e11111115120d", "1e11111e141211", "0f10100e01011e", "1f040404040404",  # q r s t
+    "1111111111110e", "11111111110a04", "1111111515150a", "11110a040a1111",  # u v w x
+    "1111110a040404", "1f01020408101f",                                      # y z
+    "0e11131519110e", "040c040404040e", "0e11010204081f", "1f02040201110e",  # 0 1 2 3
+    "02060a121f0202", "1f101e0101110e", "0608101e11110e", "1f010204080808",  # 4 5 6 7
+    "0e11110e11110e", "0e11110f01020c",                                      # 8 9
+    "0000000000001f", "0000001f000000",                                      # _ -
+)))
+_GLYPH_W, _GLYPH_H, _ADVANCE = 5, 7, 6
+
+
+def _glyph(ch: str) -> np.ndarray:
+    """(7, 5) bool bitmap of ``ch``; blank for a character the font lacks."""
+    rows = _GLYPHS.get(ch.lower(), "00" * _GLYPH_H)
+    bits = [int(rows[2 * r:2 * r + 2], 16) for r in range(_GLYPH_H)]
+    return np.array([[(b >> (_GLYPH_W - 1 - c)) & 1 for c in range(_GLYPH_W)] for b in bits], bool)
+
+
+def text_raster(text: str) -> np.ndarray:
+    """``text`` in the bitmap font → (7, 6·len − 1) bool raster."""
+    out = np.zeros((_GLYPH_H, max(_ADVANCE * len(text) - 1, 0)), bool)
+    for i, ch in enumerate(text):
+        out[:, _ADVANCE * i:_ADVANCE * i + _GLYPH_W] = _glyph(ch)
+    return out
+
+
+def labeled_grid_image(images, labels: Sequence[str], ncol: int = 10) -> np.ndarray:
+    """The CGAN per-class panel (cgan_trainer.py:93-103) as an (H, W, 3)
+    uint8 raster on white: up to ``ncol``×``ncol`` cells, each its label
+    in black above its image, images min-max normalized over the panel."""
+    imgs = _to_uint8(np.asarray(images))
+    n, h, w, c = imgs.shape
+    n = min(n, ncol * ncol)
+    if c == 1:
+        imgs = np.repeat(imgs, 3, axis=-1)
+    pad, title = 4, _GLYPH_H + 3
+    cell_w = max(w, max((text_raster(str(labels[i])).shape[1] for i in range(n)), default=0))
+    nrow = -(-n // ncol)
+    cols = min(ncol, n)
+    panel = np.full((nrow * (title + h + pad) + pad, cols * (cell_w + pad) + pad, 3), 255, np.uint8)
+    for i in range(n):
+        r, col = divmod(i, ncol)
+        y0, x0 = pad + r * (title + h + pad), pad + col * (cell_w + pad)
+        t = text_raster(str(labels[i]))
+        tx = x0 + (cell_w - t.shape[1]) // 2
+        panel[y0:y0 + _GLYPH_H, tx:tx + t.shape[1]][t] = 0
+        ix = x0 + (cell_w - w) // 2
+        panel[y0 + title:y0 + title + h, ix:ix + w] = imgs[i][..., :3]
+    return panel
+
+
+def save_labeled_grid(path: str, images, labels: Sequence[str], ncol: int = 10) -> None:
+    """``img/<iters>_fake_image.png`` of the CGAN trainer."""
+    _write_png(path, labeled_grid_image(images, labels, ncol))
 
 
 # the loss plot: canvas, plot box inside it, and the two curves' colours

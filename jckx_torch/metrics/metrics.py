@@ -1,6 +1,6 @@
-"""The metrics engine: InceptionV3 features → FID / IS — port of
+"""The metrics engine: InceptionV3 features → FID / IS / intra-FID — port of
 ``jckx/metrics/metrics.py`` (``Metrics``: the backbone, the real-feature
-cache, ``extract_features``, ``inception_score``, ``fid``).
+cache, ``extract_features``, ``inception_score``, ``fid``, ``intra_fid``).
 
 - Backbone: ``metric_backbone`` when given (a missing or unreadable file
   raises), else the fine-tuned ``loss_bset.npz`` / ``loss_bset.pt`` under
@@ -17,8 +17,12 @@ cache, ``extract_features``, ``inception_score``, ``fid``).
   fingerprint covers a strided sample of the data, its labels, the class
   count and the backbone's content, so a stale cache is never read. The
   file name is the port's own: jckx's cache is never read or written.
+- Intra-FID (reference metrics.py:132-141): the FID of each CIFAR-100
+  superclass, real against fake, summed over the superclasses that both
+  sides populate and divided by 100, the reference's divisor for 20
+  superclasses. The fakes are the class-major eval grid, 10 per class.
 
-Intra-FID, KID and PRDC wait (ROADMAP A8, A9).
+KID and PRDC wait (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -30,14 +34,17 @@ from typing import Optional
 import numpy as np
 import torch
 
+from jckx_torch.data.datasets import FINE_TO_SUPERCLASS
 from jckx_torch.data.pipeline import resize_bilinear
 from jckx_torch.logging.main_logger import MainLogger
 from jckx_torch.metrics import inception_v3
-from jckx_torch.metrics.fid import frechet_distance, inception_score_from_probs, mean_and_cov
+from jckx_torch.metrics.fid import (frechet_distance, inception_score_from_probs, intra_fid_sum,
+                                    mean_and_cov)
 from jckx_torch.utils.device import resolve_device
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+INTRA_FID_DIVISOR = 100.0  # the reference's, for its 20 superclasses (metrics.py:141)
 
 
 def _content_sig(sd: dict) -> str:
@@ -68,6 +75,24 @@ class Metrics:
         self.backbone = backbone.to(self.device).eval()
 
         real_u8, real_labels = metric_source
+        # superclass index maps (reference metrics.py:56-68); the fakes are
+        # the class-major eval grid, 10 samples per class
+        real_super = FINE_TO_SUPERCLASS[np.asarray(real_labels) % 100]
+        fake_super = FINE_TO_SUPERCLASS[np.repeat(np.arange(num_classes), 10) % 100]
+        self.real_superclass_idx = {s: np.nonzero(real_super == s)[0] for s in range(20)}
+        self.fake_superclass_idx = {s: np.nonzero(fake_super == s)[0] for s in range(20)}
+        # with K < 100 some buckets are empty on one side; an empty or
+        # one-row bucket has no covariance, so intra-FID skips it
+        self.active_superclasses = [
+            s for s in range(20)
+            if len(self.fake_superclass_idx[s]) > 1 and len(self.real_superclass_idx[s]) > 1]
+        if len(self.active_superclasses) < 20:
+            self._logger.warning(
+                f"num_classes={num_classes}: only {len(self.active_superclasses)}/20 CIFAR-100 "
+                f"superclasses populated — intra-FID sums over those only (divisor stays "
+                f"{INTRA_FID_DIVISOR:g} for reference comparability)")
+        self._real_super_stats = None
+
         os.makedirs(cache_dir, exist_ok=True)
         cache = os.path.join(cache_dir, f"metric_data_jckx_torch_"
                                         f"{self._fingerprint(real_u8, real_labels)}.npz")
@@ -179,10 +204,43 @@ class Metrics:
         probs = torch.softmax(torch.as_tensor(logits, dtype=torch.float32), dim=-1)
         return float(inception_score_from_probs(probs, splits=splits))
 
-    def fid(self, images_tanh=None, features: Optional[np.ndarray] = None) -> float:
-        """FID(real set ‖ generated) (reference metrics.py:113-129)."""
+    def fid(self, images_tanh=None, intra_fid: bool = False, label: int = 0,
+            features: Optional[np.ndarray] = None) -> float:
+        """FID(real set ‖ generated) (reference metrics.py:113-129); with
+        ``intra_fid``, against the real rows of superclass ``label`` only."""
         gen = features if features is not None else self.extract_features(images_tanh)
-        if self._real_mu_sigma is None:
-            self._real_mu_sigma = mean_and_cov(torch.from_numpy(self.real_features))
+        if intra_fid:
+            real = self.real_features[self.real_superclass_idx[label]]
+            mu1, s1 = mean_and_cov(torch.from_numpy(real))
+        else:
+            if self._real_mu_sigma is None:
+                self._real_mu_sigma = mean_and_cov(torch.from_numpy(self.real_features))
+            mu1, s1 = self._real_mu_sigma
         mu2, s2 = mean_and_cov(torch.as_tensor(gen, dtype=torch.float32))
-        return float(frechet_distance(*self._real_mu_sigma, mu2, s2))
+        return float(frechet_distance(mu1, s1, mu2, s2))
+
+    def intra_fid(self, images_tanh=None, features: Optional[np.ndarray] = None) -> float:
+        """Σ_superclass FID / 100 (reference metrics.py:132-141). When every
+        active superclass has as many fakes (K = 100: 50 each), all FIDs
+        go in one batched call; otherwise (K < 100) one call each."""
+        feats = features if features is not None else self.extract_features(images_tanh)
+        active = self.active_superclasses
+        if len({len(self.fake_superclass_idx[s]) for s in active}) == 1:
+            mu_r, sigma_r = self._real_superclass_stats()
+            idx = torch.from_numpy(np.stack([self.fake_superclass_idx[s] for s in active]))
+            total = float(intra_fid_sum(torch.as_tensor(feats, dtype=torch.float32), idx,
+                                        mu_r, sigma_r))
+        else:
+            total = sum(self.fid(features=feats[self.fake_superclass_idx[s]], intra_fid=True,
+                                 label=s) for s in active)
+        return total / INTRA_FID_DIVISOR
+
+    def _real_superclass_stats(self):
+        """(S, d) means and (S, d, d) covariances of the real features of
+        each active superclass, computed once and kept."""
+        if self._real_super_stats is None:
+            stats = [mean_and_cov(torch.from_numpy(self.real_features[self.real_superclass_idx[s]]))
+                     for s in self.active_superclasses]
+            self._real_super_stats = (torch.stack([m for m, _ in stats]),
+                                      torch.stack([c for _, c in stats]))
+        return self._real_super_stats

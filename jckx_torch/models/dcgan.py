@@ -73,26 +73,35 @@ class _BatchStatNorm(nn.Module):
         self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long))
 
 
+def init_module(m: nn.Module, gen: torch.Generator) -> None:
+    """The reference's init law for one convolution or norm; other modules
+    are left as they are."""
+    with torch.no_grad():
+        if isinstance(m, _ConvWeight):
+            m.weight.copy_(conv_init(gen, tuple(m.weight.shape)))
+        elif isinstance(m, _BatchStatNorm):
+            m.weight.copy_(bn_scale_init(gen, tuple(m.weight.shape)))
+            m.bias.zero_()
+
+
 def weights_init(net: nn.Module, gen: torch.Generator) -> None:
     """The reference's init law, drawn in registration order from ``gen``
     (the order in which ``jckx``'s ``*_init`` split their keys)."""
-    with torch.no_grad():
-        for m in net.children():
-            if isinstance(m, _ConvWeight):
-                m.weight.copy_(conv_init(gen, tuple(m.weight.shape)))
-            elif isinstance(m, _BatchStatNorm):
-                m.weight.copy_(bn_scale_init(gen, tuple(m.weight.shape)))
-                m.bias.zero_()
+    for m in net.children():
+        init_module(m, gen)
 
 
 class Generator(nn.Module):
     """Reference G. ``gen`` draws the init weights; without it the
-    parameters stay zero until a state dict is loaded."""
+    parameters stay zero until a state dict is loaded. ``in_dim`` is the
+    width of G's input, ``z_dim`` unless a condition is concatenated to z
+    (``generator_init(key, geo, in_dim=…)``)."""
 
-    def __init__(self, geo: GANGeometry = GANGeometry(), gen: Optional[torch.Generator] = None):
+    def __init__(self, geo: GANGeometry = GANGeometry(), gen: Optional[torch.Generator] = None,
+                 in_dim: Optional[int] = None):
         super().__init__()
         self.geo = geo
-        prev = geo.z_dim
+        prev = geo.z_dim if in_dim is None else in_dim
         for i, w in enumerate(geo.stage_widths()):
             setattr(self, f"conv{i + 1}", _ConvWeight((prev, w, 4, 4)))
             setattr(self, f"norm{i + 1}", _BatchStatNorm(w))
@@ -102,7 +111,7 @@ class Generator(nn.Module):
             weights_init(self, gen)
 
     def forward(self, z: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
-        """z: (N, z_dim) or (N, 1, 1, z_dim) → images (N, S, S, C) in [-1, 1],
+        """z: (N, in_dim) or (N, 1, 1, in_dim) → images (N, S, S, C) in [-1, 1],
         in ``compute_dtype`` — counterpart of ``generator_apply``, with its
         casts: z and the weights in the compute dtype, BN output in x's
         dtype, tanh in f32 cast back to the compute dtype."""

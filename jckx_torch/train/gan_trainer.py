@@ -1,5 +1,6 @@
-"""The DCGAN trainer — port of ``_BaseGANTrainer`` + ``DCGANTrainer``
-(``jckx/train/gan_trainer.py``; reference train/dcgan_trainer.py:34-239).
+"""The DCGAN and CGAN trainers — port of ``_BaseGANTrainer``,
+``DCGANTrainer`` and ``CGANTrainer`` (``jckx/train/gan_trainer.py``;
+reference train/dcgan_trainer.py:34-239, train/cgan_trainer.py:34-270).
 
 One host loop over single train steps (``train/steps.py``). jckx runs K
 steps per device launch with ``lax.scan``; the port keeps its grouping as
@@ -17,17 +18,22 @@ and logs of jckx run there:
   point exits 143);
 - evals fall on launch boundaries (``:779-783``): after the first launch,
   whenever a launch crosses a multiple of ``eval_every``, and after the
-  last step. An eval samples the fixed eval z (drawn from the seed) under
-  ``torch.no_grad()``, which on the card is where the fused BN kernel
-  runs: 4 launches per G forward at 64². Then FID / IS, best-metric
-  checkpoints and grids, and ``latest.ckpt``;
+  last step. An eval samples the fixed eval inputs (drawn from the seed,
+  ``fixed_eval_inputs``) under ``torch.no_grad()``, which on the card is
+  where the fused BN kernel runs: 4 launches per G forward at 64². DCGAN
+  renders its ``sample_count`` z in one batch; CGAN renders 10 z per
+  class, class-major, in chunks of 500 (``:913-923``): under batch-stat
+  BN the chunking is part of the function, so 2 forwards at K = 100.
+  Then FID / IS (and CGAN's intra-FID), best-metric checkpoints and
+  grids, and ``latest.ckpt``;
 - ``--resume`` restores ``latest.ckpt`` and fast-forwards the shuffle
   stream; the step's draws derive from (seed, step), so the resumed run
   continues as the uninterrupted one would.
 
 The artifacts are jckx's: ``real_image.png``, ``<metric>/<iters>_fake_image
-.png``, ``loss.png``, ``metrics.jsonl`` and the run log. Not ported yet:
-the streaming data plane, the mesh, and CGAN (ROADMAP A4, A13, A8).
+.png``, CGAN's labelled class panel ``img/<iters>_fake_image.png``,
+``loss.png``, ``metrics.jsonl`` and the run log. Not ported yet: the
+streaming data plane and the mesh (ROADMAP A4, A13).
 """
 
 from __future__ import annotations
@@ -45,24 +51,53 @@ import torch
 from jckx_torch.checkpoint.checkpoint import (BestMetricCheckpointer, latest_checkpoint,
                                               restore_checkpoint, state_payload)
 from jckx_torch.configs import Config
-from jckx_torch.data.pipeline import decode_batch
-from jckx_torch.logging.artifacts import save_image_grid, save_loss_curve
+from jckx_torch.data.pipeline import decode_batch, one_hot
+from jckx_torch.logging.artifacts import save_image_grid, save_labeled_grid, save_loss_curve
 from jckx_torch.logging.main_logger import MainLogger, time_to_str
-from jckx_torch.models.dcgan import Discriminator, Generator
+from jckx_torch.models.dcgan import GANGeometry
 from jckx_torch.train.state import create_dcgan_state, geometry
 from jckx_torch.train.steps import (METRIC_NAMES, compute_dtype, derive_seed,
-                                    make_dcgan_train_step)
+                                    make_cgan_train_step, make_dcgan_train_step)
 from jckx_torch.utils.device import resolve_device
 
+EVAL_CHUNK = 500  # CGAN eval rows per G forward (jckx gan_trainer.py:919)
 
-class DCGANTrainer:
-    """``DCGANTrainer(cfg, G, D, data_pre, metrics=None).train()``; ``metrics``
+
+def fixed_eval_inputs(seed: int, geo: GANGeometry, conditional: bool, num_classes: int,
+                      sample_count: int, device: torch.device):
+    """The trainers' eval inputs, drawn on ``device`` from the generator of
+    (seed, "eval"): ``sample_count`` z for DCGAN (one-hot None); 10 z per
+    class and the class-major one-hot labels for CGAN (``:463-480``)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(derive_seed(seed, "eval", 0))
+    rows = 10 * num_classes if conditional else sample_count
+    z = torch.randn((rows, geo.z_dim), generator=gen, device=device)
+    if not conditional:
+        return z, None
+    labels = torch.arange(num_classes, device=device).repeat_interleave(10)
+    return z, one_hot(labels, num_classes)
+
+
+def sample_eval_images(G, z: torch.Tensor, onehot: Optional[torch.Tensor], cd) -> torch.Tensor:
+    """G on the eval inputs with no grad (on the card, through the fused BN
+    kernel): one forward for DCGAN, chunks of ``EVAL_CHUNK`` for CGAN."""
+    with torch.no_grad():
+        if onehot is None:
+            return G(z, cd)
+        return torch.cat([G(z[i:i + EVAL_CHUNK], onehot[i:i + EVAL_CHUNK], cd)
+                          for i in range(0, z.shape[0], EVAL_CHUNK)])
+
+
+class _BaseGANTrainer:
+    """``Trainer(cfg, G, D, data_pre, metrics=None).train()``; ``metrics``
     replaces the InceptionV3 engine (the tests pass a stub)."""
 
-    def __init__(self, cfg: Config, G: Generator, D: Discriminator, data_pre, metrics=None):
+    conditional = False
+
+    def __init__(self, cfg: Config, G, D, data_pre, metrics=None):
         if not cfg.save_path:
             ts = cfg.model_path or datetime.now().strftime("%Y%m%d_%H%M%S")
-            cfg.save_path = os.path.join(cfg.save_root, "dcgan", ts)
+            cfg.save_path = os.path.join(cfg.save_root, "cgan" if self.conditional else "dcgan", ts)
         os.makedirs(cfg.save_path, exist_ok=True)
         self.logger = MainLogger(cfg)
         self.cfg = cfg
@@ -70,9 +105,13 @@ class DCGANTrainer:
         self.geo = geometry(cfg)
         self.cd = compute_dtype(cfg)
         self.data_pre = data_pre
+        self.num_classes = data_pre.num_classes
         self.n_data = data_pre.images_u8.shape[0]
-        # the uint8 set, resident on the device; batches are gathered by index
+        # the uint8 set, resident on the device; batches are gathered by
+        # index (CGAN's int64 labels by the same index)
         self.images_dev = torch.from_numpy(np.ascontiguousarray(data_pre.images_u8)).to(self.device)
+        if self.conditional:
+            self.labels_dev = torch.from_numpy(np.asarray(data_pre.labels_np, np.int64)).to(self.device)
         self.logger.debug(
             f"G params: {sum(p.numel() for p in G.parameters()):,}  D params: "
             f"{sum(p.numel() for p in D.parameters()):,}  device: {self.device}  "
@@ -84,7 +123,7 @@ class DCGANTrainer:
 
             self.metric = Metrics(data_pre.metric_source, cfg, batch_size=cfg.eval_batch_size,
                                   compute_dtype=self.cd, cache_dir=cfg.data_dir,
-                                  num_classes=data_pre.num_classes, device=self.device)
+                                  num_classes=self.num_classes, device=self.device)
 
         if cfg.lr_schedule != "constant" and cfg.lr_decay_steps <= 0:
             # the horizon describes the run, so a resume keeps decaying
@@ -94,7 +133,7 @@ class DCGANTrainer:
         self.state = create_dcgan_state(cfg, G.to(self.device), D.to(self.device))
         self.save_path = cfg.save_path
         self.ckpt = BestMetricCheckpointer(self.save_path)
-        self.bests = {"fid": 1e10, "is": 0.0}
+        self.bests = {"fid": 1e10, "is": 0.0, "intra_fid": 1e10}
         self._resumed_losses: list = []
         self._poisoned: Optional[str] = None
         self._preempt = threading.Event()
@@ -111,11 +150,10 @@ class DCGANTrainer:
             else:
                 self._restore(path)
                 self.logger.debug(f"resumed from {path} at step {self.state.step}")
-        self.step_fn = make_dcgan_train_step(cfg, self.geo)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(derive_seed(cfg.seed, "eval", 0))
-        self.eval_z = torch.randn((cfg.sample_count, self.geo.z_dim), generator=gen,
-                                  device=self.device)
+        make_step = make_cgan_train_step if self.conditional else make_dcgan_train_step
+        self.step_fn = make_step(cfg, self.geo)
+        self.eval_z, self.eval_onehot = fixed_eval_inputs(
+            cfg.seed, self.geo, self.conditional, self.num_classes, cfg.sample_count, self.device)
 
     # ------------------------------------------------------------ restore
 
@@ -139,7 +177,7 @@ class DCGANTrainer:
 
     def _serve_config(self) -> dict:
         g = self.geo
-        return {"conditional": False, "num_classes": self.data_pre.num_classes,
+        return {"conditional": self.conditional, "num_classes": self.num_classes,
                 "z_dim": g.z_dim, "image_size": g.image_size, "channels": g.channels,
                 "base_width": g.base_width, "ema": self.cfg.ema_decay > 0}
 
@@ -196,9 +234,7 @@ class DCGANTrainer:
                     idx = torch.from_numpy(order[done:done + k].astype(np.int64)).to(self.device)
                     ms = []
                     for j in range(k):
-                        real = decode_batch(self.images_dev.index_select(0, idx[j]),
-                                            cfg.image_size, self.cd)
-                        m = self.step_fn(self.state, real)
+                        m = self._train_step(idx[j])
                         ms.append(torch.stack([m[n] for n in METRIC_NAMES]))
                     vals = torch.stack(ms).cpu().numpy()  # (k, 6): the launch's one sync
                     ms_np = {n: vals[:, i] for i, n in enumerate(METRIC_NAMES)}
@@ -260,14 +296,36 @@ class DCGANTrainer:
         save_loss_curve(os.path.join(self.save_path, "loss.png"), losses_d, losses_g)
         return last_metrics
 
+    # --------------------------------------------------------------- steps
+
+    def _train_step(self, rows: torch.Tensor):
+        """One train step on the set's rows ``rows`` (a device index)."""
+        real = decode_batch(self.images_dev.index_select(0, rows), self.cfg.image_size, self.cd)
+        if self.conditional:
+            onehot = one_hot(self.labels_dev.index_select(0, rows), self.num_classes)
+            return self.step_fn(self.state, real, onehot)
+        return self.step_fn(self.state, real)
+
     # ---------------------------------------------------------------- eval
 
     def sample_eval(self) -> torch.Tensor:
-        """The fixed eval z through the EMA generator when on, else G, with
-        no grad: on the card, through the fused BN kernel."""
+        """The fixed eval inputs through the EMA generator when on, else G
+        (``sample_eval_images``)."""
         G = self.state.ema_g if self.state.ema_g is not None else self.state.G
-        with torch.no_grad():
-            return G(self.eval_z, self.cd)
+        return sample_eval_images(G, self.eval_z, self.eval_onehot, self.cd)
+
+    def _save_best(self, typ: str, iters: int, values, images, base: dict) -> None:
+        """The best-metric checkpoint of ``typ`` (its name carries
+        ``values``) and its grid of ``images``."""
+        self.ckpt.save(typ, iters, values, {
+            **base, "bests": dict(self.bests), "iters": iters,
+            "serve_config": self._serve_config()})
+        save_image_grid(os.path.join(self.save_path, typ, f"{iters}_fake_image.png"), images, ncol=8)
+        self.logger.debug(f"{iters} model save ({typ})")
+
+
+class DCGANTrainer(_BaseGANTrainer):
+    """Unconditional trainer (reference train/dcgan_trainer.py)."""
 
     def _evaluate(self, iters: int, losses_d, losses_g) -> None:
         self.evals.append(iters)
@@ -284,12 +342,42 @@ class DCGANTrainer:
             if better:
                 self.bests[typ] = value
                 self.logger.debug(f"{iters} {'lowest' if typ == 'fid' else 'highest'} {typ}")
-                self.ckpt.save(typ, iters, (value,), {
-                    **base, "bests": dict(self.bests), "iters": iters,
-                    "serve_config": self._serve_config()})
-                save_image_grid(os.path.join(self.save_path, typ, f"{iters}_fake_image.png"),
-                                denorm, ncol=8)
-                self.logger.debug(f"{iters} model save ({typ})")
+                self._save_best(typ, iters, (value,), denorm, base)
+        self.ckpt.save_latest({**base, "bests": dict(self.bests),
+                               "losses": list(zip(losses_d, losses_g)),
+                               "serve_config": self._serve_config()})
+
+
+class CGANTrainer(_BaseGANTrainer):
+    """Conditional trainer (reference train/cgan_trainer.py): intra-FID
+    beside FID / IS, a best checkpoint for each, whose file names carry
+    (IS, FID, intra-FID), and the labelled per-class panel at every eval."""
+
+    conditional = True
+
+    def _evaluate(self, iters: int, losses_d, losses_g) -> None:
+        self.evals.append(iters)
+        fake = self.sample_eval()
+        feats = self.metric.extract_features(fake)
+        is_score = self.metric.inception_score(logits=feats)
+        fid = self.metric.fid(features=feats)
+        intra = self.metric.intra_fid(features=feats)
+        self.logger.debug(f"inception score: {is_score}\tfid: {fid}\tintra fid: {intra}")
+        self.logger.scalars({"step": iters, "fid": fid, "is": is_score, "intra_fid": intra})
+        # one sample per class (cgan_trainer.py:243)
+        per_class = 0.5 * fake[::10].float().cpu().numpy() + 0.5
+        values = (is_score, fid, intra)
+        base = state_payload(self.state)
+        for typ, value, better in (("fid", fid, fid < self.bests["fid"]),
+                                   ("intra_fid", intra, intra < self.bests["intra_fid"]),
+                                   ("is", is_score, is_score > self.bests["is"])):
+            if better:
+                self.bests[typ] = value
+                self.logger.debug(f"{iters} {'highest' if typ == 'is' else 'lowest'} {typ}")
+                self._save_best(typ, iters, values, per_class, base)
+        names = [self.data_pre.idx_to_labels[i] for i in range(self.num_classes)]
+        save_labeled_grid(os.path.join(self.save_path, "img", f"{iters}_fake_image.png"),
+                          per_class[:100], names[:100])
         self.ckpt.save_latest({**base, "bests": dict(self.bests),
                                "losses": list(zip(losses_d, losses_g)),
                                "serve_config": self._serve_config()})

@@ -1,19 +1,23 @@
 """The training entry point — port of the repo-root ``main.py``.
 
-    python -m jckx_torch train [flags of main.py] [--device cpu]
+    python -m jckx_torch train [-m DCGAN|CGAN] [flags of main.py] [--device cpu]
+    python -m jckx_torch train -t 1 -pm <ts> [-m ...]
 
 Flow as the reference's (main.py:64-96): parse the flags → the run dir
-``save/<model>/<ts>`` (its ``config.json`` is what ``--resume`` inherits)
-→ the singleton logger → the data → G and D drawn from ``--seed`` → the
-trainer → ``train()``. A run cut by SIGTERM exits 143. Training runs on
-the card unless ``--device`` names another device.
+``save/<model>/<ts>`` (its ``config.json`` is what ``--resume`` and ``-t``
+inherit) → the singleton logger → the data → G and D drawn from ``--seed``
+→ the trainer → ``train()``. A run cut by SIGTERM exits 143. Training runs
+on the card unless ``--device`` names another device.
 
-Not ported yet: ``-m CGAN`` (ROADMAP A8) and ``-t 1``, scoring a run
-(ROADMAP A9); both exit nonzero, naming their item.
+``-t 1 -pm <ts>`` trains nothing: it scores the run's ``latest.ckpt``
+through ``jckx_torch.evaluate`` with the run's own seed, data, dtype and
+eval sizes, so it reproduces the run's last logged eval (``main.py:32-74``),
+and prints the JSON line.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 from datetime import datetime
@@ -21,23 +25,48 @@ from datetime import datetime
 import torch
 
 from jckx_torch.configs import Config, check_ported, get_arg_parse
-from jckx_torch.data.pipeline import DCGANDataPreprocessor
+from jckx_torch.data.pipeline import CGANDataPreprocessor, DCGANDataPreprocessor
 from jckx_torch.logging.main_logger import MainLogger
+from jckx_torch.models.cgan import CDiscriminator, CGenerator
 from jckx_torch.models.dcgan import Discriminator, Generator
-from jckx_torch.train.gan_trainer import DCGANTrainer
+from jckx_torch.train.gan_trainer import CGANTrainer, DCGANTrainer
 from jckx_torch.train.state import geometry
 from jckx_torch.utils.device import resolve_device
 
 
-def run(cfg: Config, metrics=None) -> DCGANTrainer:
-    """Train as the CLI does; → the trainer (its ``preempted`` says whether
-    SIGTERM cut the run). ``metrics`` replaces the InceptionV3 engine."""
+def run_test_mode(cfg: Config, metrics=None) -> dict:
+    """``-t 1``: score ``<save_root>/<model>/<ts>/latest.ckpt`` → the
+    result dict, printed as one JSON line. Refuses before it writes
+    anything when ``-pm`` is missing or names a run without a checkpoint."""
+    if not cfg.model_path:
+        raise SystemExit("-t/--test needs -pm/--model_path (which run to score): "
+                         "e.g. python -m jckx_torch train -m DCGAN -pm 20260816_073320 -t 1")
+    run_dir = os.path.join(cfg.save_root, cfg.model.lower(), cfg.model_path)
+    ckpt = os.path.join(run_dir, "latest.ckpt")
+    if not os.path.exists(ckpt):
+        have = sorted(os.listdir(run_dir)) if os.path.isdir(run_dir) else []
+        raise SystemExit(f"-t/--test: no latest.ckpt under {run_dir} "
+                         f"(dir contains: {have or 'nothing'})")
+    from jckx_torch.evaluate import evaluate, get_args
+
+    argv = ["--ckpt", ckpt, "--dataset", cfg.dataset, "--data_dir", cfg.data_dir,
+            "--data_path", cfg.data_path, "--synthetic_size", str(cfg.synthetic_size),
+            "--seed", str(cfg.seed), "--compute_dtype", cfg.compute_dtype,
+            "--sample_count", str(cfg.sample_count), "--eval_batch_size", str(cfg.eval_batch_size),
+            "--metric_backbone", cfg.metric_backbone, "--save_root", cfg.save_root,
+            "--device", cfg.device]
+    result = evaluate(get_args(argv), metrics=metrics)
+    print(json.dumps(result))
+    return result
+
+
+def run(cfg: Config, metrics=None):
+    """Train as the CLI does → the trainer (its ``preempted`` says whether
+    SIGTERM cut the run); with ``-t`` score the run instead → the result
+    dict. ``metrics`` replaces the InceptionV3 engine."""
     check_ported(cfg)
     if cfg.test:
-        raise SystemExit("-t/--test (score a run's checkpoint) is not ported yet "
-                         "(ROADMAP.md A9: jckx_torch/evaluate.py and -t 1)")
-    if cfg.model != "DCGAN":
-        raise SystemExit(f"-m {cfg.model} is not ported yet (ROADMAP.md A8: CGAN)")
+        return run_test_mode(cfg, metrics)
     device = resolve_device(cfg.device)
     ts = cfg.model_path or datetime.now().strftime("%Y%m%d_%H%M%S")
     cfg.save_path = os.path.join(cfg.save_root, cfg.model.lower(), ts)
@@ -54,20 +83,29 @@ def run(cfg: Config, metrics=None) -> DCGANTrainer:
     logger.debug(f"device: {device}"
                  + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
 
-    data_pre = DCGANDataPreprocessor(cfg)
     geo = geometry(cfg)
     gen = torch.Generator().manual_seed(cfg.seed)
-    G, D = Generator(geo, gen=gen), Discriminator(geo, gen=gen)
-    trainer = DCGANTrainer(cfg, G, D, data_pre, metrics=metrics)
+    if cfg.model == "CGAN":
+        data_pre = CGANDataPreprocessor(cfg)
+        cfg.num_classes = data_pre.num_classes
+        G = CGenerator(geo, cfg.num_classes, gen=gen)
+        D = CDiscriminator(geo, cfg.num_classes, gen=gen)
+        trainer = CGANTrainer(cfg, G, D, data_pre, metrics=metrics)
+    else:
+        data_pre = DCGANDataPreprocessor(cfg)
+        G, D = Generator(geo, gen=gen), Discriminator(geo, gen=gen)
+        trainer = DCGANTrainer(cfg, G, D, data_pre, metrics=metrics)
     trainer.train()
     return trainer
 
 
-def main(argv=None) -> DCGANTrainer:
-    trainer = run(get_arg_parse(sys.argv[1:] if argv is None else argv))
-    if trainer.preempted:
+def main(argv=None):
+    """→ the trainer, or with ``-t`` the result dict."""
+    cfg = get_arg_parse(sys.argv[1:] if argv is None else argv)
+    out = run(cfg)
+    if not cfg.test and out.preempted:
         raise SystemExit(143)  # "terminated by SIGTERM": resumable, not complete
-    return trainer
+    return out
 
 
 if __name__ == "__main__":

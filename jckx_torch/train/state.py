@@ -24,18 +24,19 @@ from __future__ import annotations
 import copy
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from jckx_torch.configs import Config
+from jckx_torch.models.cgan import CDiscriminator
 from jckx_torch.models.dcgan import Discriminator, GANGeometry, Generator
 
 
 @dataclass
 class GANTrainState:
-    G: Generator
-    D: Discriminator
+    G: Generator  # or its subclass, CGAN's CGenerator
+    D: Union[Discriminator, CDiscriminator]
     opt_g: torch.optim.Adam
     opt_d: torch.optim.Adam
     step: int
@@ -102,3 +103,8 @@ def create_dcgan_state(cfg: Config, G: Generator, D: Discriminator) -> GANTrainS
         step=0, seed=cfg.seed,
         ema_g=ema_copy(G) if cfg.ema_decay > 0 else None,
     )
+
+
+# A fresh CGAN state is the same record around the conditional nets (D's
+# Adam state in D's registration order, label path first).
+create_cgan_state = create_dcgan_state

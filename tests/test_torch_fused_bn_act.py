@@ -59,6 +59,21 @@ def test_plain_matches_jckx_xla(act, shape, dtype):
     np.testing.assert_allclose(_from_port(got), ref, rtol=TOL[dtype], atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ACTS)
+def test_one_rounding_plain_version_matches_jckx_xla(act, dtype):
+    """The plain version with the kernel's single rounding, which the card
+    compares whole renders with bit for bit, computes jckx's function."""
+    x, s, b = _inputs((8, 7, 7, 100), seed=4)
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    ref = np.asarray(jfba._bn_act_xla(jx, jnp.asarray(s), jnp.asarray(b), act, 0.2, 1e-5)
+                     .astype(jnp.float32))
+    tx = _to_port(x).to(getattr(torch, dtype))
+    got = tfba.bn_act_one_rounding(tx, torch.from_numpy(s), torch.from_numpy(b), act)
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    np.testing.assert_allclose(_from_port(got), ref, rtol=TOL[dtype], atol=TOL[dtype])
+
+
 @pytest.mark.parametrize("act", ACTS)
 def test_plain_matches_interpreted_pallas_kernel(act, monkeypatch):
     monkeypatch.setenv("JCKX_PALLAS_INTERPRET", "1")

@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions
-on the card. Every test here needs a CUDA card and skips without one; the
-check is made inside each test, so every worker collects the same tests.
+on the card, at the shapes of serving, training and CGAN's eval chunks.
+Every test here needs a CUDA card and skips without one; the check is made
+inside each test, so every worker collects the same tests.
 
 On a machine with a card (which need not have JAX, whose set-up lives in
 tests/conftest.py):
@@ -61,6 +62,20 @@ def test_kernel_matches_plain(rows, chans, act, dtype):
     ref = fba.normalize_act_plain(x, inv, shift, act, 0.2)
     torch.cuda.synchronize()
     _assert_close(y, ref)
+
+
+@pytest.mark.parametrize("spatial,chans", [(4, 512), (8, 256), (16, 128), (32, 64)])
+def test_kernel_at_the_cgan_eval_chunk_shapes(spatial, chans):
+    """G's four BN layers at the CGAN trainer's eval chunk of 500 rows of
+    z: 8,000 to 512,000 rows."""
+    dev = _card()
+    x32, inv, shift = _inputs(500 * spatial * spatial, chans, dev, seed=spatial)
+    for dtype in (torch.float32, torch.bfloat16):
+        for act in ACTS:
+            x = x32.to(dtype)
+            y = fba.normalize_act(x, inv, shift, act, 0.2)
+            torch.cuda.synchronize()
+            _assert_close(y, fba.normalize_act_plain(x, inv, shift, act, 0.2))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -210,3 +225,43 @@ def test_generator_on_card_matches_cpu():
     got = g.to(dev)(z.to(dev))
     assert fba.LAUNCHES == before + geo.n_up
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-4)
+
+
+def test_cgan_served_images_match_the_plain_route(tmp_path):
+    """A CGAN checkpoint at 64² (width 8, K = 100) served on the card with
+    labels: 4 launches per batch; a labelled request equals the render of
+    its z with the labels' one-hots; uint8 within 1 LSB of the plain route,
+    and equal to the plain route whose multiply-add is rounded once, as the
+    kernel's FMA rounds it (the share of exactly equal pixels against the
+    twice-rounded route depends on the weights: ROADMAP C)."""
+    import jckx_torch.models.dcgan as tdcgan
+    from jckx_torch.models.cgan import CDiscriminator, CGenerator
+    from jckx_torch.serve import GeneratorService, _request_seed
+
+    dev = _card()
+    geo = GANGeometry(z_dim=100, image_size=64, channels=3, base_width=8)
+    gen = torch.Generator().manual_seed(0)
+    g, d = CGenerator(geo, 100, gen=gen), CDiscriminator(geo, 100, gen=gen)
+    path = str(tmp_path / "cgan.pt")
+    torch.save({"model_g": g.state_dict(), "model_d": d.state_dict()}, path)
+    svc = GeneratorService(path, batch_size=64)
+    assert svc.conditional and svc.device.type == "cuda"
+    before = fba.LAUNCHES
+    imgs = svc.sample(70, labels=[3, 17, 42], seed=4)  # two batches of 64
+    assert fba.LAUNCHES == before + 8 and imgs.shape == (70, 64, 64, 3)
+
+    g_seed = torch.Generator(device=dev).manual_seed(_request_seed(4, 0))
+    z = torch.randn((64, 100), generator=g_seed, device=dev)
+    lab = torch.tensor([[3, 17, 42][i % 3] for i in range(64)], device=dev)
+    got = svc.render(z, lab)
+    assert (got.cpu().numpy() == imgs[:64]).all()
+    refs = []
+    for bn in (fba.bn_act_plain, fba.bn_act_one_rounding):
+        tdcgan.bn_act = bn
+        try:
+            refs.append(svc.render(z, lab))
+        finally:
+            tdcgan.bn_act = fba.bn_act
+    assert (got.int() - refs[0].int()).abs().max().item() <= 1
+    assert torch.equal(got, refs[1])
+

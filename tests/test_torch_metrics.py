@@ -9,6 +9,9 @@
   their largest magnitude — 94 convolutions summed in another order.
 - FID and IS against ``jckx.metrics.fid`` on seeded features, within 1e-4
   relative (f32 eigh in two libraries).
+- Intra-FID against jckx's engine on the same real and fake features: the
+  batched path (K = 100, 50 fakes per superclass) and the ragged one
+  (K = 10, 10 or 20 fakes per superclass), within 1e-4 relative.
 - The engine: the real-feature cache under the port's own file name, the
   seeded-backbone warning, and loud failures.
 """
@@ -138,3 +141,46 @@ def test_engine_backbone_sources(tmp_path, seeded):
     m = Metrics(src, cfg, compute_dtype=torch.float32, cache_dir=str(tmp_path), num_classes=K,
                 device="cpu")
     assert torch.equal(m.backbone.fc.bias, sd["fc.bias"])
+
+
+class _JFeats(JMetrics):
+    """jckx's engine with the real features given, not extracted."""
+
+    real = None
+
+    def _extract_u8(self, images_u8):
+        return self.real
+
+
+class _TFeats(Metrics):
+    real = None
+
+    def _extract_u8(self, images_u8):
+        return self.real
+
+
+@pytest.mark.parametrize("num_classes", [100, 10], ids=["batched-K100", "ragged-K10"])
+def test_intra_fid_matches_jckx(tmp_path, num_classes):
+    rng = np.random.RandomState(num_classes)
+    d = 12  # feature width: the covariances of 10-50 fakes stay full rank
+    labels = np.repeat(np.arange(num_classes), 30).astype(np.int32)
+    real = (rng.randn(len(labels), d) + 0.3 * labels[:, None] % 7).astype(np.float32)
+    fake = (rng.randn(10 * num_classes, d) * 1.2 + 0.5).astype(np.float32)
+    src = (np.zeros((len(labels), 8, 8, 3), np.uint8), labels)
+    _JFeats.real = _TFeats.real = real
+    ref_engine = _JFeats(src, backbone_params={"w": np.zeros(3, np.float32)},
+                         cache_dir=str(tmp_path / "j"), num_classes=num_classes)
+    ours = _TFeats(src, backbone=tiv.init(0, num_classes=K), cache_dir=str(tmp_path / "t"),
+                   num_classes=num_classes, device="cpu")
+    assert ours.active_superclasses == ref_engine.active_superclasses
+    assert len(ours.active_superclasses) == (20 if num_classes == 100 else 9)
+    for s in ours.active_superclasses:
+        np.testing.assert_array_equal(ours.fake_superclass_idx[s], ref_engine.fake_superclass_idx[s])
+        np.testing.assert_array_equal(ours.real_superclass_idx[s], ref_engine.real_superclass_idx[s])
+    got, ref = ours.intra_fid(features=fake), ref_engine.intra_fid(features=fake)
+    assert got > 0.1
+    np.testing.assert_allclose(got, ref, rtol=1e-4)
+    s0 = ours.active_superclasses[0]
+    sub = fake[ours.fake_superclass_idx[s0]]
+    np.testing.assert_allclose(ours.fid(features=sub, intra_fid=True, label=s0),
+                               ref_engine.fid(features=sub, intra_fid=True, label=s0), rtol=1e-4)

@@ -1,6 +1,7 @@
-"""The port's serving (jckx_torch/serve.py) on the CPU: a reference ``.pt``
-written by jckx's ``export_torch_gan_checkpoint``, rendered by the port's
-service and by jckx's ``tanh_to_u8(generator_apply(...))`` on the same z.
+"""The port's serving (jckx_torch/serve.py) on the CPU: a reference DCGAN
+or CGAN ``.pt`` written by jckx's ``export_torch_gan_checkpoint``, rendered
+by the port's service and by jckx's ``tanh_to_u8(generator_apply(...))``
+(``cgenerator_apply`` with the one-hot labels) on the same z.
 
 Tolerance on the uint8 images: at most 1 LSB apart and at least 99 %
 exactly equal — ``floor`` maps two f32 values a rounding error apart to
@@ -17,6 +18,7 @@ from PIL import Image
 
 from jckx import serve as jserve
 from jckx.checkpoint.torch_convert import export_torch_gan_checkpoint
+from jckx.models import cgan as jcgan
 from jckx.models import dcgan as jdcgan
 from jckx.train.state import make_template_state
 from jckx_torch import serve as tserve
@@ -78,11 +80,58 @@ def test_sample_rejects_bad_requests(tmp_path):
 
 
 def test_service_rejects_checkpoints_it_cannot_serve(tmp_path):
-    _, cgan_path = _ckpt(tmp_path, conditional=True)
-    with pytest.raises(NotImplementedError, match="CGAN serving not yet ported"):
-        _svc(cgan_path)
     with pytest.raises(ValueError, match="jckx.convert"):
         _svc(str(tmp_path / "latest.ckpt"))
+    torch.save({"model_g": {}}, tmp_path / "other.pt")
+    with pytest.raises(KeyError, match="not a reference GAN checkpoint"):
+        _svc(str(tmp_path / "other.pt"))
+    _, cgan_path = _ckpt(tmp_path, conditional=True)  # CGAN is served now
+    svc = _svc(cgan_path)
+    assert svc.conditional and svc.num_classes == 10 and svc.geo.z_dim == GEO.z_dim
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cgan_render_matches_jckx_on_same_z_and_labels(tmp_path, dtype):
+    state, path = _ckpt(tmp_path, conditional=True)
+    svc = _svc(path, compute_dtype=getattr(torch, dtype))
+    rng = np.random.RandomState(1)
+    z = rng.randn(8, GEO.z_dim).astype(np.float32)
+    lab = rng.randint(0, 10, 8)
+    ref = np.asarray(jserve.tanh_to_u8(jcgan.cgenerator_apply(
+        state.params_g, jnp.asarray(z), jnp.asarray(np.eye(10, dtype=np.float32)[lab]), GEO,
+        compute_dtype=getattr(jnp, dtype))))
+    got = svc.render(torch.from_numpy(z), torch.from_numpy(lab)).numpy()
+    assert got.shape == ref.shape == (8, 16, 16, 3)
+    diff = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+    assert diff.max() <= 1 and (diff == 0).mean() >= 0.99
+
+
+def test_cgan_labels_cycle_over_the_request(tmp_path):
+    """Row i of a request takes labels[i % len(labels)] across batches, on
+    the z the request's generator draws; without labels each batch draws
+    its classes after its z."""
+    _, path = _ckpt(tmp_path, conditional=True)
+    svc = _svc(path, compute_dtype=torch.float32)
+    labels = [3, 1, 4]
+    got = svc.sample(20, labels=labels, seed=5)  # three batches of 8, the last trimmed
+    gen = torch.Generator().manual_seed(tserve._request_seed(5, 0))
+    want = []
+    for made in (0, 8, 16):
+        z = torch.randn((8, GEO.z_dim), generator=gen)
+        lab = torch.tensor([labels[(made + i) % 3] for i in range(8)])
+        want.append(svc.render(z, lab).numpy())
+    np.testing.assert_array_equal(got, np.concatenate(want)[:20])
+
+    rand = svc.sample(8, seed=5)
+    gen = torch.Generator().manual_seed(tserve._request_seed(5, 0))
+    z = torch.randn((8, GEO.z_dim), generator=gen)
+    lab = torch.randint(0, 10, (8,), generator=gen)
+    np.testing.assert_array_equal(rand, svc.render(z, lab).numpy())
+    assert not np.array_equal(rand, got[:8])
+    with pytest.raises(ValueError, match=r"\[0, 10\)"):
+        svc.sample(4, labels=[10])
+    with pytest.raises(ValueError, match="labels"):
+        svc.render(z)  # a CGAN render needs its classes
 
 
 def test_service_without_device_needs_a_card(tmp_path, monkeypatch):
@@ -107,3 +156,10 @@ def test_cli_writes_grid(tmp_path, capsys):
     assert "wrote 10 samples" in capsys.readouterr().out
     grid = np.asarray(Image.open(out))
     assert grid.shape == (2 * 18 + 2, 8 * 18 + 2, 3)  # 2 rows x 8 cols, 2px padding
+
+    _, cgan_path = _ckpt(tmp_path, conditional=True)
+    tserve.main(tserve.get_args(["--ckpt", cgan_path, "-n", "3", "-o", out, "--labels", "3,7",
+                                 "--batch_size", "8", "--device", "cpu"]))
+    assert "wrote 3 samples" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="unconditional"):
+        tserve.main(tserve.get_args(["--ckpt", path, "--labels", "1", "--device", "cpu"]))

@@ -220,18 +220,21 @@ def test_cli_flags_and_refusals(tmp_path):
     assert (a.channels, a.num_classes, a.device) == (1, 10, "cpu")
 
     base = ["--device", "cpu", "--save_root", str(tmp_path)]
-    for argv, item in ((["-m", "CGAN"], "A8"), (["-t", "1"], "A9"), (["--fused_prop", "1"], "A3"),
+    for argv, item in ((["-m", "CGAN", "--fused_prop", "1"], "A3"), (["-t", "1"], "-pm"),
+                       (["-t", "1", "-pm", "nope"], "no latest.ckpt"), (["--fused_prop", "1"], "A3"),
                        (["--mesh_shape", "2"], "A13"), (["--data_placement", "stream"], "A4"),
                        (["--remat", "g"], "A3")):
         with pytest.raises(SystemExit, match=item):
             tmain.main(argv + base)
-    assert not os.path.exists(tmp_path / "dcgan")  # refused before any run dir
+    assert os.listdir(tmp_path) == []  # refused before any run dir
 
     from jckx_torch.__main__ import main as cli
 
     assert cli(["serve"]) == 2 and cli([]) == 0
-    with pytest.raises(SystemExit, match="A8"):
-        cli(["train", "-m", "CGAN"] + base)
+    with pytest.raises(SystemExit, match="A3"):
+        cli(["train", "-m", "CGAN", "--fused_prop", "1"] + base)
+    with pytest.raises(SystemExit, match="A9"):
+        cli(["evaluate", "--ckpt", "x.pt", "--kid", "1"])
 
 
 def test_cli_trains_and_resume_inherits_its_config(tmp_path):
