@@ -17,18 +17,29 @@ takes the four keys and ignores the rest) and ``jckx_torch.serve``. The
 best-metric files are ``.pt``; ``latest.ckpt`` holds the same dict for
 ``--resume``. Writes are synchronous and atomic (a temporary file, then
 ``os.replace``).
+
+``load_generator`` is the one reader of a generator for serving and
+scoring (``jckx_torch.serve``, ``jckx_torch.evaluate``): the port's
+``latest.ckpt`` and best ``.pt`` files and the reference's ``.pt``, with
+the EMA generator by default where the file holds one
+(``jckx/serve.py:169-228``).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional
+import zipfile
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
+from jckx_torch.checkpoint.torch_convert import infer_gan_config
+from jckx_torch.models.cgan import CGenerator
+from jckx_torch.models.dcgan import GANGeometry, Generator
 from jckx_torch.train.state import GANTrainState, adam_count, ema_copy
 
 _EXTRA_KEYS = ("step", "seed", "ema_g")
+GEOMETRY_FIELDS = ("z_dim", "image_size", "channels", "base_width")
 
 
 def _cpu(obj):
@@ -63,8 +74,58 @@ def save_checkpoint(path: str, payload: Dict[str, Any]) -> None:
 def load_checkpoint(path: str) -> Dict[str, Any]:
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(ckpt, dict) or not {"model_g", "model_d"} <= set(ckpt):
-        raise KeyError(f"{path}: not a GAN checkpoint (needs 'model_g' and 'model_d')")
+        raise KeyError(f"{path}: not a reference GAN checkpoint (needs 'model_g' and 'model_d')")
     return ckpt
+
+
+class LoadedGenerator(NamedTuple):
+    G: torch.nn.Module          # on the CPU, no parameter requires grad
+    conditional: bool
+    geo: GANGeometry
+    num_classes: int
+    step: int
+    used_ema: bool
+
+
+def load_generator(path: str, use_ema: Optional[bool] = None, conditional: Optional[bool] = None,
+                   num_classes: Optional[int] = None,
+                   geo_overrides: Optional[dict] = None) -> LoadedGenerator:
+    """A checkpoint → its generator and what the weights say about it.
+
+    G is the EMA generator when ``use_ema`` says so, or by default when the
+    file holds one; ``use_ema=True`` on a file without ``ema_g`` raises.
+    ``conditional``, ``num_classes`` and ``geo_overrides`` (geometry fields)
+    are jckx's explicit overrides: the weights are the truth, so one that
+    contradicts them raises (``jckx/serve.py:155-168``)."""
+    if not zipfile.is_zipfile(path):  # torch.save writes a zip archive
+        raise ValueError(
+            f"{path}: not a torch checkpoint. A jckx .ckpt is flax msgpack: convert it with "
+            f"`python -m jckx.convert --src {path} --dst model.pt`")
+    ckpt = load_checkpoint(path)
+    inferred_cond, geo, inferred_k = infer_gan_config(ckpt["model_g"], ckpt["model_d"])
+    # the port's files name the dataset's class count, which sizes the
+    # backbone's head for a DCGAN run too (the weights say only K = 100)
+    inferred = {"conditional": inferred_cond, **{f: getattr(geo, f) for f in GEOMETRY_FIELDS},
+                "num_classes": int(ckpt.get("serve_config", {}).get("num_classes", inferred_k))}
+    explicit = dict(geo_overrides or {})
+    if conditional is not None:
+        explicit["conditional"] = conditional
+    if num_classes is not None:
+        explicit["num_classes"] = num_classes
+    clashes = {k: (v, inferred[k]) for k, v in explicit.items() if v != inferred[k]}
+    if clashes:
+        raise ValueError(f"{path}: explicit args contradict the checkpoint's weights "
+                         f"(given vs inferred): {clashes}")
+    if use_ema and "ema_g" not in ckpt:
+        raise ValueError(f"{path} holds no EMA generator (use_ema was requested; reference "
+                         f"checkpoints and runs without --ema_decay carry none)")
+    used_ema = bool("ema_g" in ckpt if use_ema is None else use_ema)
+    k = inferred["num_classes"]
+    G = CGenerator(geo, k) if inferred_cond else Generator(geo)
+    G.load_state_dict(ckpt["ema_g"] if used_ema else ckpt["model_g"], strict=True)
+    adam = ckpt.get("optimizer_g", {}).get("state", {})
+    step = int(ckpt.get("step", int(next(iter(adam.values()))["step"]) if adam else 0))
+    return LoadedGenerator(G.requires_grad_(False), inferred_cond, geo, k, step, used_ema)
 
 
 def restore_checkpoint(path: str, state: GANTrainState, lr: float) -> Dict[str, Any]:

@@ -15,6 +15,9 @@ param dict (numpy leaves) over:
 - CGAN D's fc1: jckx flattens the trunk's output NHWC (H, W, C rows), the
   reference and the port NCHW (C, H, W rows), so the image block of its
   rows is re-ordered (``_fc1_j2t``, ``:135-146``).
+
+``quant_params_from_jax`` carries jckx's int8 serving params over, so that
+a test runs both int8 forwards on one set of parameters.
 """
 
 from __future__ import annotations
@@ -104,12 +107,21 @@ def infer_gan_config(model_g_sd: Dict[str, Any],
     return conditional, geo, num_classes
 
 
-def load_reference_checkpoint(path: str) -> Tuple[bool, GANGeometry, int, Dict[str, Any]]:
-    """A reference DCGAN or CGAN ``.pt`` → (conditional, geometry,
-    num_classes, G's state dict)."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    if not isinstance(ckpt, dict) or not {"model_g", "model_d"} <= set(ckpt):
-        raise KeyError(f"{path}: not a reference GAN checkpoint (needs "
-                       f"'model_g' and 'model_d')")
-    conditional, geo, num_classes = infer_gan_config(ckpt["model_g"], ckpt["model_d"])
-    return conditional, geo, num_classes, ckpt["model_g"]
+def quant_params_from_jax(qp: Dict[str, Any], geo: GANGeometry) -> Dict[str, torch.Tensor]:
+    """jckx's int8 serving params (``jckx/ops/quant.py`` ``QuantParams``) →
+    the port's (``jckx_torch/ops/quant.py``): the int8 ConvTranspose weights
+    (kh, kw, Cin, Cout) → (Cin, Cout, kh, kw); the per-channel weight
+    scales, the BN vectors and the per-tensor activation scales as f32."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in qp.items():
+        a = _np(v)
+        if k.endswith("_q"):
+            out[k] = torch.from_numpy(np.ascontiguousarray(np.transpose(a, (2, 3, 0, 1)).astype(np.int8)))
+        else:
+            out[k] = _t(a)
+    want = {f"a{geo.n_up}_scale", "convt_out_q", "convt_out_wscale"} | {
+        f"{p}{i}_{s}" for i in range(geo.n_up)
+        for p, s in (("convt", "q"), ("convt", "wscale"), ("bn", "scale"), ("bn", "bias"), ("a", "scale"))}
+    if set(out) != want:
+        raise KeyError(f"not jckx QuantParams for n_up={geo.n_up}: keys {sorted(out)}")
+    return out

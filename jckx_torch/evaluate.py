@@ -15,33 +15,37 @@ when the file holds one, and one backbone pass for IS, FID and
 intra-FID. On the card G's forwards run through the fused BN kernel.
 
 It reads the port's ``.pt`` and ``latest.ckpt`` files and the reference's
-``.pt``; a jckx ``.ckpt`` is flax msgpack and is converted first with
+``.pt`` through ``checkpoint.load_generator``, the reader serving uses; a
+jckx ``.ckpt`` is flax msgpack and is converted first with
 ``python -m jckx.convert``. It prints one JSON line,
-``{"step", "n", "is", "fid"[, "intra_fid"]}``.
+``{"step", "n"[, "quant"][, "truncation"], "is", "fid"[, "intra_fid"]}``.
 
-Not ported yet, and refused by name: ``--quant int8`` (ROADMAP A12),
-``--kid`` / ``--prdc`` and ``--eval_fast_stem`` (A9).
+``--quant int8`` scores the serving sampler's W8A8 forward through the same
+``ops/quant.make_sampler``: the int8 params scored with ``--calib_seed s``
+are, bit for bit, those that ``serve --quant int8 --seed s`` serves (both
+default to 0), while ``--seed`` keeps driving the eval noise.
+``--truncation t`` draws the eval z from N(0, 1) truncated to [-t, t], the
+law ``serve --truncation t`` deploys (``jckx/evaluate.py:79-93``).
+
+Not ported yet, and refused by name: ``--kid`` / ``--prdc`` and
+``--eval_fast_stem`` (ROADMAP A9).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import zipfile
 
 import torch
 
-from jckx_torch.checkpoint.checkpoint import load_checkpoint
-from jckx_torch.checkpoint.torch_convert import infer_gan_config
+from jckx_torch.checkpoint.checkpoint import load_generator
 from jckx_torch.configs import Config
-from jckx_torch.models.cgan import CGenerator
-from jckx_torch.models.dcgan import Generator
+from jckx_torch.ops.quant import make_sampler
 from jckx_torch.train.gan_trainer import fixed_eval_inputs, sample_eval_images
 from jckx_torch.utils.device import resolve_device
 
 # flag → (its value when off, the ROADMAP.md item that brings it)
 UNPORTED = {
-    "quant": ("", "A12 (int8 serving, ops/quant.py)"),
     "kid": (0, "A9 (KID and PRDC)"),
     "prdc": (0, "A9 (KID and PRDC)"),
     "eval_fast_stem": (0, "A9 (the space-to-depth InceptionV3 stem)"),
@@ -70,34 +74,15 @@ def get_args(argv=None):
     p.add_argument("--save_root", default=d.save_root,
                    help="where the fine-tuned backbone is looked for (<save_root>/iception_v3)")
     p.add_argument("--device", default=None, help="default cuda; 'cpu' runs the plain path")
-    p.add_argument("--quant", default="", choices=["", "int8"])
+    p.add_argument("--quant", default="", choices=["", "int8"],
+                   help="int8 = score the W8A8 serving sampler instead of the float one")
+    p.add_argument("--truncation", type=float, default=0.0,
+                   help="draw the eval z from N(0,1) truncated to [-t, t]; 0 = off")
+    p.add_argument("--calib_seed", type=int, default=0,
+                   help="int8 calibration seed: the serving process's --seed (default 0 on both)")
     for name in ("kid", "prdc", "eval_fast_stem"):
         p.add_argument(f"--{name}", type=int, default=0)
     return p.parse_args(argv)
-
-
-def load_generator(path: str, use_ema=None):
-    """A checkpoint → (G on the CPU, conditional, geometry, num_classes,
-    step). G is the EMA generator when ``use_ema`` says so, or by default
-    when the file holds one."""
-    if not zipfile.is_zipfile(path):  # torch.save writes a zip archive
-        raise ValueError(
-            f"{path}: not a torch checkpoint. A jckx .ckpt is flax msgpack: convert it with "
-            f"`python -m jckx.convert --src {path} --dst model.pt`")
-    ckpt = load_checkpoint(path)
-    conditional, geo, num_classes = infer_gan_config(ckpt["model_g"], ckpt["model_d"])
-    # the port's files name the dataset's class count, which sizes the
-    # backbone's head for a DCGAN run too (the weights say only K = 100)
-    num_classes = int(ckpt.get("serve_config", {}).get("num_classes", num_classes))
-    if use_ema and "ema_g" not in ckpt:
-        raise ValueError(f"{path} holds no EMA generator")
-    weights = ckpt["ema_g"] if (use_ema if use_ema is not None else "ema_g" in ckpt) \
-        else ckpt["model_g"]
-    G = CGenerator(geo, num_classes) if conditional else Generator(geo)
-    G.load_state_dict(weights, strict=True)
-    adam = ckpt.get("optimizer_g", {}).get("state", {})
-    step = int(ckpt.get("step", int(next(iter(adam.values()))["step"]) if adam else 0))
-    return G.requires_grad_(False), conditional, geo, num_classes, step
 
 
 def evaluate(args, metrics=None) -> dict:
@@ -107,8 +92,12 @@ def evaluate(args, metrics=None) -> dict:
            for k, (off, item) in UNPORTED.items() if getattr(args, k) != off]
     if bad:
         raise SystemExit("jckx_torch evaluate: " + "; ".join(bad))
+    trunc = float(args.truncation)
+    if trunc < 0:  # checked before the (slow) load, as serve refuses it
+        raise ValueError(f"truncation {trunc} must be >= 0 (0 = off)")
     device = resolve_device(args.device)
-    G, conditional, geo, ncls, step = load_generator(args.ckpt, args.use_ema)
+    use_ema = None if args.use_ema is None else bool(args.use_ema)
+    G, conditional, geo, ncls, step, _ = load_generator(args.ckpt, use_ema)
     G.to(device)
     cd = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
 
@@ -132,10 +121,16 @@ def evaluate(args, metrics=None) -> dict:
                           compute_dtype=cd, cache_dir=cfg.data_dir, num_classes=ncls,
                           device=device)
 
-    z, onehot = fixed_eval_inputs(cfg.seed, geo, conditional, ncls, n, device)
-    fake = sample_eval_images(G, z, onehot, cd)
+    z, onehot = fixed_eval_inputs(cfg.seed, geo, conditional, ncls, n, device, truncation=trunc)
+    params, apply = make_sampler(G, quant=args.quant or None, compute_dtype=cd,
+                                 seed=args.calib_seed)
+    # G's call signature over the sampler: (z, cd) for DCGAN, (z, one-hot, cd) for CGAN
+    fake = sample_eval_images(lambda zz, *rest: apply(params, zz, rest[0] if conditional else None),
+                              z, onehot, cd)
     feats = metrics.extract_features(fake)
     result = {"step": step, "n": n,
+              **({"quant": "int8"} if args.quant == "int8" else {}),
+              **({"truncation": trunc} if trunc > 0 else {}),
               "is": float(metrics.inception_score(logits=feats)),
               "fid": float(metrics.fid(features=feats))}
     if conditional:

@@ -76,11 +76,12 @@ class CGenerator(Generator):
         self.num_classes = num_classes
 
     def forward(self, z: torch.Tensor, labels_onehot: torch.Tensor,
-                compute_dtype=torch.float32) -> torch.Tensor:
+                compute_dtype=torch.float32, subpixel: bool = False) -> torch.Tensor:
         """z (N, z_dim) or (N, 1, 1, z_dim), one-hot labels (N, K) → images
         (N, S, S, C) in [-1, 1] — counterpart of ``cgenerator_apply``."""
         z = z.reshape(z.shape[0], -1)
-        return super().forward(torch.cat([z, labels_onehot.to(z.dtype)], dim=-1), compute_dtype)
+        return super().forward(torch.cat([z, labels_onehot.to(z.dtype)], dim=-1), compute_dtype,
+                               subpixel)
 
 
 class CDiscriminator(nn.Module):

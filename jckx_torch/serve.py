@@ -1,49 +1,62 @@
-"""Serving: load a reference DCGAN or CGAN checkpoint and generate images —
-port of ``jckx/serve.py`` (``validate_sample_args``, ``tanh_to_u8``,
-``GeneratorService`` and the one-shot CLI).
+"""Serving: load a DCGAN or CGAN generator checkpoint and generate images —
+port of ``jckx/serve.py``.
 
-    python -m jckx_torch.serve --ckpt model.pt -n 64 -o samples.png \
-        [--labels 3,17,42] [--batch_size 512] [--seed 0] [--device cpu]
+    python -m jckx_torch.serve --ckpt save/dcgan/<ts>/latest.ckpt -n 64 -o samples.png \
+        [--labels 3,17,42] [--truncation 0.7] [--quant int8] [--subpixel 1] [--device cpu]
+    python -m jckx_torch.serve --ckpt model.pt --interpolate 1,2 --steps 10 -o walk.png
+    python -m jckx_torch.serve --ckpt save/dcgan/<ts>/latest.ckpt --listen 8000 --watch 30
 
-The service reads the reference's torch ``.pt`` checkpoint (what
-``jckx.serve`` imports), infers the family, geometry and class count from
-its weights, runs on the card unless ``device`` names another, and renders
-every batch through the hand-written fused BN + ReLU kernel
-(``kernels/csrc/fused_bn_act.cu``): four launches per generator forward.
+``GeneratorService`` reads the port's ``latest.ckpt`` and best ``.pt``
+files and the reference's ``.pt`` (``checkpoint.load_generator``: the EMA
+generator by default where the file holds one), runs on the card unless
+``device`` names another, and renders every batch through the
+hand-written fused BN + ReLU kernel (``kernels/csrc/fused_bn_act.cu``):
+four launches per generator forward, in bf16 for the float and sub-pixel
+samplers and f32 for the int8 one (``ops/quant.py``).
 
 Each request draws z on the device from a ``torch.Generator`` seeded by
-(seed, request counter), renders, converts tanh output to uint8 on the
-device, and copies only the uint8 payload to the host. Every batch renders
-the full batch size and is trimmed afterwards: under batch-statistic BN the
-batch is part of the function, so a short final batch would change the
-images. A CGAN request with ``labels`` gives row ``i`` of the request the
+(seed, request counter) — N(0, 1), or N(0, 1) truncated to [-t, t] with
+``truncation`` — renders, converts tanh output to uint8 on the device, and
+copies only the uint8 payload to the host. Every batch renders the full
+batch size and is trimmed afterwards: under batch-statistic BN the batch is
+part of the function. A CGAN request with ``labels`` gives row ``i`` the
 class ``labels[i % len(labels)]`` (``jckx/serve.py:383-387``); without
-them each batch draws random classes from the request's generator, after
-its z (``:292-293``).
+them each batch draws random classes after its z (``:292-293``).
 
-Not ported yet: HTTP serving, ``--watch``, interpolation, truncation,
-int8, the sub-pixel ConvTranspose, mesh sharding and sealed ``.jaxexp``
-artifacts.
+``interpolate`` renders a latent walk between the z of two seeds (slerp or
+lerp, ``interpolation_latents``) as one batch. ``make_http_server`` is the
+stdlib HTTP daemon (``GET /healthz``, ``GET /metrics``, ``POST /generate``,
+``POST /interpolate``), and ``CheckpointWatcher`` its ``--watch`` hot swap.
+
+Not ported yet, and refused by name: ``--mesh_shape`` (ROADMAP A13) and
+sealed ``.jaxexp`` artifacts (A11).
 """
 
 from __future__ import annotations
 
 import argparse
 import hashlib
+import io
+import json
+import os
+import threading
+import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from jckx_torch.checkpoint.torch_convert import load_reference_checkpoint
+from jckx_torch.checkpoint.checkpoint import GEOMETRY_FIELDS, load_generator
 from jckx_torch.data.pipeline import one_hot
-from jckx_torch.logging.artifacts import save_image_grid
-from jckx_torch.models.cgan import CGenerator
-from jckx_torch.models.dcgan import Generator
+from jckx_torch.logging.artifacts import encode_png, make_grid, save_image_grid
+from jckx_torch.ops.quant import make_sampler
 from jckx_torch.utils.device import resolve_device
 
 # undrained batches a request may hold on the device (6 MiB each at 64², bs512)
 WINDOW = 8
+# flag → (its value when off, the ROADMAP.md item that brings it)
+UNPORTED = {"mesh_shape": ("", "A13 (multi-GPU serving: the request batch over ranks)")}
+JAXEXP_ITEM = "A11 (export as torch.export)"
 
 
 def validate_sample_args(n: int, labels, conditional: bool):
@@ -98,48 +111,99 @@ def _request_seed(seed: int, count: int) -> int:
     return int.from_bytes(digest[:8], "little") >> 1
 
 
+def interpolation_latents(za: torch.Tensor, zb: torch.Tensor, t: torch.Tensor,
+                          kind: str = "slerp") -> torch.Tensor:
+    """The latent walk from ``za`` to ``zb`` (each (z_dim,)) at the points
+    ``t`` (steps,) → (steps, z_dim): slerp (the geodesic for Gaussian
+    latents) or lerp (``jckx/serve.py:308-323``). Where za ∥ zb slerp's sin
+    ratio is 0/0, and it falls back to lerp."""
+    tt = t[:, None]
+    if kind == "slerp":
+        na, nb = za / torch.linalg.norm(za), zb / torch.linalg.norm(zb)
+        omega = torch.arccos(torch.clamp(torch.dot(na, nb), -1.0, 1.0))
+        so = torch.sin(omega)
+        safe = so > 1e-6
+        denom = torch.where(safe, so, torch.ones_like(so))
+        wa = torch.where(safe, torch.sin((1.0 - tt) * omega) / denom, 1.0 - tt)
+        wb = torch.where(safe, torch.sin(tt * omega) / denom, tt)
+    elif kind == "lerp":
+        wa, wb = 1.0 - tt, tt
+    else:
+        raise ValueError(f"kind {kind!r} must be 'slerp' or 'lerp'")
+    return wa * za[None, :] + wb * zb[None, :]
+
+
 class GeneratorService:
-    """Checkpoint-backed DCGAN or CGAN image generator; the family, the
-    geometry and the class count are inferred from the weights."""
+    """Checkpoint-backed DCGAN or CGAN image generator. The family, the
+    geometry and the class count come from the weights; ``conditional``,
+    ``num_classes`` and ``geo_overrides`` (geometry fields) are jckx's
+    explicit overrides and raise where they contradict them. ``quant="int8"``
+    serves the W8A8 sampler calibrated from ``seed``; ``subpixel`` the
+    sub-pixel ConvTranspose; ``truncation`` t > 0 draws z from N(0, 1)
+    truncated to [-t, t]."""
 
     def __init__(
         self,
         ckpt_path: str,
+        conditional: Optional[bool] = None,
+        num_classes: Optional[int] = None,
         batch_size: int = 512,
         compute_dtype=torch.bfloat16,
         seed: int = 0,
+        use_ema: Optional[bool] = None,
+        geo_overrides: Optional[dict] = None,
+        subpixel: bool = False,
+        quant: Optional[str] = None,
+        truncation: float = 0.0,
         device=None,
     ):
         if batch_size < 1:
             raise ValueError(f"batch_size {batch_size} must be >= 1")
-        if not ckpt_path.endswith(".pt"):
-            raise ValueError(
-                f"{ckpt_path}: the port serves reference torch .pt "
-                f"checkpoints. A jckx .ckpt is flax msgpack: convert it with "
-                f"`python -m jckx.convert --src {ckpt_path} --dst model.pt` "
-                f"(sealed .jaxexp artifacts are not served yet)")
+        if truncation < 0:
+            raise ValueError(f"truncation {truncation} must be >= 0 (0 = off)")
+        if quant not in (None, "int8"):
+            raise ValueError(f"quant={quant!r}: supported modes are None (float) and 'int8'")
+        if ckpt_path.endswith(".jaxexp"):
+            raise ValueError(f"{ckpt_path}: sealed .jaxexp artifacts are not served by the port "
+                             f"yet (ROADMAP.md {JAXEXP_ITEM}); serve the checkpoint instead")
         self.device = resolve_device(device)
-        self.conditional, self.geo, self.num_classes, state_dict = \
-            load_reference_checkpoint(ckpt_path)
+        loaded = load_generator(ckpt_path, use_ema=use_ema, conditional=conditional,
+                                num_classes=num_classes, geo_overrides=geo_overrides)
+        self.conditional, self.geo, self.num_classes = loaded.conditional, loaded.geo, loaded.num_classes
+        self.step, self.used_ema = loaded.step, loaded.used_ema
+        self.G = loaded.G.to(self.device)
         self.batch_size = batch_size
         self.compute_dtype = compute_dtype
         self.seed = seed
+        self.quant, self.subpixel, self.truncation = quant, bool(subpixel), float(truncation)
         self._count = 0
-        self.G = CGenerator(self.geo, self.num_classes) if self.conditional else Generator(self.geo)
-        self.G.load_state_dict(state_dict, strict=True)
-        self.G.to(self.device).requires_grad_(False)
+        # the float G itself, or the int8 params calibrated from the seed
+        self.params, self._apply = make_sampler(
+            self.G, quant=quant, compute_dtype=compute_dtype, seed=seed, subpixel=self.subpixel)
+
+    def draw_z(self, gen: torch.Generator, shape) -> torch.Tensor:
+        """z of the service's law from ``gen``, on the service's device."""
+        if self.truncation > 0:
+            z = torch.empty(shape, device=self.device)
+            return torch.nn.init.trunc_normal_(z, 0.0, 1.0, -self.truncation, self.truncation,
+                                               generator=gen)
+        return torch.randn(shape, generator=gen, device=self.device)
+
+    def render_latents(self, z: torch.Tensor, onehot: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One forward of the service's sampler on ``z`` (B, z_dim) and, for
+        CGAN, float class weights ``onehot`` (B, K) → uint8 (B, S, S, C)."""
+        with torch.inference_mode():
+            z = z.to(self.device)
+            onehot = None if onehot is None else onehot.to(self.device)
+            return tanh_to_u8(self._apply(self.params, z, onehot))
 
     def render(self, z: torch.Tensor, labels: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One generator forward on ``z`` (B, z_dim), and for CGAN the class
         ids ``labels`` (B,) → uint8 (B, S, S, C) on the service's device."""
         if (labels is not None) != self.conditional:
             raise ValueError("render takes class labels for a CGAN checkpoint, and only then")
-        with torch.inference_mode():
-            z = z.to(self.device)
-            if labels is None:
-                return tanh_to_u8(self.G(z, self.compute_dtype))
-            onehot = one_hot(labels.to(self.device), self.num_classes)
-            return tanh_to_u8(self.G(z, onehot, self.compute_dtype))
+        onehot = None if labels is None else one_hot(labels.to(self.device), self.num_classes)
+        return self.render_latents(z, onehot)
 
     def sample(self, n: int, labels: Optional[Sequence[int]] = None,
                seed: Optional[int] = None) -> np.ndarray:
@@ -164,7 +228,7 @@ class GeneratorService:
         rows = torch.arange(bs, device=self.device)
 
         def render(made: int):
-            z = torch.randn((bs, self.geo.z_dim), generator=gen, device=self.device)
+            z = self.draw_z(gen, (bs, self.geo.z_dim))
             if not self.conditional:
                 return self.render(z)
             if labels is None:
@@ -175,29 +239,399 @@ class GeneratorService:
 
         return pipelined_sample(n, bs, render)
 
+    def endpoint_z(self, seed: int) -> torch.Tensor:
+        """The walk's endpoint latent of ``seed``: one z (z_dim,) of the
+        service's law from the generator seeded by (seed, 0)."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(_request_seed(seed, 0))
+        return self.draw_z(gen, (self.geo.z_dim,))
+
+    def interpolate(self, seed_a: int, seed_b: int, steps: int = 10,
+                    label_a: Optional[int] = None, label_b: Optional[int] = None,
+                    kind: str = "slerp") -> np.ndarray:
+        """Latent interpolation: → uint8 images (steps, S, S, C), the walk
+        from ``endpoint_z(seed_a)`` to ``endpoint_z(seed_b)``, rendered as
+        ONE batch (under batch-stat BN the batch is part of the function),
+        so a row is a function of (seeds, labels, steps, kind) only. A CGAN
+        checkpoint needs ``label_a`` (``label_b`` defaults to it); differing
+        labels lerp the class one-hot alongside the latent."""
+        if not 2 <= steps <= 4096:
+            raise ValueError(f"steps {steps} must be in [2, 4096]")
+        if kind not in ("slerp", "lerp"):
+            raise ValueError(f"kind {kind!r} must be 'slerp' or 'lerp'")
+        t = torch.linspace(0.0, 1.0, steps, device=self.device)
+        onehot = None
+        if self.conditional:
+            if label_a is None:
+                raise ValueError("conditional checkpoint: interpolate needs label_a "
+                                 "(label_b defaults to label_a)")
+            if label_b is None:
+                label_b = label_a
+            for lab in (label_a, label_b):
+                if not 0 <= lab < self.num_classes:
+                    raise ValueError(f"label {lab} out of [0, {self.num_classes})")
+            ends = one_hot(torch.tensor([label_a, label_b], device=self.device), self.num_classes)
+            onehot = (1.0 - t[:, None]) * ends[0] + t[:, None] * ends[1]
+        elif label_a is not None or label_b is not None:
+            raise ValueError("labels given but the checkpoint is unconditional")
+        z = interpolation_latents(self.endpoint_z(seed_a), self.endpoint_z(seed_b), t, kind)
+        return self.render_latents(z, onehot).cpu().numpy()
+
+
+# ----------------------------------------------------------------- HTTP mode
+
+def make_http_server(svc: GeneratorService, host: str = "0.0.0.0", port: int = 8000):
+    """The HTTP front of a ``GeneratorService`` (stdlib only), as
+    ``jckx/serve.py:446-693``:
+
+    - ``GET /healthz`` → JSON {status, step, conditional, num_classes,
+      image_size, channels, batch_size, truncation};
+    - ``GET /metrics`` → Prometheus text (requests, images, errors,
+      latency sum, checkpoint step, serving batch size);
+    - ``POST /generate`` {"n" ≤ 4096, "labels"?, "seed"?, "format": "png" |
+      "npy"} → a PNG grid or an ``.npy`` uint8 (n, S, S, C);
+    - ``POST /interpolate`` {"seed_a", "seed_b", "steps" in [2, 64]?,
+      "label_a"?, "label_b"?, "kind"?, "format"?} → one walk.
+
+    Bad requests get a JSON 400, unknown paths a 404, a failed render a JSON
+    500. Requests run on handler threads, but sampling is serialized under
+    one lock (one device pipeline). Returns the not yet running
+    ``ThreadingHTTPServer``, which carries ``swap_service(new_svc)``: a hot
+    swap under the sampling lock; the counters persist across swaps."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    lock = threading.Lock()
+    current = {"svc": svc}
+
+    def cur():
+        return current["svc"]
+
+    stats_lock = threading.Lock()
+    stats = {"requests": 0, "images": 0, "errors": 0, "latency_sum": 0.0}
+
+    def _count(images: int = 0, error: bool = False, seconds: float = 0.0):
+        with stats_lock:
+            stats["requests"] += 1
+            stats["images"] += images
+            stats["errors"] += int(error)
+            stats["latency_sum"] += seconds
+
+    def _is_int(v):  # JSON true / false are ints to isinstance
+        return isinstance(v, int) and not isinstance(v, bool)
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *a):  # quiet: the CLI owns stdout
+            pass
+
+        def _reply(self, code: int, ctype: str, body: bytes):
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _error(self, code: int, msg: str):
+            self._reply(code, "application/json", json.dumps({"error": msg}).encode())
+
+        def do_GET(self):
+            if self.path == "/metrics":
+                with stats_lock:
+                    snap = dict(stats)
+                s = cur()
+                body = "".join(f"# TYPE {k} {t}\n{k} {v}\n" for k, t, v in (
+                    ("jckx_generate_requests_total", "counter", snap["requests"]),
+                    ("jckx_generate_images_total", "counter", snap["images"]),
+                    ("jckx_generate_errors_total", "counter", snap["errors"]),
+                    ("jckx_generate_seconds_sum", "counter", round(snap["latency_sum"], 6)),
+                    ("jckx_checkpoint_step", "gauge", s.step),
+                    ("jckx_serving_batch_size", "gauge", s.batch_size),
+                ))
+                return self._reply(200, "text/plain; version=0.0.4", body.encode())
+            if self.path != "/healthz":
+                return self._error(404, "unknown path (GET /healthz or /metrics)")
+            s = cur()
+            self._reply(200, "application/json", json.dumps({
+                "status": "ok", "step": s.step, "conditional": s.conditional,
+                "num_classes": s.num_classes, "image_size": s.geo.image_size,
+                "channels": s.geo.channels, "batch_size": s.batch_size,
+                "truncation": s.truncation,
+            }).encode())
+
+        def do_POST(self):
+            if self.path == "/generate":
+                handler = self._generate
+            elif self.path == "/interpolate":
+                handler = self._interpolate
+            else:
+                return self._error(404, "unknown path (POST /generate or /interpolate)")
+            t0 = time.perf_counter()
+            try:
+                n = handler()  # image count on success, None on any error
+            except Exception:  # noqa: BLE001 — e.g. the client hung up mid-write:
+                n = None       # the request must still be counted
+            _count(images=n or 0, error=n is None, seconds=time.perf_counter() - t0)
+
+        def _read_json(self):
+            try:
+                length = int(self.headers.get("Content-Length") or 0)
+                req = json.loads(self.rfile.read(length) or b"{}")
+                if not isinstance(req, dict):
+                    raise ValueError("body must be a JSON object")
+                return req
+            except ValueError as e:
+                self._error(400, f"bad JSON body: {e}")
+                return None
+
+        def _send_images(self, imgs: np.ndarray, fmt: str, ncol: int):
+            if fmt == "npy":
+                buf = io.BytesIO()
+                np.save(buf, imgs)
+                return self._reply(200, "application/octet-stream", buf.getvalue())
+            self._reply(200, "image/png", encode_png(make_grid(imgs, ncol=ncol)))
+
+        def _interpolate(self):
+            s = cur()
+            req = self._read_json()
+            if req is None:
+                return None
+            for field in ("seed_a", "seed_b"):
+                if not _is_int(req.get(field)):
+                    return self._error(400, f"'{field}' must be an int")
+            # capped over HTTP, as jckx caps it (there each distinct value
+            # compiles a program under the sampling lock)
+            steps = req.get("steps", 10)
+            if not _is_int(steps) or not 2 <= steps <= 64:
+                return self._error(400, "'steps' must be an int in [2, 64]")
+            fmt = req.get("format", "png")
+            if fmt not in ("png", "npy"):
+                return self._error(400, "'format' must be 'png' or 'npy'")
+            kind = req.get("kind", "slerp")
+            labs = {}
+            for field in ("label_a", "label_b"):
+                if field in req:
+                    if not _is_int(req[field]):
+                        return self._error(400, f"'{field}' must be an int")
+                    labs[field] = req[field]
+            try:
+                try:
+                    with lock:
+                        imgs = s.interpolate(req["seed_a"], req["seed_b"], steps=steps,
+                                             kind=kind, **labs)
+                except ValueError as e:  # the service's validation → a clear 400
+                    return self._error(400, str(e))
+                self._send_images(imgs, fmt, ncol=steps)
+                return steps
+            except Exception as e:  # noqa: BLE001 — boundary: report, don't die
+                self._error(500, f"generation failed: {type(e).__name__}: {e}")
+                return None
+
+        def _generate(self):
+            s = cur()  # one consistent service per request, even mid-swap
+            req = self._read_json()
+            if req is None:
+                return None
+            n = req.get("n", 1)
+            if not _is_int(n) or not 1 <= n <= 4096:
+                return self._error(400, "'n' must be an int in [1, 4096]")
+            labels = req.get("labels")
+            if labels is not None:
+                if not s.conditional:
+                    return self._error(400, "'labels' given but the checkpoint is "
+                                            "unconditional (DCGAN)")
+                if (not isinstance(labels, list) or not labels
+                        or not all(_is_int(x) and 0 <= x < s.num_classes for x in labels)):
+                    return self._error(400, f"'labels' must be a non-empty list of ints in "
+                                            f"[0, {s.num_classes})")
+            fmt = req.get("format", "png")
+            if fmt not in ("png", "npy"):
+                return self._error(400, "'format' must be 'png' or 'npy'")
+            seed = None
+            if "seed" in req:
+                if not _is_int(req["seed"]):
+                    return self._error(400, "'seed' must be an int")
+                seed = req["seed"]
+            try:  # a failed render comes back as a JSON 500, not a dropped connection
+                with lock:
+                    imgs = s.sample(n, labels=labels, seed=seed)
+                self._send_images(imgs, fmt, ncol=max(1, int(np.ceil(np.sqrt(n)))))
+                return n
+            except Exception as e:  # noqa: BLE001 — boundary: report, don't die
+                self._error(500, f"generation failed: {type(e).__name__}: {e}")
+                return None
+
+    srv = ThreadingHTTPServer((host, port), Handler)
+
+    def swap_service(new_svc):
+        """Hot swap under the sampling lock: no request is mid-sample across
+        the switch; requests that already took the old service finish on it."""
+        with lock:
+            current["svc"] = new_svc
+
+    srv.swap_service = swap_service
+    return srv
+
+
+class CheckpointWatcher:
+    """Poll a checkpoint file and hot-swap the serving service when it
+    changes — the CLI's ``--watch``: a daemon pointed at a run's
+    ``latest.ckpt`` follows the run (the trainer replaces it atomically).
+    The file's signature is (mtime_ns, size). ``rebuild()`` makes the new
+    service; a failed rebuild keeps the old one and retries on the next
+    poll, since the signature moves only on a successful swap."""
+
+    def __init__(self, srv, ckpt_path: str, rebuild, logger=None):
+        self.srv, self.path, self.rebuild = srv, ckpt_path, rebuild
+        self._logger = logger
+        self._sig = self._stat()
+
+    def _stat(self):
+        st = os.stat(self.path)
+        return (st.st_mtime_ns, st.st_size)
+
+    def _log(self, msg):
+        if self._logger is not None:
+            self._logger(msg)
+
+    def poll_once(self) -> bool:
+        """→ True when a new checkpoint was swapped in."""
+        try:
+            sig = self._stat()
+        except OSError:
+            return False  # mid-replace or deleted; the next poll decides
+        if sig == self._sig:
+            return False
+        try:
+            new_svc = self.rebuild()
+        except Exception as e:  # noqa: BLE001 — keep serving the old checkpoint
+            self._log(f"--watch: reload of {self.path} failed ({type(e).__name__}: {e}) — "
+                      f"still serving the previous checkpoint; will retry")
+            return False
+        self.srv.swap_service(new_svc)
+        self._sig = sig
+        self._log(f"--watch: now serving step-{new_svc.step} checkpoint")
+        return True
+
+    def run(self, interval_s: float, stop_event):
+        while not stop_event.wait(interval_s):
+            self.poll_once()
+
 
 def get_args(argv=None):
     p = argparse.ArgumentParser(description="jckx_torch generator serving")
-    p.add_argument("--ckpt", required=True, help="reference torch .pt checkpoint")
+    p.add_argument("--ckpt", required=True,
+                   help="the port's latest.ckpt or .pt, or a reference torch .pt")
     p.add_argument("-n", "--num", type=int, default=64)
     p.add_argument("-o", "--out", default="samples.png")
+    p.add_argument("--conditional", action="store_true", default=None)
     p.add_argument("--labels", default="", help="comma-separated class ids (CGAN)")
-    p.add_argument("--batch_size", type=int, default=512)
+    # overrides default to None = "from the weights"; one that contradicts them raises
+    p.add_argument("--num_classes", type=int, default=None)
+    p.add_argument("--image_size", type=int, default=None)
+    p.add_argument("--channels", type=int, default=None)
+    p.add_argument("--base_width", type=int, default=None)
+    p.add_argument("--z_dim", type=int, default=None)
+    p.add_argument("--batch_size", type=int, default=None, help="the render batch (default 512)")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default=None,
-                   help="default cuda; 'cpu' runs the plain PyTorch path")
+    p.add_argument("--mesh_shape", default="", help="not ported yet (refused)")
+    p.add_argument("--listen", default="",
+                   help="run as an HTTP daemon instead of writing a grid: 'PORT' or "
+                        "'HOST:PORT' (GET /healthz, /metrics; POST /generate, /interpolate)")
+    p.add_argument("--subpixel", type=int, default=0,
+                   help="1 = the stride-2 ConvTranspose layers in the sub-pixel form")
+    p.add_argument("--watch", type=float, default=0.0,
+                   help="with --listen: poll the checkpoint every N seconds and hot-swap "
+                        "the service when it changes; 0 = off")
+    p.add_argument("--quant", default="", choices=["", "int8"],
+                   help="int8 = the W8A8 sampler, calibrated from --seed at load")
+    p.add_argument("--truncation", type=float, default=0.0,
+                   help="draw z ~ N(0,1) truncated to [-t, t]; 0 = off")
+    p.add_argument("--interpolate", default="",
+                   help="SEEDA,SEEDB — write a latent walk between the two seeds to -o "
+                        "(CGAN: --labels A[,B] picks the endpoint classes)")
+    p.add_argument("--steps", type=int, default=10, help="frames in the --interpolate strip")
+    p.add_argument("--kind", default="slerp", choices=["slerp", "lerp"])
+    p.add_argument("--device", default=None, help="default cuda; 'cpu' runs the plain PyTorch path")
     return p.parse_args(argv)
 
 
 def main(args) -> None:
-    if args.num < 1:
+    # cheap checks before the (slow) checkpoint load
+    bad = [f"--{k} {getattr(args, k)!r}: not ported yet (ROADMAP.md {item})"
+           for k, (off, item) in UNPORTED.items() if getattr(args, k) != off]
+    if args.ckpt.endswith(".jaxexp"):
+        bad.append(f"--ckpt {args.ckpt}: sealed .jaxexp artifacts are not served yet "
+                   f"(ROADMAP.md {JAXEXP_ITEM})")
+    if bad:
+        raise SystemExit("jckx_torch serve: " + "; ".join(bad))
+    listen_host, listen_port = "", 0
+    if args.listen:
+        listen_host, _, port_s = args.listen.rpartition(":")
+        if not (port_s.isascii() and port_s.isdigit() and 1 <= int(port_s) <= 65535):
+            raise SystemExit(f"--listen expects PORT or HOST:PORT with a port in [1, 65535], "
+                             f"got {args.listen!r}")
+        listen_port = int(port_s)
+    if not args.listen and args.num < 1:
         raise SystemExit(f"-n/--num must be >= 1, got {args.num}")
+    if args.interpolate and args.listen:
+        raise SystemExit("--interpolate is the one-shot strip writer; with --listen use "
+                         "POST /interpolate on the daemon")
+    if args.watch > 0 and not args.listen:
+        raise SystemExit("--watch needs --listen (it reloads a running daemon's checkpoint; "
+                         "a one-shot render has nothing to reload)")
+    overrides = {k: getattr(args, k) for k in GEOMETRY_FIELDS if getattr(args, k) is not None}
+
+    def build_svc():
+        return GeneratorService(
+            args.ckpt, conditional=args.conditional, num_classes=args.num_classes,
+            geo_overrides=overrides or None,
+            batch_size=512 if args.batch_size is None else args.batch_size,
+            seed=args.seed, subpixel=bool(args.subpixel), quant=args.quant or None,
+            truncation=args.truncation, device=args.device)
+
+    svc = build_svc()
+    if args.listen:
+        import signal
+
+        srv = make_http_server(svc, listen_host or "0.0.0.0", listen_port)
+
+        def _stop(signum, frame):  # SIGTERM / SIGINT: a clean shutdown
+            threading.Thread(target=srv.shutdown, daemon=True).start()
+
+        signal.signal(signal.SIGTERM, _stop)
+        signal.signal(signal.SIGINT, _stop)
+        stop_watch = threading.Event()
+        if args.watch > 0:
+            watcher = CheckpointWatcher(srv, args.ckpt, build_svc,
+                                        logger=lambda m: print(m, flush=True))
+            threading.Thread(target=watcher.run, args=(args.watch, stop_watch), daemon=True,
+                             name="jckx-ckpt-watch").start()
+        print(f"serving step-{svc.step} checkpoint on http://{srv.server_address[0]}:"
+              f"{srv.server_address[1]} (GET /healthz, /metrics; POST /generate, /interpolate"
+              + (f"; --watch {args.watch:g}s" if args.watch > 0 else "") + ")", flush=True)
+        try:
+            srv.serve_forever()
+        finally:
+            stop_watch.set()
+            srv.server_close()
+        return
     labels = [int(x) for x in args.labels.split(",") if x] or None
-    svc = GeneratorService(args.ckpt, batch_size=args.batch_size,
-                           seed=args.seed, device=args.device)
+    if args.interpolate:
+        try:
+            seed_a, seed_b = (int(x) for x in args.interpolate.split(","))
+        except ValueError:
+            raise SystemExit(f"--interpolate expects SEEDA,SEEDB (two ints), got "
+                             f"{args.interpolate!r}")
+        lab_a = labels[0] if labels else None
+        lab_b = labels[1] if labels and len(labels) > 1 else lab_a
+        imgs = svc.interpolate(seed_a, seed_b, steps=args.steps, label_a=lab_a, label_b=lab_b,
+                               kind=args.kind)
+        save_image_grid(args.out, imgs, ncol=args.steps)
+        print(f"wrote a {args.steps}-frame {args.kind} walk ({seed_a}->{seed_b}, step "
+              f"{svc.step} checkpoint) to {args.out}")
+        return
     imgs = svc.sample(args.num, labels=labels)
     save_image_grid(args.out, imgs)
-    print(f"wrote {args.num} samples to {args.out}")
+    print(f"wrote {args.num} samples (step {svc.step} checkpoint) to {args.out}")
 
 
 if __name__ == "__main__":

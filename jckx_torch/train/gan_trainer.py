@@ -64,14 +64,20 @@ EVAL_CHUNK = 500  # CGAN eval rows per G forward (jckx gan_trainer.py:919)
 
 
 def fixed_eval_inputs(seed: int, geo: GANGeometry, conditional: bool, num_classes: int,
-                      sample_count: int, device: torch.device):
+                      sample_count: int, device: torch.device, truncation: float = 0.0):
     """The trainers' eval inputs, drawn on ``device`` from the generator of
     (seed, "eval"): ``sample_count`` z for DCGAN (one-hot None); 10 z per
-    class and the class-major one-hot labels for CGAN (``:463-480``)."""
+    class and the class-major one-hot labels for CGAN (``:463-480``).
+    ``truncation`` t > 0 draws z from N(0, 1) truncated to [-t, t] instead
+    (``evaluate --truncation``)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(derive_seed(seed, "eval", 0))
     rows = 10 * num_classes if conditional else sample_count
-    z = torch.randn((rows, geo.z_dim), generator=gen, device=device)
+    if truncation > 0:
+        z = torch.nn.init.trunc_normal_(torch.empty((rows, geo.z_dim), device=device), 0.0, 1.0,
+                                        -truncation, truncation, generator=gen)
+    else:
+        z = torch.randn((rows, geo.z_dim), generator=gen, device=device)
     if not conditional:
         return z, None
     labels = torch.arange(num_classes, device=device).repeat_interleave(10)

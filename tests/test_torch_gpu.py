@@ -9,7 +9,10 @@ tests/conftest.py):
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: f32 within 1e-5 (the kernel's FMA against a separate multiply
-and add); bf16 within one bf16 ulp of the larger magnitude.
+and add); bf16 within one bf16 ulp of the larger magnitude. The int8
+convolution's ``torch._int_mm`` route: int32 bit-identical to the exact f64
+route. Whole renders (float, sub-pixel, int8): bit-identical to the plain
+route whose multiply-add is rounded once, within 1 LSB of ``bn_act_plain``.
 """
 
 import pytest
@@ -265,3 +268,100 @@ def test_cgan_served_images_match_the_plain_route(tmp_path):
     assert (got.int() - refs[0].int()).abs().max().item() <= 1
     assert torch.equal(got, refs[1])
 
+
+
+def _with_bn(bn, render):
+    """``render()`` with every BN layer of G's float and int8 forwards
+    routed through ``bn``."""
+    import jckx_torch.models.dcgan as tdcgan
+    import jckx_torch.ops.quant as tquant
+
+    tdcgan.bn_act = tquant.bn_act = bn
+    try:
+        return render()
+    finally:
+        tdcgan.bn_act = tquant.bn_act = fba.bn_act
+
+
+@pytest.mark.parametrize("in_dim", [100, 200])
+def test_int_mm_route_is_exact_on_the_card(in_dim, monkeypatch):
+    """Every G layer at 64², base width 64 (batch 64): the card's im2col +
+    ``_int_mm`` route gives the exact f64 route's int32, bit for bit."""
+    import jckx_torch.ops.quant as tquant
+
+    dev = _card()
+    calls = []
+    real = torch._int_mm
+    monkeypatch.setattr(torch, "_int_mm", lambda a, b: (calls.append(a.shape), real(a, b))[1])
+    g = torch.Generator(device=dev).manual_seed(in_dim)
+    layers = [(in_dim, 512, 1, 1, 0), (512, 256, 4, 2, 1), (256, 128, 8, 2, 1),
+              (128, 64, 16, 2, 1), (64, 3, 32, 2, 1)]
+    for cin, cout, hw, stride, pad in layers:
+        x = torch.randint(-127, 128, (64, cin, hw, hw), generator=g, device=dev,
+                          dtype=torch.int8).contiguous(memory_format=torch.channels_last)
+        w = torch.randint(-127, 128, (cin, cout, 4, 4), generator=g, device=dev, dtype=torch.int8)
+        got = tquant.conv_transpose2d_int8(x, w, stride, pad)
+        want = tquant.conv_transpose2d_int8_exact(x, w, stride, pad)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, want), (cin, cout, hw)
+    assert len(calls) == 1 + 4 * 4  # one product for the 1x1 layer, four phases for the others
+
+
+def _gan_ckpt(path, conditional, base_width=8):
+    from jckx_torch.models.cgan import CDiscriminator, CGenerator
+
+    geo = GANGeometry(z_dim=100, image_size=64, channels=3, base_width=base_width)
+    gen = torch.Generator().manual_seed(0)
+    if conditional:
+        g, d = CGenerator(geo, 100, gen=gen), CDiscriminator(geo, 100, gen=gen)
+    else:
+        g, d = Generator(geo, gen=gen), Discriminator(geo, gen=gen)
+    torch.save({"model_g": g.state_dict(), "model_d": d.state_dict()}, path)
+    return path
+
+
+@pytest.mark.parametrize("conditional", [False, True])
+def test_int8_serving_matches_the_once_rounded_route(tmp_path, conditional):
+    """int8 serving at 64² (width 8, batch 64) on the card: 4 f32 kernel
+    launches per batch, renders bit-identical to the same int8 forward with
+    ``bn_act_one_rounding``. Against ``bn_act_plain`` within 4 LSB on all
+    but 1 % of the pixels: a one-ulp difference at a quantization boundary
+    flips an int8 activation by a step (chip_smoke.py counts the flips)."""
+    from jckx_torch.serve import GeneratorService
+
+    dev = _card()
+    svc = GeneratorService(_gan_ckpt(str(tmp_path / "g.pt"), conditional), batch_size=64,
+                           quant="int8")
+    labels = [3, 17, 42] if conditional else None
+    before = fba.LAUNCHES
+    imgs = svc.sample(70, labels=labels, seed=4)  # two batches
+    assert fba.LAUNCHES == before + 8 and imgs.shape == (70, 64, 64, 3)
+    g = torch.Generator(device=dev).manual_seed(1)
+    z = torch.randn(64, 100, generator=g, device=dev)
+    lab = torch.randint(0, 100, (64,), generator=g, device=dev) if conditional else None
+    args = (z, lab) if conditional else (z,)
+    got = svc.render(*args)
+    plain = _with_bn(fba.bn_act_plain, lambda: svc.render(*args))
+    once = _with_bn(fba.bn_act_one_rounding, lambda: svc.render(*args))
+    diff = (got.int() - plain.int()).abs()
+    assert diff.max().item() <= 4 and (diff == 0).float().mean().item() >= 0.99
+    assert torch.equal(got, once)
+
+
+def test_subpixel_sampler_on_the_card(tmp_path):
+    """The sub-pixel sampler at 64² (width 8, batch 64): in f32 (TF32 off)
+    within 1 LSB of the default sampler on the same z (tests/test_serve.py:
+    67-78); in bf16 bit-identical to its once-rounded route; 4 launches."""
+    from jckx_torch.serve import GeneratorService
+
+    dev = _card()
+    path = _gan_ckpt(str(tmp_path / "g.pt"), False)
+    z = torch.randn(64, 100, generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    f32 = [GeneratorService(path, batch_size=64, compute_dtype=torch.float32, subpixel=s).render(z)
+           for s in (False, True)]
+    assert (f32[0].int() - f32[1].int()).abs().max().item() <= 1
+    sub = GeneratorService(path, batch_size=64, subpixel=True)
+    before = fba.LAUNCHES
+    got = sub.render(z)
+    assert fba.LAUNCHES == before + 4
+    assert torch.equal(got, _with_bn(fba.bn_act_one_rounding, lambda: sub.render(z)))

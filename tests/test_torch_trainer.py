@@ -186,9 +186,14 @@ def test_checkpoint_reads_back_in_jckx_and_the_service(tmp_path):
         ours = params_from_jax({k: np.asarray(v) for k, v in params.items()}, tr.geo, which)
         for k, v in ours.items():
             assert torch.equal(v.float(), saved[key][k].float()), (key, k)
+    # the service serves the run's EMA generator by default, G when asked (jckx/serve.py:183-228)
     svc = GeneratorService(path, batch_size=8, compute_dtype=torch.float32, device="cpu")
+    live = GeneratorService(path, batch_size=8, compute_dtype=torch.float32, device="cpu",
+                            use_ema=False)
+    assert svc.used_ema and not live.used_ema and svc.step == 8
     for k, v in svc.G.state_dict().items():
-        assert torch.equal(v, saved["model_g"][k]), k
+        assert torch.equal(v, saved["ema_g"][k]), k
+        assert torch.equal(live.G.state_dict()[k], saved["model_g"][k]), k
     assert svc.sample(4, seed=0).shape == (4, 16, 16, 3)
 
 
