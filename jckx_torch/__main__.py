@@ -1,10 +1,14 @@
-"""``python -m jckx_torch <command> [args...]`` — port of ``jckx/__main__.py``
-for the commands ported so far:
+"""``python -m jckx_torch <command> [args...]`` — port of ``jckx/__main__.py``:
 
     python -m jckx_torch train -m CGAN --dataset synthetic -e 1
-    python -m jckx_torch evaluate --ckpt save/cgan/<ts>/latest.ckpt
+    python -m jckx_torch evaluate --ckpt save/cgan/<ts>/latest.ckpt --kid 1 --prdc 1
+    python -m jckx_torch serve --ckpt gen.pt2 --listen 8000
+    python -m jckx_torch export --ckpt save/dcgan/<ts>/latest.ckpt --dst gen.pt2
+    python -m jckx_torch panel --seeds 0,1 -m DCGAN --dataset synthetic -e 1
 
-Serving keeps its own module path: ``python -m jckx_torch.serve``.
+Each command keeps its own module path too (``python -m jckx_torch.serve``).
+jckx's ``finetune`` and ``plan`` are refused by name with their ROADMAP
+items.
 """
 
 from __future__ import annotations
@@ -13,12 +17,23 @@ import sys
 
 _COMMANDS = {
     "train": "train DCGAN or CGAN, or score a run with -t 1 (the flags of main.py, plus --device)",
-    "evaluate": "FID / IS / intra-FID of a checkpoint, the trainers' eval protocol",
+    "evaluate": "FID / IS / intra-FID (+ KID, PRDC) of a checkpoint, the trainers' eval protocol",
+    "serve": "generate from a checkpoint or a sealed .pt2 / run the HTTP daemon",
+    "export": "ship a sealed torch.export sampler (.pt2)",
+    "convert": "convert a reference .pt <-> the port's checkpoint",
+    "inspect": "describe a checkpoint, .pt, .pt2 or .jaxexp without touching the card",
+    "doctor": "environment readiness check: the card, its link, the kernel build",
+    "panel": "train one config across N seeds, one quality verdict",
+}
+# jckx commands the port does not have yet → the ROADMAP.md item that brings them
+UNPORTED = {
+    "finetune": "A10 (the InceptionV3 fine-tune)",
+    "plan": "A14 (the capacity planner)",
 }
 
 
 def _usage() -> str:
-    rows = "\n".join(f"  {k:<8} {v}" for k, v in _COMMANDS.items())
+    rows = "\n".join(f"  {k:<9} {v}" for k, v in _COMMANDS.items())
     return (f"usage: python -m jckx_torch <command> [args...]\n\ncommands:\n{rows}"
             f"\n\n<command> -h shows that command's flags")
 
@@ -29,6 +44,12 @@ def main(argv=None) -> int:
         print(_usage())
         return 0
     cmd, rest = argv[0], argv[1:]
+    if cmd in UNPORTED:
+        print(f"'{cmd}' is not ported yet (ROADMAP.md {UNPORTED[cmd]})", file=sys.stderr)
+        return 2
+    if cmd not in _COMMANDS:
+        print(f"unknown command {cmd!r}\n\n{_usage()}", file=sys.stderr)
+        return 2
     if cmd == "train":
         from jckx_torch.train.main import main as train_main
 
@@ -39,8 +60,14 @@ def main(argv=None) -> int:
 
         evaluate_main(rest)
         return 0
-    print(f"unknown command {cmd!r}\n\n{_usage()}", file=sys.stderr)
-    return 2
+    if cmd == "serve":
+        from jckx_torch.serve import get_args, main as serve_main
+
+        serve_main(get_args(rest))
+        return 0
+    from importlib import import_module
+
+    return import_module(f"jckx_torch.{cmd}").main(rest)
 
 
 if __name__ == "__main__":

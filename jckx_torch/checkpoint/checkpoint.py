@@ -72,10 +72,24 @@ def save_checkpoint(path: str, payload: Dict[str, Any]) -> None:
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
+    """A port or reference checkpoint, on the CPU. A jckx ``.ckpt`` (flax
+    msgpack, not the zip archive ``torch.save`` writes) raises, naming its
+    converter."""
+    if not zipfile.is_zipfile(path):
+        raise ValueError(
+            f"{path}: not a torch checkpoint. A jckx .ckpt is flax msgpack: convert it with "
+            f"`python -m jckx.convert --src {path} --dst {os.path.splitext(path)[0]}.pt`")
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(ckpt, dict) or not {"model_g", "model_d"} <= set(ckpt):
         raise KeyError(f"{path}: not a reference GAN checkpoint (needs 'model_g' and 'model_d')")
     return ckpt
+
+
+def checkpoint_step(ckpt: Dict[str, Any]) -> int:
+    """The file's ``step``, else (a reference file) G's Adam count, as jckx's
+    importer reads it; 0 without either."""
+    adam = ckpt.get("optimizer_g", {}).get("state", {})
+    return int(ckpt.get("step", int(next(iter(adam.values()))["step"]) if adam else 0))
 
 
 class LoadedGenerator(NamedTuple):
@@ -97,10 +111,6 @@ def load_generator(path: str, use_ema: Optional[bool] = None, conditional: Optio
     ``conditional``, ``num_classes`` and ``geo_overrides`` (geometry fields)
     are jckx's explicit overrides: the weights are the truth, so one that
     contradicts them raises (``jckx/serve.py:155-168``)."""
-    if not zipfile.is_zipfile(path):  # torch.save writes a zip archive
-        raise ValueError(
-            f"{path}: not a torch checkpoint. A jckx .ckpt is flax msgpack: convert it with "
-            f"`python -m jckx.convert --src {path} --dst model.pt`")
     ckpt = load_checkpoint(path)
     inferred_cond, geo, inferred_k = infer_gan_config(ckpt["model_g"], ckpt["model_d"])
     # the port's files name the dataset's class count, which sizes the
@@ -123,9 +133,8 @@ def load_generator(path: str, use_ema: Optional[bool] = None, conditional: Optio
     k = inferred["num_classes"]
     G = CGenerator(geo, k) if inferred_cond else Generator(geo)
     G.load_state_dict(ckpt["ema_g"] if used_ema else ckpt["model_g"], strict=True)
-    adam = ckpt.get("optimizer_g", {}).get("state", {})
-    step = int(ckpt.get("step", int(next(iter(adam.values()))["step"]) if adam else 0))
-    return LoadedGenerator(G.requires_grad_(False), inferred_cond, geo, k, step, used_ema)
+    return LoadedGenerator(G.requires_grad_(False), inferred_cond, geo, k, checkpoint_step(ckpt),
+                           used_ema)
 
 
 def restore_checkpoint(path: str, state: GANTrainState, lr: float) -> Dict[str, Any]:

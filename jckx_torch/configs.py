@@ -82,6 +82,8 @@ class Config:
     save_root: str = "./save"
     resume: bool = False
     init_from_torch: str = ""
+    eval_fast_stem: int = 0            # 1 = the space-to-depth InceptionV3 stem in the evals
+    extra_metrics: int = 0             # 1 = KID + precision/recall/density/coverage at evals
 
     # --- jckx knobs the port does not implement yet (see UNPORTED) ---
     mesh_shape: str = ""
@@ -96,8 +98,6 @@ class Config:
     sanitize: bool = False
     multihost: bool = False
     profile_dir: str = ""
-    eval_fast_stem: int = 0
-    extra_metrics: int = 0
 
     save_path: str = ""                # set by the entry point / trainer
 
@@ -119,8 +119,6 @@ UNPORTED = {
     "fused_prop": (0, "A3 (the FusedProp step, steps.py:124-177)"),
     "sanitize": (False, "A3 (anomaly detection in the train step)"),
     "profile_dir": ("", "A6 (the port's benchmark and traces)"),
-    "eval_fast_stem": (0, "A9 (the space-to-depth InceptionV3 stem)"),
-    "extra_metrics": (0, "A9 (KID and PRDC)"),
 }
 
 

@@ -18,7 +18,14 @@ It reads the port's ``.pt`` and ``latest.ckpt`` files and the reference's
 ``.pt`` through ``checkpoint.load_generator``, the reader serving uses; a
 jckx ``.ckpt`` is flax msgpack and is converted first with
 ``python -m jckx.convert``. It prints one JSON line,
-``{"step", "n"[, "quant"][, "truncation"], "is", "fid"[, "intra_fid"]}``.
+``{"step", "n"[, "quant"][, "truncation"], "is", "fid"[, "intra_fid"]
+[, "kid", "kid_std"][, "precision", "recall", "density", "coverage"]}``.
+
+``--kid 1`` and ``--prdc 1`` add KID and precision / recall / density /
+coverage from the same extraction (``metrics/extra.py``;
+``jckx/evaluate.py:228-231``). ``--eval_fast_stem 1`` runs the backbone's
+first convolution in its space-to-depth form, to rescore a run trained
+with it (its real features are cached under their own key).
 
 ``--quant int8`` scores the serving sampler's W8A8 forward through the same
 ``ops/quant.make_sampler``: the int8 params scored with ``--calib_seed s``
@@ -26,9 +33,6 @@ are, bit for bit, those that ``serve --quant int8 --seed s`` serves (both
 default to 0), while ``--seed`` keeps driving the eval noise.
 ``--truncation t`` draws the eval z from N(0, 1) truncated to [-t, t], the
 law ``serve --truncation t`` deploys (``jckx/evaluate.py:79-93``).
-
-Not ported yet, and refused by name: ``--kid`` / ``--prdc`` and
-``--eval_fast_stem`` (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -43,13 +47,6 @@ from jckx_torch.configs import Config
 from jckx_torch.ops.quant import make_sampler
 from jckx_torch.train.gan_trainer import fixed_eval_inputs, sample_eval_images
 from jckx_torch.utils.device import resolve_device
-
-# flag → (its value when off, the ROADMAP.md item that brings it)
-UNPORTED = {
-    "kid": (0, "A9 (KID and PRDC)"),
-    "prdc": (0, "A9 (KID and PRDC)"),
-    "eval_fast_stem": (0, "A9 (the space-to-depth InceptionV3 stem)"),
-}
 
 
 def get_args(argv=None):
@@ -80,18 +77,19 @@ def get_args(argv=None):
                    help="draw the eval z from N(0,1) truncated to [-t, t]; 0 = off")
     p.add_argument("--calib_seed", type=int, default=0,
                    help="int8 calibration seed: the serving process's --seed (default 0 on both)")
-    for name in ("kid", "prdc", "eval_fast_stem"):
-        p.add_argument(f"--{name}", type=int, default=0)
+    p.add_argument("--kid", type=int, default=0,
+                   help="1 = also report the Kernel Inception Distance (kid, kid_std)")
+    p.add_argument("--prdc", type=int, default=0,
+                   help="1 = also report precision / recall / density / coverage")
+    p.add_argument("--eval_fast_stem", type=int, default=0,
+                   help="1 = the space-to-depth InceptionV3 stem: pass it to rescore a run "
+                        "trained with --eval_fast_stem 1 (features differ at rounding level)")
     return p.parse_args(argv)
 
 
 def evaluate(args, metrics=None) -> dict:
     """→ the result dict (the printed JSON line). ``metrics`` replaces the
     InceptionV3 engine built on the dataset (the tests pass one)."""
-    bad = [f"--{k} {getattr(args, k)!r}: not ported yet (ROADMAP.md {item})"
-           for k, (off, item) in UNPORTED.items() if getattr(args, k) != off]
-    if bad:
-        raise SystemExit("jckx_torch evaluate: " + "; ".join(bad))
     trunc = float(args.truncation)
     if trunc < 0:  # checked before the (slow) load, as serve refuses it
         raise ValueError(f"truncation {trunc} must be >= 0 (0 = off)")
@@ -104,7 +102,7 @@ def evaluate(args, metrics=None) -> dict:
     cfg = Config()
     cfg.log_file = 0  # a scoring CLI writes no log files
     for name in ("dataset", "data_dir", "data_path", "synthetic_size", "seed",
-                 "metric_backbone", "save_root"):
+                 "metric_backbone", "save_root", "eval_fast_stem"):
         setattr(cfg, name, getattr(args, name))
     cfg.image_size, cfg.channels, cfg.num_classes = geo.image_size, geo.channels, ncls
     n = 10 * ncls if conditional else args.sample_count
@@ -135,6 +133,10 @@ def evaluate(args, metrics=None) -> dict:
               "fid": float(metrics.fid(features=feats))}
     if conditional:
         result["intra_fid"] = float(metrics.intra_fid(features=feats))
+    if args.kid:
+        result["kid"], result["kid_std"] = metrics.kid(features=feats)
+    if args.prdc:
+        result.update(metrics.prdc(features=feats))
     return result
 
 

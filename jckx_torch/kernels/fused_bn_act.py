@@ -14,7 +14,12 @@ H100 SXM's 3.35 TB/s (computed from the shapes; the source has the table).
   and ``chip_smoke.py`` hold the kernel against.
 - ``normalize_act``: the kernel's wrapper on a CUDA ``(rows, C)`` tensor;
   ``normalize_act_plain`` is its plain version on the same inputs.
-- ``bn_act``: routes by device and grad mode (below).
+- ``normalize_act_op``: the registered operator ``jckx_torch::normalize_act``
+  that ``bn_act`` calls: the kernel on a CUDA tensor, the plain version on a
+  CPU one. As an operator with a fake (shape-only) implementation it is one
+  node of a ``torch.export`` program, so a sealed artifact launches the
+  kernel too (``export.py``); a ctypes launch alone cannot be traced.
+- ``bn_act``: routes by grad mode (below).
 
 Activations are either ``(rows, C)`` or NCHW-logical tensors in
 ``torch.channels_last`` memory, whose ``(N·H·W, C)`` row view is free.
@@ -25,12 +30,13 @@ WGAN-GP penalty needs grad-of-grad through D, and only its inference
 programs take the kernel (``pallas_inference``, ``:42-63``). ``bn_act``
 makes the same split by grad mode:
 
-- a tensor on the CPU: ``bn_act_plain``;
-- on the card, with grad enabled and any of x, scale, bias requiring
-  grad: ``bn_act_plain``, which autograd differentiates to any order
-  (the train step);
-- on the card otherwise (``torch.no_grad()``, inference mode, or no input
-  that requires grad): the statistics in plain torch, then the kernel.
+- with grad enabled and any of x, scale, bias requiring grad:
+  ``bn_act_plain``, which autograd differentiates to any order (the train
+  step);
+- otherwise (``torch.no_grad()``, inference mode, or no input that
+  requires grad): the statistics in plain torch, then ``normalize_act_op``
+  (on the card the kernel; on the CPU its plain version, with the same
+  result as ``bn_act_plain``).
 
 This is a rule on grad mode, not a fallback on failure: a kernel that
 does not build or launch raises.
@@ -161,14 +167,28 @@ def normalize_act(x2d, inv, shift, act="none", negative_slope=0.2):
     return y
 
 
+@torch.library.custom_op("jckx_torch::normalize_act", mutates_args=())
+def normalize_act_op(x2d: torch.Tensor, inv: torch.Tensor, shift: torch.Tensor, act: str,
+                     negative_slope: float) -> torch.Tensor:
+    """``normalize_act`` on a CUDA tensor, ``normalize_act_plain`` on a CPU
+    one (the kernel has no CPU form)."""
+    if x2d.device.type == "cuda":
+        return normalize_act(x2d, inv, shift, act, negative_slope)
+    return normalize_act_plain(x2d, inv, shift, act, negative_slope)
+
+
+@normalize_act_op.register_fake
+def _normalize_act_fake(x2d, inv, shift, act, negative_slope):
+    return torch.empty_like(x2d)
+
+
 def bn_act(x, scale, bias, act="none", negative_slope=0.2, eps=1e-5):
     """Batch-stat BN fused with activation. See the module docstring."""
-    if x.device.type == "cpu":
-        return bn_act_plain(x, scale, bias, act, negative_slope, eps)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)):
         return bn_act_plain(x, scale, bias, act, negative_slope, eps)
-    if x.dim() == 4 and not x.is_contiguous(memory_format=torch.channels_last):
+    if (x.device.type == "cuda" and x.dim() == 4
+            and not x.is_contiguous(memory_format=torch.channels_last)):
         raise ValueError("bn_act on the card needs a channels_last NCHW tensor")
     x2d = _rows(x)
     inv, shift = _affine(x2d, scale, bias, eps)
-    return _unrows(normalize_act(x2d, inv, shift, act, negative_slope), x)
+    return _unrows(normalize_act_op(x2d, inv, shift, act, negative_slope), x)

@@ -14,9 +14,10 @@ checkpoint loads with ``load_state_dict``; the reference's ``fc.0.*``
 Eval only: each BasicConv2d is conv → BN from its running statistics at
 eps 1e-3, folded into one f32 scale and shift (``:133-138``) → ReLU, in
 the compute dtype. The pools are jckx's: max 3×3 stride 2, and average
-3×3 stride 1 pad 1 counting the padding (``:48-65``). The train-mode BN
-of the fine-tune and the space-to-depth stem are not ported yet
-(ROADMAP A9, A10).
+3×3 stride 1 pad 1 counting the padding (``:48-65``). ``fast_stem``
+takes the space-to-depth form of ``Conv2d_1a_3x3`` (``stem_s2d``, jckx's
+``_bconv_1a_s2d``, ``:141-180``): the same function, summed in another
+order. The train-mode BN of the fine-tune is not ported yet (ROADMAP A10).
 
 ``init(seed)`` reproduces jckx's seeded backbone: the same numpy
 ``RandomState`` draws in the same order (``_bconv_init``, ``:70-89``:
@@ -61,13 +62,38 @@ class BasicConv2d(nn.Module):
         self.bn = _BN(cout)
         self.stride, self.padding = stride, padding
 
-    def forward(self, x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv2d(x, self.conv.weight.to(x.dtype), stride=self.stride, padding=self.padding)
+        return self.bn_relu(y, x.dtype)
+
+    def bn_relu(self, y: torch.Tensor, dtype, eps: float = 1e-3) -> torch.Tensor:
+        """BN from the running statistics, folded into an f32 scale and
+        shift, then ReLU, cast to ``dtype``."""
         bn = self.bn
         inv = torch.rsqrt(bn.running_var.float() + eps) * bn.weight.float()
         shift = bn.bias.float() - bn.running_mean.float() * inv
         y = y.float() * inv[:, None, None] + shift[:, None, None]
-        return torch.relu(y).to(x.dtype)
+        return torch.relu(y).to(dtype)
+
+    def stem_s2d(self, x: torch.Tensor) -> torch.Tensor:
+        """This 3×3 stride-2 unpadded convolution (``Conv2d_1a_3x3``) in its
+        space-to-depth form: 2×2 pixel blocks become channels (N, 4C, H/2,
+        W/2), channels ordered (row in block, column in block, c), and the
+        kernel, zero-padded to 4×4, becomes a 2×2 stride-1 kernel over those
+        4C channels: output (i, j) reads input rows 2i..2i+2, the s2d rows
+        i..i+1. Every tap appears once and the added ones multiply zeros;
+        a 48-deep contraction in place of a 27-deep strided one. An odd
+        side is padded by one row / column at the end."""
+        n, c, h, w = x.shape
+        x = F.pad(x, (0, w % 2, 0, h % 2))
+        hp, wp = x.shape[2] // 2, x.shape[3] // 2
+        y = x.reshape(n, c, hp, 2, wp, 2).permute(0, 3, 5, 1, 2, 4).reshape(n, 4 * c, hp, wp)
+        if x.is_cuda:
+            y = y.contiguous(memory_format=torch.channels_last)
+        wt = self.conv.weight.to(x.dtype)                        # (O, C, 3, 3)
+        w4 = F.pad(wt, (0, 1, 0, 1))                             # (O, C, 4, 4): di = 2u + bi
+        w2 = w4.reshape(-1, c, 2, 2, 2, 2).permute(0, 3, 5, 1, 2, 4).reshape(-1, 4 * c, 2, 2)
+        return self.bn_relu(F.conv2d(y, w2), x.dtype)
 
 
 def _max_pool(x):
@@ -193,13 +219,17 @@ class InceptionV3(nn.Module):
         self.fc = nn.Linear(2048, num_classes)
         self.requires_grad_(False)
 
-    def forward(self, x: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, compute_dtype=torch.float32,
+                fast_stem: bool = False) -> torch.Tensor:
         """images (N, H, W, 3) NHWC, ImageNet-normalized (H, W ≥ 75; 299 in
-        use) → logits (N, K) in f32 — counterpart of ``apply``."""
+        use) → logits (N, K) in f32 — counterpart of ``apply``. ``fast_stem``:
+        the first convolution in its space-to-depth form."""
         x = x.to(compute_dtype).permute(0, 3, 1, 2)
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last)
-        x = self.Conv2d_2b_3x3(self.Conv2d_2a_3x3(self.Conv2d_1a_3x3(x)))
+        stem = self.Conv2d_1a_3x3
+        x = stem.stem_s2d(x) if fast_stem else stem(x)
+        x = self.Conv2d_2b_3x3(self.Conv2d_2a_3x3(x))
         x = self.Conv2d_4a_3x3(self.Conv2d_3b_1x1(_max_pool(x)))
         x = _max_pool(x)
         for name in ("Mixed_5b", "Mixed_5c", "Mixed_5d", "Mixed_6a", "Mixed_6b", "Mixed_6c",

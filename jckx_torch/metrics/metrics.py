@@ -21,8 +21,13 @@ cache, ``extract_features``, ``inception_score``, ``fid``, ``intra_fid``).
   superclass, real against fake, summed over the superclasses that both
   sides populate and divided by 100, the reference's divisor for 20
   superclasses. The fakes are the class-major eval grid, 10 per class.
-
-KID and PRDC wait (ROADMAP A9).
+- KID and precision / recall / density / coverage (``kid``, ``prdc``;
+  ``metrics/extra.py``) in the same feature space, from the same
+  extraction; the real set's k-NN radii are computed once per k.
+- ``fast_stem`` (default: the config's ``eval_fast_stem``) runs the
+  backbone's first convolution in its space-to-depth form; its real
+  features are cached under their own key (jckx's ``-s2d`` tag), since
+  the two stems agree only to rounding.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ import torch
 from jckx_torch.data.datasets import FINE_TO_SUPERCLASS
 from jckx_torch.data.pipeline import resize_bilinear
 from jckx_torch.logging.main_logger import MainLogger
-from jckx_torch.metrics import inception_v3
+from jckx_torch.metrics import extra, inception_v3
 from jckx_torch.metrics.fid import (frechet_distance, inception_score_from_probs, intra_fid_sum,
                                     mean_and_cov)
 from jckx_torch.utils.device import resolve_device
@@ -62,12 +67,14 @@ def _content_sig(sd: dict) -> str:
 class Metrics:
     def __init__(self, metric_source, config=None, backbone: Optional[inception_v3.InceptionV3] = None,
                  batch_size: int = 256, compute_dtype=torch.bfloat16, cache_dir: str = "./data",
-                 num_classes: int = 100, device=None):
+                 num_classes: int = 100, device=None, fast_stem: Optional[bool] = None):
         self._logger = MainLogger(config)
         self.device = resolve_device(device if device is not None else getattr(config, "device", None))
         self.batch_size = batch_size
         self.compute_dtype = compute_dtype
         self.num_classes = num_classes
+        self.fast_stem = (bool(getattr(config, "eval_fast_stem", 0)) if fast_stem is None
+                          else bool(fast_stem))
         if backbone is not None:
             self._backbone_sig = _content_sig(backbone.state_dict())
         else:
@@ -92,10 +99,11 @@ class Metrics:
                 f"superclasses populated — intra-FID sums over those only (divisor stays "
                 f"{INTRA_FID_DIVISOR:g} for reference comparability)")
         self._real_super_stats = None
+        self._real_knn_radii = {}
 
         os.makedirs(cache_dir, exist_ok=True)
-        cache = os.path.join(cache_dir, f"metric_data_jckx_torch_"
-                                        f"{self._fingerprint(real_u8, real_labels)}.npz")
+        tag = self._fingerprint(real_u8, real_labels) + ("-s2d" if self.fast_stem else "")
+        cache = os.path.join(cache_dir, f"metric_data_jckx_torch_{tag}.npz")
         if os.path.exists(cache):
             with np.load(cache) as z:
                 self.real_features = z["features"]
@@ -163,7 +171,7 @@ class Metrics:
             x = x.repeat(1, 1, 1, 3)
         mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
         std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
-        return self.backbone((x - mean) / std, self.compute_dtype)
+        return self.backbone((x - mean) / std, self.compute_dtype, fast_stem=self.fast_stem)
 
     def _batched(self, images, to01) -> np.ndarray:
         """Features of every row of ``images`` (a host array or a device
@@ -234,6 +242,25 @@ class Metrics:
             total = sum(self.fid(features=feats[self.fake_superclass_idx[s]], intra_fid=True,
                                  label=s) for s in active)
         return total / INTRA_FID_DIVISOR
+
+    def kid(self, images_tanh=None, features: Optional[np.ndarray] = None, subsets: int = 100,
+            subset_size: int = 1000, seed: int = 0, perms=None) -> tuple:
+        """Kernel Inception Distance (real set ‖ generated) → (mean, std)
+        (``jckx/metrics/metrics.py:591-603``); ``features`` reuses an
+        extraction, ``perms`` replaces the subset draws of ``seed``."""
+        gen = features if features is not None else self.extract_features(images_tanh)
+        return extra.kid(self.real_features, gen, subsets=subsets, subset_size=subset_size,
+                         seed=seed, perms=perms, device=self.device)
+
+    def prdc(self, images_tanh=None, features: Optional[np.ndarray] = None, k: int = 3) -> dict:
+        """Precision / recall / density / coverage of generated against real
+        (``:605-621``); the real set's k-NN radii are swept once per k."""
+        gen = features if features is not None else self.extract_features(images_tanh)
+        if k not in self._real_knn_radii:
+            self._real_knn_radii[k] = extra.real_knn_radii(self.real_features, k,
+                                                           device=self.device)
+        return extra.manifold_metrics(self.real_features, gen, k=k, device=self.device,
+                                      real_radii=self._real_knn_radii[k])
 
     def _real_superclass_stats(self):
         """(S, d) means and (S, d, d) covariances of the real features of

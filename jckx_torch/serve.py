@@ -28,8 +28,14 @@ lerp, ``interpolation_latents``) as one batch. ``make_http_server`` is the
 stdlib HTTP daemon (``GET /healthz``, ``GET /metrics``, ``POST /generate``,
 ``POST /interpolate``), and ``CheckpointWatcher`` its ``--watch`` hot swap.
 
-Not ported yet, and refused by name: ``--mesh_shape`` (ROADMAP A13) and
-sealed ``.jaxexp`` artifacts (A11).
+``--ckpt gen.pt2`` serves a sealed ``torch.export`` artifact
+(``export.ArtifactService``, ``jckx/serve.py:847-862``): its geometry,
+batch, dtype and sampler were fixed at export, so the flags that would
+change them are refused, and the daemon answers ``/interpolate`` with a
+400. ``--watch`` reloads a replaced artifact like a checkpoint.
+
+Refused by name: ``--mesh_shape`` (ROADMAP A13), and jckx's StableHLO
+``.jaxexp`` artifacts, which need JAX (``python -m jckx.serve``).
 """
 
 from __future__ import annotations
@@ -56,7 +62,9 @@ from jckx_torch.utils.device import resolve_device
 WINDOW = 8
 # flag → (its value when off, the ROADMAP.md item that brings it)
 UNPORTED = {"mesh_shape": ("", "A13 (multi-GPU serving: the request batch over ranks)")}
-JAXEXP_ITEM = "A11 (export as torch.export)"
+JAXEXP_REFUSAL = ("a jckx .jaxexp artifact is a StableHLO program and needs JAX: serve it with "
+                  "`python -m jckx.serve`, or export the checkpoint with `python -m jckx_torch "
+                  "export` and serve the .pt2")
 
 
 def validate_sample_args(n: int, labels, conditional: bool):
@@ -164,8 +172,10 @@ class GeneratorService:
         if quant not in (None, "int8"):
             raise ValueError(f"quant={quant!r}: supported modes are None (float) and 'int8'")
         if ckpt_path.endswith(".jaxexp"):
-            raise ValueError(f"{ckpt_path}: sealed .jaxexp artifacts are not served by the port "
-                             f"yet (ROADMAP.md {JAXEXP_ITEM}); serve the checkpoint instead")
+            raise ValueError(f"{ckpt_path}: {JAXEXP_REFUSAL}")
+        if ckpt_path.endswith(".pt2"):
+            raise ValueError(f"{ckpt_path} is a sealed artifact: serve it through "
+                             f"export.ArtifactService")
         self.device = resolve_device(device)
         loaded = load_generator(ckpt_path, use_ema=use_ema, conditional=conditional,
                                 num_classes=num_classes, geo_overrides=geo_overrides)
@@ -178,7 +188,7 @@ class GeneratorService:
         self.quant, self.subpixel, self.truncation = quant, bool(subpixel), float(truncation)
         self._count = 0
         # the float G itself, or the int8 params calibrated from the seed
-        self.params, self._apply = make_sampler(
+        self.params, self.sampler_apply = make_sampler(
             self.G, quant=quant, compute_dtype=compute_dtype, seed=seed, subpixel=self.subpixel)
 
     def draw_z(self, gen: torch.Generator, shape) -> torch.Tensor:
@@ -195,7 +205,7 @@ class GeneratorService:
         with torch.inference_mode():
             z = z.to(self.device)
             onehot = None if onehot is None else onehot.to(self.device)
-            return tanh_to_u8(self._apply(self.params, z, onehot))
+            return tanh_to_u8(self.sampler_apply(self.params, z, onehot))
 
     def render(self, z: torch.Tensor, labels: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One generator forward on ``z`` (B, z_dim), and for CGAN the class
@@ -280,9 +290,9 @@ class GeneratorService:
 
 # ----------------------------------------------------------------- HTTP mode
 
-def make_http_server(svc: GeneratorService, host: str = "0.0.0.0", port: int = 8000):
-    """The HTTP front of a ``GeneratorService`` (stdlib only), as
-    ``jckx/serve.py:446-693``:
+def make_http_server(svc, host: str = "0.0.0.0", port: int = 8000):
+    """The HTTP front of a ``GeneratorService`` or an
+    ``export.ArtifactService`` (stdlib only), as ``jckx/serve.py:446-693``:
 
     - ``GET /healthz`` → JSON {status, step, conditional, num_classes,
       image_size, channels, batch_size, truncation};
@@ -354,7 +364,7 @@ def make_http_server(svc: GeneratorService, host: str = "0.0.0.0", port: int = 8
                 "status": "ok", "step": s.step, "conditional": s.conditional,
                 "num_classes": s.num_classes, "image_size": s.geo.image_size,
                 "channels": s.geo.channels, "batch_size": s.batch_size,
-                "truncation": s.truncation,
+                "truncation": getattr(s, "truncation", 0.0),
             }).encode())
 
         def do_POST(self):
@@ -391,6 +401,9 @@ def make_http_server(svc: GeneratorService, host: str = "0.0.0.0", port: int = 8
 
         def _interpolate(self):
             s = cur()
+            if not hasattr(s, "interpolate"):
+                return self._error(400, "this serving artifact has no interpolation path "
+                                        "(serve a checkpoint, not a sealed *.pt2)")
             req = self._read_json()
             if req is None:
                 return None
@@ -519,7 +532,8 @@ class CheckpointWatcher:
 def get_args(argv=None):
     p = argparse.ArgumentParser(description="jckx_torch generator serving")
     p.add_argument("--ckpt", required=True,
-                   help="the port's latest.ckpt or .pt, or a reference torch .pt")
+                   help="the port's latest.ckpt or .pt, a reference torch .pt, or a sealed .pt2 "
+                        "artifact (python -m jckx_torch export)")
     p.add_argument("-n", "--num", type=int, default=64)
     p.add_argument("-o", "--out", default="samples.png")
     p.add_argument("--conditional", action="store_true", default=None)
@@ -559,8 +573,7 @@ def main(args) -> None:
     bad = [f"--{k} {getattr(args, k)!r}: not ported yet (ROADMAP.md {item})"
            for k, (off, item) in UNPORTED.items() if getattr(args, k) != off]
     if args.ckpt.endswith(".jaxexp"):
-        bad.append(f"--ckpt {args.ckpt}: sealed .jaxexp artifacts are not served yet "
-                   f"(ROADMAP.md {JAXEXP_ITEM})")
+        bad.append(f"--ckpt {args.ckpt}: {JAXEXP_REFUSAL}")
     if bad:
         raise SystemExit("jckx_torch serve: " + "; ".join(bad))
     listen_host, listen_port = "", 0
@@ -579,14 +592,27 @@ def main(args) -> None:
         raise SystemExit("--watch needs --listen (it reloads a running daemon's checkpoint; "
                          "a one-shot render has nothing to reload)")
     overrides = {k: getattr(args, k) for k in GEOMETRY_FIELDS if getattr(args, k) is not None}
+    if args.ckpt.endswith(".pt2"):
+        from jckx_torch.export import ArtifactService
 
-    def build_svc():
-        return GeneratorService(
-            args.ckpt, conditional=args.conditional, num_classes=args.num_classes,
-            geo_overrides=overrides or None,
-            batch_size=512 if args.batch_size is None else args.batch_size,
-            seed=args.seed, subpixel=bool(args.subpixel), quant=args.quant or None,
-            truncation=args.truncation, device=args.device)
+        if (overrides or args.conditional is not None or args.num_classes is not None
+                or args.batch_size is not None or args.subpixel or args.quant
+                or args.truncation or args.interpolate):
+            raise SystemExit(
+                "--ckpt *.pt2 is a sealed artifact: geometry / conditioning / batch / subpixel / "
+                "quant / truncation were fixed at export time (and interpolation needs the live "
+                "sampler): re-export, or serve the checkpoint instead")
+
+        def build_svc():
+            return ArtifactService(args.ckpt, seed=args.seed, device=args.device)
+    else:
+        def build_svc():
+            return GeneratorService(
+                args.ckpt, conditional=args.conditional, num_classes=args.num_classes,
+                geo_overrides=overrides or None,
+                batch_size=512 if args.batch_size is None else args.batch_size,
+                seed=args.seed, subpixel=bool(args.subpixel), quant=args.quant or None,
+                truncation=args.truncation, device=args.device)
 
     svc = build_svc()
     if args.listen:

@@ -52,6 +52,7 @@ from jckx_torch.checkpoint.checkpoint import (BestMetricCheckpointer, latest_che
                                               restore_checkpoint, state_payload)
 from jckx_torch.configs import Config
 from jckx_torch.data.pipeline import decode_batch, one_hot
+from jckx_torch.kernels import fused_bn_act
 from jckx_torch.logging.artifacts import save_image_grid, save_labeled_grid, save_loss_curve
 from jckx_torch.logging.main_logger import MainLogger, time_to_str
 from jckx_torch.models.dcgan import GANGeometry
@@ -298,7 +299,8 @@ class _BaseGANTrainer:
                 signal.signal(signal.SIGTERM, prev_term if prev_term is not None else signal.SIG_DFL)
             if not rolled_back:  # a second train() continues this history
                 self._resumed_losses = list(zip(losses_d, losses_g))
-        self.logger.debug(f"train finish\ttime: {time_to_str(time.time() - start)}")
+        self.logger.debug(f"train finish\ttime: {time_to_str(time.time() - start)}\t"
+                          f"fused BN kernel launches in this process: {fused_bn_act.LAUNCHES}")
         save_loss_curve(os.path.join(self.save_path, "loss.png"), losses_d, losses_g)
         return last_metrics
 
@@ -320,6 +322,16 @@ class _BaseGANTrainer:
         G = self.state.ema_g if self.state.ema_g is not None else self.state.G
         return sample_eval_images(G, self.eval_z, self.eval_onehot, self.cd)
 
+    def _extra_metrics(self, feats) -> dict:
+        """KID and precision / recall / density / coverage from the eval's
+        own extraction, with ``--extra_metrics 1`` (``jckx/train/
+        gan_trainer.py:485-496``): logged scalars only; the best-metric
+        checkpoints stay FID / IS / intra-FID."""
+        if not self.cfg.extra_metrics:
+            return {}
+        kid_mean, kid_std = self.metric.kid(features=feats)
+        return {"kid": kid_mean, "kid_std": kid_std, **self.metric.prdc(features=feats)}
+
     def _save_best(self, typ: str, iters: int, values, images, base: dict) -> None:
         """The best-metric checkpoint of ``typ`` (its name carries
         ``values``) and its grid of ``images``."""
@@ -340,7 +352,8 @@ class DCGANTrainer(_BaseGANTrainer):
         is_score = self.metric.inception_score(logits=feats)
         fid = self.metric.fid(features=feats)
         self.logger.debug(f"inception score: {is_score}\tfid: {fid}")
-        self.logger.scalars({"step": iters, "fid": fid, "is": is_score})
+        self.logger.scalars({"step": iters, "fid": fid, "is": is_score,
+                             **self._extra_metrics(feats)})
         denorm = 0.5 * fake.float().cpu().numpy() + 0.5
         base = state_payload(self.state)  # one host copy serves every save of this eval
         for typ, value, better in (("fid", fid, fid < self.bests["fid"]),
@@ -369,7 +382,8 @@ class CGANTrainer(_BaseGANTrainer):
         fid = self.metric.fid(features=feats)
         intra = self.metric.intra_fid(features=feats)
         self.logger.debug(f"inception score: {is_score}\tfid: {fid}\tintra fid: {intra}")
-        self.logger.scalars({"step": iters, "fid": fid, "is": is_score, "intra_fid": intra})
+        self.logger.scalars({"step": iters, "fid": fid, "is": is_score, "intra_fid": intra,
+                             **self._extra_metrics(feats)})
         # one sample per class (cgan_trainer.py:243)
         per_class = 0.5 * fake[::10].float().cpu().numpy() + 0.5
         values = (is_score, fid, intra)

@@ -54,7 +54,9 @@ def run_test_mode(cfg: Config, metrics=None) -> dict:
             "--seed", str(cfg.seed), "--compute_dtype", cfg.compute_dtype,
             "--sample_count", str(cfg.sample_count), "--eval_batch_size", str(cfg.eval_batch_size),
             "--metric_backbone", cfg.metric_backbone, "--save_root", cfg.save_root,
-            "--device", cfg.device]
+            "--device", cfg.device, "--eval_fast_stem", str(cfg.eval_fast_stem)]
+    if cfg.extra_metrics:  # the run logged KID and PRDC at its evals (main.py:63-69)
+        argv += ["--kid", "1", "--prdc", "1"]
     result = evaluate(get_args(argv), metrics=metrics)
     print(json.dumps(result))
     return result

@@ -192,7 +192,8 @@ class _StandInBackbone(torch.nn.Module):
                                              generator=torch.Generator().manual_seed(seed)))
             self.fc.bias.zero_()
 
-    def forward(self, x, compute_dtype=torch.float32):
+    def forward(self, x, compute_dtype=torch.float32, fast_stem=False):
+        self.fast_stem = fast_stem
         return self.fc(F.adaptive_avg_pool2d(x.permute(0, 3, 1, 2).float(), 4).flatten(1))
 
 
@@ -243,12 +244,32 @@ def test_evaluate_reproduces_the_logged_metrics(tmp_path, monkeypatch, model):
         tevaluate.load_generator(str(tmp_path / "no_ema.pt"), use_ema=1)
 
 
-def test_evaluate_refuses_what_it_cannot_read(tmp_path):
+def test_evaluate_refuses_what_it_cannot_read(tmp_path, monkeypatch):
+    """A jckx msgpack ``.ckpt`` is refused by name; ``--kid``, ``--prdc``
+    and ``--eval_fast_stem`` (once refused) are accepted and add jckx's keys."""
     from jckx_torch import evaluate as tevaluate
 
     (tmp_path / "run.ckpt").write_bytes(b"\x82\xa5flax")  # msgpack, as jckx writes it
     with pytest.raises(ValueError, match="jckx.convert"):
         tevaluate.load_generator(str(tmp_path / "run.ckpt"))
-    for flag in ("--kid", "--prdc", "--eval_fast_stem"):  # --quant int8 is served since A12
-        with pytest.raises(SystemExit, match="A9"):
-            tevaluate.main(["--ckpt", "x.pt", flag, "1", "--device", "cpu"])
+    backbones = []
+
+    def stand_in(seed, num_classes=100):
+        backbones.append(_StandInBackbone(seed, num_classes))
+        return backbones[-1]
+
+    monkeypatch.setattr(inception_v3, "init", stand_in)
+    geo = GANGeometry(z_dim=100, image_size=16, channels=3, base_width=8)
+    gen = torch.Generator().manual_seed(0)
+    g, d = CGenerator(geo, K, gen=gen), CDiscriminator(geo, K, gen=gen)
+    torch.save({"model_g": g.state_dict(), "model_d": d.state_dict()}, tmp_path / "c.pt")
+    base = ["--ckpt", str(tmp_path / "c.pt"), "--dataset", "cifar10", "--synthetic_size", "48",
+            "--eval_batch_size", "40", "--compute_dtype", "float32", "--device", "cpu",
+            "--save_root", str(tmp_path), "--data_dir", str(tmp_path / "data")]
+    plain = tevaluate.main(base)
+    got = tevaluate.main(base + ["--kid", "1", "--prdc", "1", "--eval_fast_stem", "1"])
+    extra = {"kid", "kid_std", "precision", "recall", "density", "coverage"}
+    assert set(got) == set(plain) | extra and all(np.isfinite(got[k]) for k in extra)
+    assert backbones[-1].fast_stem is True and backbones[0].fast_stem is False
+    # the s2d stem's real features live under their own cache key
+    assert sum("-s2d" in f for f in os.listdir(tmp_path / "data")) == 1

@@ -94,6 +94,36 @@ def test_wrapper_on_cpu_takes_plain_path_without_a_launch():
                                rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_registered_operator_on_cpu_is_the_plain_version(dtype):
+    x, s, b = _inputs((300, 24), seed=5)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    inv, shift = torch.from_numpy(s), torch.from_numpy(b)
+    before = tfba.LAUNCHES
+    got = torch.ops.jckx_torch.normalize_act(tx, inv, shift, "leaky_relu", 0.2)
+    assert tfba.LAUNCHES == before
+    assert torch.equal(got, tfba.normalize_act_plain(tx, inv, shift, "leaky_relu", 0.2))
+
+
+def test_bn_act_exports_as_the_registered_operator():
+    """``torch.export`` records the operator as one node (by its fake
+    implementation), so a sealed program on the card launches the kernel;
+    the program runs the plain version here."""
+
+    class Layer(torch.nn.Module):
+        def forward(self, x, scale, bias):
+            return tfba.bn_act(x, scale, bias, act="relu")
+
+    x, s, b = _inputs((4, 5, 5, 16), seed=6)
+    args = (_to_port(x).contiguous(memory_format=torch.channels_last), torch.from_numpy(s),
+            torch.from_numpy(b))
+    with torch.no_grad():
+        program = torch.export.export(Layer(), args, strict=False)
+    ops = [n.target for n in program.graph.nodes if n.op == "call_function"]
+    assert ops.count(torch.ops.jckx_torch.normalize_act.default) == 1
+    assert torch.equal(program.module()(*args), tfba.bn_act_plain(*args, act="relu"))
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     x, s, b = _inputs((64, 8), seed=3)
     with pytest.raises(ValueError, match="CUDA"):

@@ -365,3 +365,38 @@ def test_subpixel_sampler_on_the_card(tmp_path):
     got = sub.render(z)
     assert fba.LAUNCHES == before + 4
     assert torch.equal(got, _with_bn(fba.bn_act_one_rounding, lambda: sub.render(z)))
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+@pytest.mark.parametrize("conditional", [False, True])
+def test_artifact_on_the_card_takes_the_kernel(tmp_path, conditional, quant):
+    """A ``.pt2`` exported on the card (64², width 8, batch 64, bf16 or
+    int8) launches the kernel 4 times per batch through its
+    ``jckx_torch::normalize_act`` nodes and renders a seed's z bit for bit
+    as the service does; against the plain route within 1 LSB (int8: 4 LSB
+    on all but 1 % of the pixels, as the int8 sampler)."""
+    from jckx_torch import rng
+    from jckx_torch.export import ArtifactService, export_generator, load_exported
+    from jckx_torch.serve import GeneratorService
+
+    dev = _card()
+    path = _gan_ckpt(str(tmp_path / "g.pt"), conditional)
+    info = export_generator(path, str(tmp_path / "g.pt2"), batch_size=64, quant=quant)
+    assert info["platforms"] == ["cuda"] and info["quant"] == quant
+    sample = load_exported(str(tmp_path / "g.pt2"))
+    svc = GeneratorService(path, batch_size=64, quant=quant)
+    labels = torch.tensor([[3, 17, 42][i % 3] for i in range(64)], device=dev)
+    z = rng.normal_from_seed(5, (64, 100), device=dev)
+    args = (z, labels) if conditional else (z,)
+    before = fba.LAUNCHES
+    got = sample(5, labels.cpu().numpy() if conditional else None)
+    assert fba.LAUNCHES == before + 4 and got.device.type == "cuda"
+    assert torch.equal(got, svc.render(*args))
+    diff = (got.int() - _with_bn(fba.bn_act_plain, lambda: svc.render(*args)).int()).abs()
+    if quant is None:
+        assert diff.max().item() <= 1
+    else:
+        assert diff.max().item() <= 4 and (diff == 0).float().mean().item() >= 0.99
+    art = ArtifactService(str(tmp_path / "g.pt2"))
+    assert art.sample(70, labels=[3, 17, 42] if conditional else None, seed=9).shape == (
+        70, 64, 64, 3)

@@ -24,7 +24,9 @@ def test_importing_every_port_module_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120, check=True).stdout.split()
     for name in ("jckx_torch.serve", "jckx_torch.kernels.fused_bn_act", "jckx_torch.models.cgan",
-                 "jckx_torch.evaluate", "jckx_torch.train.gan_trainer"):
+                 "jckx_torch.evaluate", "jckx_torch.train.gan_trainer", "jckx_torch.rng",
+                 "jckx_torch.export", "jckx_torch.convert", "jckx_torch.inspect",
+                 "jckx_torch.doctor", "jckx_torch.panel", "jckx_torch.metrics.extra"):
         assert name in out, name
     assert [m for m in out if _forbidden(m)] == []
 

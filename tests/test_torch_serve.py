@@ -332,7 +332,7 @@ def test_serves_the_ports_latest_ckpt_with_and_without_ema(tmp_path):
     for kw in (dict(conditional=True), dict(num_classes=100), dict(geo_overrides={"base_width": 4})):
         with pytest.raises(ValueError, match="contradict"):
             _svc(path, **kw)
-    with pytest.raises(ValueError, match="A11"):
+    with pytest.raises(ValueError, match="jckx.serve"):
         _svc(str(tmp_path / "g.jaxexp"))
 
 
@@ -355,7 +355,7 @@ def test_cli_serves_every_mode(tmp_path, capsys):
                                  "--labels", "1,7", "--kind", "lerp"] + common))
     assert "5-frame lerp walk" in capsys.readouterr().out
     assert np.asarray(Image.open(out)).shape == (18 + 2, 5 * 18 + 2, 3)
-    refusals = (([latest, "--mesh_shape", "8"], "A13"), ([str(tmp_path / "m.jaxexp")], "A11"),
+    refusals = (([latest, "--mesh_shape", "8"], "A13"), ([str(tmp_path / "m.jaxexp")], "jckx.serve"),
                 ([latest, "--watch", "5"], "--listen"),
                 ([latest, "--interpolate", "3,4", "--listen", "8099"], "POST /interpolate"),
                 ([latest, "--listen", "host:0"], "--listen expects"),

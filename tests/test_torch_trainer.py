@@ -235,11 +235,13 @@ def test_cli_flags_and_refusals(tmp_path):
 
     from jckx_torch.__main__ import main as cli
 
-    assert cli(["serve"]) == 2 and cli([]) == 0
+    assert cli(["nope"]) == 2 and cli(["plan"]) == 2 and cli(["finetune"]) == 2 and cli([]) == 0
     with pytest.raises(SystemExit, match="A3"):
         cli(["train", "-m", "CGAN", "--fused_prop", "1"] + base)
-    with pytest.raises(SystemExit, match="A9"):
-        cli(["evaluate", "--ckpt", "x.pt", "--kid", "1"])
+    with pytest.raises(SystemExit, match="A13"):
+        cli(["serve", "--ckpt", "x.pt", "--mesh_shape", "8"])
+    with pytest.raises(SystemExit, match="jckx.serve"):
+        cli(["serve", "--ckpt", "x.jaxexp"])
 
 
 def test_cli_trains_and_resume_inherits_its_config(tmp_path):
