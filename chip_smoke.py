@@ -102,7 +102,29 @@ Run from the root of a checkout, on a machine with a CUDA card and
     --eval_fast_stem 1`` at full width: one verdict with both seeds and
     ``best_kid`` / ``best_precision``; each child trainer logs its kernel
     launches (12: 4 per eval), which the script reads from its log;
-20. prints a ``{"kernels": [...]}`` line, then, last, the
+20. holds ``ops/norm.bn_relu_train`` (the kernel's forward, the
+    hand-written backward) against its plain version on the card, bf16, at
+    the fine-tune's two largest stem maps and a Mixed_7c map (bs128, 299²):
+    1 launch each, ``out`` bit-identical to the once-rounded plain route,
+    statistics within 1e-5, dx / dgamma / dbeta within the tolerances
+    ``phase_bn_relu_train`` states; times the kernel at the largest map
+    against its bound, its plain version and ``F.batch_norm`` + ReLU;
+21. holds one fine-tune step at 299², batch 8, f32, TF32 off on the card
+    against the CPU (same weights, indices, crops, dropout mask): loss
+    within 1e-3, SGD deltas within 10 % in norm per leaf (the fc's within
+    1e-2 of its largest element), running statistics within 1e-3; 94
+    launches;
+22. fine-tunes InceptionV3 through ``python -m jckx_torch finetune``'s
+    ``train()`` at 299², bs128, bf16, 2 epochs of 8 steps on 2560
+    synthetic rows: 94 launches per step, none from the evals; finite
+    losses; ``loss_bset`` / ``last_bset`` / ``train_state.npz`` and
+    ``summary.json`` (``acc_bset.npz`` where top-1 rose above 0);
+    ``--resume 1`` starts at epoch 2 and trains nothing; ``evaluate
+    --metric_backbone loss_bset.npz`` on the CGAN run (8 launches, finite
+    FID / IS); img/s, the step's device ms (profiler busy time / 4), busy
+    share, top 10 kernels, FLOPs per step (``torch.utils.flop_counter``)
+    and their share of the 989 TFLOP/s bf16 peak, eval and write seconds;
+23. prints a ``{"kernels": [...]}`` line, then, last, the
     ``{"ok": true, "device": {...}}`` line.
 
 Any failed phase exits nonzero before the last line is printed. Without a
@@ -139,8 +161,14 @@ EXPORT_BATCH = 64           # jckx's export batch (jckx/export.py:263)
 # 98.0844 % exact for seed-0 DCGAN, seeds 0, 1, 7; 99.7803 % at 512)
 INT8_EXACT_BS64 = 0.975
 SERVE_LABELS = [3, 17, 42]
+FT_BATCH, FT_SIZE = 128, 299  # the notebook's fine-tune batch and input side
+FT_CONVS = 94                 # InceptionV3's BasicConv2d layers: one kernel launch each per step
+BF16_FLOPS_PER_S = 989e12     # H100 SXM data sheet, dense bf16
+# bn_relu_train's inputs at bs128, 299²: the two largest stem maps, and Mixed_7c's widest
+FT_BN_SHAPES = [(64, 147), (32, 149), (448, 8)]  # (C, side)
 # device kernels by kind, for the profiles: the first kind whose words a name holds
 KERNEL_KINDS = [("fused bn_act", ("bn_act",)),
+                ("pooling", ("pool",)),
                 ("int8 GEMM (_int_mm)", ("gemm_s8", "s8s8", "imma")),
                 ("convolution (cuDNN)", ("xmma", "cutlass", "cudnn", "conv", "dgrad", "wgrad",
                                          "implicit_gemm", "nhwc", "nchw")),
@@ -1549,6 +1577,314 @@ def phase_panel(tmp: str, card: str) -> int:
     return sum(launches)
 
 
+def _bn_relu_grads(fn, x, scale, bias, dout):
+    """``fn``'s (out, mean, var) and the gradients of sum(out · dout)."""
+    x = x.detach().requires_grad_(True)
+    scale, bias = scale.detach().requires_grad_(True), bias.detach().requires_grad_(True)
+    out, mean, var = fn(x, scale, bias)
+    (out.float() * dout).sum().backward()
+    return out.detach(), mean, var, x.grad, scale.grad, bias.grad
+
+
+def phase_bn_relu_train(dev, card: str) -> dict:
+    """``ops/norm.bn_relu_train`` (the kernel's forward, the hand-written
+    backward) against ``bn_relu_train_plain`` (autograd through plain ops),
+    both on the card, bf16, at the fine-tune's largest stem maps and one
+    Mixed_7c map (bs128, 299²): ``out`` bit-identical to the plain route
+    rounded once; against the plain route as jckx rounds it (whose ReLU
+    mask the backward recomputes) the statistics within 1e-5 relative, dx
+    within one bf16 ulp plus 1e-3 of its largest magnitude (both round an
+    f32 dx to bf16; their f32 sums differ in order), dgamma / dbeta within
+    1e-3 of their largest magnitude (sums of up to 2.8 M products in
+    another order).
+    Then the kernel alone at the largest map, timed against its bound.
+    → the numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from jckx_torch.kernels import fused_bn_act as fba
+    from jckx_torch.ops.norm import bn_relu_train, bn_relu_train_plain
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    worst = {}
+    for c, side in FT_BN_SHAPES:
+        x = (torch.randn(FT_BATCH, c, side, side, generator=g, device=dev) * 2 + 0.5).to(
+            torch.bfloat16, memory_format=torch.channels_last)
+        scale = torch.rand(c, generator=g, device=dev) + 0.5
+        bias = torch.randn(c, generator=g, device=dev)
+        dout = torch.randn(FT_BATCH, c, side, side, generator=g, device=dev).contiguous(
+            memory_format=torch.channels_last)
+        before = fba.LAUNCHES
+        got = _bn_relu_grads(bn_relu_train, x, scale, bias, dout)
+        torch.cuda.synchronize()
+        check(fba.LAUNCHES == before + 1, "bn_relu_train did not launch the kernel once")
+        with torch.no_grad():
+            once = bn_relu_train_plain(x, scale, bias, one_rounding=True)[0]
+        check(torch.equal(got[0], once),
+              f"bn_relu_train's out at {FT_BATCH}x{c}x{side}x{side} differs from the once-rounded "
+              f"plain route")
+        check(got[0].is_contiguous(memory_format=torch.channels_last), "out not channels_last")
+        # the backward recomputes the ReLU mask as x·a + sh > 0 rounded twice, as
+        # jckx's does: the twice-rounded plain route has the same mask
+        plain = _bn_relu_grads(bn_relu_train_plain, x, scale, bias, dout)
+        gaps = {}
+        for name, a, b in zip(("mean", "var", "dx", "dgamma", "dbeta"), got[1:], plain[1:]):
+            a, b = a.float(), b.float()
+            gaps[name] = ((a - b).abs().max() / b.abs().max()).item()
+        check(gaps["mean"] <= 1e-5 and gaps["var"] <= 1e-5, f"statistics {gaps}")
+        dx, ref = got[3].float(), plain[3].float()
+        m = torch.maximum(dx.abs(), ref.abs())
+        ulp = torch.where(m > 0, torch.exp2(torch.floor(torch.log2(m)) - 7), torch.zeros_like(m))
+        check(bool(((dx - ref).abs() <= ulp + 1e-3 * ref.abs().max()).all()), f"dx {gaps}")
+        check(gaps["dgamma"] <= 1e-3 and gaps["dbeta"] <= 1e-3, f"dgamma / dbeta {gaps}")
+        for k, v in gaps.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+        print(f"bn_relu_train at {FT_BATCH}x{c}x{side}x{side} bf16 on the card: 1 launch; out "
+              f"bit-identical to the once-rounded plain route; relative gaps to the plain route "
+              + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items()))
+        del x, dout, got, once, plain
+
+    c, side = FT_BN_SHAPES[0]
+    rows = FT_BATCH * side * side
+    nbytes = rows * c * 2
+    xs = rotation(lambda: (torch.randn(rows, c, generator=g, device=dev)).to(torch.bfloat16),
+                  nbytes, cap=4)
+    inv = torch.rand(c, generator=g, device=dev) + 0.5
+    shift = torch.randn(c, generator=g, device=dev)
+    scale = torch.rand(c, generator=g, device=dev) + 0.5
+    bias = torch.randn(c, generator=g, device=dev)
+    ms = device_ms(lambda x: fba.normalize_act(x, inv, shift, "relu"), [(x,) for x in xs])
+    plain = device_ms(lambda x: fba.normalize_act_plain(x, inv, shift, "relu"), [(x,) for x in xs])
+    nchw = [(fba._unrows(x, torch.empty(FT_BATCH, c, side, side, device="meta")),) for x in xs]
+    lib = device_ms(lambda x: F.relu_(F.batch_norm(x, None, None, scale, bias, training=True,
+                                                    eps=1e-3)), nchw)
+    bound = max((2 * nbytes + 2 * c * 4) / HBM_BYTES_PER_S, 3 * rows * c / F32_FLOPS_PER_S) * 1e3
+    print(f"kernel at the largest fine-tune map ({rows} rows x {c}, bf16): {ms * 1e3:.2f} us, bound "
+          f"{bound * 1e3:.2f} us (bytes; {100 * bound / ms:.1f} %), plain {plain * 1e3:.2f} us, "
+          f"F.batch_norm + relu {lib * 1e3:.2f} us   [{card}]")
+    out = {"card": card, "rows": rows, "C": c, "ms": ms, "bound_ms": bound, "plain_ms": plain,
+           "library_ms": lib, "max_gaps": worst}
+    print("bn_relu_train_numbers " + json.dumps(out))
+    return out
+
+
+def _flat_deltas(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in before if not k.endswith(("bn_mean", "bn_var"))}
+
+
+def phase_finetune_vs_cpu(dev) -> None:
+    """One fine-tune step at 299², batch 8, f32, TF32 off (set in ``main``),
+    on the card against the same step on the CPU: the same seeded weights,
+    indices, crop draws and dropout mask. The loss within 1e-3; each
+    leaf's SGD delta within 10 % of the CPU's in norm, the fc's within 1e-2
+    of its largest element everywhere (through 94 batch-statistic BN layers
+    the convolutions' f32 sums, taken in another order, move the deep
+    layers' gradients by a few per cent: tests/test_torch_finetune_step.py);
+    the running statistics within 1e-3 of their layer's largest; 94 kernel
+    launches on the card, none on the CPU. The gaps are printed beside the
+    CPU's own against weights perturbed by 1e-7 relative. Before the step:
+    the branch pool's gradient on a channels_last tensor, the port's and
+    ``F.avg_pool2d``'s, against the CPU's."""
+    import numpy as np
+    import torch
+
+    import torch.nn.functional as F
+
+    from jckx_torch.kernels import fused_bn_act as fba
+    from jckx_torch.metrics import inception_v3 as tiv
+    from jckx_torch.metrics.inception_train import draw_step, make_optimizer, make_train_step
+
+    # the fine-tune's first pool input at bs128 (Mixed_5b, 192 channels at 35²), f32
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn(FT_BATCH, 192, 35, 35, generator=g)
+    dy = torch.randn(FT_BATCH, 192, 35, 35, generator=g)
+    pool_grads = {}
+    for name, pool in (("port", tiv._avg_pool),
+                       ("F.avg_pool2d", lambda t: F.avg_pool2d(t, 3, 1, 1, count_include_pad=True))):
+        for device in ("cpu", dev):
+            t = x.to(device).contiguous(memory_format=torch.channels_last).requires_grad_(True)
+            pool(t).backward(dy.to(device))
+            pool_grads[name, str(device)] = t.grad.cpu()
+    pool_err = {name: float((pool_grads[name, str(dev)] - pool_grads[name, "cpu"]).norm()
+                            / pool_grads[name, "cpu"].norm()) for name in ("port", "F.avg_pool2d")}
+    print(f"branch pool gradient on a channels_last {FT_BATCH}x192x35x35 f32 tensor, card vs CPU: "
+          f"the port's {pool_err['port']:.3g} relative, F.avg_pool2d's {pool_err['F.avg_pool2d']:.3g} "
+          f"(torch {torch.__version__})")
+    check(pool_err["port"] <= 1e-6, f"the port's branch pool gradient on the card: {pool_err}")
+
+    n = 8
+    g = torch.Generator().manual_seed(11)
+    data = torch.randint(0, 256, (64, 32, 32, 3), generator=g, dtype=torch.uint8)
+    labels = torch.randint(0, 100, (64,), generator=g)
+    idx = torch.randperm(64, generator=g)[:n]
+    draws = draw_step(torch.Generator().manual_seed(12), n)
+    out = []
+    # the CPU twice: as given, and with every weight scaled by 1 + 1e-7·N(0, 1),
+    # the noise floor of the comparison
+    for device, perturb in ((torch.device("cpu"), 0.0), (torch.device("cpu"), 1e-7), (dev, 0.0)):
+        net = tiv.init(0, num_classes=100)
+        if perturb:
+            with torch.no_grad():
+                for p in net.parameters():
+                    p.mul_(1 + perturb * torch.randn(p.shape, generator=torch.Generator().manual_seed(5)))
+        net = net.to(device)
+        step = make_train_step(net, make_optimizer(net, 0.1), torch.float32, FT_SIZE)
+        before_flat = tiv.to_jckx_flat(net)
+        before = fba.LAUNCHES
+        t0 = time.perf_counter()
+        loss, acc = step(data.to(device), labels.to(device), idx.to(device),
+                         type(draws)(type(draws.crops)(*(t.to(device) for t in draws.crops)),
+                                     draws.keep.to(device)))
+        loss = float(loss)
+        dt = time.perf_counter() - t0
+        want = FT_CONVS if device.type == "cuda" else 0
+        check(fba.LAUNCHES == before + want,
+              f"the fine-tune step on {device} launched {fba.LAUNCHES - before}, want {want}")
+        out.append((loss, float(acc), before_flat, tiv.to_jckx_flat(net), dt))
+    (lc, ac, b0, pc, tc), (_, _, b1, pp, _), (lg, ag, _, pg, tg) = out
+    check(math.isfinite(lg) and abs(lg - lc) <= 1e-3, f"fine-tune loss card {lg} vs CPU {lc}")
+    dc, dg, dp = _flat_deltas(b0, pc), _flat_deltas(b0, pg), _flat_deltas(b1, pp)
+    gaps = {k: float(np.linalg.norm(dg[k] - dc[k]) / np.linalg.norm(dc[k])) for k in dc}
+    floor = [float(np.linalg.norm(dp[k] - dc[k]) / np.linalg.norm(dc[k])) for k in dc]
+    worst = max(gaps, key=gaps.get)
+    check(gaps[worst] <= 0.1, f"fine-tune delta of {worst}: card vs CPU gap {gaps[worst]:.3g}")
+    for k in ("fc/w", "fc/b"):
+        err = float(np.abs(dg[k] - dc[k]).max() / np.abs(dc[k]).max())
+        check(err <= 1e-2, f"{k} delta card vs CPU: {err:.3g} of its largest")
+    stat_gap = max(float(np.abs(pg[k] - pc[k]).max() / np.abs(pc[k]).max())
+                   for k in pc if k.endswith(("bn_mean", "bn_var")))
+    check(stat_gap <= 1e-3, f"running statistics card vs CPU: {stat_gap:.3g}")
+    print(f"fine-tune step card vs CPU (299², batch {n}, f32, TF32 off): loss {lg:.6f} vs {lc:.6f} "
+          f"(|diff| {abs(lg - lc):.3g} <= 1e-3), acc {ag} vs {ac}; SGD deltas within "
+          f"{gaps[worst]:.3g} of the CPU's in norm at worst ({worst}; <= 0.1), median "
+          f"{statistics.median(gaps.values()):.3g} (the CPU with its weights perturbed by 1e-7 "
+          f"relative: at worst {max(floor):.3g}, median {statistics.median(floor):.3g}); running "
+          f"statistics {stat_gap:.3g} (<= 1e-3); "
+          f"{FT_CONVS} kernel launches on the card; {tc:.2f} s on the CPU, {tg:.2f} s on the card")
+
+
+def phase_finetune(ctr, tmp: str, card: str) -> int:
+    """``python -m jckx_torch finetune`` in this process through its
+    ``train()`` at the notebook's geometry (299², bs128, bf16), 2 epochs of
+    8 steps on 2560 synthetic rows, eval on 512: exactly 94 launches per
+    step and none from the evals; finite losses; the ``.npz`` files and
+    ``summary.json``; ``--resume 1`` starts at epoch 2 and trains nothing;
+    ``loss_bset.npz`` as ``--metric_backbone`` of ``evaluate`` on the CGAN
+    run's ``latest.ckpt``. Then img/s, the step's device ms, busy share, top
+    kernels and FLOP share, eval and write seconds, beside the card's name
+    and power limit. → kernel launches (the run's and the evaluate's)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from jckx_torch import evaluate
+    from jckx_torch.kernels import fused_bn_act as fba
+    from jckx_torch.logging.main_logger import MainLogger
+    from jckx_torch.metrics.inception_train import draw_step, get_args, train
+
+    save = os.path.join(tmp, "finetune")
+    argv = ["--dataset", "synthetic", "--synthetic_size", "2560", "-b", str(FT_BATCH), "-e", "2",
+            "--max_steps_per_epoch", "8", "--image_size", str(FT_SIZE), "--eval_samples", "512",
+            "--save_dir", save, "--data_dir", os.path.join(tmp, "data")]
+    torch.cuda.reset_peak_memory_stats()
+    fba.LAUNCHES = 0
+    t0 = time.perf_counter()
+    run = train(get_args(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fba.LAUNCHES
+    MainLogger.reset()
+    steps = sum(e["steps"] for e in run.epochs)
+    check(steps == 16 and [e["epoch"] for e in run.epochs] == [0, 1],
+          f"fine-tune ran epochs {[e['epoch'] for e in run.epochs]}, {steps} steps")
+    check(launches == FT_CONVS * steps,
+          f"{launches} kernel launches over {steps} fine-tune steps and 2 evals; want "
+          f"{FT_CONVS} per step and none from the evals")
+    check(all(math.isfinite(e["train_loss"]) and math.isfinite(e["loss"]) for e in run.epochs),
+          f"fine-tune losses not finite: {run.epochs}")
+    wrote = {f for e in run.epochs for f in e["written"]}
+    check({"loss_bset.npz", "last_bset.npz", "train_state.npz"} <= wrote, f"wrote {wrote}")
+    for f in wrote | {"summary.json"}:
+        check(os.path.isfile(os.path.join(save, f)), f"{f} missing")
+    check(("acc_bset.npz" in wrote) == (run.best_acc > 0), "acc_bset.npz against best top-1")
+    with open(os.path.join(save, "summary.json")) as f:
+        side = json.load(f)
+    check(side["epochs_run"] == 2 and side["batch_size"] == FT_BATCH, f"summary {side}")
+    print(f"fine-tune through python -m jckx_torch finetune's train(): 2 epochs x 8 steps at "
+          f"bs{FT_BATCH}, {FT_SIZE}², bf16 in {wall:.1f} s (data, init, evals and writes "
+          f"included); {launches} kernel launches = {FT_CONVS} x {steps} steps, 0 from the evals; "
+          + "; ".join(f"epoch {e['epoch']}: train loss {e['train_loss']:.4f}, valid top1 "
+                      f"{e['top1']:.4f} loss {e['loss']:.4f}, eval {e['eval_s']:.3f} s, "
+                      f"{len(e['written'])} files written in {e['write_s']:.3f} s"
+                      for e in run.epochs) + f"   [{card}]")
+
+    before = fba.LAUNCHES
+    again = train(get_args(argv + ["--resume", "1"]))
+    MainLogger.reset()
+    check(again.start_epoch == 2 and again.epochs == [] and fba.LAUNCHES == before,
+          f"--resume 1 started at epoch {again.start_epoch} and ran {again.epochs}")
+    print("fine-tune --resume 1 on the same save dir: restored epoch 2, nothing left to train")
+
+    fba.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = evaluate.main(["--ckpt", os.path.join(ctr.save_path, "latest.ckpt"), "--dataset",
+                         "synthetic", "--metric_backbone", os.path.join(save, "loss_bset.npz")]
+                        + _run_dir_args(tmp, "CGAN")[:4])
+    ev_launches = fba.LAUNCHES
+    MainLogger.reset()
+    check(math.isfinite(res["fid"]) and math.isfinite(res["is"]) and ev_launches == 8,
+          f"evaluate over the fine-tuned backbone: {res}, {ev_launches} launches")
+    print(f"evaluate --metric_backbone finetune/loss_bset.npz on the CGAN run's latest.ckpt: "
+          f"{time.perf_counter() - t0:.3f} s, {ev_launches} kernel launches; fid "
+          f"{res['fid']:.4f} is {res['is']:.4f} intra_fid {res['intra_fid']:.4f}")
+
+    # timing on the trained net, draws from a generator of their own
+    dev = run.data.device
+    gen = torch.Generator(device=dev).manual_seed(99)
+    idx = torch.arange(FT_BATCH, device=dev)
+
+    def one_step():
+        return run.step(run.data, run.labels, idx, draw_step(gen, FT_BATCH, dev))
+
+    walls = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    rates = [FT_BATCH / w for w in walls[1:]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        one_step()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / 4
+    torch.cuda.synchronize()
+    prof = profile_window(lambda: [one_step() for _ in range(4)],
+                          f"4 fine-tune steps at bs{FT_BATCH}, {FT_SIZE}², bf16", card)
+    card_ms = prof["busy_ms"] / 4 if prof else None
+    with FlopCounterMode(display=False) as fc:
+        one_step()
+    flops = fc.get_total_flops()
+    share = flops / (card_ms * 1e-3) / BF16_FLOPS_PER_S if card_ms else None
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"fine-tune img/s at bs{FT_BATCH}, {FT_SIZE}², bf16, host clock: median "
+          f"{statistics.median(rates):.1f} over {len(rates)} steps after the first (min "
+          f"{min(rates):.1f}, max {max(rates):.1f}); host enqueue {enqueue_ms:.3f} ms per step; "
+          f"step on the card " + (f"{card_ms:.3f} ms" if card_ms else "not measured")
+          + f" (profiler busy time / 4); {flops / 1e12:.4f} TFLOP per step "
+          f"(torch.utils.flop_counter), " + (f"{100 * share:.2f} %" if share else "not measured")
+          + f" of the 989 TFLOP/s bf16 peak; peak device memory {peak:.2f} GiB   [{card}]")
+    print("finetune_numbers " + json.dumps({
+        "card": card, "batch": FT_BATCH, "image_size": FT_SIZE, "dtype": "bfloat16",
+        "wall_s": wall, "launches": launches, "steps": steps,
+        "img_per_s_host_median": statistics.median(rates), "step_ms_host": walls[1:],
+        "enqueue_ms": enqueue_ms, "step_ms_card": card_ms, "flops_per_step": flops,
+        "bf16_peak_share": share, "peak_gib": peak, "profile": prof,
+        "epochs": [{k: e[k] for k in ("epoch", "train_loss", "top1", "loss", "train_s", "eval_s",
+                                      "write_s", "written")} for e in run.epochs],
+        "evaluate": res}))
+    return launches + ev_launches
+
+
 @contextlib.contextmanager
 def keep_latest_of_step(step: int, dst: str):
     """While inside, copy ``latest.ckpt`` to ``dst`` when a trainer writes it
@@ -1607,6 +1943,8 @@ def main() -> None:
     phase_modes_timing(svc, modes, dev, card)
     phase_train_vs_cpu(dev)
     phase_train_vs_cpu(dev, conditional=True)
+    phase_bn_relu_train(dev, card)
+    phase_finetune_vs_cpu(dev)
     with tempfile.TemporaryDirectory() as tmp:
         step8 = os.path.join(tmp, "dcgan_step8.ckpt")
         with keep_latest_of_step(8, step8):
@@ -1619,13 +1957,14 @@ def main() -> None:
         eval_launches += phase_extra_metrics(ctr, tmp, dev, card)
         phase_train_timing(ctr, csteps, tmp, card)
         panel_launches = phase_panel(tmp, card)
+        finetune_launches = phase_finetune(ctr, tmp, card)
     print(json.dumps({"kernels": [{
         "name": "fused_bn_act", "route": "cuda",
         "source": "jckx_torch/kernels/csrc/fused_bn_act.cu",
         "replaces": "jckx/kernels/fused_bn_act.py:120",
         "launches": (launches + train_launches + cgan_launches + ctrain_launches + eval_launches
                      + mode_launches + http_launches + watch_launches + export_launches
-                     + panel_launches),
+                     + panel_launches + finetune_launches),
         "max_abs_err": max_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],

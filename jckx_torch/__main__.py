@@ -5,10 +5,11 @@
     python -m jckx_torch serve --ckpt gen.pt2 --listen 8000
     python -m jckx_torch export --ckpt save/dcgan/<ts>/latest.ckpt --dst gen.pt2
     python -m jckx_torch panel --seeds 0,1 -m DCGAN --dataset synthetic -e 1
+    python -m jckx_torch finetune --dataset cifar100 -e 300
 
-Each command keeps its own module path too (``python -m jckx_torch.serve``).
-jckx's ``finetune`` and ``plan`` are refused by name with their ROADMAP
-items.
+Each command keeps its own module path too (``python -m jckx_torch.serve``,
+``python -m jckx_torch.metrics.inception_train``). jckx's ``plan`` is
+refused by name with its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -24,10 +25,10 @@ _COMMANDS = {
     "inspect": "describe a checkpoint, .pt, .pt2 or .jaxexp without touching the card",
     "doctor": "environment readiness check: the card, its link, the kernel build",
     "panel": "train one config across N seeds, one quality verdict",
+    "finetune": "fine-tune the InceptionV3 metric backbone (loss_bset.npz for --metric_backbone)",
 }
 # jckx commands the port does not have yet → the ROADMAP.md item that brings them
 UNPORTED = {
-    "finetune": "A10 (the InceptionV3 fine-tune)",
     "plan": "A14 (the capacity planner)",
 }
 
@@ -65,6 +66,10 @@ def main(argv=None) -> int:
 
         serve_main(get_args(rest))
         return 0
+    if cmd == "finetune":
+        from jckx_torch.metrics.inception_train import main as finetune_main
+
+        return finetune_main(rest)
     from importlib import import_module
 
     return import_module(f"jckx_torch.{cmd}").main(rest)

@@ -22,7 +22,9 @@ is useless.
 
 Exit 0 when the backend and the kernel pass (the port can run), 1
 otherwise; on a host without a card the report carries the backend's
-error and stops there, as jckx's does.
+error and stops there, as jckx's does. ``--link_only`` (jckx's fast
+preflight, ``jckx/doctor.py:128-131``) stops after the backend and link
+checks and exits 0 when both ran.
 """
 
 from __future__ import annotations
@@ -139,7 +141,7 @@ def _toolchain() -> dict:
 
 
 def run_checks(data_dir: str = "./data", probe_timeout_s: float = 60.0,
-               save_root: str = "./save") -> dict:
+               save_root: str = "./save", link_only: bool = False) -> dict:
     """→ the report; never raises."""
     report: dict = {"ok": False}
     backend = _boxed(_backend, probe_timeout_s)
@@ -150,6 +152,9 @@ def run_checks(data_dir: str = "./data", probe_timeout_s: float = 60.0,
     if "read_s" in link:
         link["healthy"] = bool(link["read_s"] < 2.0)
     report["link"] = link
+    if link_only:
+        report["ok"] = bool(backend.get("device_count") and "read_s" in link)
+        return report
     # the build gets its own window: nvcc takes seconds, a cold card longer
     kernel = _boxed(_kernel, max(probe_timeout_s, 180.0))
     kernel.setdefault("ok", False)
@@ -181,8 +186,10 @@ def main(argv=None) -> int:
     p.add_argument("--save_root", default="./save")
     p.add_argument("--probe_timeout", type=float, default=60.0,
                    help="seconds before a card probe is declared blocked")
+    p.add_argument("--link_only", action="store_true",
+                   help="backend + link probe only (fast preflight)")
     args = p.parse_args(argv)
-    report = run_checks(args.data_dir, args.probe_timeout, args.save_root)
+    report = run_checks(args.data_dir, args.probe_timeout, args.save_root, args.link_only)
     print(json.dumps(report, indent=2))
     code = 0 if report["ok"] else 1
     if _hard_exit_needed():

@@ -21,6 +21,12 @@ jckx ``.ckpt`` is flax msgpack and is converted first with
 ``{"step", "n"[, "quant"][, "truncation"], "is", "fid"[, "intra_fid"]
 [, "kid", "kid_std"][, "precision", "recall", "density", "coverage"]}``.
 
+``--conditional``, ``--num_classes`` and the geometry flags (``--z_dim``,
+``--image_size``, ``--channels``, ``--base_width``) are jckx's explicit
+overrides: ``load_generator`` holds them against the weights and raises on
+a contradiction. ``--use_ema`` alone (jckx's bare flag) or ``1`` scores
+the EMA generator, ``0`` G.
+
 ``--kid 1`` and ``--prdc 1`` add KID and precision / recall / density /
 coverage from the same extraction (``metrics/extra.py``;
 ``jckx/evaluate.py:228-231``). ``--eval_fast_stem 1`` runs the backbone's
@@ -42,7 +48,7 @@ import json
 
 import torch
 
-from jckx_torch.checkpoint.checkpoint import load_generator
+from jckx_torch.checkpoint.checkpoint import GEOMETRY_FIELDS, load_generator
 from jckx_torch.configs import Config
 from jckx_torch.ops.quant import make_sampler
 from jckx_torch.train.gan_trainer import fixed_eval_inputs, sample_eval_images
@@ -65,8 +71,14 @@ def get_args(argv=None):
     p.add_argument("--compute_dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--seed", type=int, default=d.seed,
                    help="eval-noise and synthetic-data seed: the run's, to reproduce its numbers")
-    p.add_argument("--use_ema", type=int, default=None,
-                   help="1 / 0: score the EMA generator or G (default: the EMA when the file has one)")
+    p.add_argument("--use_ema", type=int, nargs="?", const=1, default=None,
+                   help="score the EMA generator (bare flag or 1) or G (0); default: the EMA "
+                        "when the file has one")
+    # explicit overrides, checked against the weights (a contradiction raises)
+    p.add_argument("--conditional", action="store_true", default=None)
+    p.add_argument("--num_classes", type=int, default=None)
+    for name in GEOMETRY_FIELDS:
+        p.add_argument(f"--{name}", type=int, default=None)
     p.add_argument("--metric_backbone", default=d.metric_backbone)
     p.add_argument("--save_root", default=d.save_root,
                    help="where the fine-tuned backbone is looked for (<save_root>/iception_v3)")
@@ -95,7 +107,10 @@ def evaluate(args, metrics=None) -> dict:
         raise ValueError(f"truncation {trunc} must be >= 0 (0 = off)")
     device = resolve_device(args.device)
     use_ema = None if args.use_ema is None else bool(args.use_ema)
-    G, conditional, geo, ncls, step, _ = load_generator(args.ckpt, use_ema)
+    geo_overrides = {k: getattr(args, k) for k in GEOMETRY_FIELDS if getattr(args, k) is not None}
+    G, conditional, geo, ncls, step, _ = load_generator(
+        args.ckpt, use_ema, conditional=args.conditional, num_classes=args.num_classes,
+        geo_overrides=geo_overrides)
     G.to(device)
     cd = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
 

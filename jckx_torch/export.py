@@ -31,7 +31,11 @@ plain XLA lowering instead (``jckx/export.py:20-24``); the two routes
 agree within one bf16 rounding (``tests/test_torch_gpu.py``).
 
 A ``.json`` sidecar beside the program carries jckx's keys (``:113-128``);
-``platforms`` names the device the program was exported on.
+``platforms`` names the device the program was exported on. jckx's
+``--platforms`` is a comma list of lowering targets (``:265-266``); a
+``.pt2`` holds one device's program, so the list must name the platform of
+``--device`` (``cuda`` or ``cpu``), and entries the port cannot lower for
+(``tpu`` in jckx's default ``cpu,tpu``) are named in a warning and skipped.
 ``load_exported`` and ``ArtifactService`` move the program to the device
 they run on (``torch.export.passes.move_to_device_pass``).
 ``ArtifactService`` is the serving end: the surface the HTTP daemon reads
@@ -49,6 +53,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 from typing import Optional
 
 import numpy as np
@@ -61,6 +66,7 @@ from jckx_torch.serve import (GeneratorService, pipelined_sample, tanh_to_u8,
 from jckx_torch.utils.device import resolve_device
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+LOWERABLE = ("cuda", "cpu")  # the --platforms entries a .pt2 can be exported for
 
 
 class _Sampler(torch.nn.Module):
@@ -263,11 +269,33 @@ def get_args(argv=None):
         p.add_argument(f"--{name}", type=int, default=None)
     p.add_argument("--device", default=None,
                    help="the device the program is exported on and for (default cuda)")
+    p.add_argument("--platforms", default=None,
+                   help="jckx's comma list of lowering targets: it must name --device's "
+                        "platform (cuda / cpu); others (tpu) are skipped with a warning")
     return p.parse_args(argv)
+
+
+def check_platforms(platforms: Optional[str], device) -> None:
+    """``--platforms`` against the device the program is exported on:
+    raises ``SystemExit`` when the list lacks its platform, warns about
+    (and skips) the entries the port cannot lower for."""
+    if platforms is None:
+        return
+    wanted = [s for s in platforms.split(",") if s]
+    skipped = [s for s in wanted if s not in LOWERABLE]
+    if skipped:
+        print(f"warning: --platforms {','.join(skipped)}: the port exports a torch.export "
+              f"program for cuda or cpu only; skipped", file=sys.stderr)
+    platform = torch.device("cuda" if device is None else device).type
+    if platform not in wanted:
+        raise SystemExit(f"jckx_torch export: --platforms {platforms!r} does not name "
+                         f"{platform!r}, the platform of --device; a .pt2 holds that device's "
+                         f"program only")
 
 
 def main(argv=None) -> int:
     a = get_args(argv)
+    check_platforms(a.platforms, a.device)
     overrides = {k: getattr(a, k) for k in ("z_dim", "image_size", "channels", "base_width")
                  if getattr(a, k) is not None}
     info = export_generator(

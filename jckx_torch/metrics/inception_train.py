@@ -1,0 +1,434 @@
+"""InceptionV3 fine-tuning, the metric-backbone trainer — port of
+``jckx/metrics/inception_train.py``.
+
+    python -m jckx_torch finetune --dataset cifar100 -e 300
+    python -m jckx_torch.metrics.inception_train --dataset synthetic --synthetic_size 2560 -e 2
+
+The reference's offline notebook (inceptionnet.ipynb): torchvision's
+InceptionV3 with a K-class head, nesterov SGD (lr 0.1, momentum 0.9,
+weight decay 5e-4) at batch 128, RandomResizedCrop(299) + flip, per-epoch
+top-1 / top-5 / superclass accuracy and cross-entropy on the test split,
+early stopping on a patience counter, and the best-accuracy / best-loss /
+last weights as ``acc_bset.npz`` / ``loss_bset.npz`` / ``last_bset.npz``
+in jckx's flat layout, which both packages' ``Metrics`` load as
+``--metric_backbone``.
+
+One train step (``make_train_step``): gather the batch by index from the
+uint8 set resident on the device, /255, crop + flip to ``image_size`` on
+the device (``data/augment.py``), ImageNet normalization, the train-mode
+forward in the compute dtype (``InceptionV3.forward_train``: batch-stat BN
+through ``ops/norm.bn_relu_train``, whose normalize pass is the hand
+kernel on the card, 94 launches per step), mean cross-entropy and
+accuracy, backward, SGD. Loss and accuracy stay on the device: the host
+reads them once per epoch (or every ``--scan_steps`` steps). The eval
+forward folds the running statistics into plain BN, as jckx's, and
+launches no kernel.
+
+Random draws (crop boxes, flips, dropout masks) come from one
+``torch.Generator`` on the device seeded with ``--seed``; a step takes
+them as a ``StepDraws``, so a test can inject jckx's. ``train_state.npz``
+holds the weights, the momentum buffers, the epoch, patience, bests and
+the generator's state in one atomic file, and ``--resume 1`` continues
+from it exactly.
+
+Refused by name: ``--mesh_shape`` and ``--multihost`` (ROADMAP A13), and
+``--dataset folder`` (A4).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+from dataclasses import dataclass, field
+from typing import Callable, List, NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from jckx_torch.data.augment import CropDraws, draw_crops, random_resized_crop_flip
+from jckx_torch.data.datasets import FINE_TO_SUPERCLASS, load_dataset
+from jckx_torch.data.pipeline import resize_bilinear
+from jckx_torch.logging.main_logger import MainLogger, time_to_str
+from jckx_torch.metrics import inception_v3
+from jckx_torch.metrics.metrics import IMAGENET_MEAN, IMAGENET_STD
+from jckx_torch.utils.device import resolve_device
+
+FEATURES = 2048  # the pooled width that dropout masks
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# flag → (its value when off, the ROADMAP.md item that brings it)
+UNPORTED = {"mesh_shape": ("", "A13 (multi-GPU data parallel)"),
+            "multihost": (0, "A13 (multi-GPU data parallel)")}
+
+
+class StepDraws(NamedTuple):
+    """One step's random draws: the crops and the dropout keep mask
+    (N, 2048) bool."""
+    crops: CropDraws
+    keep: torch.Tensor
+
+
+def draw_step(generator: torch.Generator, n: int, device=None) -> StepDraws:
+    """One step's draws for a batch of ``n`` from ``generator``."""
+    return StepDraws(draw_crops(n, generator, device),
+                     torch.rand(n, FEATURES, generator=generator, device=device) < 0.5)
+
+
+def make_optimizer(net: inception_v3.InceptionV3, lr: float, weight_decay: float = 5e-4,
+                   momentum: float = 0.9, nesterov: bool = True) -> torch.optim.SGD:
+    """Turn on the gradients of the net's parameters (conv weights, BN
+    affine, fc) and → SGD over them. The running statistics are buffers,
+    so no decay or momentum reaches them: jckx's mask (``:48-64``). torch
+    decays before momentum and its nesterov step is ``g + μ·buf`` with
+    the buffer starting at g, which is optax's ``add_decayed_weights`` →
+    ``trace(nesterov)``."""
+    net.requires_grad_(True)
+    return torch.optim.SGD(net.parameters(), lr=lr, momentum=momentum, nesterov=nesterov,
+                           weight_decay=weight_decay)
+
+
+def _normalizer(device):
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device)
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device)
+    return lambda x: (x - mean) / std
+
+
+def make_train_step(net: inception_v3.InceptionV3, opt: torch.optim.Optimizer,
+                    compute_dtype=torch.bfloat16, image_size: int = 299) -> Callable:
+    """→ ``step(data_u8, labels, idx, draws) -> (loss, acc)``, device
+    tensors; the step updates ``net`` and ``opt`` in place. ``image_size``
+    299 is the notebook's; smaller sides (≥ 75) keep CPU tests small."""
+    normalize = _normalizer(next(net.parameters()).device)
+
+    def step(data_u8: torch.Tensor, labels_all: torch.Tensor, idx: torch.Tensor,
+             draws: StepDraws):
+        labels = labels_all[idx].long()
+        x01 = data_u8[idx].float() / 255.0
+        x = normalize(random_resized_crop_flip(x01, image_size, draws.crops))
+        logits = net.forward_train(x.to(compute_dtype), draws.keep, compute_dtype)
+        loss = F.cross_entropy(logits, labels)
+        acc = (logits.argmax(-1) == labels).float().mean()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.detach(), acc
+
+    return step
+
+
+def make_eval_fn(net: inception_v3.InceptionV3, compute_dtype=torch.bfloat16,
+                 image_size: int = 299) -> Callable:
+    """→ ``logits(u8)``: /255, bilinear resize to ``image_size`` in f32
+    (the notebook's Resize(299)), normalization, the eval forward."""
+    normalize = _normalizer(next(net.parameters()).device)
+
+    def logits_fn(u8: torch.Tensor) -> torch.Tensor:
+        x = normalize(resize_bilinear(u8.float() / 255.0, image_size))
+        return net(x.to(compute_dtype), compute_dtype)
+
+    return logits_fn
+
+
+def eval_device_set(images_u8: np.ndarray, batch_size: int = 256, device=None) -> torch.Tensor:
+    """The eval split padded to a batch multiple (the last image
+    repeated), uploaded once."""
+    n = images_u8.shape[0]
+    bs = min(batch_size, n)
+    pad = (bs - n % bs) % bs
+    imgs = np.concatenate([images_u8, images_u8[-1:].repeat(pad, axis=0)]) if pad else images_u8
+    return torch.from_numpy(np.ascontiguousarray(imgs)).to(device)
+
+
+def evaluate(logits_fn: Callable, device_images: torch.Tensor, labels: np.ndarray,
+             batch_size: int = 256) -> dict:
+    """top-1 / top-5 / superclass accuracy and mean cross-entropy (the
+    notebook's get_eval) of ``eval_device_set``'s upload of the split
+    whose labels are ``labels``, computed in numpy as jckx's
+    (``:186-229``)."""
+    n = len(labels)
+    bs = min(batch_size, n)
+    with torch.inference_mode():
+        logits = torch.cat([logits_fn(device_images[i:i + bs])
+                            for i in range(0, device_images.shape[0], bs)])
+    logits = logits.float().cpu().numpy()[:n]
+    top1 = (logits.argmax(-1) == labels).mean()
+    k = min(5, logits.shape[1])
+    top5_idx = np.argpartition(logits, -k, axis=1)[:, -k:]
+    top5 = (top5_idx == labels[:, None]).any(axis=1).mean()
+    sup = (FINE_TO_SUPERCLASS[logits.argmax(-1) % 100] == FINE_TO_SUPERCLASS[labels % 100]).mean()
+    lse = logits - logits.max(-1, keepdims=True)
+    logp = lse - np.log(np.exp(lse).sum(-1, keepdims=True))
+    ce = -logp[np.arange(n), labels].mean()
+    return dict(top1=float(top1), top5=float(top5), superclass=float(sup), loss=float(ce))
+
+
+def _atomic_savez(path: str, arrays: dict) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp.npz"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, path)
+
+
+def save_npz(path: str, net: inception_v3.InceptionV3) -> None:
+    """The weights in jckx's flat ``.npz`` layout, written atomically."""
+    _atomic_savez(path, inception_v3.to_jckx_flat(net))
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def save_train_state(path: str, net, opt, generator: torch.Generator, epoch: int,
+                     best_acc: float, best_loss: float, patience: int) -> None:
+    """Epoch-boundary resume state in one atomic file: the state dict
+    (``p::``), SGD's momentum buffers by parameter name (``m::``), the
+    loop counters and bests, and the generator's state."""
+    state = {f"p::{k}": _host(v) for k, v in net.state_dict().items()
+             if not k.endswith("num_batches_tracked")}
+    for name, p in net.named_parameters():
+        buf = opt.state.get(p, {}).get("momentum_buffer")
+        if buf is not None:
+            state[f"m::{name}"] = _host(buf)
+    _atomic_savez(path, dict(meta=np.array([epoch, patience], np.int64),
+                             bests=np.array([best_acc, best_loss], np.float64),
+                             generator=_host(generator.get_state()), **state))
+
+
+def load_train_state(path: str, net, opt, generator: torch.Generator):
+    """Restore ``save_train_state``'s file into ``net``, ``opt`` and
+    ``generator`` (in place). → (epoch, best_acc, best_loss, patience)."""
+    with np.load(path) as z:
+        sd = {k[3:]: torch.from_numpy(z[k]) for k in z.files if k.startswith("p::")}
+        missing, unexpected = net.load_state_dict(sd, strict=False)
+        if unexpected or [k for k in missing if not k.endswith("num_batches_tracked")]:
+            raise ValueError(f"resume state {path} does not match the model: missing {missing}, "
+                             f"unexpected {unexpected} (a different class count?)")
+        for name, p in net.named_parameters():
+            if f"m::{name}" in z.files:
+                opt.state[p]["momentum_buffer"] = torch.from_numpy(z[f"m::{name}"]).to(p.device)
+        generator.set_state(torch.from_numpy(z["generator"]))
+        epoch, patience = (int(v) for v in z["meta"])
+        best_acc, best_loss = (float(v) for v in z["bests"])
+    return epoch, best_acc, best_loss, patience
+
+
+@dataclass
+class FinetuneRun:
+    """What ``train`` leaves behind: the bests, the trained net and its
+    step (for callers that time it), the resident data, and one record per
+    epoch run (losses, metrics, and the host seconds of its steps, its
+    evals and its ``.npz`` writes)."""
+    best_acc: float
+    best_loss: float
+    net: inception_v3.InceptionV3
+    step: Callable
+    data: torch.Tensor
+    labels: torch.Tensor
+    generator: torch.Generator
+    start_epoch: int
+    epochs: List[dict] = field(default_factory=list)
+
+
+def _load_splits(args, logger):
+    """→ (x, y, xt, yt, num_classes, synthetic) on the host, as jckx's
+    ``train`` (``:351-389``)."""
+    if args.dataset == "npz":
+        x, y, ncls, _, _ = load_dataset("npz", args.data_dir, data_path=args.data_path, channels=3)
+        if args.valid_data_path:
+            xt, yt, ncls_v, _, _ = load_dataset("npz", args.data_dir,
+                                                data_path=args.valid_data_path, channels=3)
+            if ncls_v > ncls:
+                raise ValueError(f"valid split has {ncls_v} classes, train has {ncls}")
+        else:
+            perm = np.random.RandomState(args.seed).permutation(len(x))
+            nv = max(1, len(x) // 10)
+            xt, yt = x[perm[:nv]], y[perm[:nv]]
+            x, y = x[perm[nv:]], y[perm[nv:]]
+            logger.info(f"custom data: seeded 10% holdout as the valid split "
+                        f"({nv} of {nv + len(x)} images)")
+        synthetic = False
+    else:
+        syn_n = args.synthetic_size
+        x, y, ncls, _, synthetic = load_dataset(args.dataset, args.data_dir, train=True,
+                                                seed=args.seed, synthetic_n=syn_n)
+        xt, yt, _, _, _ = load_dataset(args.dataset, args.data_dir, train=False,
+                                       seed=args.seed + 1, synthetic_n=syn_n // 5)
+    if synthetic:
+        logger.warning("archive not found — fine-tuning on synthetic data")
+    if x.shape[-1] == 1:
+        x, xt = x.repeat(3, axis=-1), xt.repeat(3, axis=-1)
+    return x, y, xt, yt, ncls, synthetic
+
+
+def train(args) -> FinetuneRun:
+    if args.log_file == 1 and not args.save_path:
+        args.save_path = args.save_dir
+    logger = MainLogger(args)
+    device = resolve_device(args.device)
+    cd = _DTYPES[args.compute_dtype]
+    x, y, xt, yt, ncls, synthetic = _load_splits(args, logger)
+
+    net = inception_v3.init(args.seed, num_classes=ncls).to(device)
+    opt = make_optimizer(net, args.max_learning_rate, args.weight_decay,
+                         nesterov=bool(args.nesterov))
+    step = make_train_step(net, opt, cd, args.image_size)
+    logits_fn = make_eval_fn(net, cd, args.image_size)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    rng = np.random.RandomState(args.seed)
+    bs = args.batch_size
+    steps_per_epoch = len(y) // bs
+    if args.max_steps_per_epoch:
+        steps_per_epoch = min(steps_per_epoch, args.max_steps_per_epoch)
+
+    data_dev = torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    labels_dev = torch.from_numpy(y.astype(np.int64)).to(device)
+    yt_eval = yt[: args.eval_samples]
+    xt_dev = eval_device_set(xt[: args.eval_samples], device=device)  # one upload for all epochs
+    y_eval = x_dev = None
+    if args.eval_train:
+        y_eval = y[: args.eval_samples]
+        x_dev = eval_device_set(x[: args.eval_samples], device=device)
+
+    best_acc, best_loss, patience = 0.0, 1e10, 0
+    epoch, start_epoch = -1, 0  # sidecar-safe when the epoch budget is 0
+    state_path = os.path.join(args.save_dir, "train_state.npz")
+    if args.resume and os.path.exists(state_path):
+        epoch, best_acc, best_loss, patience = load_train_state(state_path, net, opt, gen)
+        start_epoch = epoch + 1
+        for _ in range(start_epoch):  # fast-forward the shuffle stream
+            rng.permutation(len(y))
+        logger.debug(f"resumed at epoch {start_epoch} (best top1 {best_acc:.4f}, "
+                     f"best loss {best_loss:.4f})")
+    run = FinetuneRun(best_acc, best_loss, net, step, data_dev, labels_dev, gen, start_epoch)
+    start = time.time()
+    for epoch in range(start_epoch, args.epoch):
+        t0 = time.perf_counter()
+        order = rng.permutation(len(y))[: steps_per_epoch * bs].reshape(steps_per_epoch, bs)
+        order_dev = torch.from_numpy(order).to(device)  # one upload per epoch
+        losses, accs = [], []
+        for i in range(steps_per_epoch):
+            loss, acc = step(data_dev, labels_dev, order_dev[i], draw_step(gen, bs, device))
+            losses.append(loss)  # device tensors: no host read inside the epoch…
+            accs.append(acc)
+            if args.scan_steps > 0 and (i + 1) % args.scan_steps == 0:
+                # …except every --scan_steps steps, which bounds how far the
+                # host runs ahead and changes no result
+                group = torch.stack(losses[-args.scan_steps:]).mean().item()
+                logger.debug(f"epoch {epoch} steps {i + 1 - args.scan_steps}-{i}: "
+                             f"mean loss {group:.4f}")
+        tr_loss = float(torch.stack(losses).mean()) if losses else float("nan")
+        tr_acc = float(torch.stack(accs).mean()) if accs else float("nan")
+        train_s = time.perf_counter() - t0
+        if args.nan_guard and losses and not np.isfinite(tr_loss):
+            logger.error(f"non-finite train loss at epoch {epoch} — aborting. --resume 1 "
+                         f"restarts from the last finished epoch but replays it "
+                         f"bit-identically: lower -mlr (or change --seed) when resuming, or "
+                         f"--nan_guard 0 to continue anyway")
+            raise FloatingPointError(f"training diverged: loss={tr_loss} at epoch {epoch}")
+
+        t0 = time.perf_counter()
+        ev = evaluate(logits_fn, xt_dev, yt_eval)
+        tr_ev = {}
+        if x_dev is not None:
+            t = evaluate(logits_fn, x_dev, y_eval)
+            tr_ev = {f"train_eval_{k}": v for k, v in t.items()}
+            logger.debug(f"Epoch: {epoch}  train-eval top1 {t['top1']:.4f} top5 {t['top5']:.4f} "
+                         f"super {t['superclass']:.4f} loss {t['loss']:.4f}")
+        eval_s = time.perf_counter() - t0
+        logger.debug(f"Epoch: {epoch}  train loss {tr_loss:.4f} acc {tr_acc:.4f}  valid top1 "
+                     f"{ev['top1']:.4f} top5 {ev['top5']:.4f} super {ev['superclass']:.4f} "
+                     f"loss {ev['loss']:.4f}")
+        logger.scalars({"epoch": epoch, "train_loss": tr_loss, "train_acc": tr_acc, **tr_ev, **ev})
+
+        t0 = time.perf_counter()
+        written = []
+        improved = False
+        if ev["top1"] > best_acc:
+            best_acc, improved = ev["top1"], True
+            written.append("acc_bset.npz")
+        if ev["loss"] < best_loss:
+            best_loss, improved = ev["loss"], True
+            written.append("loss_bset.npz")
+        written.append("last_bset.npz")
+        for name in written:
+            save_npz(os.path.join(args.save_dir, name), net)
+        patience = 0 if improved else patience + 1
+        save_train_state(state_path, net, opt, gen, epoch, best_acc, best_loss, patience)
+        run.epochs.append({"epoch": epoch, "steps": len(losses), "train_loss": tr_loss,
+                           "train_acc": tr_acc, **tr_ev, **ev, "train_s": train_s,
+                           "eval_s": eval_s, "write_s": time.perf_counter() - t0,
+                           "written": written + ["train_state.npz"]})
+        if patience >= args.early_stop:
+            logger.debug(f"early stopping at epoch {epoch} (patience {args.early_stop})")
+            break
+
+    os.makedirs(args.save_dir, exist_ok=True)
+    with open(os.path.join(args.save_dir, "summary.json"), "w") as f:
+        json.dump({"dataset": args.dataset, "synthetic_fallback": bool(synthetic),
+                   "epochs_run": epoch + 1, "epoch_budget": args.epoch, "batch_size": bs,
+                   "best_top1": best_acc, "best_loss": best_loss,
+                   "wall_s": round(time.time() - start, 1)}, f, indent=2)
+    logger.debug(f"fine-tune finish\ttime: {time_to_str(time.time() - start)}  "
+                 f"best top1 {best_acc:.4f} best loss {best_loss:.4f}")
+    run.best_acc, run.best_loss = best_acc, best_loss
+    return run
+
+
+def get_args(argv=None):
+    p = argparse.ArgumentParser(description="jckx_torch InceptionV3 fine-tune (metric backbone)")
+    p.add_argument("--dataset", default="cifar100",
+                   help="cifar100 / cifar10 / mnist / synthetic, or npz with --data_path")
+    p.add_argument("--data_dir", default="./data")
+    p.add_argument("--data_path", default="", help="custom data (--dataset npz): the .npz file")
+    p.add_argument("--valid_data_path", default="",
+                   help="custom valid split; absent = seeded 10%% holdout from --data_path")
+    p.add_argument("-b", "--batch_size", type=int, default=128)
+    p.add_argument("-e", "--epoch", type=int, default=300)
+    p.add_argument("-mlr", "--max_learning_rate", type=float, default=0.1)
+    p.add_argument("-wd", "--weight_decay", type=float, default=5e-4)
+    p.add_argument("-snt", "--nesterov", type=int, default=1, help="nesterov SGD 0/1")
+    p.add_argument("--early_stop", type=int, default=10)
+    p.add_argument("--resume", type=int, default=0,
+                   help="1 = continue from save_dir's train_state.npz")
+    p.add_argument("--nan_guard", type=int, default=1,
+                   help="abort on non-finite epoch loss (0 = continue)")
+    p.add_argument("--scan_steps", type=int, default=0,
+                   help="read the loss on the host every K steps (0 = once per epoch); the "
+                        "draws come from the same generator either way, so it changes no result")
+    p.add_argument("--eval_samples", type=int, default=10000)
+    p.add_argument("--eval_train", type=int, default=0,
+                   help="1 = also run the eval pass on the train split each epoch")
+    p.add_argument("--mesh_shape", type=str, default="", help="not ported yet (refused)")
+    p.add_argument("--multihost", type=int, default=0, help="not ported yet (refused)")
+    p.add_argument("--image_size", type=int, default=299,
+                   help="network input side (299 = notebook parity; >= 75)")
+    p.add_argument("--max_steps_per_epoch", type=int, default=0,
+                   help="cap steps per epoch (0 = full epoch)")
+    p.add_argument("--synthetic_size", type=int, default=0,
+                   help="synthetic-fallback train-set size (0 = 4096), test split N/5")
+    p.add_argument("--seed", type=int, default=12345)
+    p.add_argument("--save_dir", default="./save/iception_v3")  # the reference's (sic) dirname
+    p.add_argument("--save_path", default="")  # logger compat
+    p.add_argument("--log_file", type=int, default=0)
+    p.add_argument("--compute_dtype", default="bfloat16", choices=sorted(_DTYPES))
+    p.add_argument("--device", default=None, help="default cuda; 'cpu' runs the plain path")
+    args = p.parse_args(argv)
+    bad = [f"--{k} {getattr(args, k)!r}: not ported yet (ROADMAP.md {item})"
+           for k, (off, item) in UNPORTED.items() if getattr(args, k) != off]
+    if args.dataset == "folder":
+        bad.append("--dataset folder: the image-folder plane is not ported yet (ROADMAP.md A4)")
+    if bad:
+        raise SystemExit("jckx_torch finetune: " + "; ".join(bad))
+    return args
+
+
+def main(argv=None) -> int:
+    train(get_args(argv))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -11,13 +11,22 @@ modules carry torchvision's state-dict names (``Mixed_5b.branch1x1.conv
 checkpoint loads with ``load_state_dict``; the reference's ``fc.0.*``
 (a Sequential-wrapped Linear) is renamed by ``from_torchvision``.
 
-Eval only: each BasicConv2d is conv → BN from its running statistics at
-eps 1e-3, folded into one f32 scale and shift (``:133-138``) → ReLU, in
-the compute dtype. The pools are jckx's: max 3×3 stride 2, and average
+Eval (``forward``): each BasicConv2d is conv → BN from its running
+statistics at eps 1e-3, folded into one f32 scale and shift
+(``:133-138``) → ReLU, in the compute dtype. The pools are jckx's: max 3×3 stride 2, and average
 3×3 stride 1 pad 1 counting the padding (``:48-65``). ``fast_stem``
 takes the space-to-depth form of ``Conv2d_1a_3x3`` (``stem_s2d``, jckx's
 ``_bconv_1a_s2d``, ``:141-180``): the same function, summed in another
-order. The train-mode BN of the fine-tune is not ported yet (ROADMAP A10).
+order.
+
+Train (``forward_train``, jckx's ``apply_train`` and ``_bconv_apply``'s
+train branch, ``:109-131, 374-421``): each BasicConv2d is conv →
+``ops/norm.bn_relu_train`` (batch statistics; on the card its normalize
+pass is the hand kernel), and its running statistics are updated in place
+with momentum 0.1 and the unbiased variance, as jckx's ``_BNCtx``; after
+the global average pool, dropout p = 0.5 on the f32 features from an
+injected keep mask, then the fc. ``to_jckx_flat`` writes the weights in
+jckx's flat ``.npz`` layout, the inverse of ``from_jckx_flat``.
 
 ``init(seed)`` reproduces jckx's seeded backbone: the same numpy
 ``RandomState`` draws in the same order (``_bconv_init``, ``:70-89``:
@@ -28,12 +37,16 @@ uniform), so the two packages' seeded backbones are equal.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from jckx_torch.ops.norm import bn_relu_train
+
+BN_EPS = 1e-3
 
 
 class _Weight(nn.Module):
@@ -61,12 +74,23 @@ class BasicConv2d(nn.Module):
         self.conv = _Weight((cout, cin, kh, kw))
         self.bn = _BN(cout)
         self.stride, self.padding = stride, padding
+        # set by InceptionV3.forward_train for the length of one call:
+        # batch-statistic BN, and this momentum for the running statistics
+        self.bn_momentum: Optional[float] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv2d(x, self.conv.weight.to(x.dtype), stride=self.stride, padding=self.padding)
-        return self.bn_relu(y, x.dtype)
+        if self.bn_momentum is None:
+            return self.bn_relu(y, x.dtype)
+        out, mean, var = bn_relu_train(y, self.bn.weight, self.bn.bias, BN_EPS)
+        n = y.numel() // y.shape[1]
+        m, bn = self.bn_momentum, self.bn
+        with torch.no_grad():
+            bn.running_mean.mul_(1 - m).add_(m * mean)
+            bn.running_var.mul_(1 - m).add_(m * (var * (n / max(n - 1, 1))))
+        return out
 
-    def bn_relu(self, y: torch.Tensor, dtype, eps: float = 1e-3) -> torch.Tensor:
+    def bn_relu(self, y: torch.Tensor, dtype, eps: float = BN_EPS) -> torch.Tensor:
         """BN from the running statistics, folded into an f32 scale and
         shift, then ReLU, cast to ``dtype``."""
         bn = self.bn
@@ -100,8 +124,26 @@ def _max_pool(x):
     return F.max_pool2d(x, 3, stride=2)
 
 
+class _AvgPool3x3(torch.autograd.Function):
+    """avg_pool2d(3, stride 1, pad 1, count_include_pad) whose backward is
+    the same pool applied to the gradient: the operator is a symmetric box
+    filter over zero padding, so it is its own adjoint. The card's build of
+    torch (2.11.0+cu128) returns a wrong ``avg_pool2d`` gradient (~100 %
+    relative error against the sum-of-slices definition) for a
+    channels_last input, the layout of the fine-tune's train step; its
+    forward is right (``tests/test_torch_gpu.py``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return F.avg_pool2d(x, 3, stride=1, padding=1, count_include_pad=True)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return F.avg_pool2d(dy, 3, stride=1, padding=1, count_include_pad=True)
+
+
 def _avg_pool(x):
-    return F.avg_pool2d(x, 3, stride=1, padding=1, count_include_pad=True)
+    return _AvgPool3x3.apply(x)
 
 
 class InceptionA(nn.Module):
@@ -224,6 +266,31 @@ class InceptionV3(nn.Module):
         """images (N, H, W, 3) NHWC, ImageNet-normalized (H, W ≥ 75; 299 in
         use) → logits (N, K) in f32 — counterpart of ``apply``. ``fast_stem``:
         the first convolution in its space-to-depth form."""
+        return self._head(self._pooled(x, compute_dtype, fast_stem))
+
+    def forward_train(self, x: torch.Tensor, dropout_keep: Optional[torch.Tensor] = None,
+                      compute_dtype=torch.float32, momentum: float = 0.1) -> torch.Tensor:
+        """The train-mode forward (``apply_train``): batch-statistic BN with
+        the running statistics updated in place (no gradient), then dropout
+        ``where(keep, x / 0.5, 0)`` on the pooled f32 features when
+        ``dropout_keep`` (N, 2048) bool is given. → logits (N, K) f32."""
+        convs = [m for m in self.modules() if isinstance(m, BasicConv2d)]
+        for m in convs:
+            m.bn_momentum = momentum
+        try:
+            x = self._pooled(x, compute_dtype, fast_stem=False)
+        finally:
+            for m in convs:
+                m.bn_momentum = None
+        if dropout_keep is not None:
+            x = torch.where(dropout_keep, x / 0.5, 0.0)
+        return self._head(x)
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.fc.weight.float().t() + self.fc.bias.float()
+
+    def _pooled(self, x: torch.Tensor, compute_dtype, fast_stem: bool) -> torch.Tensor:
+        """The trunk and the global average pool → (N, 2048) f32."""
         x = x.to(compute_dtype).permute(0, 3, 1, 2)
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last)
@@ -235,8 +302,7 @@ class InceptionV3(nn.Module):
         for name in ("Mixed_5b", "Mixed_5c", "Mixed_5d", "Mixed_6a", "Mixed_6b", "Mixed_6c",
                      "Mixed_6d", "Mixed_6e", "Mixed_7a", "Mixed_7b", "Mixed_7c"):
             x = getattr(self, name)(x)
-        x = x.mean(dim=(2, 3)).float()
-        return x @ self.fc.weight.float().t() + self.fc.bias.float()
+        return x.mean(dim=(2, 3)).float()
 
 
 def init(seed: int = 0, num_classes: int = 100) -> InceptionV3:
@@ -292,3 +358,24 @@ def from_jckx_flat(flat: Dict[str, np.ndarray]) -> InceptionV3:
         raise KeyError(f"backbone arrays do not match InceptionV3: missing {missing}, "
                        f"unexpected {unexpected}")
     return net
+
+
+def to_jckx_flat(net: InceptionV3) -> Dict[str, np.ndarray]:
+    """The backbone → jckx's flat ``a/b/c`` arrays (``flatten_params`` of
+    its params tree: HWIO kernels, fc ``(2048, K)``, ``bn_mean`` /
+    ``bn_var`` from the running statistics): f32 copies on the host."""
+    def host(t: torch.Tensor) -> np.ndarray:
+        return t.detach().to("cpu", torch.float32, copy=True).numpy()
+
+    flat = {}
+    for name, m in net.named_modules():
+        if isinstance(m, BasicConv2d):
+            key = name.replace(".", "/")
+            flat[f"{key}/w"] = np.ascontiguousarray(host(m.conv.weight).transpose(2, 3, 1, 0))
+            flat[f"{key}/bn_scale"] = host(m.bn.weight)
+            flat[f"{key}/bn_bias"] = host(m.bn.bias)
+            flat[f"{key}/bn_mean"] = host(m.bn.running_mean)
+            flat[f"{key}/bn_var"] = host(m.bn.running_var)
+    flat["fc/w"] = np.ascontiguousarray(host(net.fc.weight).T)
+    flat["fc/b"] = host(net.fc.bias)
+    return flat

@@ -1,0 +1,103 @@
+"""Batch-statistic BatchNorm + ReLU with a hand-written backward — port of
+``bn_relu_train`` (``jckx/ops/norm.py:89-159``), the fine-tune's BN.
+
+``bn_relu_train(x, scale, bias, eps)`` → ``(out, mean, biased_var)``:
+``out`` in x's dtype, the statistics in f32 and without gradient (they
+feed the running-stat update only, as jckx's stop-gradient outputs do).
+x is NCHW (channels_last on the card) or ``(rows, C)``.
+
+Forward, as jckx's ``_bn_relu_fwd_impl`` (``:115-126``): one moment sweep
+(the sum and the sum of squares, accumulated in f32), ``a = scale ·
+rsqrt(var + eps)`` and ``sh = bias − mean · a``, then the normalize + ReLU
+pass ``relu(f32(x) · a + sh)`` cast back. That pass is exactly the
+function of the repo's one TPU kernel, so it goes through the registered
+operator ``jckx_torch::normalize_act`` (``kernels/fused_bn_act.py``) on
+the free ``(N·H·W, C)`` row view of the activation: on the card the hand
+kernel (one launch per call), on the CPU its plain version. Inside a
+``Function``'s forward nothing is differentiated twice, so ``bn_act``'s
+grad-mode rule does not apply here. On the card an NCHW input that is not
+channels_last raises: its row view would be a copy.
+
+Backward, jckx's two passes (``:134-156``): the ReLU mask recomputed from
+x (nothing of size x is saved but x itself), ``dbeta = Σ dz`` and
+``Σ dz · x`` in one sweep, ``dgamma = inv · (Σ dz · x − mean · dbeta)``,
+and ``dx = a · (dz − dbeta / n − (x − mean) · inv · dgamma / n)``. Plain
+torch ops: jckx's VJP is plain jnp, not a Pallas kernel.
+
+``bn_relu_train_plain`` is the same function as one autograd-differentiated
+composition: the reference the card holds the kernel route and the
+hand-written backward against (``chip_smoke.py``, ``tests/test_torch_gpu.py``).
+With ``one_rounding`` its multiply-add is rounded once, as the kernel's
+``fmaf``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from jckx_torch.kernels.fused_bn_act import _rows, _unrows, normalize_act_op
+
+
+def _axes(x: torch.Tensor):
+    return (0, 2, 3) if x.dim() == 4 else (0,)
+
+
+def _per_channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(C,) → broadcastable against x (NCHW or (rows, C))."""
+    return v[:, None, None] if x.dim() == 4 else v
+
+
+def _moments_affine(xf, scale, bias, eps):
+    """x in f32 → (mean, biased var, inv, a, sh), f32, per channel."""
+    axes = _axes(xf)
+    n = xf.numel() // xf.shape[1 if xf.dim() == 4 else -1]
+    mean = xf.sum(axes) / n
+    var = (xf * xf).sum(axes) / n - mean * mean
+    inv = torch.rsqrt(var + eps)
+    a = scale.float() * inv
+    return mean, var, inv, a, bias.float() - mean * a
+
+
+class _BNReLUTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        if (x.device.type == "cuda" and x.dim() == 4
+                and not x.is_contiguous(memory_format=torch.channels_last)):
+            raise ValueError("bn_relu_train on the card needs a channels_last NCHW tensor")
+        mean, var, inv, a, sh = _moments_affine(x.float(), scale, bias, eps)
+        out = _unrows(normalize_act_op(_rows(x), a.contiguous(), sh.contiguous(), "relu", 0.0), x)
+        ctx.save_for_backward(x, a, sh, inv, mean)
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dout, _dmean, _dvar):
+        x, a, sh, inv, mean = ctx.saved_tensors
+        axes = _axes(x)
+        n = x.numel() // a.numel()
+        xf = x.float()
+        pos = xf * _per_channel(a, x) + _per_channel(sh, x) > 0.0
+        dz = torch.where(pos, dout.float(), 0.0)
+        dbeta = dz.sum(axes)
+        dgamma = inv * ((dz * xf).sum(axes) - mean * dbeta)
+        dx = _per_channel(a, x) * (dz - _per_channel(dbeta / n, x)
+                                   - (xf - _per_channel(mean, x)) * _per_channel(inv * dgamma / n, x))
+        return dx.to(x.dtype), dgamma, dbeta, None
+
+
+def bn_relu_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-3):
+    """relu(batch-norm(x)) with batch statistics. → (out, mean, biased_var);
+    see the module docstring."""
+    return _BNReLUTrain.apply(x, scale, bias, eps)
+
+
+def bn_relu_train_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                        eps: float = 1e-3, one_rounding: bool = False):
+    """``bn_relu_train`` as plain torch ops that autograd differentiates
+    (through the statistics); ``one_rounding`` takes the multiply-add in
+    f64, rounded once to f32. → (out, mean, biased_var)."""
+    xf = x.float()  # one cast: autograd then sums x's gradient in f32 before rounding it
+    mean, var, _, a, sh = _moments_affine(xf, scale, bias, eps)
+    a, sh = _per_channel(a, x), _per_channel(sh, x)
+    z = (x.double() * a.double() + sh.double()).float() if one_rounding else xf * a + sh
+    return torch.relu(z).to(x.dtype), mean.detach(), var.detach()

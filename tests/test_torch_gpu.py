@@ -400,3 +400,97 @@ def test_artifact_on_the_card_takes_the_kernel(tmp_path, conditional, quant):
     art = ArtifactService(str(tmp_path / "g.pt2"))
     assert art.sample(70, labels=[3, 17, 42] if conditional else None, seed=9).shape == (
         70, 64, 64, 3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bn_relu_train_on_the_card_matches_its_plain_version(dtype):
+    """``bn_relu_train`` at the fine-tune's stem map (bs128, 149², C 32):
+    one kernel launch; ``out`` bit-identical to the plain route rounded
+    once; statistics equal; the hand-written backward against autograd
+    through the plain ops: dx within one ulp of its dtype plus 1e-3 of its
+    largest magnitude, dgamma / dbeta within 1e-3 of theirs (sums of 2.8 M
+    products in another order)."""
+    from jckx_torch.ops.norm import bn_relu_train, bn_relu_train_plain
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(0)
+    dt = getattr(torch, dtype)
+    x = (torch.randn(128, 32, 149, 149, generator=g, device=dev) * 2 + 0.5).to(
+        dt, memory_format=torch.channels_last)
+    scale = torch.rand(32, generator=g, device=dev) + 0.5
+    bias = torch.randn(32, generator=g, device=dev)
+    dout = torch.randn(128, 32, 149, 149, generator=g, device=dev)
+
+    def run(fn):
+        xx = x.detach().requires_grad_(True)
+        s, b = scale.detach().requires_grad_(True), bias.detach().requires_grad_(True)
+        out, mean, var = fn(xx, s, b)
+        (out.float() * dout).sum().backward()
+        return out.detach(), mean, var, xx.grad, s.grad, b.grad
+
+    before = fba.LAUNCHES
+    got = run(bn_relu_train)
+    torch.cuda.synchronize()
+    assert fba.LAUNCHES == before + 1
+    with torch.no_grad():
+        once = bn_relu_train_plain(x, scale, bias, one_rounding=True)[0]
+    assert torch.equal(got[0], once) and got[0].is_contiguous(memory_format=torch.channels_last)
+    plain = run(bn_relu_train_plain)  # the backward's ReLU mask: x·a + sh > 0 rounded twice
+    assert torch.equal(got[1], plain[1]) and torch.equal(got[2], plain[2])
+    dx, ref = got[3].float(), plain[3].float()
+    m = torch.maximum(dx.abs(), ref.abs())
+    ulp = torch.where(m > 0, torch.exp2(torch.floor(torch.log2(m)) - (23 if dtype == "float32" else 7)),
+                      torch.zeros_like(m))
+    assert bool(((dx - ref).abs() <= ulp + 1e-3 * ref.abs().max()).all())
+    for a, b in zip(got[4:], plain[4:]):
+        assert (a - b).abs().max() <= 1e-3 * b.abs().max()
+    with pytest.raises(ValueError, match="channels_last"):
+        bn_relu_train(x.contiguous(), scale, bias)
+
+
+def test_forward_train_on_the_card_matches_cpu():
+    """One train-mode forward of the backbone at 75², batch 8, f32 (TF32
+    off) on the card against the CPU: 94 kernel launches; logits within
+    2e-3 of their largest magnitude and the updated running statistics
+    within 1e-3 of their layer's largest (the CPU tests' bounds against
+    jckx: 94 batch-statistic BN layers amplify f32 sums taken in another
+    order)."""
+    from jckx_torch.metrics import inception_v3 as tiv
+
+    dev = _card()
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 75, 75, 3, generator=g)
+    keep = torch.rand(8, 2048, generator=g) < 0.5
+    cpu, card = tiv.init(0, num_classes=10), tiv.init(0, num_classes=10).to(dev)
+    ref = cpu.forward_train(x, keep)
+    before = fba.LAUNCHES
+    got = card.forward_train(x.to(dev), keep.to(dev))
+    torch.cuda.synchronize()
+    assert fba.LAUNCHES == before + 94
+    assert (got.cpu() - ref).abs().max() <= 2e-3 * ref.abs().max()
+    a, b = tiv.to_jckx_flat(card), tiv.to_jckx_flat(cpu)
+    for k in a:
+        if k.endswith(("bn_mean", "bn_var")):
+            assert abs(a[k] - b[k]).max() <= 1e-3 * abs(b[k]).max(), k
+
+
+def test_branch_pool_backward_on_the_card_matches_cpu():
+    """The InceptionV3 branch pool on a channels_last tensor (the fine-tune
+    step's layout): forward and backward on the card against the CPU's
+    (f32, within 1e-6 relative). The card's ``F.avg_pool2d`` gradient for
+    a channels_last input is wrong in torch 2.11.0+cu128; the port's pool
+    takes its backward as the pool of the gradient."""
+    from jckx_torch.metrics import inception_v3 as tiv
+
+    dev = _card()
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 288, 35, 35, generator=g)
+    dy = torch.randn(8, 288, 35, 35, generator=g)
+    out = {}
+    for d in ("cpu", dev):
+        t = x.to(d).contiguous(memory_format=torch.channels_last).detach().requires_grad_(True)
+        y = tiv._avg_pool(t)
+        y.backward(dy.to(d))
+        out[str(d)] = (y.detach().cpu(), t.grad.cpu())
+    (yc, gc), (yg, gg) = out["cpu"], out[str(dev)]
+    assert (yg - yc).norm() <= 1e-6 * yc.norm() and (gg - gc).norm() <= 1e-6 * gc.norm()

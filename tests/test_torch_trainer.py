@@ -235,7 +235,12 @@ def test_cli_flags_and_refusals(tmp_path):
 
     from jckx_torch.__main__ import main as cli
 
-    assert cli(["nope"]) == 2 and cli(["plan"]) == 2 and cli(["finetune"]) == 2 and cli([]) == 0
+    assert cli(["nope"]) == 2 and cli(["plan"]) == 2 and cli([]) == 0
+    assert cli(["finetune", "--device", "cpu", "--dataset", "synthetic", "--synthetic_size", "16",
+                "-b", "8", "-e", "1", "--image_size", "75", "--compute_dtype", "float32",
+                "--eval_samples", "8", "--save_dir", str(tmp_path / "bk"),
+                "--data_dir", str(tmp_path / "data")]) == 0
+    MainLogger.reset()
     with pytest.raises(SystemExit, match="A3"):
         cli(["train", "-m", "CGAN", "--fused_prop", "1"] + base)
     with pytest.raises(SystemExit, match="A13"):
