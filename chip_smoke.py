@@ -124,7 +124,29 @@ Run from the root of a checkout, on a machine with a CUDA card and
     FID / IS); img/s, the step's device ms (profiler busy time / 4), busy
     share, top 10 kernels, FLOPs per step (``torch.utils.flop_counter``)
     and their share of the 989 TFLOP/s bf16 peak, eval and write seconds;
-23. prints a ``{"kernels": [...]}`` line, then, last, the
+23. holds one full-width FusedProp step (``--fused_prop 1``; DCGAN, then
+    CGAN with K = 100) on the card against the CPU with the tolerances of
+    6, and ``d_gz2 == d_gz1`` on both;
+24. ``--remat none|g|d|both``: one DCGAN step at bs128, bf16 from the same
+    weights and draws under each mode: its parameters against ``none``'s
+    (the masked-delta test of 6; max |diff| printed), the peak device
+    memory of a step, and its device ms (profiler busy time / 4);
+25. ``--sanitize``: a clean full-width step under anomaly detection equals
+    the plain step bit for bit (cuDNN deterministic for the phase); a NaN
+    in the real batch raises naming the backward function;
+26. trains DCGAN with ``--fused_prop 1`` as in 7 (12 launches from the
+    evals, none from the steps) and times its step against the faithful
+    step on the same state, in turns: device ms and device events per step
+    (profiler), host ms, img/s;
+27. a short ``--profile_dir`` run (4 steps + 1 eval): one Chrome trace
+    naming ``jckx_torch::normalize_act``, the kernel and
+    ``aten::cudnn_convolution``;
+28. the committed jckx ``.ckpt`` fixture (``tests/data/jckx_ckpt``, DCGAN
+    with EMA and CGAN, 16²): served and rendered by ``evaluate``'s route
+    through the kernel within 1 LSB of jckx's renders, ``evaluate`` end to
+    end, ``convert`` to ``.pt`` and ``inspect``, and ``train --resume`` of
+    jckx's run dir (one more eval, the port's ``latest.ckpt`` at step 8);
+29. prints a ``{"kernels": [...]}`` line, then, last, the
     ``{"ok": true, "device": {...}}`` line.
 
 Any failed phase exits nonzero before the last line is printed. Without a
@@ -523,10 +545,11 @@ def phase_timing(svc, dev, card: str):
     return out
 
 
-def profile_window(run, what: str, card: str) -> dict:
+def profile_window(run, what: str, card: str, top_n: int = 10) -> dict:
     """``run()`` under ``torch.profiler``: the card's busy share of the
-    window and its time by kernel, printed. Informational: prints "not
-    measured" where the profiler sees no device activity. → the numbers."""
+    window and its time by kernel (the ``top_n`` largest), printed.
+    Informational: prints "not measured" where the profiler sees no device
+    activity. → the numbers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -564,7 +587,7 @@ def profile_window(run, what: str, card: str) -> dict:
           f"{len(kernels)} device events   [{card}]")
     print("  by kind: " + ", ".join(f"{kind} {100 * t / total:.1f} %"
                                     for kind, t in sorted(by_kind.items(), key=lambda kv: -kv[1])))
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
     for name, (t, k) in top:
         print(f"  {t / 1e3:8.3f} ms {100 * t / total:5.1f} %  x{k:<4} {name[:90]}")
     return {"window_ms": window / 1e3, "busy_ms": busy / 1e3, "events": len(kernels),
@@ -579,10 +602,11 @@ def phase_profile(svc, card: str) -> None:
                    f"request of {8 * BATCH} images at batch {BATCH}, bf16", card)
 
 
-def phase_train_vs_cpu(dev, conditional: bool = False) -> None:
-    """One full-width train step (DCGAN, or CGAN with K = 100) on the card
-    against the CPU, from the same weights, draws, masks and labels, in f32
-    with TF32 off (set in ``main``)."""
+def phase_train_vs_cpu(dev, conditional: bool = False, fused_prop: int = 0) -> None:
+    """One full-width train step (DCGAN, or CGAN with K = 100; the faithful
+    step, or FusedProp with ``fused_prop``) on the card against the CPU,
+    from the same weights, draws, masks and labels, in f32 with TF32 off
+    (set in ``main``)."""
     import torch
 
     from jckx_torch.configs import Config
@@ -596,6 +620,7 @@ def phase_train_vs_cpu(dev, conditional: bool = False) -> None:
 
     cfg = Config()
     cfg.compute_dtype, cfg.max_learning_rate, cfg.batch_size = "float32", TRAIN_LR, 16
+    cfg.fused_prop = fused_prop
     geo, n = GANGeometry(), 16
     g = torch.Generator().manual_seed(7)
     img = (n, geo.image_size, geo.image_size, geo.channels)
@@ -639,6 +664,8 @@ def phase_train_vs_cpu(dev, conditional: bool = False) -> None:
     for k in METRIC_NAMES:
         check(math.isfinite(mg[k]) and abs(mc[k] - mg[k]) <= 3e-3 + 3e-3 * abs(mc[k]),
               f"train step card vs CPU: {k} {mg[k]} vs {mc[k]}")
+    check(not fused_prop or (mg["d_gz1"] == mg["d_gz2"] and mc["d_gz1"] == mc["d_gz2"]),
+          "FusedProp: d_gz2 differs from d_gz1")
     # At full width the f32 gradient of G's middle convolutions carries
     # rounding error up to ~5 % of the leaf's maximum (cancellation through
     # batch-statistic BN; f32 against f64 on the CPU flips 8 of 497,890
@@ -657,22 +684,24 @@ def phase_train_vs_cpu(dev, conditional: bool = False) -> None:
         check(bad <= 1e-3 * int(mask.sum()),
               f"{k}: {bad} of {int(mask.sum())} masked Adam deltas card vs CPU differ by > 5 % of lr")
     check(covered / total > 0.5, f"the gradient mask covers {covered}/{total} elements")
-    print(f"{'CGAN (K 100)' if conditional else 'DCGAN'} train step card vs CPU (64², z 100, "
+    print(f"{'CGAN (K 100)' if conditional else 'DCGAN'}{' FusedProp' if fused_prop else ''} "
+          f"train step card vs CPU (64², z 100, "
           f"width 64, batch {n}, f32, TF32 off): telemetry max "
           f"|diff| {worst:.3g} (<= 3e-3); Adam deltas within {0.05 * TRAIN_LR:g} on "
           f"{covered - flipped} of {covered} masked elements ({100 * covered / total:.1f} % of the "
-          f"parameters); 0 kernel launches; first step {dtc:.2f} s on the CPU, {dtg:.2f} s on the card")
+          f"parameters); 0 kernel launches; first step {dtc:.2f} s on the CPU, {dtg:.2f} s on the card"
+          + ("; d_gz2 == d_gz1 on both" if fused_prop else ""))
 
 
-def _run_dir_args(tmp: str, model: str) -> list:
+def _run_dir_args(tmp: str, model: str, run: str = "") -> list:
     return ["--save_root", os.path.join(tmp, "save"), "--data_dir", os.path.join(tmp, "data"),
-            "-pm", f"smoke_{model.lower()}"]
+            "-pm", run or f"smoke_{model.lower()}"]
 
 
-def phase_train(tmp: str, model: str = "DCGAN"):
-    """The main training path through the entry point, for ``model``.
-    → (trainer, its launch records, its eval records, kernel launches
-    during the run)."""
+def phase_train(tmp: str, model: str = "DCGAN", flags: tuple = (), run: str = ""):
+    """The main training path through the entry point, for ``model``, with
+    the train flags ``flags`` in run dir ``run``. → (trainer, its launch
+    records, its eval records, kernel launches during the run)."""
     import torch
 
     from jckx_torch.kernels import fused_bn_act as fba
@@ -680,9 +709,9 @@ def phase_train(tmp: str, model: str = "DCGAN"):
     from jckx_torch.serve import tanh_to_u8
     from jckx_torch.train import main as tmain
 
-    where = _run_dir_args(tmp, model)
+    where = _run_dir_args(tmp, model, run)
     argv = ["-m", model, "--dataset", "synthetic", "-b", str(TRAIN_BATCH), "-e", "1",
-            "-mlr", str(TRAIN_LR), "--log_every", "8", "--eval_every", "16"] + where
+            "-mlr", str(TRAIN_LR), "--log_every", "8", "--eval_every", "16"] + list(flags) + where
     fba.LAUNCHES = 0
     t0 = time.perf_counter()
     tr = tmain.main(argv)
@@ -717,7 +746,8 @@ def phase_train(tmp: str, model: str = "DCGAN"):
         names = os.listdir(os.path.join(tr.save_path, typ))
         check(any(f.endswith(".pt") for f in names) and any(f.endswith("_fake_image.png") for f in names),
               f"{typ}/ lacks a checkpoint or a grid")
-    print(f"{model}: trained 32 steps at batch {TRAIN_BATCH}, bf16, through jckx_torch.train.main in "
+    print(f"{model}{' ' + ' '.join(flags) if flags else ''}: trained 32 steps at batch "
+          f"{TRAIN_BATCH}, bf16, through jckx_torch.train.main in "
           f"{wall:.1f} s (data, backbone, real features and 3 evals included): evals after "
           f"{tr.evals}, {launches} kernel launches = {per_eval} per eval ({forwards} G forward(s) "
           f"of {min(n_eval, CGAN_CHUNK) if conditional else n_eval} rows), 0 from the steps; last "
@@ -1885,6 +1915,312 @@ def phase_finetune(ctr, tmp: str, card: str) -> int:
     return launches + ev_launches
 
 
+def phase_fused_prop_train(tmp: str, card: str) -> int:
+    """DCGAN with ``--fused_prop 1`` through the entry point at full width,
+    as ``phase_train`` (32 steps, evals after 8, 16, 32: 4 launches each,
+    none from the steps); then its step and the faithful step on the same
+    state, in turns (faithful, FusedProp, FusedProp, faithful): device ms
+    and device events per step (profiler busy time of 8 steps / 8) and the
+    host ms, beside the card's name and power limit. → the run's kernel
+    launches."""
+    import copy
+
+    import torch
+
+    from jckx_torch.data.pipeline import decode_batch
+    from jckx_torch.train.steps import make_dcgan_train_step
+
+    tr, steps, _, launches = phase_train(tmp, "DCGAN", ("--fused_prop", "1"), "smoke_fused_prop")
+    check(tr.cfg.fused_prop == 1, "the trainer did not take --fused_prop 1")
+    rates = [r["images_per_sec"] for r in steps[1:]]
+    print(f"DCGAN FusedProp train img/s at batch {TRAIN_BATCH}, bf16, host clock: median "
+          f"{statistics.median(rates):.1f} over the {len(rates)} launches after the first (min "
+          f"{min(rates):.1f}, max {max(rates):.1f})   [{card}]")
+    faithful = copy.copy(tr.cfg)
+    faithful.fused_prop = 0
+    fns = {"faithful": make_dcgan_train_step(faithful, tr.geo), "FusedProp": tr.step_fn}
+    real = decode_batch(tr.images_dev[:TRAIN_BATCH], tr.cfg.image_size, tr.cd)
+    n, seen = 8, {name: [] for name in fns}
+    for name in ("faithful", "FusedProp", "FusedProp", "faithful"):
+        fn = fns[name]
+        for _ in range(2):
+            fn(tr.state, real)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(tr.state, real)
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0) / n
+        prof = profile_window(lambda: [fn(tr.state, real) for _ in range(n)],
+                              f"{n} DCGAN {name} steps at batch {TRAIN_BATCH}, bf16", card,
+                              top_n=0 if seen[name] else 10)
+        check(bool(prof), f"the profiler saw no device activity in the {name} steps")
+        seen[name].append((prof["busy_ms"] / n, prof["events"] / n, host_ms))
+    for name, runs in seen.items():
+        print(f"DCGAN {name} step at batch {TRAIN_BATCH}, bf16: "
+              + "; ".join(f"{ms:.3f} ms on the card, {ev:.1f} device events, {h:.3f} ms on the "
+                          f"host clock" for ms, ev, h in runs) + f"   [{card}]")
+    return launches
+
+
+def phase_remat(dev, card: str) -> None:
+    """One full-width DCGAN step (64², z 100, width 64, batch 128, bf16)
+    under each ``--remat`` mode from the same weights and draws: the
+    parameters after the step against ``none``'s (Adam deltas within 5 % of
+    lr where ``none``'s gradient clears 1 % of its leaf's maximum, on all
+    but 0.1 % of those elements; the max |diff| printed), the peak device
+    memory of a second step, and the device ms per step (profiler busy time
+    of 4 steps / 4), beside the card's name and power limit."""
+    import torch
+
+    from jckx_torch.configs import Config
+    from jckx_torch.models.dcgan import Discriminator, GANGeometry, Generator
+    from jckx_torch.train.state import create_dcgan_state
+    from jckx_torch.train.steps import make_dcgan_train_step, make_draws
+
+    geo = GANGeometry()
+    g = torch.Generator(device=dev).manual_seed(11)
+    real = torch.rand((TRAIN_BATCH, 64, 64, 3), generator=g, device=dev) * 2 - 1
+    draws = make_draws(0, 0, TRAIN_BATCH, geo, dev)
+    out = {}
+    for mode in ("none", "g", "d", "both"):
+        cfg = Config()
+        cfg.max_learning_rate, cfg.remat = TRAIN_LR, mode
+        gen = torch.Generator().manual_seed(0)
+        state = create_dcgan_state(cfg, Generator(geo, gen=gen).to(dev),
+                                   Discriminator(geo, gen=gen).to(dev))
+        nets = {"G.": state.G, "D.": state.D}
+        p0 = {p + k: v.detach().cpu().clone() for p, net in nets.items()
+              for k, v in net.named_parameters()}
+        step = make_dcgan_train_step(cfg, geo)
+        m = step(state, real, draws)
+        delta = {p + k: v.detach().cpu() - p0[p + k] for p, net in nets.items()
+                 for k, v in net.named_parameters()}
+        grads = {p + k: v.grad.detach().cpu() for p, net in nets.items()
+                 for k, v in net.named_parameters()}
+        check(all(math.isfinite(float(v)) for v in m.values()), f"remat={mode}: telemetry {m}")
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(state, real, draws)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile_window(lambda: [step(state, real, draws) for _ in range(4)],
+                              f"4 DCGAN steps, --remat {mode}, batch {TRAIN_BATCH}, bf16", card,
+                              top_n=0)
+        out[mode] = (delta, grads, peak, held, prof["busy_ms"] / 4 if prof else None)
+        del state, nets, step
+        torch.cuda.empty_cache()
+    d_none, g_none = out["none"][0], out["none"][1]
+    for mode, (delta, _, peak, held, ms) in out.items():
+        worst = max(float((delta[k] - d_none[k]).abs().max()) for k in d_none)
+        covered = flipped = 0
+        for k, gk in g_none.items():
+            mask = gk.abs() > 1e-2 * gk.abs().max() + 1e-12
+            covered += int(mask.sum())
+            bad = int(((delta[k] - d_none[k]).abs() > 0.05 * TRAIN_LR)[mask].sum())
+            flipped += bad
+            check(bad <= 1e-3 * int(mask.sum()),
+                  f"remat={mode}: {k}: {bad} of {int(mask.sum())} masked deltas differ from none's")
+        print(f"--remat {mode}: parameters after one step max |diff| from none {worst:.3g} "
+              f"({flipped} of {covered} masked deltas beyond 5 % of lr); peak device memory of a "
+              f"step {peak / 2**30:.3f} GiB ({(peak - held) / 2**30:.3f} GiB above the state); "
+              + (f"{ms:.3f} ms per step on the card" if ms is not None else "device ms not measured")
+              + f"   [{card}]")
+
+
+def phase_sanitize(dev) -> None:
+    """``--sanitize``'s context (``train.main.run_modes``) on a full-width
+    DCGAN step (batch 128, bf16, cuDNN deterministic for the phase): a clean
+    step under anomaly detection equals the plain step bit for bit; a real
+    batch holding a NaN raises anomaly mode's error naming the backward
+    function; the global flag is off again after."""
+    import warnings
+
+    import torch
+
+    from jckx_torch.configs import Config
+    from jckx_torch.models.dcgan import Discriminator, GANGeometry, Generator
+    from jckx_torch.train import main as tmain
+    from jckx_torch.train.state import create_dcgan_state
+    from jckx_torch.train.steps import make_dcgan_train_step, make_draws
+
+    geo = GANGeometry()
+    g = torch.Generator(device=dev).manual_seed(12)
+    real = torch.rand((TRAIN_BATCH, 64, 64, 3), generator=g, device=dev) * 2 - 1
+    draws = make_draws(0, 0, TRAIN_BATCH, geo, dev)
+    cfg = Config()
+    cfg.max_learning_rate = TRAIN_LR
+
+    def one_step(sanitize: bool, batch):
+        cfg.sanitize = sanitize
+        gen = torch.Generator().manual_seed(0)
+        state = create_dcgan_state(cfg, Generator(geo, gen=gen).to(dev),
+                                   Discriminator(geo, gen=gen).to(dev))
+        with tmain.run_modes(cfg, dev), warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # anomaly mode's own notice
+            m = make_dcgan_train_step(cfg, geo)(state, batch, draws)
+        torch.cuda.synchronize()
+        return m, {**state.G.state_dict(), **{"D." + k: v for k, v in state.D.state_dict().items()}}
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        (m0, p0), (m1, p1) = one_step(False, real), one_step(True, real)
+        check(all(torch.equal(m0[k], m1[k]) for k in m0) and all(torch.equal(p0[k], p1[k]) for k in p0),
+              "--sanitize changed a clean step")
+        bad = real.clone()
+        bad[0, 5, 7, 1] = float("nan")
+        msg = ""
+        t0 = time.perf_counter()
+        try:
+            one_step(True, bad)
+        except RuntimeError as e:
+            msg = str(e)
+        dt = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    found = re.search(r"Function '(\w+)' returned nan values", msg)
+    check(found is not None, f"a NaN batch under --sanitize did not raise anomaly mode's error: {msg!r}")
+    check(not torch.is_anomaly_enabled(), "anomaly detection left on after the run")
+    print(f"--sanitize: a clean full-width step equals the plain one bit for bit; a NaN in the "
+          f"real batch raised in {dt:.2f} s naming {found.group(1)}")
+
+
+def phase_profile_dir(tmp: str, card: str) -> int:
+    """A short ``--profile_dir`` run through the entry point (DCGAN, full
+    width, 512 synthetic rows, batch 128: 4 steps and one eval): it writes
+    one Chrome trace that names the kernel's operator and its device
+    kernel (the eval sample) and a cuDNN convolution. → its launches."""
+    import glob
+
+    from jckx_torch.kernels import fused_bn_act as fba
+    from jckx_torch.logging.main_logger import MainLogger
+    from jckx_torch.train import main as tmain
+
+    trace_dir = os.path.join(tmp, "trace")
+    argv = ["-m", "DCGAN", "--dataset", "synthetic", "--synthetic_size", "512", "-b",
+            str(TRAIN_BATCH), "-e", "1", "-mlr", str(TRAIN_LR), "--log_every", "4",
+            "--eval_every", "4", "--profile_dir", trace_dir, "--save_root",
+            os.path.join(tmp, "save"), "--data_dir", os.path.join(tmp, "data_profile"),
+            "-pm", "smoke_profile"]
+    fba.LAUNCHES = 0
+    t0 = time.perf_counter()
+    tr = tmain.main(argv)
+    wall = time.perf_counter() - t0
+    launches = fba.LAUNCHES
+    MainLogger.reset()
+    check(tr.state.step == 4 and tr.evals == [4] and launches == tr.geo.n_up,
+          f"--profile_dir run: step {tr.state.step}, evals {tr.evals}, {launches} launches")
+    traces = glob.glob(os.path.join(trace_dir, "jckx_torch_*.pt.trace.json"))
+    check(len(traces) == 1, f"--profile_dir wrote {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    has = {"jckx_torch::normalize_act": "jckx_torch::normalize_act" in names,
+           "the kernel (bn_act_*)": any("bn_act_vec" in n or "bn_act_scalar" in n for n in names),
+           "aten::cudnn_convolution": "aten::cudnn_convolution" in names}
+    check(all(has.values()), f"the trace lacks {[k for k, v in has.items() if not v]}")
+    print(f"--profile_dir: {wall:.1f} s run of 4 steps + 1 eval wrote {os.path.basename(traces[0])} "
+          f"({os.path.getsize(traces[0]) / 2**20:.1f} MiB, {len(events)} events) naming "
+          f"{', '.join(has)}; {launches} kernel launches   [{card}]")
+    return launches
+
+
+def phase_jckx_ckpt(tmp: str, dev, card: str) -> int:
+    """jckx ``.ckpt`` files read without JAX: the committed fixture
+    (tests/data/jckx_ckpt, written by jckx's trainer on the CPU). Each file
+    served on the card in f32 (``GeneratorService``) and rendered by
+    ``evaluate``'s route (``load_generator`` + ``make_sampler`` +
+    ``sample_eval_images``) on the fixture's 16 latents: through the kernel
+    (2 launches per forward at 16²), within 1 LSB of jckx's own renders,
+    99 % exactly equal; ``evaluate`` end to end (finite IS / FID at step
+    4); ``convert`` to ``.pt`` and ``inspect`` exit 0;
+    and ``train --resume`` of the DCGAN run dir takes one more eval and
+    writes the port's ``latest.ckpt`` at step 8. → the kernel launches."""
+    import shutil
+    import zipfile
+
+    import numpy as np
+    import torch
+
+    from jckx_torch import convert as tconvert
+    from jckx_torch import evaluate
+    from jckx_torch import inspect as tinspect
+    from jckx_torch.checkpoint.checkpoint import load_checkpoint, load_generator
+    from jckx_torch.data.pipeline import one_hot
+    from jckx_torch.kernels import fused_bn_act as fba
+    from jckx_torch.logging.main_logger import MainLogger
+    from jckx_torch.ops.quant import make_sampler
+    from jckx_torch.serve import GeneratorService, tanh_to_u8
+    from jckx_torch.train import main as tmain
+    from jckx_torch.train.gan_trainer import sample_eval_images
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "jckx_ckpt")
+    z = torch.from_numpy(np.load(os.path.join(root, "z.npy"))).to(dev)
+    labels = torch.from_numpy(np.load(os.path.join(root, "cgan_labels.npy"))).to(dev)
+    data = os.path.join(tmp, "data_jckx")
+    total = 0
+    for family in ("dcgan", "cgan"):
+        cgan = family == "cgan"
+        path = os.path.join(root, family, "run", "latest.ckpt")
+        want = tanh_to_u8(torch.from_numpy(np.load(os.path.join(root, f"{family}_renders.npy"))))
+        svc = GeneratorService(path, batch_size=len(z), compute_dtype=torch.float32, device=dev)
+        before = fba.LAUNCHES
+        served = svc.render(z, labels if cgan else None).cpu()
+        lg = load_generator(path)
+        params, apply = make_sampler(lg.G.to(dev), compute_dtype=torch.float32)
+        onehot = one_hot(labels, lg.num_classes) if cgan else None
+        scored = tanh_to_u8(sample_eval_images(
+            lambda zz, *rest: apply(params, zz, rest[0] if cgan else None), z, onehot,
+            torch.float32)).cpu()
+        n = fba.LAUNCHES - before
+        check(n == 2 * svc.geo.n_up, f"{family} fixture renders launched the kernel {n} times")
+        for what, got in (("serve", served), ("evaluate's sampler", scored)):
+            diff = (got.int() - want.int()).abs()
+            exact = (diff == 0).float().mean().item()
+            check(diff.max().item() <= 1 and exact >= 0.99,
+                  f"{family} fixture {what}: {diff.max().item()} LSB, {100 * exact:.4f} % exact")
+            print(f"jckx {family} .ckpt (step {svc.step}, EMA {svc.used_ema}) through {what} on "
+                  f"the card, f32, batch {len(z)}: max diff {diff.max().item()} LSB from jckx's "
+                  f"renders, {100 * exact:.4f} % exactly equal")
+        fba.LAUNCHES = 0
+        res = evaluate.main(["--ckpt", path, "--dataset", "cifar10" if cgan else "synthetic",
+                             "--synthetic_size", "512", "--data_dir", data, "--save_root",
+                             os.path.join(tmp, "save"), "--compute_dtype", "float32"])
+        MainLogger.reset()
+        total += n + fba.LAUNCHES
+        check(res["step"] == 4 and math.isfinite(res["fid"]) and math.isfinite(res["is"])
+              and fba.LAUNCHES == svc.geo.n_up, f"evaluate {family} fixture: {res}, "
+              f"{fba.LAUNCHES} launches")
+        pt = os.path.join(tmp, f"jckx_{family}.pt")
+        check(tconvert.main(["--src", path, "--dst", pt]) == 0
+              and load_checkpoint(pt)["model_g"].keys() == lg.G.state_dict().keys(),
+              f"convert {path} -> {pt}")
+        check(tinspect.main(["--ckpt", path]) == 0, f"inspect {path}")
+        info = tinspect.inspect_path(path)
+        check(info["kind"] == "jckx checkpoint (flax msgpack)" and info["step"] == 4,
+              f"inspect {path}: {info}")
+        print(f"jckx {family} .ckpt: evaluate step {res['step']} IS {res['is']:.4f} FID "
+              f"{res['fid']:.4f} ({fba.LAUNCHES} launches); convert -> .pt and inspect exit 0")
+
+    save = os.path.join(tmp, "save_jckx")
+    shutil.copytree(os.path.join(root, "dcgan"), os.path.join(save, "dcgan"))
+    fba.LAUNCHES = 0
+    tr = tmain.main(["--resume", "-pm", "run", "-e", "2", "--save_root", save, "--data_dir", data])
+    MainLogger.reset()
+    latest = os.path.join(save, "dcgan", "run", "latest.ckpt")
+    check(tr.device.type == "cuda" and tr.state.step == 8 and tr.evals == [8]
+          and fba.LAUNCHES == tr.geo.n_up and zipfile.is_zipfile(latest)
+          and load_checkpoint(latest)["step"] == 8,
+          f"--resume of jckx's run dir: step {tr.state.step}, evals {tr.evals}, "
+          f"{fba.LAUNCHES} launches")
+    print(f"train --resume of jckx's DCGAN run dir (step 4, {tr.cfg.compute_dtype}): one more eval "
+          f"at step 8 ({fba.LAUNCHES} launches), the port's latest.ckpt written at step 8   [{card}]")
+    return total + fba.LAUNCHES
+
+
+
 @contextlib.contextmanager
 def keep_latest_of_step(step: int, dst: str):
     """While inside, copy ``latest.ckpt`` to ``dst`` when a trainer writes it
@@ -1943,6 +2279,10 @@ def main() -> None:
     phase_modes_timing(svc, modes, dev, card)
     phase_train_vs_cpu(dev)
     phase_train_vs_cpu(dev, conditional=True)
+    phase_train_vs_cpu(dev, fused_prop=1)
+    phase_train_vs_cpu(dev, conditional=True, fused_prop=1)
+    phase_remat(dev, card)
+    phase_sanitize(dev)
     phase_bn_relu_train(dev, card)
     phase_finetune_vs_cpu(dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1951,6 +2291,9 @@ def main() -> None:
             tr, steps, _, train_launches = phase_train(tmp)
         watch_launches = phase_watch(step8, os.path.join(tr.save_path, "latest.ckpt"), tmp)
         phase_train_timing(tr, steps, tmp, card)
+        fused_launches = phase_fused_prop_train(tmp, card)
+        fused_launches += phase_profile_dir(tmp, card)
+        fused_launches += phase_jckx_ckpt(tmp, dev, card)
         ctr, csteps, cevals, ctrain_launches = phase_train(tmp, "CGAN")
         eval_launches = phase_evaluate(ctr, cevals, tmp)
         eval_launches += phase_evaluate_int8(ctr, tmp)
@@ -1964,7 +2307,7 @@ def main() -> None:
         "replaces": "jckx/kernels/fused_bn_act.py:120",
         "launches": (launches + train_launches + cgan_launches + ctrain_launches + eval_launches
                      + mode_launches + http_launches + watch_launches + export_launches
-                     + panel_launches + finetune_launches),
+                     + panel_launches + finetune_launches + fused_launches),
         "max_abs_err": max_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],

@@ -18,11 +18,19 @@ best-metric files are ``.pt``; ``latest.ckpt`` holds the same dict for
 ``--resume``. Writes are synchronous and atomic (a temporary file, then
 ``os.replace``).
 
+``load_checkpoint`` reads three kinds of file into that one dict: the
+port's, the reference's ``.pt`` (both zip archives, ``torch.save``'s
+format), and jckx's ``.ckpt`` (flax msgpack and a ``.json`` sidecar, read
+without JAX by ``jckx_ckpt.read_jckx_checkpoint``). It sniffs the bytes, not
+the name: a zip is torch's, anything else is read as jckx's. Every reader
+of a checkpoint goes through it: ``load_generator`` (serving, the daemon,
+``--watch``, ``evaluate``, ``export``), ``restore_checkpoint`` (``train
+--resume``, which finds jckx's ``latest.ckpt`` by the same name),
+``convert`` and ``inspect``.
+
 ``load_generator`` is the one reader of a generator for serving and
-scoring (``jckx_torch.serve``, ``jckx_torch.evaluate``): the port's
-``latest.ckpt`` and best ``.pt`` files and the reference's ``.pt``, with
-the EMA generator by default where the file holds one
-(``jckx/serve.py:169-228``).
+scoring (``jckx_torch.serve``, ``jckx_torch.evaluate``), with the EMA
+generator by default where the file holds one (``jckx/serve.py:169-228``).
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
+from jckx_torch.checkpoint.jckx_ckpt import read_jckx_checkpoint
 from jckx_torch.checkpoint.torch_convert import infer_gan_config
 from jckx_torch.models.cgan import CGenerator
 from jckx_torch.models.dcgan import GANGeometry, Generator
@@ -72,13 +81,11 @@ def save_checkpoint(path: str, payload: Dict[str, Any]) -> None:
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
-    """A port or reference checkpoint, on the CPU. A jckx ``.ckpt`` (flax
-    msgpack, not the zip archive ``torch.save`` writes) raises, naming its
-    converter."""
+    """A port, reference or jckx checkpoint → the port's dict, on the CPU.
+    A file that is not a zip archive is read as jckx's flax msgpack; a
+    malformed one raises ``ValueError`` naming it."""
     if not zipfile.is_zipfile(path):
-        raise ValueError(
-            f"{path}: not a torch checkpoint. A jckx .ckpt is flax msgpack: convert it with "
-            f"`python -m jckx.convert --src {path} --dst {os.path.splitext(path)[0]}.pt`")
+        return read_jckx_checkpoint(path)
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(ckpt, dict) or not {"model_g", "model_d"} <= set(ckpt):
         raise KeyError(f"{path}: not a reference GAN checkpoint (needs 'model_g' and 'model_d')")

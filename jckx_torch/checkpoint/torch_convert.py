@@ -31,8 +31,9 @@ from jckx_torch.models.dcgan import GANGeometry
 
 
 def _np(t) -> np.ndarray:
-    if isinstance(t, torch.Tensor):
-        return t.detach().cpu().numpy()
+    if isinstance(t, torch.Tensor):  # numpy has no bfloat16: such leaves widen to f32
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return np.asarray(t)
 
 

@@ -8,10 +8,17 @@ fields of ``jckx.configs.Config`` that the port's trainers read.
 
 The port adds ``--device`` (default ``cuda``; ``cpu`` runs the plain
 PyTorch path). The flags of ``jckx`` that have no meaning in the port yet
-stay on the command line so that a ``jckx`` command line parses, but fail
-loudly when set away from their defaults, naming the ``ROADMAP.md`` item
-that brings them (``UNPORTED``). ``--resume`` and ``-t`` inherit the run's
-stored ``config.json`` for every flag not given now, as in ``jckx``.
+(the mesh, multihost and the streaming data plane) stay on the command
+line so that a ``jckx`` command line parses, but fail loudly when set away
+from their defaults, naming the ``ROADMAP.md`` item that brings them
+(``UNPORTED``). ``--resume`` and ``-t`` inherit the run's stored
+``config.json`` for every flag not given now, as in ``jckx``.
+
+The train step's modes are jckx's: ``--fused_prop 1`` (one fake-side D
+forward serves both players, ``train/steps.py``), ``--remat none|g|d|both``
+(activation checkpointing of G and / or D), ``--sanitize`` (the run under
+``torch.autograd.detect_anomaly``) and ``--profile_dir`` (a
+``torch.profiler`` Chrome trace of the run, ``train/main.py``).
 """
 
 from __future__ import annotations
@@ -85,6 +92,12 @@ class Config:
     eval_fast_stem: int = 0            # 1 = the space-to-depth InceptionV3 stem in the evals
     extra_metrics: int = 0             # 1 = KID + precision/recall/density/coverage at evals
 
+    # --- the train step's modes ---
+    remat: str = "none"                # none | g | d | both
+    fused_prop: int = 0
+    sanitize: bool = False             # torch.autograd.detect_anomaly over the run
+    profile_dir: str = ""              # torch.profiler Chrome trace dir ('' = off)
+
     # --- jckx knobs the port does not implement yet (see UNPORTED) ---
     mesh_shape: str = ""
     mesh_axes: str = "data"
@@ -93,11 +106,7 @@ class Config:
     spatial_replicate_grads: int = 1
     data_placement: str = "auto"
     hbm_data_budget: int = 4 << 30
-    remat: str = "none"
-    fused_prop: int = 0
-    sanitize: bool = False
     multihost: bool = False
-    profile_dir: str = ""
 
     save_path: str = ""                # set by the entry point / trainer
 
@@ -115,10 +124,6 @@ UNPORTED = {
     "multihost": (False, "A13 (multi-GPU data/tensor parallel)"),
     "data_placement": (("auto", "hbm"), "A4 (the host-streaming data plane)"),
     "hbm_data_budget": (4 << 30, "A4 (the host-streaming data plane)"),
-    "remat": ("none", "A3 (rematerialization of the train step)"),
-    "fused_prop": (0, "A3 (the FusedProp step, steps.py:124-177)"),
-    "sanitize": (False, "A3 (anomaly detection in the train step)"),
-    "profile_dir": ("", "A6 (the port's benchmark and traces)"),
 }
 
 
@@ -153,7 +158,9 @@ def _explicit_dests(parser: argparse.ArgumentParser, argv: list) -> set:
 
 # fields a resumed run takes from its own command line, never from the stored config
 _NO_INHERIT = {"test", "model_path", "resume", "save_root", "save_path",
-               "log_file", "init_from_torch", "device"}
+               "log_file", "init_from_torch", "device", "profile_dir", "multihost"}
+# jckx's config.json stores these parsed (None / a list); the port keeps jckx's flag strings
+_MESH_FIELDS = ("mesh_shape", "mesh_axes")
 
 
 def _inherit_run_config(cfg: Config, explicit: set) -> Optional[str]:
@@ -178,7 +185,11 @@ def _inherit_run_config(cfg: Config, explicit: set) -> Optional[str]:
                          f"-m {cfg.model} was passed")
     for field in dataclasses.fields(Config):
         if field.name in stored and field.name not in _NO_INHERIT | explicit:
-            setattr(cfg, field.name, stored[field.name])
+            value = stored[field.name]
+            if field.name in _MESH_FIELDS:
+                value = "" if value is None else value
+                value = ",".join(map(str, value)) if isinstance(value, list) else value
+            setattr(cfg, field.name, value)
     return cand[0]
 
 

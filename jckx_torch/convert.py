@@ -4,11 +4,14 @@ checkpoint — port of ``jckx/convert.py``.
     python -m jckx_torch convert --src 5000_0.1000_88.4000.pt --dst run/latest.ckpt [--with_ema]
     python -m jckx_torch convert --src save/dcgan/<ts>/latest.ckpt --dst export.pt [--use_ema]
 
-The direction follows ``--dst``'s extension. Both files are torch dicts:
-the reference's ``{model_g, model_d, optimizer_g, optimizer_d}``
+The direction follows ``--dst``'s extension. The port's files are torch
+dicts: the reference's ``{model_g, model_d, optimizer_g, optimizer_d}``
 (train/dcgan_trainer.py:86-91), and the port's (``checkpoint/
 checkpoint.py``), the same dict plus ``step``, ``seed``, ``ema_g`` when the
-run kept an EMA, and the trainer's ``serve_config``.
+run kept an EMA, and the trainer's ``serve_config``. A ``--src`` ``.ckpt``
+written by jckx (flax msgpack) is read as it is (``load_checkpoint``), so
+``.ckpt`` → ``.pt`` writes the ``.pt`` that ``python -m jckx.convert``
+writes from it, without JAX.
 
 - ``.pt`` → checkpoint: the step is the Adam count (jckx's importer reads
   it so), the seed the reference's; ``--with_ema`` seeds ``ema_g`` with a
@@ -20,8 +23,7 @@ Geometry and conditioning come from the weights. ``--conditional``,
 ``--num_classes`` and the geometry flags are jckx's hints; here they are
 checked against the weights and raise where they contradict them. ``--lr``
 is written into both optimizers' param groups. Adam state absent from the
-source is written fresh (count 0). A jckx ``.ckpt`` is flax msgpack, not a
-torch file: convert it with ``python -m jckx.convert`` first.
+source is written fresh (count 0).
 """
 
 from __future__ import annotations
@@ -72,7 +74,7 @@ def convert(args) -> dict:
     if args.src.endswith(".pt") == to_reference:
         raise ValueError(f"one side must be .pt (the reference's) and the other the port's "
                          f"checkpoint (src={args.src}, dst={args.dst})")
-    ckpt = load_checkpoint(args.src)  # a jckx msgpack .ckpt raises, naming jckx.convert
+    ckpt = load_checkpoint(args.src)  # the port's, the reference's or jckx's
     conditional, geo, k = infer_gan_config(ckpt["model_g"], ckpt["model_d"])
     k = int(ckpt.get("serve_config", {}).get("num_classes", k))
     inferred = {"conditional": conditional, "num_classes": k,

@@ -14,10 +14,9 @@ batch-stat BN the batching is part of the function), the EMA generator
 when the file holds one, and one backbone pass for IS, FID and
 intra-FID. On the card G's forwards run through the fused BN kernel.
 
-It reads the port's ``.pt`` and ``latest.ckpt`` files and the reference's
-``.pt`` through ``checkpoint.load_generator``, the reader serving uses; a
-jckx ``.ckpt`` is flax msgpack and is converted first with
-``python -m jckx.convert``. It prints one JSON line,
+It reads the port's ``.pt`` and ``latest.ckpt`` files, the reference's
+``.pt`` and jckx's ``.ckpt`` through ``checkpoint.load_generator``, the
+reader serving uses. It prints one JSON line,
 ``{"step", "n"[, "quant"][, "truncation"], "is", "fid"[, "intra_fid"]
 [, "kid", "kid_std"][, "precision", "recall", "density", "coverage"]}``.
 
@@ -59,7 +58,7 @@ def get_args(argv=None):
     d = Config()
     p = argparse.ArgumentParser(description="jckx_torch checkpoint evaluation")
     p.add_argument("--ckpt", required=True,
-                   help="the port's .pt or latest.ckpt, or a reference torch .pt")
+                   help="the port's .pt or latest.ckpt, a reference torch .pt or a jckx .ckpt")
     p.add_argument("--dataset", default=d.dataset,
                    help="real side: cifar100 / cifar10 / mnist / synthetic, or npz with --data_path")
     p.add_argument("--data_dir", default=d.data_dir)

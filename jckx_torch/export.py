@@ -252,7 +252,7 @@ class ArtifactService:
 def get_args(argv=None):
     p = argparse.ArgumentParser(description="jckx_torch sealed generator export (torch.export)")
     p.add_argument("--ckpt", required=True,
-                   help="the port's latest.ckpt or .pt, or a reference torch .pt")
+                   help="the port's latest.ckpt or .pt, a reference torch .pt or a jckx .ckpt")
     p.add_argument("--dst", required=True, help="output artifact path (.pt2)")
     p.add_argument("-b", "--batch_size", type=int, default=64,
                    help="the exported program's batch")

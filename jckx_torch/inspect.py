@@ -4,10 +4,11 @@
 One JSON answer to "what is this file?" for every kind the port writes or
 reads:
 
-- the port's checkpoint (``latest.ckpt``, the best-metric ``.pt``) and
-  the reference's ``.pt``: step, conditioning, geometry (from the weight
-  shapes), EMA, G / D / EMA parameter counts, Adam moment elements, and
-  from the port's extras the best metrics and the logged-loss count;
+- the port's checkpoint (``latest.ckpt``, the best-metric ``.pt``), the
+  reference's ``.pt`` and jckx's ``.ckpt`` (flax msgpack, read without
+  JAX): step, conditioning, geometry (from the weight shapes), EMA, G / D
+  / EMA parameter counts, Adam moment elements, and from the port's extras
+  or jckx's sidecar the best metrics and the logged-loss count;
 - a sealed ``.pt2`` (``jckx_torch.export``) and jckx's ``.jaxexp``: the
   export sidecar (geometry, batch, platforms, quant) and the file size,
   without deserializing the program (a ``.jaxexp`` needs no JAX here).
@@ -38,7 +39,7 @@ def _moments(opt) -> int:
 
 
 def inspect_ckpt(path: str) -> dict:
-    """The port's checkpoint or the reference's ``.pt``."""
+    """The port's checkpoint, the reference's ``.pt`` or jckx's ``.ckpt``."""
     from jckx_torch.checkpoint.checkpoint import checkpoint_step, load_checkpoint
     from jckx_torch.checkpoint.torch_convert import infer_gan_config
 
@@ -47,8 +48,10 @@ def inspect_ckpt(path: str) -> dict:
     side = ckpt.get("serve_config", {})
     k = int(side.get("num_classes", k))
     port = "step" in ckpt
+    kind = ("jckx checkpoint (flax msgpack)" if "jckx_rng" in ckpt
+            else "jckx_torch checkpoint" if port else "reference torch checkpoint")
     info = {
-        "kind": "jckx_torch checkpoint" if port else "reference torch checkpoint",
+        "kind": kind,
         "step": checkpoint_step(ckpt),
         "conditional": conditional,
         "num_classes": k if conditional else None,
@@ -59,8 +62,9 @@ def inspect_ckpt(path: str) -> dict:
         "params_d": _param_count(ckpt["model_d"]),
         "opt_moments": _moments(ckpt.get("optimizer_g")) + _moments(ckpt.get("optimizer_d")),
     }
-    if port:
-        info["sidecar_present"] = bool(side)
+    if port:  # jckx's serve_config is made from the weights where its sidecar is missing
+        info["sidecar_present"] = (os.path.exists(path + ".json") if "jckx_rng" in ckpt
+                                   else bool(side))
     if "ema_g" in ckpt:
         info["params_ema_g"] = _param_count(ckpt["ema_g"])
     if "bests" in ckpt:
@@ -90,7 +94,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         description="jckx_torch checkpoint / artifact introspection (JSON on stdout)")
     p.add_argument("--ckpt", required=True,
-                   help="the port's checkpoint, a reference .pt, a .pt2 or a .jaxexp artifact")
+                   help="the port's checkpoint, a reference .pt, a jckx .ckpt, a .pt2 or a "
+                        ".jaxexp artifact")
     args = p.parse_args(argv)
     print(json.dumps(inspect_path(args.ckpt), indent=2, default=float))
     return 0

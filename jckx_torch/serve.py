@@ -7,8 +7,9 @@ port of ``jckx/serve.py``.
     python -m jckx_torch.serve --ckpt save/dcgan/<ts>/latest.ckpt --listen 8000 --watch 30
 
 ``GeneratorService`` reads the port's ``latest.ckpt`` and best ``.pt``
-files and the reference's ``.pt`` (``checkpoint.load_generator``: the EMA
-generator by default where the file holds one), runs on the card unless
+files, the reference's ``.pt`` and jckx's ``.ckpt`` (``checkpoint.
+load_generator``: the EMA generator by default where the file holds one),
+runs on the card unless
 ``device`` names another, and renders every batch through the
 hand-written fused BN + ReLU kernel (``kernels/csrc/fused_bn_act.cu``):
 four launches per generator forward, in bf16 for the float and sub-pixel
@@ -532,8 +533,8 @@ class CheckpointWatcher:
 def get_args(argv=None):
     p = argparse.ArgumentParser(description="jckx_torch generator serving")
     p.add_argument("--ckpt", required=True,
-                   help="the port's latest.ckpt or .pt, a reference torch .pt, or a sealed .pt2 "
-                        "artifact (python -m jckx_torch export)")
+                   help="the port's latest.ckpt or .pt, a reference torch .pt, a jckx .ckpt, or "
+                        "a sealed .pt2 artifact (python -m jckx_torch export)")
     p.add_argument("-n", "--num", type=int, default=64)
     p.add_argument("-o", "--out", default="samples.png")
     p.add_argument("--conditional", action="store_true", default=None)

@@ -28,7 +28,9 @@ and logs of jckx run there:
   grids, and ``latest.ckpt``;
 - ``--resume`` restores ``latest.ckpt`` and fast-forwards the shuffle
   stream; the step's draws derive from (seed, step), so the resumed run
-  continues as the uninterrupted one would.
+  continues as the uninterrupted one would. A ``latest.ckpt`` written by
+  jckx resumes too (``checkpoint.load_checkpoint``); its draws then come
+  from the port's generators, not from jckx's rng, and the log says so.
 
 The artifacts are jckx's: ``real_image.png``, ``<metric>/<iters>_fake_image
 .png``, CGAN's labelled class panel ``img/<iters>_fake_image.png``,
@@ -168,6 +170,11 @@ class _BaseGANTrainer:
         extra = restore_checkpoint(path, self.state, self.cfg.max_learning_rate)
         self.bests.update(extra.get("bests", {}))
         self._resumed_losses = [tuple(p) for p in extra.get("losses", [])]
+        if "jckx_rng" in extra:
+            self.logger.warning(
+                f"{path} was written by jckx: its weights, Adam state and step carry over; "
+                f"the step's draws continue from this port's generators of (seed "
+                f"{self.state.seed}, step), not from jckx's rng {extra['jckx_rng']}")
 
     def _rollback_after_divergence(self, step_hint: int) -> None:
         """Restore ``latest.ckpt`` after a nan-guard abort, so that a caller

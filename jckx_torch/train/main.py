@@ -9,6 +9,21 @@ inherit) → the singleton logger → the data → G and D drawn from ``--seed``
 → the trainer → ``train()``. A run cut by SIGTERM exits 143. Training runs
 on the card unless ``--device`` names another device.
 
+``--sanitize`` runs the data set-up, the model build and ``train()`` under
+``torch.autograd.detect_anomaly(check_nan=True)``, jckx's ``jax_debug_nans``
+(``main.py:91-92``) and the reference's always-on ``set_detect_anomaly``:
+a backward function that returns NaN raises, naming itself and the forward
+that made it. The context manager restores the global flag when the run
+ends. The trainer's ``nan_guard`` keeps catching non-finite telemetry.
+
+``--profile_dir <dir>`` records the same span with ``torch.profiler``
+(activities: the CPU, and CUDA on the card), where jckx wraps it in
+``jax.profiler.start_trace`` / ``stop_trace`` (``main.py:145-166``). When
+the run returns, the trace is written into ``<dir>`` as a Chrome trace,
+``jckx_torch_<time>.pt.trace.json`` (``chrome://tracing``, Perfetto,
+TensorBoard's PyTorch profiler plug-in): a different format from jckx's
+XPlane ``.xplane.pb``, by design.
+
 ``-t 1 -pm <ts>`` trains nothing: it scores the run's ``latest.ckpt``
 through ``jckx_torch.evaluate`` with the run's own seed, data, dtype and
 eval sizes, so it reproduces the run's last logged eval (``main.py:32-74``),
@@ -17,6 +32,7 @@ and prints the JSON line.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -62,6 +78,36 @@ def run_test_mode(cfg: Config, metrics=None) -> dict:
     return result
 
 
+@contextlib.contextmanager
+def profile_trace(profile_dir: str, device: torch.device, logger=None):
+    """``torch.profiler`` over the body; on a normal exit its Chrome trace
+    is written into ``profile_dir``. → yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    path = os.path.join(profile_dir,
+                        f"jckx_torch_{datetime.now().strftime('%Y%m%d_%H%M%S')}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    if logger is not None:
+        logger.debug(f"profile trace written to {path}")
+
+
+def run_modes(cfg: Config, device: torch.device, logger=None) -> contextlib.ExitStack:
+    """The context of a training run: anomaly detection with
+    ``--sanitize``, the profiler with ``--profile_dir``."""
+    stack = contextlib.ExitStack()
+    if cfg.sanitize:
+        stack.enter_context(torch.autograd.detect_anomaly(check_nan=True))
+    if cfg.profile_dir:
+        stack.enter_context(profile_trace(cfg.profile_dir, device, logger))
+    return stack
+
+
 def run(cfg: Config, metrics=None):
     """Train as the CLI does → the trainer (its ``preempted`` says whether
     SIGTERM cut the run); with ``-t`` score the run instead → the result
@@ -87,17 +133,18 @@ def run(cfg: Config, metrics=None):
 
     geo = geometry(cfg)
     gen = torch.Generator().manual_seed(cfg.seed)
-    if cfg.model == "CGAN":
-        data_pre = CGANDataPreprocessor(cfg)
-        cfg.num_classes = data_pre.num_classes
-        G = CGenerator(geo, cfg.num_classes, gen=gen)
-        D = CDiscriminator(geo, cfg.num_classes, gen=gen)
-        trainer = CGANTrainer(cfg, G, D, data_pre, metrics=metrics)
-    else:
-        data_pre = DCGANDataPreprocessor(cfg)
-        G, D = Generator(geo, gen=gen), Discriminator(geo, gen=gen)
-        trainer = DCGANTrainer(cfg, G, D, data_pre, metrics=metrics)
-    trainer.train()
+    with run_modes(cfg, device, logger):
+        if cfg.model == "CGAN":
+            data_pre = CGANDataPreprocessor(cfg)
+            cfg.num_classes = data_pre.num_classes
+            G = CGenerator(geo, cfg.num_classes, gen=gen)
+            D = CDiscriminator(geo, cfg.num_classes, gen=gen)
+            trainer = CGANTrainer(cfg, G, D, data_pre, metrics=metrics)
+        else:
+            data_pre = DCGANDataPreprocessor(cfg)
+            G, D = Generator(geo, gen=gen), Discriminator(geo, gen=gen)
+            trainer = DCGANTrainer(cfg, G, D, data_pre, metrics=metrics)
+        trainer.train()
     return trainer
 
 

@@ -1,9 +1,9 @@
 """The DCGAN and CGAN train steps — port of ``make_dcgan_train_step``
 (``jckx/train/steps.py:179-252``) and ``make_cgan_train_step``
-(``:331-403``), the faithful steps. FusedProp (``:124-177``, ``:274-329``)
-is not ported yet (ROADMAP A3); the CLI refuses it by name.
+(``:331-403``): the faithful steps, FusedProp (``:124-177``, ``:272-329``)
+and ``--remat`` (``_maybe_remat``, ``:65-71``).
 
-One call runs one iteration of the reference loop (dcgan_trainer.py:130-189,
+One faithful call runs one iteration of the reference loop (dcgan_trainer.py:130-189,
 cgan_trainer.py:190-213) and updates the state in place:
 
 1. blend the real batch with instance noise; draw z and the fake noise;
@@ -17,13 +17,37 @@ cgan_trainer.py:190-213) and updates the state in place:
    D's gradient (the reference DCGAN leaves it out); CGAN: it always does
    (cgan_trainer.py:201-203). The reported ``loss_d`` includes it either
    way. Update D;
-4. G's loss through the **updated** D, with the same fake noise. D's
-   parameters are frozen for this pass, so no grad is taken for them.
-   Update G, then the EMA of G.
+4. G's loss through the **updated** D, with the same fake noise. The
+   backward of this pass is taken for G's parameters only, so no grad is
+   formed for D's. Update G, then the EMA of G.
 
 CGAN conditions G and every D pass on the batch's one-hot labels, and each
 of its four D passes (real, fake, penalty, G pass) takes a fresh dropout
 keep-mask, jckx's ``k_dr``, ``k_df``, ``k_di`` and ``k_dg`` (``:333``).
+
+FusedProp (``cfg.fused_prop``, arXiv:2004.03335) shares one fake-side D
+forward between the players. G runs forward once; D's real and penalty
+sides are differentiated as above, on the detached fake; one D forward on
+the fake as a leaf then gives two cotangent pulls: D's fake-loss gradient
+and G's loss gradient at the fake, which is chained through G's forward.
+Both gradients are taken before either Adam step, so G's gradient flows
+through the PRE-update D (a simultaneous update, not the reference's
+alternating one), the reported ``d_gz2`` equals ``d_gz1``, and CGAN's
+shared forward takes one dropout mask, ``keep_fake`` (jckx's ``k_df``;
+``keep_g`` is drawn and unused, as jckx's ``_unused_k_dg``, so both modes
+draw the same numbers for one (seed, step)). The port's faithful step
+already reuses G's one forward, so FusedProp saves one fake-side D
+forward here, not jckx's "one G and one D forward".
+
+``cfg.remat`` ``g`` / ``d`` / ``both`` runs G's and / or D's forward under
+``torch.utils.checkpoint`` with ``use_reentrant=False``: activations are
+recomputed in the backward instead of kept. The non-reentrant form keeps
+grad mode in its first forward (the reentrant one runs it under
+``no_grad``, where ``bn_act`` would take the kernel on an input the
+penalty differentiates twice) and stays twice differentiable for the
+penalty. The recompute reruns the forward, so the forward must have no
+side effect: the norms' running buffers are never written, the kernel is
+never launched in the step, and the dropout masks are explicit inputs.
 
 The random draws (real noise, z, fake noise, α, and CGAN's masks) come
 from a ``torch.Generator`` on the batch's device, seeded from (seed, step),
@@ -42,6 +66,7 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from jckx_torch.configs import Config
 from jckx_torch.models.cgan import DROPOUT, HIDDEN
@@ -99,10 +124,25 @@ def make_draws(seed: int, step: int, n: int, geo: GANGeometry,
     return draws
 
 
+def _maybe_remat(fn: Callable, on: bool) -> Callable:
+    """``fn`` under non-reentrant activation checkpointing when ``on``."""
+    if not on:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def _update_ema(cfg: Config, state: GANTrainState) -> None:
+    if state.ema_g is not None:
+        with torch.no_grad():
+            e, p = list(state.ema_g.parameters()), list(state.G.parameters())
+            torch._foreach_mul_(e, cfg.ema_decay)
+            torch._foreach_add_(e, p, alpha=1.0 - cfg.ema_decay)
+
+
 def _gan_step(cfg: Config, state: GANTrainState, real: torch.Tensor, draws: StepDraws,
               G: Callable, D: Callable, gp_in_grad: bool) -> Dict[str, torch.Tensor]:
-    """The iteration shared by both families. ``G(z)`` builds the fake;
-    ``D(x, keep)`` gives logits under the pass's dropout mask."""
+    """The faithful iteration shared by both families. ``G(z)`` builds the
+    fake; ``D(x, keep)`` gives logits under the pass's dropout mask."""
     cd = compute_dtype(cfg)
     lam, f = cfg.lambda_gp, cfg.instance_noise
     real_n = instance_noise_blend(real.to(cd), draws.real_noise, f)
@@ -123,21 +163,13 @@ def _gan_step(cfg: Config, state: GANTrainState, real: torch.Tensor, draws: Step
     adam_step(state.opt_d, cfg)
 
     # ---- G update, through the updated D -----------------------------
-    state.D.requires_grad_(False)
-    try:
-        logits_g = D((1.0 - f) * fake + f * fake_noise, draws.keep_g)
-    finally:
-        state.D.requires_grad_(True)
+    logits_g = D((1.0 - f) * fake + f * fake_noise, draws.keep_g)
     loss_g = bce_from_logits(logits_g, cfg.label_real)
     state.opt_g.zero_grad(set_to_none=True)
-    loss_g.backward()
+    # only G's gradient: D's weight gradients of this pass are never formed
+    loss_g.backward(inputs=list(state.G.parameters()))
     adam_step(state.opt_g, cfg)
-
-    if state.ema_g is not None:
-        with torch.no_grad():
-            e, p = list(state.ema_g.parameters()), list(state.G.parameters())
-            torch._foreach_mul_(e, cfg.ema_decay)
-            torch._foreach_add_(e, p, alpha=1.0 - cfg.ema_decay)
+    _update_ema(cfg, state)
     state.step += 1
 
     with torch.no_grad():
@@ -148,17 +180,75 @@ def _gan_step(cfg: Config, state: GANTrainState, real: torch.Tensor, draws: Step
         return {k: v.detach().float() for k, v in out.items()}
 
 
+def _fused_prop_step(cfg: Config, state: GANTrainState, real: torch.Tensor, draws: StepDraws,
+                     G: Callable, D: Callable, gp_in_grad: bool) -> Dict[str, torch.Tensor]:
+    """The FusedProp iteration (jckx ``step_fp``, ``_fused_prop_fake_side``
+    ``:74-90``); arguments as ``_gan_step``'s."""
+    cd = compute_dtype(cfg)
+    lam, f = cfg.lambda_gp, cfg.instance_noise
+    real_n = instance_noise_blend(real.to(cd), draws.real_noise, f)
+    fake_noise = draws.fake_noise.to(cd)
+    fake_n = (1.0 - f) * G(draws.z) + f * fake_noise  # the step's only G forward
+    params_d = list(state.D.parameters())
+
+    # ---- D's real and penalty sides, on the detached fake ---------------
+    logits_r = D(real_n, draws.keep_real)
+    bce_r = bce_from_logits(logits_r, cfg.label_real)
+    gp = gradient_penalty(lambda x: torch.sigmoid(D(x, draws.keep_gp)), draws.alpha,
+                          real_n, fake_n.detach(), create_graph=gp_in_grad)
+    grads_d = torch.autograd.grad(bce_r + lam * gp if gp_in_grad else bce_r, params_d)
+
+    # ---- the shared fake side: one D forward, two cotangent pulls --------
+    fake_leaf = fake_n.detach().requires_grad_(True)
+    logits_f = D(fake_leaf, draws.keep_fake)
+    bce_f = bce_from_logits(logits_f, cfg.label_fake)
+    loss_g = bce_from_logits(logits_f, cfg.label_real)
+    grads_f = torch.autograd.grad(bce_f, params_d, retain_graph=True)
+    (dx,) = torch.autograd.grad(loss_g, fake_leaf)
+
+    # ---- both gradients exist before either update -----------------------
+    state.opt_g.zero_grad(set_to_none=True)
+    fake_n.backward(dx)  # G's chain from the fake's cotangent
+    for p, a, b in zip(params_d, grads_d, grads_f):
+        p.grad = a + b
+    adam_step(state.opt_d, cfg)
+    adam_step(state.opt_g, cfg)
+    _update_ema(cfg, state)
+    state.step += 1
+
+    with torch.no_grad():
+        d_gz = torch.sigmoid(logits_f).mean()
+        out = {"loss_d": bce_r + bce_f + lam * gp, "gp": gp,
+               "d_x": torch.sigmoid(logits_r).mean(), "d_gz1": d_gz,
+               "loss_g": loss_g, "d_gz2": d_gz}  # one shared forward
+        return {k: v.detach().float() for k, v in out.items()}
+
+
+def _step_fn(cfg: Config) -> Callable:
+    return _fused_prop_step if cfg.fused_prop else _gan_step
+
+
+def _remat_flags(cfg: Config):
+    """(remat G, remat D) from ``cfg.remat``."""
+    if cfg.remat not in ("none", "g", "d", "both"):
+        raise ValueError(f"remat={cfg.remat!r}: expected none, g, d or both")
+    return cfg.remat in ("g", "both"), cfg.remat in ("d", "both")
+
+
 def make_dcgan_train_step(cfg: Config, geo: GANGeometry) -> Callable:
     """→ ``step(state, real, draws=None) -> {name: f32 scalar}``; ``real`` is
     the decoded batch (N, S, S, C) in [-1, 1] on the state's device."""
     cd = compute_dtype(cfg)
+    run, (remat_g, remat_d) = _step_fn(cfg), _remat_flags(cfg)
 
     def step(state: GANTrainState, real: torch.Tensor,
              draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
         if draws is None:
             draws = make_draws(state.seed, state.step, real.shape[0], geo, real.device)
-        return _gan_step(cfg, state, real, draws, G=lambda z: state.G(z, cd),
-                         D=lambda x, keep: state.D(x, cd), gp_in_grad=cfg.gp_in_d_grad)
+        G = _maybe_remat(lambda z: state.G(z, cd), remat_g)
+        D = _maybe_remat(lambda x: state.D(x, cd), remat_d)
+        return run(cfg, state, real, draws, G=G, D=lambda x, keep: D(x),
+                   gp_in_grad=cfg.gp_in_d_grad)
 
     return step
 
@@ -167,6 +257,7 @@ def make_cgan_train_step(cfg: Config, geo: GANGeometry) -> Callable:
     """→ ``step(state, real, onehot, draws=None) -> {name: f32 scalar}``;
     ``onehot`` (N, K) holds the batch's labels."""
     cd = compute_dtype(cfg)
+    run, (remat_g, remat_d) = _step_fn(cfg), _remat_flags(cfg)
 
     def step(state: GANTrainState, real: torch.Tensor, onehot: torch.Tensor,
              draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
@@ -174,7 +265,8 @@ def make_cgan_train_step(cfg: Config, geo: GANGeometry) -> Callable:
             draws = make_draws(state.seed, state.step, real.shape[0], geo, real.device,
                                conditional=True)
         onehot = onehot.float()
-        return _gan_step(cfg, state, real, draws, G=lambda z: state.G(z, onehot, cd),
-                         D=lambda x, keep: state.D(x, onehot, cd, keep), gp_in_grad=True)
+        G = _maybe_remat(lambda z: state.G(z, onehot, cd), remat_g)
+        D = _maybe_remat(lambda x, keep: state.D(x, onehot, cd, keep), remat_d)
+        return run(cfg, state, real, draws, G=G, D=D, gp_in_grad=True)
 
     return step

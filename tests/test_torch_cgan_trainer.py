@@ -245,12 +245,14 @@ def test_evaluate_reproduces_the_logged_metrics(tmp_path, monkeypatch, model):
 
 
 def test_evaluate_refuses_what_it_cannot_read(tmp_path, monkeypatch):
-    """A jckx msgpack ``.ckpt`` is refused by name; ``--kid``, ``--prdc``
-    and ``--eval_fast_stem`` (once refused) are accepted and add jckx's keys."""
+    """A malformed jckx msgpack ``.ckpt`` is refused, naming the file (a
+    well-formed one is read: tests/test_torch_jckx_ckpt.py); ``--kid``,
+    ``--prdc`` and ``--eval_fast_stem`` (once refused) are accepted and add
+    jckx's keys."""
     from jckx_torch import evaluate as tevaluate
 
-    (tmp_path / "run.ckpt").write_bytes(b"\x82\xa5flax")  # msgpack, as jckx writes it
-    with pytest.raises(ValueError, match="jckx.convert"):
+    (tmp_path / "run.ckpt").write_bytes(b"\x82\xa5flax")  # truncated msgpack
+    with pytest.raises(ValueError, match="run.ckpt is a malformed jckx checkpoint"):
         tevaluate.load_generator(str(tmp_path / "run.ckpt"))
     backbones = []
 

@@ -129,13 +129,14 @@ def test_bn_act_launches_once_and_refuses_grad():
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()) + 1e-6)
 
 
-def test_train_step_on_card_matches_cpu():
-    """The tiny train step (16², width 8, batch 8, f32, TF32 off) on the
-    card against the CPU, from the same weights and the same draws:
-    telemetry within 3e-3; Adam's deltas within 5 % of lr where the CPU's
-    gradient clears 1 % of its leaf's maximum (elsewhere the sign of a
-    first Adam step is rounding noise, tests/test_step_torch_parity.py:22-35);
-    and no kernel launch."""
+@pytest.mark.parametrize("fused_prop", [0, 1])
+def test_train_step_on_card_matches_cpu(fused_prop):
+    """The tiny train step (16², width 8, batch 8, f32, TF32 off), faithful
+    and FusedProp, on the card against the CPU, from the same weights and
+    the same draws: telemetry within 3e-3 (FusedProp: ``d_gz2 == d_gz1``);
+    Adam's deltas within 5 % of lr where the CPU's gradient clears 1 % of
+    its leaf's maximum (elsewhere the sign of a first Adam step is rounding
+    noise, tests/test_step_torch_parity.py:22-35); and no kernel launch."""
     from jckx_torch.configs import Config
     from jckx_torch.train.state import create_dcgan_state
     from jckx_torch.train.steps import StepDraws, make_dcgan_train_step
@@ -143,7 +144,7 @@ def test_train_step_on_card_matches_cpu():
     dev = _card()
     geo = GANGeometry(z_dim=16, image_size=16, channels=3, base_width=8)
     cfg = Config()
-    cfg.compute_dtype, cfg.max_learning_rate = "float32", 2e-4
+    cfg.compute_dtype, cfg.max_learning_rate, cfg.fused_prop = "float32", 2e-4, fused_prop
     g = torch.Generator().manual_seed(5)
     draws = [torch.randn(8, 16, 16, 3, generator=g), torch.randn(8, 16, generator=g),
              torch.randn(8, 16, 16, 3, generator=g), torch.rand(8, 1, 1, 1, generator=g)]
@@ -165,6 +166,8 @@ def test_train_step_on_card_matches_cpu():
     (m_cpu, p_cpu), (m_card, p_card) = out
     for k in m_cpu:
         assert abs(m_cpu[k] - m_card[k]) <= 3e-3, k
+    if fused_prop:
+        assert m_card["d_gz1"] == m_card["d_gz2"]
     covered = total = 0
     for k, (d_cpu, g_cpu) in p_cpu.items():
         mask = g_cpu.abs() > 1e-2 * g_cpu.abs().max() + 1e-12
@@ -494,3 +497,28 @@ def test_branch_pool_backward_on_the_card_matches_cpu():
         out[str(d)] = (y.detach().cpu(), t.grad.cpu())
     (yc, gc), (yg, gg) = out["cpu"], out[str(dev)]
     assert (yg - yc).norm() <= 1e-6 * yc.norm() and (gg - gc).norm() <= 1e-6 * gc.norm()
+
+
+@pytest.mark.parametrize("family", ["dcgan", "cgan"])
+def test_jckx_checkpoint_renders_through_the_kernel(family):
+    """The committed jckx fixture (tests/data/jckx_ckpt) served on the card
+    in f32: its batch of 16 renders through the kernel (2 launches per
+    forward at 16²) within 1 LSB of jckx's own renders of the same z."""
+    import os
+
+    import numpy as np
+
+    from jckx_torch.serve import GeneratorService, tanh_to_u8
+
+    dev = _card()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "jckx_ckpt")
+    z = torch.from_numpy(np.load(os.path.join(root, "z.npy")))
+    labels = torch.from_numpy(np.load(os.path.join(root, "cgan_labels.npy")))
+    want = tanh_to_u8(torch.from_numpy(np.load(os.path.join(root, f"{family}_renders.npy"))))
+    svc = GeneratorService(os.path.join(root, family, "run", "latest.ckpt"), batch_size=16,
+                           compute_dtype=torch.float32, device=dev)
+    before = fba.LAUNCHES
+    got = svc.render(z, labels if family == "cgan" else None).cpu()
+    assert fba.LAUNCHES == before + svc.geo.n_up
+    diff = (got.int() - want.int()).abs()
+    assert diff.max().item() <= 1 and (diff == 0).float().mean().item() >= 0.99

@@ -1,6 +1,7 @@
 """The port stands alone: ``jckx_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package (``import jckx`` pulls in JAX), so they
-run on a machine that has neither."""
+neither JAX nor the JAX package (``import jckx`` pulls in JAX), nor flax or
+msgpack (the port reads jckx's msgpack checkpoints with its own decoder),
+so they run on a machine that has none of them."""
 
 import ast
 import os
@@ -11,7 +12,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _forbidden(name: str) -> bool:
-    return name.startswith("jax") or name == "jckx" or name.startswith("jckx.")
+    return name.startswith("jax") or any(name == top or name.startswith(top + ".")
+                                         for top in ("jckx", "flax", "msgpack"))
 
 
 def test_importing_every_port_module_loads_no_jax():
@@ -28,7 +30,8 @@ def test_importing_every_port_module_loads_no_jax():
                  "jckx_torch.export", "jckx_torch.convert", "jckx_torch.inspect",
                  "jckx_torch.doctor", "jckx_torch.panel", "jckx_torch.metrics.extra",
                  "jckx_torch.metrics.inception_train", "jckx_torch.ops.norm",
-                 "jckx_torch.data.augment"):
+                 "jckx_torch.data.augment", "jckx_torch.checkpoint.msgpack",
+                 "jckx_torch.checkpoint.jckx_ckpt"):
         assert name in out, name
     assert [m for m in out if _forbidden(m)] == []
 

@@ -80,7 +80,8 @@ def test_sample_rejects_bad_requests(tmp_path):
 
 
 def test_service_rejects_checkpoints_it_cannot_serve(tmp_path):
-    with pytest.raises(ValueError, match="jckx.convert"):
+    (tmp_path / "latest.ckpt").write_bytes(b"\x82\xa5flax")  # truncated msgpack
+    with pytest.raises(ValueError, match="latest.ckpt is a malformed jckx checkpoint"):
         _svc(str(tmp_path / "latest.ckpt"))
     torch.save({"model_g": {}}, tmp_path / "other.pt")
     with pytest.raises(KeyError, match="not a reference GAN checkpoint"):

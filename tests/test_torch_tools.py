@@ -96,8 +96,8 @@ def test_convert_ema_and_refusals(tmp_path):
             _convert(latest, str(tmp_path / "x.pt"), **kw)
     with pytest.raises(ValueError, match="one side must be .pt"):
         _convert(str(tmp_path / "g.pt"), str(tmp_path / "y.pt"))
-    (tmp_path / "jckx.ckpt").write_bytes(b"\x82\xa5flax")  # msgpack, as jckx writes it
-    with pytest.raises(ValueError, match="python -m jckx.convert --src"):
+    (tmp_path / "jckx.ckpt").write_bytes(b"\x82\xa5flax")  # truncated msgpack
+    with pytest.raises(ValueError, match="jckx.ckpt is a malformed jckx checkpoint"):
         _convert(str(tmp_path / "jckx.ckpt"), str(tmp_path / "z.pt"))
     _port_checkpoint(latest, step=3, seed=2, ema=False)
     with pytest.raises(ValueError, match="no EMA"):

@@ -24,7 +24,7 @@ import torch
 from PIL import Image
 
 from jckx_torch.checkpoint.torch_convert import params_from_jax
-from jckx_torch.configs import Config, get_arg_parse
+from jckx_torch.configs import Config, check_ported, get_arg_parse
 from jckx_torch.data.pipeline import DCGANDataPreprocessor
 from jckx_torch.logging.artifacts import encode_png, loss_curve_image
 from jckx_torch.logging.main_logger import MainLogger
@@ -225,12 +225,21 @@ def test_cli_flags_and_refusals(tmp_path):
     assert (a.channels, a.num_classes, a.device) == (1, 10, "cpu")
 
     base = ["--device", "cpu", "--save_root", str(tmp_path)]
-    for argv, item in ((["-m", "CGAN", "--fused_prop", "1"], "A3"), (["-t", "1"], "-pm"),
-                       (["-t", "1", "-pm", "nope"], "no latest.ckpt"), (["--fused_prop", "1"], "A3"),
+    # the train step's modes are ported (tests/test_torch_fused_prop.py,
+    # tests/test_torch_remat.py train with them); the mesh, multihost and
+    # the streaming plane are still refused by ROADMAP item
+    modes = ["--fused_prop", "1", "--remat", "both", "--sanitize", "--profile_dir", "p"]
+    cfg = get_arg_parse(["-m", "CGAN"] + modes)
+    assert (cfg.fused_prop, cfg.remat, cfg.sanitize, cfg.profile_dir) == (1, "both", True, "p")
+    check_ported(cfg)
+    for argv, item in ((["-m", "CGAN", "--mesh_shape", "2"] + modes, "A13"), (["-t", "1"], "-pm"),
+                       (["-t", "1", "-pm", "nope"], "no latest.ckpt"),
+                       (["--fused_prop", "1", "--multihost"], "A13"),
                        (["--mesh_shape", "2"], "A13"), (["--data_placement", "stream"], "A4"),
-                       (["--remat", "g"], "A3")):
-        with pytest.raises(SystemExit, match=item):
+                       (["--remat", "g", "--hbm_data_budget", "1"], "A4")):
+        with pytest.raises(SystemExit, match=item) as err:
             tmain.main(argv + base)
+        assert "fused_prop" not in str(err.value) and "remat" not in str(err.value)
     assert os.listdir(tmp_path) == []  # refused before any run dir
 
     from jckx_torch.__main__ import main as cli
@@ -241,8 +250,8 @@ def test_cli_flags_and_refusals(tmp_path):
                 "--eval_samples", "8", "--save_dir", str(tmp_path / "bk"),
                 "--data_dir", str(tmp_path / "data")]) == 0
     MainLogger.reset()
-    with pytest.raises(SystemExit, match="A3"):
-        cli(["train", "-m", "CGAN", "--fused_prop", "1"] + base)
+    with pytest.raises(SystemExit, match="A4"):
+        cli(["train", "-m", "CGAN", "--fused_prop", "1", "--data_placement", "stream"] + base)
     with pytest.raises(SystemExit, match="A13"):
         cli(["serve", "--ckpt", "x.pt", "--mesh_shape", "8"])
     with pytest.raises(SystemExit, match="jckx.serve"):
