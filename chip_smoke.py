@@ -146,7 +146,25 @@ Run from the root of a checkout, on a machine with a CUDA card and
     through the kernel within 1 LSB of jckx's renders, ``evaluate`` end to
     end, ``convert`` to ``.pt`` and ``inspect``, and ``train --resume`` of
     jckx's run dir (one more eval, the port's ``latest.ckpt`` at step 8);
-29. prints a ``{"kernels": [...]}`` line, then, last, the
+29. the data planes (``phase_data_planes``): the native I/O library
+    builds and loads (no numpy fallback on the card); a CIFAR-100 pickle of
+    50,000 seeded rows is parsed and written to jckx's cache, then mapped
+    (both times printed; equal arrays); real features of 10,000 mapped rows
+    through the metrics engine's slab path (8 MB slabs, 4 of them) equal
+    the per-batch path's (both timed); DCGAN trains 32 steps (K = 8) on
+    4,096 mapped rows with ``--data_placement hbm`` and ``stream -w 4`` in
+    turns (hbm, stream, stream, hbm), from the same weights with
+    deterministic algorithms: parameters bit-identical, each plane's median
+    img/s and host ms per step; a fifth, streamed run has one launch
+    profiled (busy share, the slab's host→device copy ms and stream, which
+    must run no kernel, and whether it overlapped compute); CGAN with
+    ``--data_placement auto --hbm_data_budget 100000000`` streams the whole
+    153.6 MB set, is cut by SIGTERM after 8 steps (``latest.ckpt``, the
+    uploader stopped) and evaluated once; ``--dataset folder`` over 64 PNGs
+    written by the port's own PNG writer trains 4 steps where PIL imports,
+    and otherwise must refuse naming PIL; 4 launches per G forward of the
+    phase's evals;
+30. prints a ``{"kernels": [...]}`` line, then, last, the
     ``{"ok": true, "device": {...}}`` line.
 
 Any failed phase exits nonzero before the last line is printed. Without a
@@ -188,6 +206,10 @@ FT_CONVS = 94                 # InceptionV3's BasicConv2d layers: one kernel lau
 BF16_FLOPS_PER_S = 989e12     # H100 SXM data sheet, dense bf16
 # bn_relu_train's inputs at bs128, 299²: the two largest stem maps, and Mixed_7c's widest
 FT_BN_SHAPES = [(64, 147), (32, 149), (448, 8)]  # (C, side)
+DATA_ROWS = 50_000             # CIFAR-100's train split, planted as its pickle
+PLANE_ROWS = 4096              # the rows the two DCGAN planes train on: 32 steps at bs128
+FEATURE_ROWS = 10_000          # real features through the slab path and the per-batch path
+FEATURE_SLAB_BYTES = 8 << 20   # 10,000 rows of 32² (30.7 MB) in 4 slabs of 10 batches
 # device kernels by kind, for the profiles: the first kind whose words a name holds
 KERNEL_KINDS = [("fused bn_act", ("bn_act",)),
                 ("pooling", ("pool",)),
@@ -2221,6 +2243,349 @@ def phase_jckx_ckpt(tmp: str, dev, card: str) -> int:
 
 
 
+def trace_copies(prof, tmp: str) -> tuple:
+    """→ (host→device copies, device kernels, the window in µs) of a
+    profile; copies are (stream, start µs, duration µs, bytes or None),
+    kernels the same and their name, read from its Chrome trace
+    (``FunctionEvent`` carries no stream)."""
+    path = os.path.join(tmp, "planes_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    copies, kernels = [], []
+    timed = [e for e in events if "ts" in e and "dur" in e]
+    window = (max(float(e["ts"]) + float(e["dur"]) for e in timed)
+              - min(float(e["ts"]) for e in timed))
+    for e in timed:
+        args = e.get("args") or {}
+        if "stream" not in args:
+            continue
+        rec = (args["stream"], float(e["ts"]), float(e["dur"]), args.get("bytes"))
+        if e.get("cat") == "kernel":
+            kernels.append(rec + (e.get("name", "")[:80],))
+        elif "memcpy" in e.get("cat", "").lower() and "HtoD" in e.get("name", ""):
+            copies.append(rec)
+    return copies, kernels, window
+
+
+def _per_batch_features(m, images, to01):
+    """The metrics engine's host path before slabs: one pageable copy per
+    batch, the last batch padded with its last row."""
+    import numpy as np
+    import torch
+
+    n, bs, outs = images.shape[0], min(m.batch_size, images.shape[0]), []
+    with torch.inference_mode():
+        for i in range(0, n, bs):
+            chunk = torch.from_numpy(np.array(images[i:i + bs])).to(m.device)
+            if chunk.shape[0] < bs:
+                chunk = torch.cat([chunk, chunk[-1:].expand(bs - chunk.shape[0], *chunk.shape[1:])])
+            outs.append(m._features01(to01(chunk)))
+        return torch.cat(outs)[:n].cpu().numpy()
+
+
+def _plane_trainer(cfg, data_pre, metrics, conditional: bool = False):
+    """The trainer ``jckx_torch.train.main.run`` builds, on ``data_pre``."""
+    import torch
+
+    from jckx_torch.models.cgan import CDiscriminator, CGenerator
+    from jckx_torch.models.dcgan import Discriminator, Generator
+    from jckx_torch.train.gan_trainer import CGANTrainer, DCGANTrainer
+    from jckx_torch.train.state import geometry
+
+    geo = geometry(cfg)
+    gen = torch.Generator().manual_seed(cfg.seed)
+    if conditional:
+        return CGANTrainer(cfg, CGenerator(geo, data_pre.num_classes, gen=gen),
+                           CDiscriminator(geo, data_pre.num_classes, gen=gen), data_pre,
+                           metrics=metrics)
+    return DCGANTrainer(cfg, Generator(geo, gen=gen), Discriminator(geo, gen=gen), data_pre,
+                        metrics=metrics)
+
+
+def phase_data_planes(tmp: str, dev, card: str) -> int:
+    """The data planes on the card (``data/native_io.py``, ``datasets.py``,
+    ``pipeline.py``): the native library loads; a planted CIFAR-100 pickle
+    of 50,000 rows is parsed and cached, then mapped; real features of
+    10,000 mapped rows through the metrics engine's slab path (8 MB slabs:
+    4 of them) equal the per-batch path's; DCGAN trains 32 steps (K = 8,
+    evals after 8 and 32) on 4,096 mapped rows, resident and streamed
+    (``-w 4``) in turns from the same weights with deterministic
+    algorithms, to the same parameters bit for bit, and once more streamed
+    with its third launch profiled (busy share, the slab's host→device
+    copy, its stream, its overlap with kernels); CGAN
+    streams the whole set under ``auto`` with a 100 MB budget, is cut by
+    SIGTERM after its first launch of 8 steps and evaluated once; and the
+    folder plane trains 4 steps where PIL imports, else refuses naming PIL.
+    → the kernel launches of its evals."""
+    import pickle
+    import signal
+    import threading
+
+    import numpy as np
+    import torch
+
+    from jckx_torch.configs import get_arg_parse
+    from jckx_torch.data import datasets, native_io
+    from jckx_torch.data.pipeline import CGANDataPreprocessor, DCGANDataPreprocessor
+    from jckx_torch.kernels import fused_bn_act as fba
+    from jckx_torch.logging.artifacts import encode_png
+    from jckx_torch.logging.main_logger import MainLogger
+    from jckx_torch.metrics import inception_v3
+    from jckx_torch.metrics.metrics import Metrics
+    from jckx_torch.train import main as tmain
+
+    t0 = time.perf_counter()
+    check(native_io.available(), f"the native I/O library did not load: "
+                                 f"{native_io.fallback_reason()}")
+    print(f"native I/O library {os.path.basename(native_io.library_path())} built with g++ and "
+          f"loaded in {time.perf_counter() - t0:.2f} s")
+
+    data_dir = os.path.join(tmp, "planes_data")
+    os.makedirs(os.path.join(data_dir, "cifar-100-python"))
+    rng = np.random.default_rng(0)
+    pix = rng.integers(0, 256, (DATA_ROWS, 3072), dtype=np.uint8)
+    fine = rng.integers(0, 100, DATA_ROWS)
+    with open(os.path.join(data_dir, "cifar-100-python", "train"), "wb") as f:
+        pickle.dump({b"data": pix, b"fine_labels": fine.tolist()}, f, protocol=4)
+    t0 = time.perf_counter()
+    x1, y1, ncls, _, synthetic = datasets.load_dataset("cifar100", data_dir)
+    parse_s = time.perf_counter() - t0
+    cache = os.path.join(data_dir, "jckx_cache_cifar100_train.bin")
+    check(os.path.getsize(cache) == 32 + DATA_ROWS * (3072 + 4) and not synthetic,
+          f"cache {os.path.getsize(cache)} bytes")
+    t0 = time.perf_counter()
+    x, y, _, _, _ = datasets.load_dataset("cifar100", data_dir)
+    map_s = time.perf_counter() - t0
+    check(np.array_equal(x, x1) and np.array_equal(y, y1) and not x.flags.writeable
+          and np.array_equal(x, pix.reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)),
+          "the mapped cache differs from the parsed archive")
+    print(f"CIFAR-100 pickle of {DATA_ROWS} rows: parse + cache write {parse_s:.3f} s, then the "
+          f"cache ({os.path.getsize(cache)} bytes) mapped in {map_s:.4f} s; arrays equal   [{card}]")
+    del x1, y1, pix
+
+    # the metrics engine's slab path against its per-batch path, and the two
+    # DCGAN planes, with deterministic algorithms (without filling fresh
+    # memory: that would put fill kernels on the copy stream)
+    real = x[:FEATURE_ROWS]
+    cd = torch.bfloat16
+    deterministic = torch.backends.cudnn.deterministic
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    saved_slab, Metrics._SLAB_BYTES = Metrics._SLAB_BYTES, FEATURE_SLAB_BYTES
+    try:
+        t0 = time.perf_counter()
+        eng = Metrics((real, y[:FEATURE_ROWS]), backbone=inception_v3.init(0, num_classes=ncls),
+                      batch_size=256, compute_dtype=cd, cache_dir=os.path.join(tmp, "planes_feat"),
+                      num_classes=ncls, device=dev)
+        first_s = time.perf_counter() - t0
+        to01 = lambda u8: u8.to(cd) / 255.0  # noqa: E731
+        times = {"per-batch": [], "slab": []}
+        for path in ("per-batch", "slab"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f = (_per_batch_features(eng, real, to01) if path == "per-batch"
+                 else eng._extract_u8(real))
+            times[path].append(time.perf_counter() - t0)
+            check(np.array_equal(f, eng.real_features), f"{path} features differ from the engine's")
+    finally:
+        Metrics._SLAB_BYTES = saved_slab
+    bs = min(256, FEATURE_ROWS)
+    n_slabs = math.ceil(math.ceil(FEATURE_ROWS / bs) / max(1, FEATURE_SLAB_BYTES // (3072 * bs)))
+    check(n_slabs >= 2, f"{FEATURE_ROWS} rows fit one slab: the overlap is not exercised")
+    print(f"real features of {FEATURE_ROWS} mapped rows, bs256, bf16, deterministic: slab "
+          f"path ({n_slabs} slabs of <= {FEATURE_SLAB_BYTES >> 20} MB, pinned, copied on a side "
+          f"stream) "
+          + ", ".join(f"{t:.3f}" for t in times["slab"]) + " s, per-batch path "
+          + ", ".join(f"{t:.3f}" for t in times["per-batch"]) + f" s (engine's first extraction, "
+          f"backbone init included, {first_s:.3f} s); features equal   [{card}]")
+
+    launches = 0
+    fba.LAUNCHES = 0
+    try:
+        # DCGAN from the same weights: the planes timed in turns, then one more
+        # streamed run with its third launch profiled (the profiler slows the host)
+        finals, rates, step_ms, prof_out = [], {"hbm": [], "stream": []}, {"hbm": [], "stream": []}, {}
+        for i, (placement, profiled) in enumerate((("hbm", False), ("stream", False),
+                                                   ("stream", False), ("hbm", False),
+                                                   ("stream", True))):
+            argv = ["--dataset", "cifar100", "--data_dir", data_dir, "-b", str(TRAIN_BATCH),
+                    "-e", "1", "-mlr", str(TRAIN_LR), "--log_every", "8", "--eval_every", "32",
+                    "--data_placement", placement, "-w", "4", "--save_root",
+                    os.path.join(tmp, "save"), "-pm", f"smoke_plane_{i}_{placement}"]
+            cfg = get_arg_parse(argv)
+            cfg.save_path = os.path.join(cfg.save_root, "dcgan", cfg.model_path)
+            pre = DCGANDataPreprocessor(cfg)
+            pre.images_u8, pre.labels_np = pre.images_u8[:PLANE_ROWS], pre.labels_np[:PLANE_ROWS]
+            check(not pre.images_u8.flags.writeable, "the plane's rows are not the mapped cache")
+            tr = _plane_trainer(cfg, pre, eng)
+            check(tr._streaming is (placement == "stream"), f"{placement}: streaming {tr._streaming}")
+            if profiled:
+                # from the last step of launch 2 to the first of launch 4: launch
+                # 3, whose start enqueues slab 4's gather and copy
+                prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                          torch.profiler.ProfilerActivity.CUDA])
+                calls, real_step = [0], tr._train_step
+
+                def step(u8, labels, prof=prof, calls=calls, real_step=real_step):
+                    calls[0] += 1
+                    if calls[0] == 16:
+                        prof.start()
+                    if calls[0] == 25:
+                        torch.cuda.synchronize()
+                        prof.stop()
+                        prof_out["prof"] = prof
+                    return real_step(u8, labels)
+
+                tr._train_step = step
+            t0 = time.perf_counter()
+            tr.train()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            MainLogger.reset()
+            check(tr.state.step == 32 and tr.evals == [8, 32], f"{placement}: step "
+                  f"{tr.state.step}, evals {tr.evals}")
+            finals.append((placement, {**{f"G.{k}": v for k, v in tr.state.G.state_dict().items()},
+                                       **{f"D.{k}": v for k, v in tr.state.D.state_dict().items()}}))
+            if profiled:
+                continue
+            with open(os.path.join(tr.save_path, "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f if "step_ms" in line]
+            rates[placement] += [r["images_per_sec"] for r in recs[1:]]
+            step_ms[placement] += [r["step_ms"] for r in recs[1:]]
+            print(f"DCGAN --data_placement {placement}{' -w 4' if placement == 'stream' else ''} "
+                  f"(run {i + 1}): 32 steps on {PLANE_ROWS} mapped rows at batch {TRAIN_BATCH}, "
+                  f"bf16, evals after {tr.evals}, {wall:.1f} s; img/s on the host clock "
+                  + ", ".join(f"{r['images_per_sec']:.1f}" for r in recs[1:])
+                  + " over the launches after the first")
+        for placement in ("hbm", "stream"):
+            print(f"DCGAN {placement} plane, bs{TRAIN_BATCH} bf16: median "
+                  f"{statistics.median(rates[placement]):.1f} img/s (min "
+                  f"{min(rates[placement]):.1f}, max {max(rates[placement]):.1f}), "
+                  f"{statistics.median(step_ms[placement]):.3f} ms per step on the host clock, over "
+                  f"{len(rates[placement])} launches of two runs in turns   [{card}]")
+        ref = finals[0][1]
+        diffs = [(i, k) for i, (_, sd) in enumerate(finals[1:], 2) for k in ref
+                 if not torch.equal(ref[k], sd[k])]
+        check(diffs == [], f"parameters differ from the first resident run's: {diffs[:5]}")
+        print(f"DCGAN: all {len(finals)} runs (resident and streamed) end with bit-identical "
+              f"parameters ({sum(v.numel() for v in ref.values())} values incl. BN buffers; "
+              f"deterministic algorithms)")
+        check("prof" in prof_out, "the streamed launch was not profiled")
+        copies, kernels, window = trace_copies(prof_out["prof"], tmp)
+        slab_bytes = 8 * TRAIN_BATCH * 32 * 32 * 3
+        slab = [c for c in copies if c[3] == slab_bytes]
+        check(len(slab) >= 1, f"no host→device copy of a slab ({slab_bytes} bytes) in the "
+                              f"profiled launch: {copies}")
+        compute = {k[0] for k in kernels}
+        copy_streams = {c[0] for c in slab}
+        shared = {k[4] for k in kernels if k[0] in copy_streams}
+        check(not shared, f"slab copies on stream(s) {copy_streams}, which also ran kernels "
+                          f"{sorted(shared)[:5]}")
+        spans = sorted((k[1], k[1] + k[2]) for k in kernels)
+        check(bool(spans), "the profiler saw no kernel in the streamed launch")
+        if spans and slab:
+            overlap = [any(ks < cs + cd_ and cs < ks + kd for _, ks, kd, _, _ in kernels)
+                       for _, cs, cd_, _ in slab]
+            busy, (lo, hi) = 0.0, spans[0]
+            for s, e in spans[1:]:  # union of the kernels' intervals
+                if s > hi:
+                    busy, lo = busy + hi - lo, s
+                hi = max(hi, e)
+            busy += hi - lo
+            print(f"profiled streamed launch: window {window / 1e3:.3f} ms, card busy "
+                  f"{busy / 1e3:.3f} ms ({100 * busy / window:.1f} %), {len(kernels)} kernels; "
+                  f"slab copy " + ", ".join(f"{d / 1e3:.4f} ms ({b_ / d / 1e3:.2f} GB/s)"
+                                            for _, _, d, b_ in slab)
+                  + f" of {slab_bytes} bytes on stream {sorted(copy_streams)}, kernels on "
+                  f"stream(s) {sorted(compute)}; overlapped compute kernels: {overlap}   [{card}]")
+
+        # CGAN streams the whole mapped set under auto (153.6 MB > 100 MB)
+        argv = ["-m", "CGAN", "--dataset", "cifar100", "--data_dir", data_dir, "-b",
+                str(TRAIN_BATCH), "-e", "1", "-mlr", str(TRAIN_LR), "--log_every", "8",
+                "--data_placement", "auto", "--hbm_data_budget", "100000000", "-w", "4",
+                "--save_root", os.path.join(tmp, "save"), "-pm", "smoke_plane_auto"]
+        cfg = get_arg_parse(argv)
+        cfg.save_path = os.path.join(cfg.save_root, "cgan", cfg.model_path)
+        tr = _plane_trainer(cfg, CGANDataPreprocessor(cfg), eng, conditional=True)
+        check(tr._streaming and tr.images_dev is None, "auto did not stream 153.6 MB over a "
+                                                        "100 MB budget")
+        real_step, calls = tr._train_step, [0]
+
+        def cut(u8, labels):
+            calls[0] += 1
+            if calls[0] == 8:
+                os.kill(os.getpid(), signal.SIGTERM)  # preempt_save: latest.ckpt after this launch
+            return real_step(u8, labels)
+
+        tr._train_step = cut
+        t0 = time.perf_counter()
+        tr.train()
+        tr._evaluate(tr.state.step, [], [])
+        wall = time.perf_counter() - t0
+        left = [t.name for t in threading.enumerate() if t.name.startswith(("jckx-upload",
+                                                                          "jckx-gather"))]
+        with open(next(os.path.join(tr.save_path, f) for f in os.listdir(tr.save_path)
+                       if f.endswith(".log"))) as f:
+            plane_line = next(line.strip() for line in f if "data plane:" in line)
+        MainLogger.reset()
+        check(tr.preempted and tr.state.step == 8 and "host-streaming" in plane_line
+              and "native gather" in plane_line, f"CGAN auto: step {tr.state.step}, {plane_line!r}")
+        check(left == [], f"uploader / gather threads left after SIGTERM: {left}")
+        print(f"CGAN K = {tr.num_classes} --data_placement auto --hbm_data_budget 100000000 on "
+              f"the {DATA_ROWS}-row mapped set: logged {plane_line.split('] ', 1)[-1]!r}; SIGTERM "
+              f"in its first launch saved latest.ckpt at step 8 and stopped the uploader; 8 steps "
+              f"+ one eval in {wall:.1f} s   [{card}]")
+
+        # the folder plane
+        folder = os.path.join(tmp, "planes_folder")
+        prng = np.random.default_rng(1)
+        for i in range(64):
+            d = os.path.join(folder, ("cat", "dog")[i % 2])
+            os.makedirs(d, exist_ok=True)
+            with open(os.path.join(d, f"{i:02d}.png"), "wb") as f:
+                f.write(encode_png(prng.integers(0, 256, (40 + i % 7, 36, 3), dtype=np.uint8)))
+        argv = ["--dataset", "folder", "--data_path", folder, "-b", "16", "-e", "1", "-mlr",
+                str(TRAIN_LR), "--log_every", "4", "--eval_every", "4", "--save_root",
+                os.path.join(tmp, "save"), "--data_dir", data_dir, "-pm", "smoke_plane_folder"]
+        folder_trained = False
+        try:
+            import PIL  # noqa: F401
+        except ImportError:
+            try:
+                tmain.run(get_arg_parse(argv), metrics=eng)
+            except ImportError as e:
+                check("PIL" in str(e), f"--dataset folder without PIL raised {e!r}")
+                print(f"--dataset folder: PIL is not importable here; the run refused with "
+                      f"{type(e).__name__}: {e}")
+            else:
+                fail("--dataset folder trained without PIL")
+            finally:
+                MainLogger.reset()
+        else:
+            tr = tmain.run(get_arg_parse(argv), metrics=eng)
+            MainLogger.reset()
+            check(tr.state.step == 4 and tr.n_data == 64 and tr.num_classes == 2,
+                  f"--dataset folder: step {tr.state.step}, {tr.n_data} rows")
+            folder_trained = True
+            print(f"--dataset folder: 64 PNGs in 2 classes trained 4 steps at batch 16, evals "
+                  f"after {tr.evals}")
+        launches = fba.LAUNCHES
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = True
+    # 4 per G forward: DCGAN 5 runs x 2 evals, CGAN 1 eval of 2 forwards, the folder run's eval
+    want = 4 * (5 * 2 + 2 + (1 if folder_trained else 0))
+    check(launches == want, f"the data-plane phase launched the kernel {launches} times, want "
+                            f"{want}: 4 per G forward of its evals")
+    print(f"data-plane phase: {launches} kernel launches (its evals)")
+    return launches
+
+
 @contextlib.contextmanager
 def keep_latest_of_step(step: int, dst: str):
     """While inside, copy ``latest.ckpt`` to ``dst`` when a trainer writes it
@@ -2301,13 +2666,14 @@ def main() -> None:
         phase_train_timing(ctr, csteps, tmp, card)
         panel_launches = phase_panel(tmp, card)
         finetune_launches = phase_finetune(ctr, tmp, card)
+        plane_launches = phase_data_planes(tmp, dev, card)
     print(json.dumps({"kernels": [{
         "name": "fused_bn_act", "route": "cuda",
         "source": "jckx_torch/kernels/csrc/fused_bn_act.cu",
         "replaces": "jckx/kernels/fused_bn_act.py:120",
         "launches": (launches + train_launches + cgan_launches + ctrain_launches + eval_launches
                      + mode_launches + http_launches + watch_launches + export_launches
-                     + panel_launches + finetune_launches + fused_launches),
+                     + panel_launches + finetune_launches + fused_launches + plane_launches),
         "max_abs_err": max_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],

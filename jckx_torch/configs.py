@@ -8,11 +8,19 @@ fields of ``jckx.configs.Config`` that the port's trainers read.
 
 The port adds ``--device`` (default ``cuda``; ``cpu`` runs the plain
 PyTorch path). The flags of ``jckx`` that have no meaning in the port yet
-(the mesh, multihost and the streaming data plane) stay on the command
-line so that a ``jckx`` command line parses, but fail loudly when set away
-from their defaults, naming the ``ROADMAP.md`` item that brings them
-(``UNPORTED``). ``--resume`` and ``-t`` inherit the run's stored
-``config.json`` for every flag not given now, as in ``jckx``.
+(the mesh and multihost) stay on the command line so that a ``jckx``
+command line parses, but fail loudly when set away from their defaults,
+naming the ``ROADMAP.md`` item that brings them (``UNPORTED``).
+
+The data planes are jckx's (``:115-124``): ``--data_placement hbm`` keeps
+the uint8 set on the device, ``stream`` gathers each launch's rows on the
+host with ``-w/--num_worker`` C++ gather threads and uploads them as one
+pinned slab, and ``auto`` (the default) streams a set larger than
+``--hbm_data_budget`` bytes (default 4 GiB). ``--dataset folder`` reads a
+directory of images (``--data_path``) at ``--image_size``.
+
+``--resume`` and ``-t`` inherit the run's stored ``config.json`` for every
+flag not given now, as in ``jckx``.
 
 The train step's modes are jckx's: ``--fused_prop 1`` (one fake-side D
 forward serves both players, ``train/steps.py``), ``--remat none|g|d|both``
@@ -42,7 +50,7 @@ class Config:
     model_path: str = ""               # -pm  run-dir name to reuse
     log_file: int = 1                  # -lf
     model: str = "DCGAN"               # -m
-    num_worker: int = 0                # -w   (no host loader in the port)
+    num_worker: int = 0                # -w   gather threads of the streaming plane
     batch_size: int = 128              # -b
     epoch: int = 100                   # -e
     max_learning_rate: float = 0.1     # -mlr (Adam lr, dcgan_trainer.py:61)
@@ -69,9 +77,9 @@ class Config:
     num_classes: int = 100
     image_size: int = 64
     channels: int = 3
-    dataset: str = "cifar100"          # cifar100 | cifar10 | mnist | synthetic | npz
+    dataset: str = "cifar100"          # cifar100 | cifar10 | mnist | synthetic | npz | folder
     data_dir: str = "./data"
-    data_path: str = ""                # the .npz file for --dataset npz
+    data_path: str = ""                # the .npz file / image directory of npz / folder
     synthetic_size: int = 0            # 0 = 4096
 
     seed: int = RANDOMSEED
@@ -98,14 +106,16 @@ class Config:
     sanitize: bool = False             # torch.autograd.detect_anomaly over the run
     profile_dir: str = ""              # torch.profiler Chrome trace dir ('' = off)
 
+    # --- the data plane: "hbm" resident, "stream" host slabs, "auto" by the budget ---
+    data_placement: str = "auto"
+    hbm_data_budget: int = 4 << 30
+
     # --- jckx knobs the port does not implement yet (see UNPORTED) ---
     mesh_shape: str = ""
     mesh_axes: str = "data"
     model_axis_mode: str = "tp"
     tp_min_dim: int = 128
     spatial_replicate_grads: int = 1
-    data_placement: str = "auto"
-    hbm_data_budget: int = 4 << 30
     multihost: bool = False
 
     save_path: str = ""                # set by the entry point / trainer
@@ -114,7 +124,7 @@ class Config:
         return json.dumps(dataclasses.asdict(self), indent=2)
 
 
-# field → (value(s) that mean "off", the ROADMAP.md item that brings it)
+# field → (the value that means "off", the ROADMAP.md item that brings it)
 UNPORTED = {
     "mesh_shape": ("", "A13 (multi-GPU data/tensor parallel)"),
     "mesh_axes": ("data", "A13 (multi-GPU data/tensor parallel)"),
@@ -122,8 +132,6 @@ UNPORTED = {
     "tp_min_dim": (128, "A13 (multi-GPU data/tensor parallel)"),
     "spatial_replicate_grads": (1, "A13 (multi-GPU data/tensor parallel)"),
     "multihost": (False, "A13 (multi-GPU data/tensor parallel)"),
-    "data_placement": (("auto", "hbm"), "A4 (the host-streaming data plane)"),
-    "hbm_data_budget": (4 << 30, "A4 (the host-streaming data plane)"),
 }
 
 
@@ -133,7 +141,7 @@ def check_ported(cfg: Config) -> None:
     bad = []
     for name, (off, item) in UNPORTED.items():
         val = getattr(cfg, name)
-        if val not in (off if isinstance(off, tuple) else (off,)):
+        if val != off:
             bad.append(f"--{name} {val!r}: not ported yet (ROADMAP.md {item})")
     if bad:
         raise SystemExit("jckx_torch: " + "; ".join(bad))
@@ -208,7 +216,8 @@ def get_arg_parse(argv: Optional[list] = None) -> Config:
     p.add_argument("-pm", "--model_path", type=str, default=d.model_path, help="run-dir name to reuse")
     p.add_argument("-lf", "--log_file", type=int, default=d.log_file, help="write log file 0/1")
     p.add_argument("-m", "--model", type=str, choices=MODELS, default=d.model, help="model family")
-    p.add_argument("-w", "--num_worker", type=int, default=d.num_worker, help="loader workers")
+    p.add_argument("-w", "--num_worker", type=int, default=d.num_worker,
+                   help="gather threads of the streaming data plane")
     p.add_argument("-b", "--batch_size", type=int, default=d.batch_size, help="batch size")
     p.add_argument("-e", "--epoch", type=int, default=d.epoch, help="epochs")
     p.add_argument("-mlr", "--max_learning_rate", type=float, default=d.max_learning_rate)

@@ -3,14 +3,14 @@
 CIFAR-100 / CIFAR-10 / MNIST are parsed from the standard local archives
 under ``data_dir`` (the reference downloads them through torchvision,
 preprocess/dcgan_data_preprocessor.py:20-21; neither machine has network
-access). Without an archive, ``load_dataset`` falls back to the seeded
+access). The first parse writes jckx's flat cache
+``<data_dir>/jckx_cache_<name>_<split>.bin`` (``_with_cache``,
+``data/native_io.py``), and later loads map it with no copy: the same file
+name and bytes as jckx's, so a cache written by either package is read by
+the other. Without an archive, ``load_dataset`` falls back to the seeded
 synthetic set, whose bytes equal jckx's for the same arguments. ``npz``
-reads one user file and never falls back. Also holds the CIFAR-100 class
-tables.
-
-Not ported yet (ROADMAP A4): jckx's native binary archive cache
-(``_with_cache``, ``native/libjckx_io.so``) and the image-folder plane
-(which needs PIL).
+reads one user file and ``folder`` one directory of images (PIL, imported
+when used); neither falls back. Also holds the CIFAR-100 class tables.
 """
 
 from __future__ import annotations
@@ -244,9 +244,83 @@ def load_npz_dataset(path: str) -> Tuple[np.ndarray, np.ndarray, int, list]:
     return np.ascontiguousarray(x), y, ncls, names
 
 
+_IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
+
+
+def load_image_folder(path: str, src_size: int = 64, channels: int = 3,
+                      ) -> Tuple[np.ndarray, np.ndarray, int, list]:
+    """Directory of images → uint8 (N, src_size, src_size, C) + labels, as
+    jckx's (``jckx/data/datasets.py:253-306``).
+
+    Class subdirectories give labels in sorted-name order (torchvision's
+    ImageFolder layout); a flat directory is one unlabelled class. Each
+    image is converted to RGB (L for one channel), its SHORT side resized
+    bilinearly to ``src_size``, and the square centre cropped. Needs PIL,
+    imported here only.
+    """
+    if not os.path.isdir(path):
+        raise FileNotFoundError(f"--dataset folder: {path} is not a directory")
+    subdirs = sorted(d for d in os.listdir(path) if os.path.isdir(os.path.join(path, d)))
+
+    def _images_in(d):
+        return [f for f in sorted(os.listdir(d)) if f.lower().endswith(_IMG_EXTS)]
+
+    if subdirs:
+        names = subdirs
+        entries = [(os.path.join(path, d, f), li) for li, d in enumerate(subdirs)
+                   for f in _images_in(os.path.join(path, d))]
+    else:
+        names = ["image"]
+        entries = [(os.path.join(path, f), 0) for f in _images_in(path)]
+    if not entries:
+        raise ValueError(f"{path}: no images found (extensions {', '.join(_IMG_EXTS)}"
+                         + (f"; class subdirs {names}" if subdirs else "") + ")")
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("--dataset folder reads images with PIL (the Pillow package), "
+                          "which this Python cannot import") from e
+
+    mode = "L" if channels == 1 else "RGB"
+    x = np.empty((len(entries), src_size, src_size, channels), np.uint8)
+    y = np.empty(len(entries), np.int32)
+    for i, (f, li) in enumerate(entries):
+        with Image.open(f) as im:
+            im = im.convert(mode)
+            w, h = im.size
+            s = src_size / min(w, h)
+            im = im.resize((max(src_size, round(w * s)), max(src_size, round(h * s))),
+                           Image.BILINEAR)
+            w, h = im.size
+            left, top = (w - src_size) // 2, (h - src_size) // 2
+            a = np.asarray(im.crop((left, top, left + src_size, top + src_size)), np.uint8)
+        x[i] = a[..., None] if channels == 1 else a
+        y[i] = li
+    return x, y, len(names), names
+
+
+def _with_cache(name: str, data_dir: str, train: bool, loader):
+    """jckx's cache around an archive parser (``:309-326``): the first call
+    parses and writes ``jckx_cache_<name>_<split>.bin``; later calls map it
+    (read-only views, no pickle parse)."""
+    from jckx_torch.data import native_io
+
+    cache = os.path.join(data_dir, f"jckx_cache_{name}_{'train' if train else 'test'}.bin")
+    got = native_io.cache_open(cache)
+    if got is not None:
+        return got
+    x, y = loader(data_dir, train)
+    try:
+        os.makedirs(data_dir, exist_ok=True)
+        native_io.cache_write(cache, x, y)
+    except OSError:
+        pass
+    return x, y
+
+
 def load_dataset(name: str, data_dir: str, train: bool = True, seed: int = 0,
                  num_classes: int = 0, synthetic_n: int = 0,
-                 data_path: str = "", channels: int = 3):
+                 data_path: str = "", image_size: int = 64, channels: int = 3):
     """Dispatch; returns (images uint8 NHWC, labels int32, num_classes,
     names, is_synthetic).
 
@@ -255,9 +329,11 @@ def load_dataset(name: str, data_dir: str, train: bool = True, seed: int = 0,
     and ``synthetic_n`` (sample count; 0 = 4096 default, 50000 = CIFAR-scale
     for reference-protocol runs) apply to the synthetic path only.
 
-    Custom data (``name`` "npz") reads ``data_path`` and NEVER falls back:
-    the user named a specific file, so its absence or malformation is a
-    loud error, not a silent swap to synthetic pixels.
+    Custom data (``name`` "npz" or "folder") reads ``data_path`` and NEVER
+    falls back: the user named a specific file or directory, so its absence
+    or malformation is a loud error, not a silent swap to synthetic pixels.
+    ``image_size`` / ``channels`` set the folder plane's stored resolution
+    and channels (npz keeps its own; the decode on the device resizes).
     """
     if name == "npz":
         if not data_path:
@@ -275,19 +351,22 @@ def load_dataset(name: str, data_dir: str, train: bool = True, seed: int = 0,
                 f"--channels {x.shape[-1]} or convert the array")
         return x, y, ncls, names, False
     if name == "folder":
-        raise NotImplementedError("--dataset folder: the image-folder plane is not "
-                                  "ported yet (ROADMAP.md A4)")
+        if not data_path:
+            raise ValueError("--dataset folder needs --data_path pointing at "
+                             "the image directory (class subdirs = labels)")
+        x, y, ncls, names = load_image_folder(data_path, src_size=image_size, channels=channels)
+        return x, y, ncls, names, False
     try:
         if name == "cifar100":
-            x, y = load_cifar100(data_dir, train)
+            x, y = _with_cache(name, data_dir, train, load_cifar100)
             return x, y, 100, CIFAR100_CLASSES, False
         if name == "cifar10":
-            x, y = load_cifar10(data_dir, train)
+            x, y = _with_cache(name, data_dir, train, load_cifar10)
             names = ["airplane", "automobile", "bird", "cat", "deer",
                      "dog", "frog", "horse", "ship", "truck"]
             return x, y, 10, names, False
         if name == "mnist":
-            x, y = load_mnist(data_dir, train)
+            x, y = _with_cache(name, data_dir, train, load_mnist)
             return x, y, 10, [str(i) for i in range(10)], False
     except FileNotFoundError:
         pass  # archive absent — the expected, silent fallback case

@@ -16,7 +16,9 @@ is useless.
   source (``kernels/_build.py``), launch it once, and its max abs error
   against ``normalize_act_plain``;
 - toolchain: ``nvcc --version``, CUTLASS's include path, ``import triton``;
-- native: the JAX package's C++ IO library is not ported (ROADMAP A4);
+- native_io: whether the C++ I/O core (``data/native_io.py``, built from
+  ``native/jckx_io.cpp``) loads, and why not when the numpy fallback is
+  active (jckx's ``:150-161``);
 - datasets and backbone: the archives under ``--data_dir`` and a
   fine-tuned metric backbone under ``<save_root>/iception_v3``, as in jckx.
 
@@ -140,6 +142,16 @@ def _toolchain() -> dict:
     return out
 
 
+def _native_io() -> dict:
+    from jckx_torch.data import native_io
+
+    ok = native_io.available()
+    return {"available": ok, "library": native_io.library_path() if ok else None,
+            "note": None if ok else
+            f"numpy fallback active ({native_io.fallback_reason()}) — correct but slower for "
+            f"host-streaming datasets"}
+
+
 def run_checks(data_dir: str = "./data", probe_timeout_s: float = 60.0,
                save_root: str = "./save", link_only: bool = False) -> dict:
     """→ the report; never raises."""
@@ -160,7 +172,7 @@ def run_checks(data_dir: str = "./data", probe_timeout_s: float = 60.0,
     kernel.setdefault("ok", False)
     report["kernel"] = kernel
     report["toolchain"] = _boxed(_toolchain, probe_timeout_s)
-    report["native_io"] = {"available": False, "note": "not ported (ROADMAP A4)"}
+    report["native_io"] = _native_io()
     archives = {"cifar100": ("cifar-100-python.tar.gz", "cifar-100-python"),
                 "cifar10": ("cifar-10-python.tar.gz", "cifar-10-batches-py"),
                 "mnist": ("train-images-idx3-ubyte.gz", "train-images-idx3-ubyte")}

@@ -31,8 +31,13 @@ holds the weights, the momentum buffers, the epoch, patience, bests and
 the generator's state in one atomic file, and ``--resume 1`` continues
 from it exactly.
 
-Refused by name: ``--mesh_shape`` and ``--multihost`` (ROADMAP A13), and
-``--dataset folder`` (A4).
+Custom data, as jckx's (``:351-372``): ``--dataset npz`` or ``folder``
+(a directory of images, class subdirectories as labels, stored at
+``--image_size``) with ``--data_path``, and the valid split from
+``--valid_data_path`` or a seeded 10 % holdout. A cached archive's
+read-only mapping is copied once on upload.
+
+Refused by name: ``--mesh_shape`` and ``--multihost`` (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ import torch.nn.functional as F
 
 from jckx_torch.data.augment import CropDraws, draw_crops, random_resized_crop_flip
 from jckx_torch.data.datasets import FINE_TO_SUPERCLASS, load_dataset
-from jckx_torch.data.pipeline import resize_bilinear
+from jckx_torch.data.pipeline import device_copy, resize_bilinear
 from jckx_torch.logging.main_logger import MainLogger, time_to_str
 from jckx_torch.metrics import inception_v3
 from jckx_torch.metrics.metrics import IMAGENET_MEAN, IMAGENET_STD
@@ -138,7 +143,7 @@ def eval_device_set(images_u8: np.ndarray, batch_size: int = 256, device=None) -
     bs = min(batch_size, n)
     pad = (bs - n % bs) % bs
     imgs = np.concatenate([images_u8, images_u8[-1:].repeat(pad, axis=0)]) if pad else images_u8
-    return torch.from_numpy(np.ascontiguousarray(imgs)).to(device)
+    return device_copy(imgs, device)
 
 
 def evaluate(logits_fn: Callable, device_images: torch.Tensor, labels: np.ndarray,
@@ -235,11 +240,13 @@ class FinetuneRun:
 def _load_splits(args, logger):
     """→ (x, y, xt, yt, num_classes, synthetic) on the host, as jckx's
     ``train`` (``:351-389``)."""
-    if args.dataset == "npz":
-        x, y, ncls, _, _ = load_dataset("npz", args.data_dir, data_path=args.data_path, channels=3)
+    if args.dataset in ("npz", "folder"):
+        x, y, ncls, _, _ = load_dataset(args.dataset, args.data_dir, data_path=args.data_path,
+                                        image_size=args.image_size, channels=3)
         if args.valid_data_path:
-            xt, yt, ncls_v, _, _ = load_dataset("npz", args.data_dir,
-                                                data_path=args.valid_data_path, channels=3)
+            xt, yt, ncls_v, _, _ = load_dataset(args.dataset, args.data_dir,
+                                                data_path=args.valid_data_path,
+                                                image_size=args.image_size, channels=3)
             if ncls_v > ncls:
                 raise ValueError(f"valid split has {ncls_v} classes, train has {ncls}")
         else:
@@ -283,7 +290,7 @@ def train(args) -> FinetuneRun:
     if args.max_steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, args.max_steps_per_epoch)
 
-    data_dev = torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    data_dev = device_copy(x, device)
     labels_dev = torch.from_numpy(y.astype(np.int64)).to(device)
     yt_eval = yt[: args.eval_samples]
     xt_dev = eval_device_set(xt[: args.eval_samples], device=device)  # one upload for all epochs
@@ -380,9 +387,10 @@ def train(args) -> FinetuneRun:
 def get_args(argv=None):
     p = argparse.ArgumentParser(description="jckx_torch InceptionV3 fine-tune (metric backbone)")
     p.add_argument("--dataset", default="cifar100",
-                   help="cifar100 / cifar10 / mnist / synthetic, or npz with --data_path")
+                   help="cifar100 / cifar10 / mnist / synthetic, or npz / folder with --data_path")
     p.add_argument("--data_dir", default="./data")
-    p.add_argument("--data_path", default="", help="custom data (--dataset npz): the .npz file")
+    p.add_argument("--data_path", default="",
+                   help="custom data: the .npz file (npz) or the image directory (folder)")
     p.add_argument("--valid_data_path", default="",
                    help="custom valid split; absent = seeded 10%% holdout from --data_path")
     p.add_argument("-b", "--batch_size", type=int, default=128)
@@ -418,8 +426,6 @@ def get_args(argv=None):
     args = p.parse_args(argv)
     bad = [f"--{k} {getattr(args, k)!r}: not ported yet (ROADMAP.md {item})"
            for k, (off, item) in UNPORTED.items() if getattr(args, k) != off]
-    if args.dataset == "folder":
-        bad.append("--dataset folder: the image-folder plane is not ported yet (ROADMAP.md A4)")
     if bad:
         raise SystemExit("jckx_torch finetune: " + "; ".join(bad))
     return args

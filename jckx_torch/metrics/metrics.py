@@ -11,7 +11,10 @@ cache, ``extract_features``, ``inception_score``, ``fid``, ``intra_fid``).
 - The image path, on the device in the compute dtype: GAN output in
   [-1, 1] (or uint8 / 255 for the real set) → [0, 1] → bilinear to 299 →
   ImageNet normalization → InceptionV3 → logits, which are both IS's
-  class scores and FID's features, as in the reference.
+  class scores and FID's features, as in the reference. A host set (the
+  real images) goes up in pinned slabs of at most 256 MB, each slab's copy
+  behind the previous slab's forwards; the trainer's fakes are already on
+  the device.
 - Real features over the metric source are cached in
   ``<cache_dir>/metric_data_jckx_torch_<fingerprint>.npz``; the
   fingerprint covers a strided sample of the data, its labels, the class
@@ -173,25 +176,64 @@ class Metrics:
         std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
         return self.backbone((x - mean) / std, self.compute_dtype, fast_stem=self.fast_stem)
 
+    # host sets are uploaded in slabs of at most this many bytes (jckx's
+    # metrics.py:376-378): one copy each, a bounded share of the card
+    _SLAB_BYTES = 256 * 1024 * 1024
+
     def _batched(self, images, to01) -> np.ndarray:
-        """Features of every row of ``images`` (a host array or a device
-        tensor) in batches of ``batch_size``; a short last batch is padded
-        with copies of the last row (the forward is per-sample)."""
+        """Features of every row of ``images`` in batches of ``batch_size``;
+        a short last batch is padded with copies of the last row (the
+        forward is per-sample). A device tensor is sliced in place. A host
+        array goes up in slabs of whole batches, at most ``_SLAB_BYTES``
+        each, through ``PinnedSlabs`` (jckx's ``_batched``, ``:380-437``):
+        slab s+1 is gathered and its copy enqueued while the card runs slab
+        s's forwards. Both give the same batches, so the same features."""
         n = images.shape[0]
         if n == 0:
             return np.zeros((0, self.num_classes), np.float32)
         bs = min(self.batch_size, n)
-        outs = []
+        nb = -(-n // bs)
         with torch.inference_mode():
-            for i in range(0, n, bs):
-                chunk = images[i:i + bs]
-                if isinstance(chunk, np.ndarray):
-                    chunk = torch.from_numpy(np.ascontiguousarray(chunk))
-                chunk = chunk.to(self.device)
-                if chunk.shape[0] < bs:
-                    chunk = torch.cat([chunk, chunk[-1:].expand(bs - chunk.shape[0], *chunk.shape[1:])])
-                outs.append(self._features01(to01(chunk)))
+            if isinstance(images, torch.Tensor):
+                batches = (self._padded(images[i:i + bs].to(self.device), bs)
+                           for i in range(0, n, bs))
+                outs = [self._features01(to01(b)) for b in batches]
+            else:
+                outs = self._slab_features(np.asarray(images), bs, nb, to01)
             return torch.cat(outs)[:n].cpu().numpy()
+
+    @staticmethod
+    def _padded(chunk: torch.Tensor, bs: int) -> torch.Tensor:
+        if chunk.shape[0] == bs:
+            return chunk
+        return torch.cat([chunk, chunk[-1:].expand(bs - chunk.shape[0], *chunk.shape[1:])])
+
+    def _slab_features(self, images: np.ndarray, bs: int, nb: int, to01) -> list:
+        from jckx_torch.data.pipeline import PinnedSlabs
+
+        n = images.shape[0]
+        per_slab = min(nb, max(1, self._SLAB_BYTES // (images[:1].nbytes * bs)))  # batches
+        dtype = torch.from_numpy(np.empty(0, images.dtype)).dtype
+        slabs = PinnedSlabs(self.device, [(images.shape[1:], dtype)], per_slab * bs)
+
+        def upload(first: int):
+            rows = min(per_slab, nb - first) * bs
+            lo = first * bs
+            hi = min(n, lo + rows)
+            (host,) = slabs.fill(rows)
+            host[:hi - lo] = images[lo:hi]
+            host[hi - lo:] = images[-1]  # the last batch's padding
+            return slabs.upload(rows)
+
+        outs = []
+        nxt = upload(0)
+        for first in range(0, nb, per_slab):
+            (dev,) = slabs.use(nxt)
+            outs += [self._features01(to01(dev[i:i + bs])) for i in range(0, dev.shape[0], bs)]
+            del dev
+            if first + per_slab < nb:
+                nxt = upload(first + per_slab)
+        return outs
 
     def _extract_u8(self, images_u8) -> np.ndarray:
         cd = self.compute_dtype

@@ -11,7 +11,18 @@ and logs of jckx run there:
 
 - the data order of each epoch is ``np.random.RandomState(seed)``'s
   permutation (``:513,659-661``), so both packages see the same batches;
-  the uint8 set lives on the device and each batch is gathered by index;
+- the data plane is chosen as jckx chooses it (``:106-134``): resident (the
+  uint8 set on the device, each batch gathered there by index), or
+  streaming with ``--data_placement stream`` or, under ``auto``, a set
+  larger than ``--hbm_data_budget``. Streaming keeps the set on the host;
+  each launch of k steps takes one slab of its k·bs rows in the epoch's
+  order, gathered by ``-w`` C++ threads into a pinned host buffer and
+  copied on a side stream (``data/pipeline.py``), by a single uploader
+  thread that prepares slab N+1 while the card runs launch N: at most two
+  slabs are on the device. Both planes hand ``_train_step`` the same uint8
+  rows, so they train identically. SIGTERM and the nan-guard abort shut the
+  uploader down (its queued slab dropped, a running one joined) before the
+  gather threads close; an uploader's error reaches the train thread;
 - ``nan_guard`` aborts on non-finite telemetry, rolling back to
   ``latest.ckpt``; SIGTERM (``preempt_save``) saves ``latest.ckpt`` at the
   next launch boundary and returns with ``preempted`` set (the entry
@@ -34,8 +45,8 @@ and logs of jckx run there:
 
 The artifacts are jckx's: ``real_image.png``, ``<metric>/<iters>_fake_image
 .png``, CGAN's labelled class panel ``img/<iters>_fake_image.png``,
-``loss.png``, ``metrics.jsonl`` and the run log. Not ported yet: the
-streaming data plane and the mesh (ROADMAP A4, A13).
+``loss.png``, ``metrics.jsonl`` and the run log. Not ported yet: the mesh
+(ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -53,7 +64,9 @@ import torch
 from jckx_torch.checkpoint.checkpoint import (BestMetricCheckpointer, latest_checkpoint,
                                               restore_checkpoint, state_payload)
 from jckx_torch.configs import Config
-from jckx_torch.data.pipeline import decode_batch, one_hot
+from jckx_torch.data import native_io
+from jckx_torch.data.pipeline import (HostStreamLoader, PinnedSlabs, decode_batch, device_copy,
+                                      one_hot)
 from jckx_torch.kernels import fused_bn_act
 from jckx_torch.logging.artifacts import save_image_grid, save_labeled_grid, save_loss_curve
 from jckx_torch.logging.main_logger import MainLogger, time_to_str
@@ -116,11 +129,25 @@ class _BaseGANTrainer:
         self.data_pre = data_pre
         self.num_classes = data_pre.num_classes
         self.n_data = data_pre.images_u8.shape[0]
-        # the uint8 set, resident on the device; batches are gathered by
-        # index (CGAN's int64 labels by the same index)
-        self.images_dev = torch.from_numpy(np.ascontiguousarray(data_pre.images_u8)).to(self.device)
-        if self.conditional:
-            self.labels_dev = torch.from_numpy(np.asarray(data_pre.labels_np, np.int64)).to(self.device)
+        nbytes = data_pre.images_u8.nbytes
+        self._streaming = cfg.data_placement == "stream" or (
+            cfg.data_placement == "auto" and nbytes > cfg.hbm_data_budget)
+        self.images_dev = self.labels_dev = None
+        if self._streaming:
+            self._stream = HostStreamLoader(data_pre.images_u8, data_pre.labels_np,
+                                            workers=cfg.num_worker)
+            self.logger.debug(
+                f"data plane: host-streaming ({nbytes / 2**30:.2f} GiB, {self._stream.workers} "
+                f"gather workers, {native_io.engine()} gather)")
+        else:
+            # the uint8 set (and CGAN's int64 labels) on the device, one copy
+            self.images_dev = device_copy(data_pre.images_u8, self.device)
+            if self.conditional:
+                self.labels_dev = device_copy(np.asarray(data_pre.labels_np, np.int64), self.device)
+            self.logger.debug(
+                f"data plane: resident on {self.device} ({nbytes / 2**30:.2f} GiB)"
+                + (" — -w/--num_worker has no role (no host loader; use --data_placement "
+                   "stream to engage it)" if cfg.num_worker else ""))
         self.logger.debug(
             f"G params: {sum(p.numel() for p in G.parameters()):,}  D params: "
             f"{sum(p.numel() for p in D.parameters()):,}  device: {self.device}  "
@@ -236,20 +263,49 @@ class _BaseGANTrainer:
         prev_term = None
         rolled_back = False
         own_handler = cfg.preempt_save and threading.current_thread() is threading.main_thread()
+        uploader = None
         try:
             if own_handler:
                 prev_term = signal.signal(signal.SIGTERM, lambda signum, frame: self._preempt.set())
+            if self._streaming:
+                from concurrent.futures import ThreadPoolExecutor
+
+                # one uploader thread: slab N+1 is gathered and copied while
+                # the card runs launch N (jckx gan_trainer.py:566-580)
+                uploader = ThreadPoolExecutor(1, thread_name_prefix="jckx-upload")
+                slabs = PinnedSlabs(self.device, [(self.data_pre.images_u8.shape[1:], torch.uint8),
+                                                  ((), torch.int64)], K * bs)
+
+                def _upload(rows: np.ndarray):
+                    u8, labels = slabs.fill(len(rows))
+                    labels[:] = self._stream.take(rows, out=u8)[1]
+                    return slabs.upload(len(rows))
+
+                def _submit(first: int):
+                    return uploader.submit(_upload, order[first:first + min(K, spe - first)].ravel())
             for epoch in range(start_epoch, cfg.epoch):
                 order = rng.permutation(self.n_data)[: spe * bs].reshape(spe, bs)
                 done, resume_offset = resume_offset, 0
+                upload_next = _submit(done) if self._streaming and done < spe else None
                 while done < spe:
                     k = min(K, spe - done)
                     t_launch = time.time()
-                    idx = torch.from_numpy(order[done:done + k].astype(np.int64)).to(self.device)
+                    if self._streaming:
+                        slab, upload_next = upload_next.result(), None
+                        if done + k < spe:
+                            upload_next = _submit(done + k)
+                        u8, labels = slabs.use(slab)
+                        batches = [(u8[j * bs:(j + 1) * bs], labels[j * bs:(j + 1) * bs])
+                                   for j in range(k)]
+                        del slab, u8, labels
+                    else:
+                        idx = torch.from_numpy(order[done:done + k].astype(np.int64)).to(self.device)
+                        batches = [self._resident_batch(idx[j]) for j in range(k)]
                     ms = []
-                    for j in range(k):
-                        m = self._train_step(idx[j])
+                    for u8_j, labels_j in batches:
+                        m = self._train_step(u8_j, labels_j)
                         ms.append(torch.stack([m[n] for n in METRIC_NAMES]))
+                    del batches  # this slab's memory goes back once its steps have run
                     vals = torch.stack(ms).cpu().numpy()  # (k, 6): the launch's one sync
                     ms_np = {n: vals[:, i] for i, n in enumerate(METRIC_NAMES)}
                     launch_dt = time.time() - t_launch
@@ -304,6 +360,12 @@ class _BaseGANTrainer:
         finally:
             if own_handler:
                 signal.signal(signal.SIGTERM, prev_term if prev_term is not None else signal.SIG_DFL)
+            if uploader is not None:
+                # a queued upload is dropped and a running one joined before
+                # the gather threads close: its take() would otherwise race
+                # the close and start a pool nothing shuts down
+                uploader.shutdown(wait=True, cancel_futures=True)
+                self._stream.close()
             if not rolled_back:  # a second train() continues this history
                 self._resumed_losses = list(zip(losses_d, losses_g))
         self.logger.debug(f"train finish\ttime: {time_to_str(time.time() - start)}\t"
@@ -313,12 +375,18 @@ class _BaseGANTrainer:
 
     # --------------------------------------------------------------- steps
 
-    def _train_step(self, rows: torch.Tensor):
-        """One train step on the set's rows ``rows`` (a device index)."""
-        real = decode_batch(self.images_dev.index_select(0, rows), self.cfg.image_size, self.cd)
+    def _resident_batch(self, rows: torch.Tensor):
+        """The resident set's uint8 rows ``rows`` (a device index) and their
+        labels (None for DCGAN)."""
+        labels = self.labels_dev.index_select(0, rows) if self.conditional else None
+        return self.images_dev.index_select(0, rows), labels
+
+    def _train_step(self, u8: torch.Tensor, labels: Optional[torch.Tensor]):
+        """One train step on a uint8 NHWC batch on the device and its class
+        labels (unused by DCGAN); both data planes call it."""
+        real = decode_batch(u8, self.cfg.image_size, self.cd)
         if self.conditional:
-            onehot = one_hot(self.labels_dev.index_select(0, rows), self.num_classes)
-            return self.step_fn(self.state, real, onehot)
+            return self.step_fn(self.state, real, one_hot(labels, self.num_classes))
         return self.step_fn(self.state, real)
 
     # ---------------------------------------------------------------- eval

@@ -29,6 +29,7 @@ from jckx_torch.models.dcgan import GANGeometry
 from jckx_torch.train import state as tstate
 from jckx_torch.train.steps import METRIC_NAMES, StepDraws, make_cgan_train_step, make_draws
 from test_torch_train_step import LR, N, TINY, _assert_deltas, _cfgs, _port_sd
+from torch_threads import one_torch_thread  # noqa: F401
 
 K = 10
 CASES = {"1step": ({}, 1), "3steps": ({}, 3), "ema-3steps": (dict(ema_decay=0.9), 3)}

@@ -35,6 +35,7 @@ from jckx_torch.train import main as tmain
 from jckx_torch.train.gan_trainer import CGANTrainer, fixed_eval_inputs, sample_eval_images
 from jckx_torch.train.state import geometry
 from test_torch_trainer import TINY, _assert_same, _final, _jsonl
+from torch_threads import one_torch_thread  # noqa: F401
 
 K = 10
 

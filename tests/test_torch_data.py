@@ -116,7 +116,7 @@ def test_npz_plane_matches_jckx_and_never_falls_back(tmp_path):
     np.savez(bad, x=np.zeros((2, 4, 4, 3), np.float32))
     with pytest.raises(ValueError, match="uint8"):
         tds.load_dataset("npz", "", data_path=bad)
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(ValueError, match="no images"):  # the folder plane never falls back either
         tds.load_dataset("folder", "", data_path=str(tmp_path))
 
 

@@ -7,7 +7,8 @@ holdout), ``--scan_steps``, ``--nan_guard``, the refusals, and the
 
 Runs are tiny: 75² (InceptionV3's minimum, as jckx's tests), batch 8,
 f32, a few steps; the JAX package is imported only to read and write its
-side of the ``.npz`` files.
+side of the ``.npz`` files. ``--dataset folder`` is held in
+tests/test_torch_data_planes.py.
 """
 
 import json
@@ -30,6 +31,7 @@ from jckx_torch.logging.main_logger import MainLogger
 from jckx_torch.metrics import inception_v3 as tiv
 from jckx_torch.metrics.inception_train import get_args, train
 from jckx_torch.metrics.metrics import Metrics as TMetrics
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -205,8 +207,7 @@ def test_cli_finetune_and_its_refusals(tmp_path, capsys):
                 "--eval_samples", "8", "-mlr", "0.01", "--save_dir", str(save),
                 "--data_dir", str(tmp_path / "data")]) == 0
     assert (save / "loss_bset.npz").exists()
-    for argv, item in ((["--mesh_shape", "8"], "A13"), (["--multihost", "1"], "A13"),
-                       (["--dataset", "folder"], "A4")):
+    for argv, item in ((["--mesh_shape", "8"], "A13"), (["--multihost", "1"], "A13")):
         with pytest.raises(SystemExit, match=item):
             cli(["finetune", *argv])
     with pytest.raises(SystemExit) as e:

@@ -30,6 +30,7 @@ from jckx_torch.data.augment import CropDraws, draw_crops, random_resized_crop_f
 from jckx_torch.kernels import fused_bn_act as tfba
 from jckx_torch.metrics import inception_v3 as tiv
 from jckx_torch.ops.norm import bn_relu_train
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = [(8, 6, 6, 5), (32, 7)]
 

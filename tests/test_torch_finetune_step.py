@@ -40,6 +40,7 @@ from jckx.metrics.metrics import flatten_params
 from jckx_torch.data.augment import CropDraws
 from jckx_torch.metrics import inception_v3 as tiv
 from jckx_torch.metrics.inception_train import StepDraws, make_optimizer, make_train_step
+from torch_threads import one_torch_thread  # noqa: F401
 
 K, N, S, LR, WD = 10, 8, 75, 0.1, 5e-4
 

@@ -38,6 +38,7 @@ from test_torch_cgan_step import _draws as _cgan_draws
 from test_torch_train_step import LR, N, _assert_deltas, _cfgs, _port_sd
 from test_torch_train_step import _draws as _dcgan_draws
 from test_torch_trainer import StubMetrics
+from torch_threads import one_torch_thread  # noqa: F401
 
 DCGAN_CASES = {  # name: (config overrides, steps)
     "gp1-1step": (dict(gp_in_d_grad=True), 1),

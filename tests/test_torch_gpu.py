@@ -522,3 +522,99 @@ def test_jckx_checkpoint_renders_through_the_kernel(family):
     assert fba.LAUNCHES == before + svc.geo.n_up
     diff = (got.int() - want.int()).abs()
     assert diff.max().item() <= 1 and (diff == 0).float().mean().item() >= 0.99
+
+
+def _copy_and_kernel_streams(prof, tmp_path) -> tuple:
+    """→ ({stream: [bytes of each host→device copy]}, {stream: {names of
+    its kernels}}) from the profiler's Chrome trace."""
+    import json
+
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    copies, kernels = {}, {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        args = e.get("args") or {}
+        if "stream" not in args:
+            continue
+        if e.get("cat") == "kernel":
+            kernels.setdefault(args["stream"], set()).add(e.get("name", "")[:80])
+        elif "memcpy" in e.get("cat", "").lower() and "HtoD" in e.get("name", ""):
+            copies.setdefault(args["stream"], []).append(args.get("bytes"))
+    return copies, kernels
+
+
+@pytest.mark.parametrize("conditional", [False, True])
+def test_streamed_trainer_on_the_card_equals_resident(tmp_path, monkeypatch, conditional):
+    """The tiny trainer (16², width 8, batch 8, f32, K = 2, 6 launches) on
+    the card with deterministic algorithms: ``--data_placement stream -w
+    2`` ends with the parameters and Adam state of the resident plane, bit
+    for bit, and each launch's slab (images and labels) is copied on a
+    stream that runs none of the train step's kernels. The first training
+    run of a process on an H100 ends up to 7.45e-9 away from every later
+    identical run, on either plane and with or without cuDNN or
+    deterministic algorithms (later runs are equal), so a resident run
+    warms the process up first. Deterministic algorithms are on, without
+    filling fresh memory (that would put fill kernels on the copy
+    stream)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from jckx_torch.configs import Config
+    from jckx_torch.models.cgan import CDiscriminator, CGenerator
+    from jckx_torch.train.gan_trainer import CGANTrainer, DCGANTrainer
+
+    _card()
+    rng = np.random.RandomState(0)
+
+    class Data:
+        images_u8 = rng.randint(0, 256, (48, 32, 32, 3)).astype(np.uint8)
+        labels_np = rng.randint(0, 10, 48).astype(np.int32)
+        num_classes = 10
+        idx_to_labels = {i: str(i) for i in range(10)}
+        metric_source = (images_u8, labels_np)
+
+    geo = GANGeometry(z_dim=100, image_size=16, channels=3, base_width=8)
+    finals, deterministic = {}, torch.backends.cudnn.deterministic
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    monkeypatch.setattr(torch.utils.deterministic, "fill_uninitialized_memory", False)
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        for placement in ("warm-up", "hbm", "stream"):
+            cfg = Config()
+            for k, v in dict(dataset="synthetic", batch_size=8, epoch=2, image_size=16,
+                             base_width=8, compute_dtype="float32", max_learning_rate=2e-4,
+                             log_every=2, eval_every=0, log_file=0,
+                             data_placement="stream" if placement == "stream" else "hbm",
+                             num_worker=2, save_root=str(tmp_path), model_path=placement,
+                             save_path=str(tmp_path / placement)).items():
+                setattr(cfg, k, v)
+            gen = torch.Generator().manual_seed(0)
+            if conditional:
+                tr = CGANTrainer(cfg, CGenerator(geo, 10, gen=gen), CDiscriminator(geo, 10, gen=gen),
+                                 Data())
+            else:
+                tr = DCGANTrainer(cfg, Generator(geo, gen=gen), Discriminator(geo, gen=gen), Data())
+            assert tr._streaming is (placement == "stream")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                tr.train()
+                torch.cuda.synchronize()
+            s = tr.state
+            finals[placement] = ({**{f"G.{k}": v for k, v in s.G.state_dict().items()},
+                                  **{f"D.{k}": v for k, v in s.D.state_dict().items()}},
+                                 [s.opt_g.state_dict(), s.opt_d.state_dict()], s.step)
+        copies, kernels = _copy_and_kernel_streams(prof, tmp_path)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.use_deterministic_algorithms(False)
+    (p_hbm, o_hbm, step_hbm), (p_st, o_st, step_st) = finals["hbm"], finals["stream"]
+    assert step_hbm == step_st == 12
+    for k in p_hbm:
+        assert torch.equal(p_hbm[k], p_st[k]), k
+    for a, b in zip(o_hbm, o_st):
+        for i, st in a["state"].items():
+            for k, v in st.items():
+                assert torch.equal(torch.as_tensor(v), torch.as_tensor(b["state"][i][k])), (i, k)
+    slab = [st for st, sizes in copies.items() if 16 * 32 * 32 * 3 in sizes]
+    assert len(slab) == 1 and copies[slab[0]].count(16 * 32 * 32 * 3) == 6, copies
+    assert 16 * 8 in copies[slab[0]] and slab[0] not in kernels, (copies, kernels)

@@ -46,6 +46,7 @@ from jckx_torch.serve import GeneratorService
 from jckx_torch.train import main as tmain
 from test_torch_cgan_trainer import StubMetrics as CGANStubMetrics
 from test_torch_trainer import StubMetrics
+from torch_threads import one_torch_thread  # noqa: F401
 
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "jckx_ckpt")
 TINY = JGeometry(z_dim=16, image_size=16, channels=3, base_width=8)

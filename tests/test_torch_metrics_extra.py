@@ -29,6 +29,7 @@ from jckx.metrics import inception_v3 as jiv
 from jckx_torch.metrics import extra as textra
 from jckx_torch.metrics import inception_v3 as tiv
 from jckx_torch.metrics.metrics import Metrics
+from torch_threads import one_torch_thread  # noqa: F401
 
 K = 10
 

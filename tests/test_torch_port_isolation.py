@@ -31,7 +31,8 @@ def test_importing_every_port_module_loads_no_jax():
                  "jckx_torch.doctor", "jckx_torch.panel", "jckx_torch.metrics.extra",
                  "jckx_torch.metrics.inception_train", "jckx_torch.ops.norm",
                  "jckx_torch.data.augment", "jckx_torch.checkpoint.msgpack",
-                 "jckx_torch.checkpoint.jckx_ckpt"):
+                 "jckx_torch.checkpoint.jckx_ckpt", "jckx_torch.data.native_io",
+                 "jckx_torch.data.pipeline"):
         assert name in out, name
     assert [m for m in out if _forbidden(m)] == []
 

@@ -30,6 +30,7 @@ from jckx_torch.train import state as tstate
 from jckx_torch.train.steps import make_cgan_train_step, make_dcgan_train_step
 from test_torch_train_step import N, _cfgs
 from test_torch_trainer import StubMetrics
+from torch_threads import one_torch_thread  # noqa: F401
 
 K = 10
 GEO = tdcgan.GANGeometry(z_dim=16, image_size=16, channels=3, base_width=8)

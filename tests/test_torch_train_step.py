@@ -30,6 +30,7 @@ from jckx_torch.configs import Config
 from jckx_torch.models import dcgan as tdcgan
 from jckx_torch.train import state as tstate
 from jckx_torch.train.steps import METRIC_NAMES, StepDraws, make_dcgan_train_step
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 8
 LR = 2e-4

@@ -32,6 +32,7 @@ from jckx_torch.models.dcgan import Discriminator, Generator
 from jckx_torch.train import main as tmain
 from jckx_torch.train.gan_trainer import DCGANTrainer
 from jckx_torch.train.state import geometry
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(dataset="synthetic", batch_size=16, epoch=2, image_size=16, base_width=8,
             num_classes=10, compute_dtype="float32", max_learning_rate=2e-4,
@@ -225,21 +226,25 @@ def test_cli_flags_and_refusals(tmp_path):
     assert (a.channels, a.num_classes, a.device) == (1, 10, "cpu")
 
     base = ["--device", "cpu", "--save_root", str(tmp_path)]
-    # the train step's modes are ported (tests/test_torch_fused_prop.py,
-    # tests/test_torch_remat.py train with them); the mesh, multihost and
-    # the streaming plane are still refused by ROADMAP item
+    # the train step's modes and the data planes are ported
+    # (tests/test_torch_fused_prop.py, tests/test_torch_remat.py and
+    # tests/test_torch_stream_trainer.py train with them); the mesh and
+    # multihost are still refused by ROADMAP item
     modes = ["--fused_prop", "1", "--remat", "both", "--sanitize", "--profile_dir", "p"]
-    cfg = get_arg_parse(["-m", "CGAN"] + modes)
+    planes = ["--data_placement", "stream", "--hbm_data_budget", "1", "-w", "3"]
+    cfg = get_arg_parse(["-m", "CGAN"] + modes + planes)
     assert (cfg.fused_prop, cfg.remat, cfg.sanitize, cfg.profile_dir) == (1, "both", True, "p")
+    assert (cfg.data_placement, cfg.hbm_data_budget, cfg.num_worker) == ("stream", 1, 3)
     check_ported(cfg)
     for argv, item in ((["-m", "CGAN", "--mesh_shape", "2"] + modes, "A13"), (["-t", "1"], "-pm"),
                        (["-t", "1", "-pm", "nope"], "no latest.ckpt"),
                        (["--fused_prop", "1", "--multihost"], "A13"),
-                       (["--mesh_shape", "2"], "A13"), (["--data_placement", "stream"], "A4"),
-                       (["--remat", "g", "--hbm_data_budget", "1"], "A4")):
+                       (["--mesh_shape", "2"], "A13"), (["--mesh_shape", "2"] + planes, "A13"),
+                       (["--remat", "g", "--hbm_data_budget", "1", "--multihost"], "A13")):
         with pytest.raises(SystemExit, match=item) as err:
             tmain.main(argv + base)
-        assert "fused_prop" not in str(err.value) and "remat" not in str(err.value)
+        assert not [f for f in ("fused_prop", "remat", "data_placement", "hbm_data_budget")
+                    if f in str(err.value)]
     assert os.listdir(tmp_path) == []  # refused before any run dir
 
     from jckx_torch.__main__ import main as cli
@@ -250,8 +255,9 @@ def test_cli_flags_and_refusals(tmp_path):
                 "--eval_samples", "8", "--save_dir", str(tmp_path / "bk"),
                 "--data_dir", str(tmp_path / "data")]) == 0
     MainLogger.reset()
-    with pytest.raises(SystemExit, match="A4"):
-        cli(["train", "-m", "CGAN", "--fused_prop", "1", "--data_placement", "stream"] + base)
+    with pytest.raises(SystemExit, match="A13"):
+        cli(["train", "-m", "CGAN", "--fused_prop", "1", "--data_placement", "stream",
+             "--multihost"] + base)
     with pytest.raises(SystemExit, match="A13"):
         cli(["serve", "--ckpt", "x.pt", "--mesh_shape", "8"])
     with pytest.raises(SystemExit, match="jckx.serve"):
