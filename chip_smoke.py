@@ -164,7 +164,19 @@ Run from the root of a checkout, on a machine with a CUDA card and
     written by the port's own PNG writer trains 4 steps where PIL imports,
     and otherwise must refuse naming PIL; 4 launches per G forward of the
     phase's evals;
-30. prints a ``{"kernels": [...]}`` line, then, last, the
+30. the mesh's data axis (``phase_mesh_serve``, ``phase_mesh``):
+    ``GeneratorService`` over a local mesh ``[cuda:0, cuda:0]`` at bs512
+    bf16 within 1 LSB of the unsharded service (≥ 99 % exact), 4 launches
+    per device per batch; at full width, 8 steps and one eval each, f32, in
+    child processes (``--child``): DCGAN on a NCCL world of one
+    (``--mesh_shape 1 --multihost``, ``env://``) bit-identical to the plain
+    run; DCGAN and CGAN on two gloo ranks of this card against the plain
+    runs (telemetry within 3e-3, the masked deltas of 6), the kernel on
+    each rank's rows at the eval; two fine-tune steps at 299² on the gloo
+    pair (the first within 10 % in delta norm of one rank's); then the bf16
+    step timed on the NCCL world of one (in turns against no mesh) and on
+    the gloo pair, with the collectives per step by kind and their share;
+31. prints a ``{"kernels": [...]}`` line, then, last, the
     ``{"ok": true, "device": {...}}`` line.
 
 Any failed phase exits nonzero before the last line is printed. Without a
@@ -2586,6 +2598,583 @@ def phase_data_planes(tmp: str, dev, card: str) -> int:
     return launches
 
 
+# ------------------------------------------------------------------ the mesh
+
+MESH_STEPS = 8                          # phase_mesh: steps of each run (one launch, one eval)
+MESH_ROWS = TRAIN_BATCH * MESH_STEPS    # its synthetic rows: one epoch of MESH_STEPS steps
+MESH_TIMED = 6                          # bf16 steps timed per turn
+FT_MESH_BATCH = 8                       # fine-tune rows per rank
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _start_child(kind: str, spec: dict, rank: int = 0, world: int = 1, port: int = 0):
+    """``python3 chip_smoke.py --child <kind> <spec>`` as rank ``rank`` of a
+    world of ``world`` with torch's ``env://`` variables (``port`` 0: no
+    group variables at all, a lone process)."""
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    if port:
+        env.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    here = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), "--child", kind,
+                             json.dumps(spec)], cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _start_group(kind: str, spec: dict, world: int) -> list:
+    port = _free_port()
+    return [_start_child(kind, spec, r, world, port) for r in range(world)]
+
+
+def _join(procs: list, what: str, timeout: float = 400) -> list:
+    """Wait for the children; fail naming ``what`` on a non-zero exit. → stdouts."""
+    outs = []
+    for p in procs:
+        try:
+            out, err = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            fail(f"{what}: a child did not finish within {timeout} s")
+        check(p.returncode == 0, f"{what}: a child exited {p.returncode}:\n{err[-4000:]}")
+        outs.append(out)
+    return outs
+
+
+def _child_init(backend: str):
+    """A child's card, f32 without TF32, deterministic algorithms, and its
+    process group: ``gloo`` over ``env://`` made here (the port keeps a
+    group its caller made), ``nccl`` by the port's ``init_multihost``,
+    ``port`` left to the entry point (``--multihost``), ``none``."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    if backend == "gloo":
+        dist.init_process_group("gloo", init_method="env://")
+    elif backend == "nccl":
+        from jckx_torch.utils.device import init_multihost
+
+        ok, err = init_multihost(dev)
+        check(ok, f"NCCL: {err}")
+    return dev
+
+
+def _warm_step(dev, conditional: bool) -> None:
+    """One throwaway full-width f32 step: a process's first tiny f32 run
+    can end a few ulp from later identical ones (PERF.md §7), so the runs
+    compared bit for bit are never a process's first."""
+    import torch
+
+    from jckx_torch.configs import Config
+    from jckx_torch.data.pipeline import one_hot
+    from jckx_torch.models.cgan import CDiscriminator, CGenerator
+    from jckx_torch.models.dcgan import Discriminator, GANGeometry, Generator
+    from jckx_torch.train.state import create_dcgan_state
+    from jckx_torch.train.steps import make_cgan_train_step, make_dcgan_train_step
+
+    cfg, geo = Config(), GANGeometry()
+    cfg.compute_dtype, cfg.max_learning_rate = "float32", TRAIN_LR
+    gen = torch.Generator().manual_seed(99)
+    real = torch.rand(16, 64, 64, 3, device=dev) * 2 - 1
+    if conditional:
+        G, D = CGenerator(geo, CGAN_CLASSES, gen=gen), CDiscriminator(geo, CGAN_CLASSES, gen=gen)
+        step = make_cgan_train_step(cfg, geo)
+        extra = (one_hot(torch.arange(16, device=dev) % CGAN_CLASSES, CGAN_CLASSES),)
+    else:
+        G, D = Generator(geo, gen=gen), Discriminator(geo, gen=gen)
+        step = make_dcgan_train_step(cfg, geo)
+        extra = ()
+    step(create_dcgan_state(cfg, G.to(dev), D.to(dev)), real, *extra)
+    torch.cuda.synchronize()
+
+
+def _snapshot(state) -> dict:
+    """G's and D's parameters and gradients, on the host."""
+    rec = {}
+    for name, net in (("G", state.G), ("D", state.D)):
+        rec[name] = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+        rec[name + "_grad"] = {k: p.grad.detach().cpu().clone() for k, p in net.named_parameters()}
+    return rec
+
+
+def child_train(spec: dict) -> None:
+    """``jckx_torch.train.main.run`` on ``spec["argv"]`` in this child. Rank
+    0 saves the parameters and gradients after the first step (with that
+    step's telemetry) and after the last, every rank its kernel launches,
+    to ``<out>.rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from jckx_torch.configs import get_arg_parse
+    from jckx_torch.kernels import fused_bn_act as fba
+    from jckx_torch.train import gan_trainer
+    from jckx_torch.train import main as tmain
+
+    dev = _child_init(spec["backend"])
+    _warm_step(dev, "CGAN" in spec["argv"])
+    first, telemetry = {}, []
+    train_step = gan_trainer._BaseGANTrainer._train_step
+
+    def step_and_keep_the_first(self, u8, labels):
+        m = train_step(self, u8, labels)
+        telemetry.append({k: float(v) for k, v in m.items()})
+        if not first:
+            first.update(_snapshot(self.state), telemetry=telemetry[0])
+        return m
+
+    gan_trainer._BaseGANTrainer._train_step = step_and_keep_the_first
+    fba.LAUNCHES = 0
+    tr = tmain.run(get_arg_parse(spec["argv"]))
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    rec = {"launches": fba.LAUNCHES, "step": tr.state.step, "evals": tr.evals}
+    if rank == 0:
+        rec.update(_snapshot(tr.state), first=first, telemetry=telemetry)
+    torch.save(rec, f"{spec['out']}.rank{rank}.pt")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _count_collectives(counts: dict):
+    """Wrap ``torch.distributed.all_reduce`` / ``all_gather`` to count calls
+    by kind (BN statistics (2, C), the flat gradient buffers, the rest) and
+    their host seconds. → a function that restores them."""
+    import torch.distributed as dist
+
+    real_reduce, real_gather = dist.all_reduce, dist.all_gather
+
+    def timed(fn, kind):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                counts[kind] = counts.get(kind, 0) + 1
+                counts["host_s"] = counts.get("host_s", 0.0) + time.perf_counter() - t0
+        return wrapper
+
+    def all_reduce(t, *args, **kwargs):
+        kind = ("bn_stats" if t.dim() == 2 and t.shape[0] == 2 else
+                "grads" if t.dim() == 1 and t.numel() > 1024 else "other")
+        return timed(real_reduce, kind)(t, *args, **kwargs)
+
+    dist.all_reduce, dist.all_gather = all_reduce, timed(real_gather, "all_gather")
+
+    def restore():
+        dist.all_reduce, dist.all_gather = real_reduce, real_gather
+
+    return restore
+
+
+def child_time(spec: dict) -> None:
+    """bf16 DCGAN steps at full width (global batch 128) on the process
+    group: ``nccl`` — a world of one, timed in turns against the same step
+    without a mesh (plain, mesh, mesh, plain); ``gloo`` — this rank's share
+    of the pair. Host ms per step (each synchronised), the collectives per
+    step by kind and their host share, and a profiled window."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from jckx_torch.configs import Config
+    from jckx_torch.models.dcgan import Discriminator, GANGeometry, Generator
+    from jckx_torch.parallel import make_mesh
+    from jckx_torch.train.state import create_dcgan_state
+    from jckx_torch.train.steps import make_dcgan_train_step
+
+    dev = _child_init(spec["backend"])
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+    mesh = make_mesh((dist.get_world_size(),), device=dev)
+    cfg, geo = Config(), GANGeometry()
+    cfg.compute_dtype, cfg.max_learning_rate = "bfloat16", TRAIN_LR
+    gen = torch.Generator().manual_seed(0)
+    state = create_dcgan_state(cfg, Generator(geo, gen=gen).to(dev),
+                               Discriminator(geo, gen=gen).to(dev))
+    real = mesh.rows(torch.rand(TRAIN_BATCH, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+                     * 2 - 1).to(dev)
+    steps = {"mesh": make_dcgan_train_step(cfg, geo, mesh)}
+    if spec["backend"] == "nccl":
+        steps["plain"] = make_dcgan_train_step(cfg, geo)
+        turns = ["plain", "mesh", "mesh", "plain"]
+    else:
+        turns = ["mesh", "mesh"]
+
+    def timed(step, n):
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            step(state, real)
+            torch.cuda.synchronize()
+            out.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    for step in steps.values():
+        timed(step, 2)  # warm
+    ms = {name: [] for name in steps}
+    for name in turns:
+        ms[name] += timed(steps[name], MESH_TIMED)
+    counts: dict = {}
+    restore = _count_collectives(counts)
+    try:
+        t0 = time.perf_counter()
+        timed(steps["mesh"], 1)
+        one_step_s = time.perf_counter() - t0
+    finally:
+        restore()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        timed(steps["mesh"], 3)
+        window_us = 1e6 * (time.perf_counter() - t0)
+    comm = {}
+    for e in prof.key_averages():
+        name = e.key.lower()
+        if name.startswith(("gloo:", "nccl:")) or "nccldevkernel" in name or "c10d::" in name:
+            comm[e.key] = (e.cpu_time_total, getattr(e, "device_time_total",
+                                                     getattr(e, "cuda_time_total", 0.0)), e.count)
+    dev_comm = sum(d for _, d, _ in comm.values() if d)
+    rec = {"ms": ms, "counts": counts, "host_share": counts.get("host_s", 0.0) / one_step_s,
+           "profiler_comm": {k: list(v) for k, v in sorted(comm.items(), key=lambda kv: -kv[1][0])},
+           "window_us": window_us, "device_comm_us": dev_comm, "rank": dist.get_rank()}
+    torch.save(rec, f"{spec['out']}.rank{dist.get_rank()}.pt")
+    dist.destroy_process_group()
+
+
+def _ft_step_run(dev, mesh=None, perturb: float = 0.0, steps: int = 2) -> list:
+    """Two fine-tune steps at 299², f32, from ``init(0)`` on a global batch
+    of ``2 · FT_MESH_BATCH`` (each rank its rows over ``mesh``). → the flat
+    weights before and after each step, on the host."""
+    import torch
+
+    from jckx_torch.metrics import inception_v3 as tiv
+    from jckx_torch.metrics.inception_train import draw_step, make_optimizer, make_train_step
+
+    n = 2 * FT_MESH_BATCH
+    g = torch.Generator().manual_seed(11)
+    data = torch.randint(0, 256, (64, 32, 32, 3), generator=g, dtype=torch.uint8).to(dev)
+    labels = torch.randint(0, 100, (64,), generator=g).to(dev)
+    net = tiv.init(0, num_classes=100)
+    if perturb:
+        with torch.no_grad():
+            for p in net.parameters():
+                p.mul_(1 + perturb * torch.randn(p.shape, generator=torch.Generator().manual_seed(5)))
+    net = net.to(dev)
+    step = make_train_step(net, make_optimizer(net, 0.1), torch.float32, FT_SIZE, mesh)
+    draws_gen = torch.Generator().manual_seed(12)
+    snaps = [tiv.to_jckx_flat(net)]
+    for _ in range(steps):
+        idx = torch.randperm(64, generator=g)[:n].to(dev)
+        d = draw_step(draws_gen, n)
+        step(data, labels, idx, type(d)(type(d.crops)(*(t.to(dev) for t in d.crops)),
+                                         d.keep.to(dev)))
+        snaps.append(tiv.to_jckx_flat(net))
+    return snaps
+
+
+def child_finetune(spec: dict) -> None:
+    """``_ft_step_run`` over the gloo pair; rank 0 saves the snapshots,
+    every rank its kernel launches."""
+    import torch
+    import torch.distributed as dist
+
+    from jckx_torch.kernels import fused_bn_act as fba
+    from jckx_torch.parallel import make_mesh
+
+    dev = _child_init("gloo")
+    fba.LAUNCHES = 0
+    snaps = _ft_step_run(dev, make_mesh((2,), device=dev))
+    rec = {"launches": fba.LAUNCHES}
+    if dist.get_rank() == 0:
+        rec["snaps"] = snaps
+    torch.save(rec, f"{spec['out']}.rank{dist.get_rank()}.pt")
+    dist.destroy_process_group()
+
+
+CHILDREN = {"train": child_train, "time": child_time, "finetune": child_finetune}
+
+
+def _mesh_argv(tmp: str, model: str, run: str, extra=()) -> list:
+    return ["-m", model, "--dataset", "synthetic", "--synthetic_size", str(MESH_ROWS),
+            "-b", str(TRAIN_BATCH), "-e", "1", "-mlr", str(TRAIN_LR), "--compute_dtype", "float32",
+            "--log_every", str(MESH_STEPS), "--eval_every", str(MESH_STEPS),
+            "--eval_batch_size", "64",
+            "--save_root", os.path.join(tmp, "mesh_save", run),
+            "--data_dir", os.path.join(tmp, "mesh_data", run), "-pm", run, *extra]
+
+
+def _masked_gap(start: dict, got: dict, want: dict, grads: dict) -> tuple:
+    """phase_train_vs_cpu's rule for one step: deltas from ``start`` where
+    ``grads`` clears 1 % of its leaf's maximum, within 5 % of lr on all but
+    0.1 %. → (worst leaf's flipped share, covered share), failing on a
+    breach."""
+    total = covered = 0
+    worst = 0.0
+    for k, g in grads.items():
+        mask = g.abs() > 1e-2 * g.abs().max() + 1e-12
+        bad = (((got[k] - start[k]) - (want[k] - start[k])).abs() > 0.05 * TRAIN_LR)[mask]
+        n_bad, n = int(bad.sum()), int(mask.sum())
+        check(n_bad <= 1e-3 * n, f"{k}: {n_bad} of {n} masked Adam deltas differ by > 5 % of lr")
+        worst = max(worst, n_bad / max(n, 1))
+        total += mask.numel()
+        covered += n
+    check(covered / total > 0.5, f"the gradient mask covers {covered}/{total} elements")
+    return worst, covered / total
+
+
+def _init_params(model: str):
+    import torch
+
+    from jckx_torch.models.cgan import CDiscriminator, CGenerator
+    from jckx_torch.models.dcgan import Discriminator, GANGeometry, Generator
+
+    gen, geo = torch.Generator().manual_seed(12345), GANGeometry()  # the trainer's seed
+    nets = ((CGenerator(geo, CGAN_CLASSES, gen=gen), CDiscriminator(geo, CGAN_CLASSES, gen=gen))
+            if model == "CGAN" else (Generator(geo, gen=gen), Discriminator(geo, gen=gen)))
+    return [{k: v.detach().clone() for k, v in n.state_dict().items()} for n in nets]
+
+
+def _metrics_of(tmp: str, model: str, run: str) -> dict:
+    path = os.path.join(tmp, "mesh_save", run, model.lower(), run, "metrics.jsonl")
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    return {k: v for r in recs for k, v in r.items() if k in METRIC_NAMES_ALL}
+
+
+METRIC_NAMES_ALL = ("loss_d", "gp", "d_x", "d_gz1", "loss_g", "d_gz2", "fid", "is", "intra_fid")
+
+
+def phase_mesh_serve(path: str, svc, dev, card: str) -> int:
+    """``GeneratorService`` over a local mesh ``[cuda:0, cuda:0]`` (the
+    request batch split over two worker threads, BN statistics summed over
+    both) against the unsharded service on the same requests: bs512 bf16,
+    within 1 LSB, at least 99 % exact; 4 launches per device per batch.
+    → the launches."""
+    import numpy as np
+
+    from jckx_torch.kernels import fused_bn_act as fba
+    from jckx_torch.parallel import make_mesh
+    from jckx_torch.serve import GeneratorService
+
+    mesh = make_mesh((2,), devices=[dev, dev])
+    two = GeneratorService(path, mesh=mesh)  # the defaults: batch 512, bf16
+    check(two.mesh.size == 2 and two.device == dev, "the mesh service's device")
+    two.sample(BATCH, seed=0)  # warm
+    n = 4 * BATCH
+    fba.LAUNCHES = 0
+    got = two.sample(n, seed=5)
+    launches = fba.LAUNCHES
+    check(launches == 4 * 2 * 4, f"the mesh service launched {launches} kernels for 4 batches, "
+                                 f"want 32 (4 per device per batch)")
+    want = svc.sample(n, seed=5)
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    exact = float((diff == 0).mean())
+    check(diff.max() <= 1 and exact >= 0.99,
+          f"sharded renders vs unsharded: max {diff.max()} LSB, {100 * exact:.4f} % exact")
+    rates = {}
+    for name, s in (("unsharded", svc), ("mesh", two), ("mesh", two), ("unsharded", svc)):
+        t0 = time.perf_counter()
+        s.sample(8 * BATCH, seed=1)
+        rates.setdefault(name, []).append(8 * BATCH / (time.perf_counter() - t0))
+    print(f"serving over a local mesh [cuda:0, cuda:0] (bs{BATCH} bf16, each device 256 rows, "
+          f"global statistics): {launches} kernel launches for 4 batches (4 per device per "
+          f"batch); against the unsharded service on the same requests max {diff.max()} LSB, "
+          f"{100 * exact:.4f} % exactly equal; served img/s, in turns: mesh "
+          f"{[round(r, 1) for r in rates['mesh']]}, unsharded "
+          f"{[round(r, 1) for r in rates['unsharded']]}   [{card}]")
+    return launches
+
+
+def phase_mesh(tmp: str, dev, card: str) -> int:
+    """The data axis of the mesh at full width (64², base width 64, global
+    batch 128, ``MESH_STEPS`` steps and one eval of each run, f32, TF32
+    off), in child processes (``--child``), most at once:
+
+    - the plain single-rank run of DCGAN and of CGAN (K = 100), and DCGAN
+      on a NCCL world of one (``--mesh_shape 1 --multihost`` from
+      ``env://``): its parameters bit-identical to the plain run's;
+    - two gloo ranks on this card (``--device cuda:0`` each, gloo copying
+      each collective through the host), DCGAN and CGAN, against the plain
+      run by ``phase_train_vs_cpu``'s one-step criteria on their first
+      step (telemetry within 3e-3, masked Adam deltas); the last step's
+      telemetry gap is printed with every step's, not held: GAN training at
+      full width parts the two runs about tenfold a step from the
+      reassociated sums of the first, where the plain run repeats itself
+      bit for bit. The kernel runs on each rank's rows at the eval, after
+      the statistics' all-reduce;
+    - two fine-tune steps at 299², 8 rows per rank, f32 on the gloo pair
+      against the single rank in this process: the first step's deltas
+      within 10 % in norm per leaf; the second's printed beside the single
+      rank's own gap against weights perturbed by 1e-7 (the seeded random
+      backbone's second step is chaotic: tests/test_torch_dp_metrics.py);
+
+    then, alone, the bf16 step timed: the NCCL world of one in turns
+    against no mesh, and the gloo pair; collectives per step by kind and
+    their share of the step. → the kernel launches of the mesh runs."""
+    import numpy as np
+    import torch
+
+    from jckx_torch.kernels import fused_bn_act as fba
+
+    t_phase = time.perf_counter()
+    out = os.path.join(tmp, "mesh_out")
+    os.makedirs(out, exist_ok=True)
+
+    def spec(name, argv=(), backend="none"):
+        return {"backend": backend, "argv": list(argv), "out": os.path.join(out, name)}
+
+    procs = {
+        "plain": [_start_child("train", spec("plain", _mesh_argv(tmp, "DCGAN", "plain",
+                                                                ["--device", "cuda"])))],
+        "plain_cgan": [_start_child("train", spec("plain_cgan", _mesh_argv(
+            tmp, "CGAN", "plain_cgan", ["--device", "cuda"])))],
+        "nccl": [_start_child("train", spec("nccl", _mesh_argv(
+            tmp, "DCGAN", "nccl", ["--device", "cuda", "--mesh_shape", "1", "--multihost"]),
+            backend="port"), 0, 1, _free_port())],
+        "gloo": _start_group("train", spec("gloo", _mesh_argv(
+            tmp, "DCGAN", "gloo", ["--device", "cuda:0", "--mesh_shape", "2"]), "gloo"), 2),
+        "gloo_cgan": _start_group("train", spec("gloo_cgan", _mesh_argv(
+            tmp, "CGAN", "gloo_cgan", ["--device", "cuda:0", "--mesh_shape", "2"]), "gloo"), 2),
+        "finetune": _start_group("finetune", spec("finetune"), 2),
+    }
+    # the single-rank fine-tune reference, and its noise floor, here meanwhile
+    ft_one = _ft_step_run(dev)
+    ft_floor = _ft_step_run(dev, perturb=1e-7)
+    for name, ps in procs.items():
+        _join(ps, f"phase_mesh {name}")
+    load = lambda name, r=0: torch.load(os.path.join(out, f"{name}.rank{r}.pt"),  # noqa: E731
+                                        weights_only=False)
+    runs = {name: [load(name, r) for r in range(len(ps))] for name, ps in procs.items()}
+    first_s = time.perf_counter() - t_phase
+
+    # (1) NCCL world of one against the plain run: bit for bit
+    plain, nccl = runs["plain"][0], runs["nccl"][0]
+    for net in ("G", "D"):
+        for k, v in plain[net].items():
+            check(torch.equal(nccl[net][k], v), f"NCCL world of one: {net}.{k} differs from the "
+                                                f"plain run after {MESH_STEPS} steps")
+    check(nccl["step"] == plain["step"] == MESH_STEPS and nccl["launches"] == 4,
+          f"NCCL world of one: step {nccl['step']}, {nccl['launches']} launches (want 4)")
+    n_params = sum(v.numel() for net in ("G", "D") for v in plain[net].values())
+    print(f"NCCL world of one (--mesh_shape 1 --multihost, env://) against the plain run: "
+          f"{n_params:,} parameter values bit-identical after {MESH_STEPS} steps (DCGAN 64², "
+          f"width 64, bs{TRAIN_BATCH}, f32, deterministic algorithms); 4 kernel launches at its "
+          f"eval   [{card}]")
+
+    # (2) the gloo pairs against the plain runs
+    launches = nccl["launches"]
+    for model, pair, ref in (("DCGAN", "gloo", "plain"), ("CGAN", "gloo_cgan", "plain_cgan")):
+        r0, r1 = runs[pair]
+        one = runs[ref][0]
+        want = 4 if model == "DCGAN" else 8  # per rank: 1 forward of 32 rows; 2 chunks of 250
+        check(r0["launches"] == r1["launches"] == want and r0["evals"] == [MESH_STEPS],
+              f"{model} gloo pair: launches {r0['launches']} / {r1['launches']}, want {want} per "
+              f"rank; evals {r0['evals']}")
+        launches += r0["launches"] + r1["launches"]
+        t1, t1_one = r0["first"]["telemetry"], one["first"]["telemetry"]
+        gaps = {k: abs(t1[k] - t1_one[k]) for k in t1_one}
+        for k, gap in gaps.items():
+            check(gap <= 3e-3 + 3e-3 * abs(t1_one[k]), f"{model} gloo pair, step 1, {k}: {t1[k]} "
+                                                        f"vs {t1_one[k]}")
+        start = _init_params(model)
+        flips = [_masked_gap(start[i], r0["first"][net], one["first"][net],
+                             one["first"][net + "_grad"]) for i, net in enumerate(("G", "D"))]
+        tele, tele_one = _metrics_of(tmp, model, pair), _metrics_of(tmp, model, ref)
+        last = {k: abs(tele[k] - tele_one[k]) for k in METRIC_NAMES_ALL[:6]}
+        per_step = [max(abs(a[k] - b[k]) for k in a)
+                    for a, b in zip(r0["telemetry"], one["telemetry"])]
+        check(all(math.isfinite(tele[k]) for k in METRIC_NAMES_ALL[:6] + ("fid",)),
+              f"{model} gloo pair: non-finite metrics {tele}")
+        print(f"{model} on two gloo ranks of this card (--device cuda:0 each, bs{TRAIN_BATCH} "
+              f"global, 64 per rank, f32) against the plain run: step 1 telemetry max |diff| "
+              f"{max(gaps.values()):.3g} (<= 3e-3), masked Adam deltas within 5 % of lr on all "
+              f"but {100 * max(f for f, _ in flips):.4f} % (G covers {100 * flips[0][1]:.1f} %, "
+              f"D {100 * flips[1][1]:.1f} %); after step {MESH_STEPS} telemetry max |diff| "
+              f"{max(last.values()):.3g} (not held; by step: "
+              f"{', '.join(f'{g:.2g}' for g in per_step)}), eval fid {tele['fid']:.6g} vs "
+              f"{tele_one['fid']:.6g}; kernel launches {r0['launches']} + {r1['launches']} at "
+              f"the eval (each rank's rows, after the statistics' all-reduce)   [{card}]")
+
+    # (3) the fine-tune pair against the single rank
+    ft = runs["finetune"]
+    check(ft[0]["launches"] == ft[1]["launches"] == 2 * FT_CONVS,
+          f"fine-tune pair launches {ft[0]['launches']} / {ft[1]['launches']}, want {2 * FT_CONVS}")
+    launches += ft[0]["launches"] + ft[1]["launches"]
+    snaps = ft[0]["snaps"]
+    for s in (1, 2):
+        d_one = _flat_deltas(ft_one[0], ft_one[s])
+        d_dp, d_fl = _flat_deltas(ft_one[0], snaps[s]), _flat_deltas(ft_floor[0], ft_floor[s])
+        gap = {k: abs(float(np.linalg.norm(d_dp[k])) - float(np.linalg.norm(d_one[k])))
+               / float(np.linalg.norm(d_one[k])) for k in d_one if np.linalg.norm(d_one[k]) > 0}
+        floor = [abs(float(np.linalg.norm(d_fl[k])) - float(np.linalg.norm(d_one[k])))
+                 / float(np.linalg.norm(d_one[k])) for k in gap]
+        worst = max(gap, key=gap.get)
+        check(all(math.isfinite(v) for v in gap.values()), f"fine-tune pair step {s}: non-finite")
+        if s == 1:
+            check(gap[worst] <= 0.1, f"fine-tune pair step 1: {worst}'s delta norm {gap[worst]:.3g} "
+                                     f"from the single rank's")
+        print(f"fine-tune on two gloo ranks (299², {FT_MESH_BATCH} rows per rank, f32, lr 0.1) "
+              f"against one rank, after step {s}: delta norms at worst {gap[worst]:.3g} apart "
+              f"({worst}), median {statistics.median(gap.values()):.3g}"
+              + (" (<= 0.1)" if s == 1 else " (not held: chaotic)")
+              + f"; one rank against its weights perturbed by 1e-7: at worst {max(floor):.3g}, "
+                f"median {statistics.median(floor):.3g}; {2 * FT_CONVS} launches per rank   "
+                f"[{card}]")
+
+    # (4) timing, alone: the NCCL world of one against no mesh, then the gloo pair
+    t0 = time.perf_counter()
+    _join([_start_child("time", spec("time_nccl", backend="nccl"), 0, 1, _free_port())],
+          "phase_mesh time_nccl")
+    _join(_start_group("time", spec("time_gloo", backend="gloo"), 2), "phase_mesh time_gloo")
+    timing_s = time.perf_counter() - t0
+    tn = load("time_nccl")
+    tg = [load("time_gloo", r) for r in range(2)]
+    med = {k: statistics.median(v) for k, v in tn["ms"].items()}
+    gloo_ms = [statistics.median(t["ms"]["mesh"]) for t in tg]
+    numbers = {"card": card, "nccl1_step_ms": med["mesh"], "plain_step_ms": med["plain"],
+               "nccl1_ms_turns": tn["ms"], "gloo_step_ms_per_rank": gloo_ms,
+               "collectives_per_step": tg[0]["counts"], "nccl1_collectives": tn["counts"],
+               "gloo_host_share": [t["host_share"] for t in tg],
+               "nccl1_host_share": tn["host_share"], "nccl1_device_comm_us": tn["device_comm_us"],
+               "gloo_profiler_comm": tg[0]["profiler_comm"],
+               "nccl1_profiler_comm": tn["profiler_comm"],
+               "first_s": first_s, "timing_s": timing_s}
+    c = tg[0]["counts"]
+
+    def c10d_share(t):  # the profiler's c10d ops' host time over its window
+        return sum(v[0] for k, v in t["profiler_comm"].items() if k.startswith("c10d::")) \
+            / t["window_us"]
+
+    numbers["profiler_c10d_share"] = {"gloo": c10d_share(tg[0]), "nccl1": c10d_share(tn)}
+    print(f"bf16 DCGAN step (64², width 64, bs{TRAIN_BATCH} global): NCCL world of one "
+          f"{med['mesh']:.3f} ms against {med['plain']:.3f} ms without a mesh (medians of "
+          f"{2 * MESH_TIMED}, in turns plain, mesh, mesh, plain); two gloo ranks on this card "
+          f"{gloo_ms[0]:.3f} / {gloo_ms[1]:.3f} ms per rank; collectives per step "
+          f"{c.get('bn_stats', 0)} BN-statistics all-reduces, {c.get('grads', 0)} gradient "
+          f"all-reduces, {c.get('other', 0)} other, {c.get('all_gather', 0)} all-gathers; their "
+          f"host share of a step (host clock around each call): gloo "
+          f"{100 * tg[0]['host_share']:.1f} %, NCCL world of one {100 * tn['host_share']:.1f} %; "
+          f"the profiler's c10d ops over its 3-step window: gloo "
+          f"{100 * numbers['profiler_c10d_share']['gloo']:.1f} %, NCCL world of one "
+          f"{100 * numbers['profiler_c10d_share']['nccl1']:.1f} %   [{card}]")
+    print("mesh_numbers " + json.dumps(numbers))
+    print(f"phase_mesh: {time.perf_counter() - t_phase:.1f} s ({first_s:.1f} s the runs at once, "
+          f"{timing_s:.1f} s the timing); {launches} kernel launches on the mesh runs")
+    return launches
+
+
 @contextlib.contextmanager
 def keep_latest_of_step(step: int, dst: str):
     """While inside, copy ``latest.ckpt`` to ``dst`` when a trainer writes it
@@ -2637,6 +3226,7 @@ def main() -> None:
         http_launches, _ = phase_http(svc, csvc, card)
         _, export_launches = phase_export(path, cgan_path, svc, tmp, dev, card)
         phase_tools(path, os.path.join(tmp, "dcgan_bf16.pt2"), tmp, kind)
+        mesh_serve_launches = phase_mesh_serve(path, svc, dev, card)
     phase_serve_vs_plain(svc, dev)
     phase_serve_vs_plain(csvc, dev)
     t = phase_timing(svc, dev, card)
@@ -2667,13 +3257,15 @@ def main() -> None:
         panel_launches = phase_panel(tmp, card)
         finetune_launches = phase_finetune(ctr, tmp, card)
         plane_launches = phase_data_planes(tmp, dev, card)
+        mesh_launches = phase_mesh(tmp, dev, card)
     print(json.dumps({"kernels": [{
         "name": "fused_bn_act", "route": "cuda",
         "source": "jckx_torch/kernels/csrc/fused_bn_act.cu",
         "replaces": "jckx/kernels/fused_bn_act.py:120",
         "launches": (launches + train_launches + cgan_launches + ctrain_launches + eval_launches
                      + mode_launches + http_launches + watch_launches + export_launches
-                     + panel_launches + finetune_launches + fused_launches + plane_launches),
+                     + panel_launches + finetune_launches + fused_launches + plane_launches
+                     + mesh_serve_launches + mesh_launches),
         "max_abs_err": max_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
@@ -2683,4 +3275,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 4 and sys.argv[1] == "--child":  # a child process of phase_mesh
+        CHILDREN[sys.argv[2]](json.loads(sys.argv[3]))
+    else:
+        main()

@@ -6,11 +6,19 @@ the reference hard-codes (lambda_gp 10, Adam betas (0.5, 0.999), labels
 0.9 / 0.1, instance noise 0.1, eval every 500, log every 100), and the
 fields of ``jckx.configs.Config`` that the port's trainers read.
 
-The port adds ``--device`` (default ``cuda``; ``cpu`` runs the plain
-PyTorch path). The flags of ``jckx`` that have no meaning in the port yet
-(the mesh and multihost) stay on the command line so that a ``jckx``
-command line parses, but fail loudly when set away from their defaults,
-naming the ``ROADMAP.md`` item that brings them (``UNPORTED``).
+The port adds ``--device`` (default ``cuda``, ``cuda:{LOCAL_RANK}`` under
+``torchrun``; ``cpu`` runs the plain PyTorch path).
+
+The mesh is jckx's data axis (``parallel/mesh.py``): ``--mesh_shape N``
+(or ``--mesh_axes data,model`` with a ``model`` axis of 1) trains on N
+ranks of a process group, one process per GPU, brought up from torch's
+``env://`` variables when ``--multihost`` is given or N > 1 (``torchrun
+--nproc_per_node N -m jckx_torch train --mesh_shape N --multihost``). The
+flags of ``jckx`` that have no meaning in the port yet (a ``model`` axis
+larger than 1 and the tensor / spatial knobs) stay on the command line so
+that a ``jckx`` command line parses, but fail loudly when set away from
+their defaults, naming the ``ROADMAP.md`` item that brings them
+(``UNPORTED``, ``check_mesh``).
 
 The data planes are jckx's (``:115-124``): ``--data_placement hbm`` keeps
 the uint8 set on the device, ``stream`` gathers each launch's rows on the
@@ -38,6 +46,8 @@ import json
 import os
 from dataclasses import dataclass
 from typing import Optional
+
+from jckx_torch.parallel.mesh import A13B, check_mesh, parse_mesh_axes, parse_mesh_shape
 
 RANDOMSEED = 12345  # the reference's global seed (change_randomseed.py:1)
 MODELS = ("DCGAN", "CGAN")
@@ -110,13 +120,13 @@ class Config:
     data_placement: str = "auto"
     hbm_data_budget: int = 4 << 30
 
-    # --- jckx knobs the port does not implement yet (see UNPORTED) ---
-    mesh_shape: str = ""
+    # --- the mesh (data axis; the model axis's knobs are UNPORTED) ---
+    mesh_shape: str = ""               # "N": N ranks on the data axis ('' = one process)
     mesh_axes: str = "data"
     model_axis_mode: str = "tp"
     tp_min_dim: int = 128
     spatial_replicate_grads: int = 1
-    multihost: bool = False
+    multihost: bool = False            # bring the process group up from the env:// variables
 
     save_path: str = ""                # set by the entry point / trainer
 
@@ -126,23 +136,25 @@ class Config:
 
 # field → (the value that means "off", the ROADMAP.md item that brings it)
 UNPORTED = {
-    "mesh_shape": ("", "A13 (multi-GPU data/tensor parallel)"),
-    "mesh_axes": ("data", "A13 (multi-GPU data/tensor parallel)"),
-    "model_axis_mode": ("tp", "A13 (multi-GPU data/tensor parallel)"),
-    "tp_min_dim": (128, "A13 (multi-GPU data/tensor parallel)"),
-    "spatial_replicate_grads": (1, "A13 (multi-GPU data/tensor parallel)"),
-    "multihost": (False, "A13 (multi-GPU data/tensor parallel)"),
+    "model_axis_mode": ("tp", A13B),
+    "tp_min_dim": (128, A13B),
+    "spatial_replicate_grads": (1, A13B),
 }
 
 
 def check_ported(cfg: Config) -> None:
     """Raise ``SystemExit`` naming the ROADMAP item for every flag set away
-    from its default that the port has no meaning for yet."""
+    from its default that the port has no meaning for yet, and for a mesh
+    it cannot run (a ``model`` axis larger than 1: ``check_mesh``)."""
     bad = []
     for name, (off, item) in UNPORTED.items():
         val = getattr(cfg, name)
         if val != off:
             bad.append(f"--{name} {val!r}: not ported yet (ROADMAP.md {item})")
+    try:
+        check_mesh(parse_mesh_shape(cfg.mesh_shape), parse_mesh_axes(cfg.mesh_axes))
+    except ValueError as e:
+        bad.append(f"--mesh_shape {cfg.mesh_shape!r} --mesh_axes {cfg.mesh_axes!r}: {e}")
     if bad:
         raise SystemExit("jckx_torch: " + "; ".join(bad))
 

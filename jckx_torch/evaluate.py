@@ -38,6 +38,12 @@ are, bit for bit, those that ``serve --quant int8 --seed s`` serves (both
 default to 0), while ``--seed`` keeps driving the eval noise.
 ``--truncation t`` draws the eval z from N(0, 1) truncated to [-t, t], the
 law ``serve --truncation t`` deploys (``jckx/evaluate.py:79-93``).
+
+``--mesh_shape N`` scores over a process group of N ranks, one per GPU
+(``torchrun --nproc_per_node N -m jckx_torch evaluate --mesh_shape N ...``;
+``jckx/evaluate.py:150-160``): each rank renders its rows of every G
+forward with the global BN statistics and gathers them, the feature
+extraction runs data-parallel (``metrics.Metrics``), and rank 0 prints.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ import torch
 from jckx_torch.checkpoint.checkpoint import GEOMETRY_FIELDS, load_generator
 from jckx_torch.configs import Config
 from jckx_torch.ops.quant import make_sampler
+from jckx_torch.parallel.mesh import process_mesh
 from jckx_torch.train.gan_trainer import fixed_eval_inputs, sample_eval_images
 from jckx_torch.utils.device import resolve_device
 
@@ -95,6 +102,9 @@ def get_args(argv=None):
     p.add_argument("--eval_fast_stem", type=int, default=0,
                    help="1 = the space-to-depth InceptionV3 stem: pass it to rescore a run "
                         "trained with --eval_fast_stem 1 (features differ at rounding level)")
+    p.add_argument("--mesh_shape", default=d.mesh_shape,
+                   help="N = score over N ranks of a process group, one per GPU (torchrun "
+                        "--nproc_per_node N); '' = one process")
     return p.parse_args(argv)
 
 
@@ -105,6 +115,7 @@ def evaluate(args, metrics=None) -> dict:
     if trunc < 0:  # checked before the (slow) load, as serve refuses it
         raise ValueError(f"truncation {trunc} must be >= 0 (0 = off)")
     device = resolve_device(args.device)
+    mesh = process_mesh(args.mesh_shape, device=device)
     use_ema = None if args.use_ema is None else bool(args.use_ema)
     geo_overrides = {k: getattr(args, k) for k in GEOMETRY_FIELDS if getattr(args, k) is not None}
     G, conditional, geo, ncls, step, _ = load_generator(
@@ -131,14 +142,15 @@ def evaluate(args, metrics=None) -> dict:
                              f"has {pre.num_classes}")
         metrics = Metrics(pre.metric_source, cfg, batch_size=args.eval_batch_size,
                           compute_dtype=cd, cache_dir=cfg.data_dir, num_classes=ncls,
-                          device=device)
+                          device=device, mesh=mesh)
 
     z, onehot = fixed_eval_inputs(cfg.seed, geo, conditional, ncls, n, device, truncation=trunc)
     params, apply = make_sampler(G, quant=args.quant or None, compute_dtype=cd,
                                  seed=args.calib_seed)
     # G's call signature over the sampler: (z, cd) for DCGAN, (z, one-hot, cd) for CGAN
-    fake = sample_eval_images(lambda zz, *rest: apply(params, zz, rest[0] if conditional else None),
-                              z, onehot, cd)
+    fake = sample_eval_images(
+        lambda zz, *rest, mesh=None: apply(params, zz, rest[0] if conditional else None, mesh),
+        z, onehot, cd, mesh)
     feats = metrics.extract_features(fake)
     result = {"step": step, "n": n,
               **({"quant": "int8"} if args.quant == "int8" else {}),
@@ -156,7 +168,8 @@ def evaluate(args, metrics=None) -> dict:
 
 def main(argv=None) -> dict:
     result = evaluate(get_args(argv))
-    print(json.dumps(result))
+    if not (torch.distributed.is_initialized() and torch.distributed.get_rank() > 0):
+        print(json.dumps(result))  # rank 0 prints
     return result
 
 

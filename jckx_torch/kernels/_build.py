@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from typing import Dict, Iterable, Optional
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -27,6 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# a local mesh's worker threads may make a kernel's first launch at once
+_load_lock = threading.Lock()
 
 
 def sources() -> list:
@@ -83,7 +86,9 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu``, building it first if needed."""
-    if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(build([name])[name])
-    return _loaded[name]
+    """The built library of ``csrc/<name>.cu``, building it first if needed
+    (one build at a time in this process)."""
+    with _load_lock:
+        if name not in _loaded:
+            _loaded[name] = ctypes.CDLL(build([name])[name])
+        return _loaded[name]

@@ -40,12 +40,24 @@ makes the same split by grad mode:
 
 This is a rule on grad mode, not a fallback on failure: a kernel that
 does not build or launch raises.
+
+Sync-BN over a mesh (``mesh``, ``parallel/mesh.py``): the statistics are
+the per-channel sum and sum of squares, one (2, C) f32 tensor, summed over
+the mesh's data axis before the division by the global row count. That is
+jckx's global batch statistics, which a sharded jit has by construction
+(``jckx/ops/norm.py:9-12``), and the GPU form of its ``custom_partitioning``
+rule (``:133-171``): each rank, or each device of a local mesh, then
+normalizes its own rows with the global ``inv`` / ``shift``, through the
+kernel on the card (one launch per member per layer). In the
+differentiated route the sum is taken inside autograd, so the penalty's
+input gradient carries every rank's terms. ``mesh=None`` is one device.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -55,6 +67,7 @@ from jckx_torch.kernels import _build
 # that the serving path and the trainer's eval sampling went through the
 # kernel, and the differentiated train steps did not.
 LAUNCHES = 0
+_LAUNCHES_LOCK = threading.Lock()  # a local mesh launches from one thread per device
 
 _ACTS = {"none": 0, "relu": 1, "leaky_relu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -76,16 +89,23 @@ def _unrows(y2d: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return y2d.reshape(n, h, w, c).permute(0, 3, 1, 2)
 
 
-def _stats(x2d: torch.Tensor):
-    """f32 batch mean and E[x²] − mean², as jckx's ``_stats`` (``:66-71``)."""
+def _stats(x2d: torch.Tensor, mesh=None):
+    """f32 batch mean and E[x²] − mean², as jckx's ``_stats`` (``:66-71``):
+    the per-channel sum and sum of squares as one (2, C) tensor, summed
+    over ``mesh``'s data axis when one is given, over the global row count."""
     xf = x2d.float()
-    mean = xf.mean(0)
-    var = (xf * xf).mean(0) - mean * mean
+    sums = torch.stack([xf.sum(0), (xf * xf).sum(0)])
+    n = x2d.shape[0]
+    if mesh is not None:
+        sums = mesh.all_reduce(sums)
+        n *= mesh.size
+    mean = sums[0] / n
+    var = sums[1] / n - mean * mean
     return mean, var
 
 
-def _affine(x2d, scale, bias, eps):
-    mean, var = _stats(x2d)
+def _affine(x2d, scale, bias, eps, mesh=None):
+    mean, var = _stats(x2d, mesh)
     inv = torch.rsqrt(var + eps) * scale.float()
     shift = bias.float() - mean * inv
     return inv, shift
@@ -107,14 +127,14 @@ def normalize_act_plain(x2d, inv, shift, act="none", negative_slope=0.2):
     return _activate(x2d.float() * inv + shift, act, negative_slope).to(x2d.dtype)
 
 
-def bn_act_plain(x, scale, bias, act="none", negative_slope=0.2, eps=1e-5):
+def bn_act_plain(x, scale, bias, act="none", negative_slope=0.2, eps=1e-5, mesh=None):
     """Batch-stat BN + activation in plain PyTorch (``_bn_act_xla``)."""
     x2d = _rows(x)
-    inv, shift = _affine(x2d, scale, bias, eps)
+    inv, shift = _affine(x2d, scale, bias, eps, mesh)
     return _unrows(normalize_act_plain(x2d, inv, shift, act, negative_slope), x)
 
 
-def bn_act_one_rounding(x, scale, bias, act="none", negative_slope=0.2, eps=1e-5):
+def bn_act_one_rounding(x, scale, bias, act="none", negative_slope=0.2, eps=1e-5, mesh=None):
     """``bn_act_plain`` with the kernel's rounding: the multiply-add in f64,
     rounded once to f32 as the kernel's ``fmaf`` rounds it (the product of
     a bf16 or f32 x and an f32 inv is exact in f64). A whole render through
@@ -122,7 +142,7 @@ def bn_act_one_rounding(x, scale, bias, act="none", negative_slope=0.2, eps=1e-5
     version drifts by one ulp here and there and batch statistics carry
     that through the later layers (chip_smoke.py, tests/test_torch_gpu.py)."""
     x2d = _rows(x)
-    inv, shift = _affine(x2d, scale, bias, eps)
+    inv, shift = _affine(x2d, scale, bias, eps, mesh)
     y = (x2d.double() * inv.double() + shift.double()).float()
     return _unrows(_activate(y, act, negative_slope).to(x2d.dtype), x)
 
@@ -163,7 +183,8 @@ def normalize_act(x2d, inv, shift, act="none", negative_slope=0.2):
                       torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"jckx_bn_act failed with CUDA error {rc}")
-    LAUNCHES += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES += 1
     return y
 
 
@@ -182,13 +203,13 @@ def _normalize_act_fake(x2d, inv, shift, act, negative_slope):
     return torch.empty_like(x2d)
 
 
-def bn_act(x, scale, bias, act="none", negative_slope=0.2, eps=1e-5):
+def bn_act(x, scale, bias, act="none", negative_slope=0.2, eps=1e-5, mesh=None):
     """Batch-stat BN fused with activation. See the module docstring."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)):
-        return bn_act_plain(x, scale, bias, act, negative_slope, eps)
+        return bn_act_plain(x, scale, bias, act, negative_slope, eps, mesh)
     if (x.device.type == "cuda" and x.dim() == 4
             and not x.is_contiguous(memory_format=torch.channels_last)):
         raise ValueError("bn_act on the card needs a channels_last NCHW tensor")
     x2d = _rows(x)
-    inv, shift = _affine(x2d, scale, bias, eps)
+    inv, shift = _affine(x2d, scale, bias, eps, mesh)
     return _unrows(normalize_act_op(x2d, inv, shift, act, negative_slope), x)

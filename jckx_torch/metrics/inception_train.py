@@ -37,7 +37,18 @@ Custom data, as jckx's (``:351-372``): ``--dataset npz`` or ``folder``
 ``--valid_data_path`` or a seeded 10 % holdout. A cached archive's
 read-only mapping is copied once on upload.
 
-Refused by name: ``--mesh_shape`` and ``--multihost`` (ROADMAP A13).
+Data parallel (``--mesh_shape N``, ``--multihost``; jckx ``:107-160``,
+``:187-257``, ``:338-445``): one process per GPU (``torchrun
+--nproc_per_node N -m jckx_torch finetune --mesh_shape N --multihost``); a
+run on a process group of more than one rank always trains over it. Every
+rank draws the global batch's crops and dropout masks from the same
+generator and keeps its rows; BN takes the global statistics through
+``bn_relu_train``'s all-reduces; the gradients are averaged over the ranks
+through one flat buffer before SGD; the loss and accuracy are the global
+ones. The eval split is held by every rank, each takes its rows of every
+batch and the logits are gathered in order. Rank 0 alone writes the
+``.npz`` files, ``train_state.npz``, ``summary.json`` and the log; every
+rank reads ``train_state.npz`` on ``--resume 1``.
 """
 
 from __future__ import annotations
@@ -59,13 +70,11 @@ from jckx_torch.data.pipeline import device_copy, resize_bilinear
 from jckx_torch.logging.main_logger import MainLogger, time_to_str
 from jckx_torch.metrics import inception_v3
 from jckx_torch.metrics.metrics import IMAGENET_MEAN, IMAGENET_STD
-from jckx_torch.utils.device import resolve_device
+from jckx_torch.parallel.mesh import parse_mesh_shape, process_mesh
+from jckx_torch.utils.device import multihost_barrier, resolve_device
 
 FEATURES = 2048  # the pooled width that dropout masks
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-# flag → (its value when off, the ROADMAP.md item that brings it)
-UNPORTED = {"mesh_shape": ("", "A13 (multi-GPU data parallel)"),
-            "multihost": (0, "A13 (multi-GPU data parallel)")}
 
 
 class StepDraws(NamedTuple):
@@ -79,6 +88,13 @@ def draw_step(generator: torch.Generator, n: int, device=None) -> StepDraws:
     """One step's draws for a batch of ``n`` from ``generator``."""
     return StepDraws(draw_crops(n, generator, device),
                      torch.rand(n, FEATURES, generator=generator, device=device) < 0.5)
+
+
+def shard_step_draws(draws: StepDraws, mesh) -> StepDraws:
+    """This rank's rows of a global batch's draws."""
+    if mesh is None:
+        return draws
+    return StepDraws(CropDraws(*(mesh.rows(t) for t in draws.crops)), mesh.rows(draws.keep))
 
 
 def make_optimizer(net: inception_v3.InceptionV3, lr: float, weight_decay: float = 5e-4,
@@ -101,22 +117,30 @@ def _normalizer(device):
 
 
 def make_train_step(net: inception_v3.InceptionV3, opt: torch.optim.Optimizer,
-                    compute_dtype=torch.bfloat16, image_size: int = 299) -> Callable:
+                    compute_dtype=torch.bfloat16, image_size: int = 299, mesh=None) -> Callable:
     """→ ``step(data_u8, labels, idx, draws) -> (loss, acc)``, device
     tensors; the step updates ``net`` and ``opt`` in place. ``image_size``
-    299 is the notebook's; smaller sides (≥ 75) keep CPU tests small."""
+    299 is the notebook's; smaller sides (≥ 75) keep CPU tests small. Over
+    ``mesh``, ``idx`` and ``draws`` are the global batch's: the step keeps
+    this rank's rows, averages the gradients over the ranks before SGD,
+    and returns the global loss and accuracy."""
     normalize = _normalizer(next(net.parameters()).device)
 
     def step(data_u8: torch.Tensor, labels_all: torch.Tensor, idx: torch.Tensor,
              draws: StepDraws):
+        if mesh is not None:
+            idx, draws = mesh.rows(idx), shard_step_draws(draws, mesh)
         labels = labels_all[idx].long()
         x01 = data_u8[idx].float() / 255.0
         x = normalize(random_resized_crop_flip(x01, image_size, draws.crops))
-        logits = net.forward_train(x.to(compute_dtype), draws.keep, compute_dtype)
+        logits = net.forward_train(x.to(compute_dtype), draws.keep, compute_dtype, mesh=mesh)
         loss = F.cross_entropy(logits, labels)
         acc = (logits.argmax(-1) == labels).float().mean()
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            mesh.average_grads(net.parameters())
+            loss, acc = mesh.mean(loss), mesh.mean(acc)
         opt.step()
         return loss.detach(), acc
 
@@ -136,27 +160,39 @@ def make_eval_fn(net: inception_v3.InceptionV3, compute_dtype=torch.bfloat16,
     return logits_fn
 
 
-def eval_device_set(images_u8: np.ndarray, batch_size: int = 256, device=None) -> torch.Tensor:
+def _eval_batch(n: int, batch_size: int, mesh=None) -> int:
+    """The eval batch for ``n`` images: at most ``batch_size``, rounded up
+    to a multiple of the mesh's data axis (jckx's ``_round_bs``)."""
+    size = mesh.size if mesh is not None else 1
+    return -(-min(batch_size, n) // size) * size
+
+
+def eval_device_set(images_u8: np.ndarray, batch_size: int = 256, device=None,
+                    mesh=None) -> torch.Tensor:
     """The eval split padded to a batch multiple (the last image
     repeated), uploaded once."""
     n = images_u8.shape[0]
-    bs = min(batch_size, n)
+    bs = _eval_batch(n, batch_size, mesh)
     pad = (bs - n % bs) % bs
     imgs = np.concatenate([images_u8, images_u8[-1:].repeat(pad, axis=0)]) if pad else images_u8
     return device_copy(imgs, device)
 
 
 def evaluate(logits_fn: Callable, device_images: torch.Tensor, labels: np.ndarray,
-             batch_size: int = 256) -> dict:
+             batch_size: int = 256, mesh=None) -> dict:
     """top-1 / top-5 / superclass accuracy and mean cross-entropy (the
     notebook's get_eval) of ``eval_device_set``'s upload of the split
     whose labels are ``labels``, computed in numpy as jckx's
-    (``:186-229``)."""
+    (``:186-229``). Over ``mesh`` each rank takes its rows of every batch
+    and the logits are gathered in order."""
     n = len(labels)
-    bs = min(batch_size, n)
+    bs = _eval_batch(n, batch_size, mesh)
     with torch.inference_mode():
-        logits = torch.cat([logits_fn(device_images[i:i + bs])
-                            for i in range(0, device_images.shape[0], bs)])
+        batches = [device_images[i:i + bs] for i in range(0, device_images.shape[0], bs)]
+        if mesh is None:
+            logits = torch.cat([logits_fn(b) for b in batches])
+        else:
+            logits = torch.cat([mesh.all_gather_rows(logits_fn(mesh.rows(b))) for b in batches])
     logits = logits.float().cpu().numpy()[:n]
     top1 = (logits.argmax(-1) == labels).mean()
     k = min(5, logits.shape[1])
@@ -271,21 +307,29 @@ def _load_splits(args, logger):
 
 
 def train(args) -> FinetuneRun:
+    device = resolve_device(args.device)
+    mesh = process_mesh(args.mesh_shape, multihost=bool(args.multihost), device=device)
+    bs = args.batch_size
+    if mesh is not None and bs % mesh.size:
+        raise ValueError(f"batch_size {bs} not divisible by data axis ({mesh.size})")
+    lead = mesh is None or mesh.lead
+    if not lead:
+        args.log_file = 0  # rank 0 alone writes the log and the files
     if args.log_file == 1 and not args.save_path:
         args.save_path = args.save_dir
     logger = MainLogger(args)
-    device = resolve_device(args.device)
+    if mesh is not None:
+        logger.debug(f"fine-tune mesh: {mesh.shape} (data-parallel, sync-BN), rank {mesh.rank}")
     cd = _DTYPES[args.compute_dtype]
     x, y, xt, yt, ncls, synthetic = _load_splits(args, logger)
 
     net = inception_v3.init(args.seed, num_classes=ncls).to(device)
     opt = make_optimizer(net, args.max_learning_rate, args.weight_decay,
                          nesterov=bool(args.nesterov))
-    step = make_train_step(net, opt, cd, args.image_size)
+    step = make_train_step(net, opt, cd, args.image_size, mesh)
     logits_fn = make_eval_fn(net, cd, args.image_size)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     rng = np.random.RandomState(args.seed)
-    bs = args.batch_size
     steps_per_epoch = len(y) // bs
     if args.max_steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, args.max_steps_per_epoch)
@@ -293,16 +337,20 @@ def train(args) -> FinetuneRun:
     data_dev = device_copy(x, device)
     labels_dev = torch.from_numpy(y.astype(np.int64)).to(device)
     yt_eval = yt[: args.eval_samples]
-    xt_dev = eval_device_set(xt[: args.eval_samples], device=device)  # one upload for all epochs
+    # one upload for all epochs
+    xt_dev = eval_device_set(xt[: args.eval_samples], device=device, mesh=mesh)
     y_eval = x_dev = None
     if args.eval_train:
         y_eval = y[: args.eval_samples]
-        x_dev = eval_device_set(x[: args.eval_samples], device=device)
+        x_dev = eval_device_set(x[: args.eval_samples], device=device, mesh=mesh)
 
     best_acc, best_loss, patience = 0.0, 1e10, 0
     epoch, start_epoch = -1, 0  # sidecar-safe when the epoch budget is 0
     state_path = os.path.join(args.save_dir, "train_state.npz")
-    if args.resume and os.path.exists(state_path):
+    resume = bool(args.resume) and os.path.exists(state_path)
+    if mesh is not None:
+        resume = mesh.agree(resume, f"--resume: {state_path} exists")
+    if resume:
         epoch, best_acc, best_loss, patience = load_train_state(state_path, net, opt, gen)
         start_epoch = epoch + 1
         for _ in range(start_epoch):  # fast-forward the shuffle stream
@@ -337,10 +385,10 @@ def train(args) -> FinetuneRun:
             raise FloatingPointError(f"training diverged: loss={tr_loss} at epoch {epoch}")
 
         t0 = time.perf_counter()
-        ev = evaluate(logits_fn, xt_dev, yt_eval)
+        ev = evaluate(logits_fn, xt_dev, yt_eval, mesh=mesh)
         tr_ev = {}
         if x_dev is not None:
-            t = evaluate(logits_fn, x_dev, y_eval)
+            t = evaluate(logits_fn, x_dev, y_eval, mesh=mesh)
             tr_ev = {f"train_eval_{k}": v for k, v in t.items()}
             logger.debug(f"Epoch: {epoch}  train-eval top1 {t['top1']:.4f} top5 {t['top5']:.4f} "
                          f"super {t['superclass']:.4f} loss {t['loss']:.4f}")
@@ -360,10 +408,11 @@ def train(args) -> FinetuneRun:
             best_loss, improved = ev["loss"], True
             written.append("loss_bset.npz")
         written.append("last_bset.npz")
-        for name in written:
-            save_npz(os.path.join(args.save_dir, name), net)
         patience = 0 if improved else patience + 1
-        save_train_state(state_path, net, opt, gen, epoch, best_acc, best_loss, patience)
+        if lead:
+            for name in written:
+                save_npz(os.path.join(args.save_dir, name), net)
+            save_train_state(state_path, net, opt, gen, epoch, best_acc, best_loss, patience)
         run.epochs.append({"epoch": epoch, "steps": len(losses), "train_loss": tr_loss,
                            "train_acc": tr_acc, **tr_ev, **ev, "train_s": train_s,
                            "eval_s": eval_s, "write_s": time.perf_counter() - t0,
@@ -372,12 +421,14 @@ def train(args) -> FinetuneRun:
             logger.debug(f"early stopping at epoch {epoch} (patience {args.early_stop})")
             break
 
-    os.makedirs(args.save_dir, exist_ok=True)
-    with open(os.path.join(args.save_dir, "summary.json"), "w") as f:
-        json.dump({"dataset": args.dataset, "synthetic_fallback": bool(synthetic),
-                   "epochs_run": epoch + 1, "epoch_budget": args.epoch, "batch_size": bs,
-                   "best_top1": best_acc, "best_loss": best_loss,
-                   "wall_s": round(time.time() - start, 1)}, f, indent=2)
+    if lead:
+        os.makedirs(args.save_dir, exist_ok=True)
+        with open(os.path.join(args.save_dir, "summary.json"), "w") as f:
+            json.dump({"dataset": args.dataset, "synthetic_fallback": bool(synthetic),
+                       "epochs_run": epoch + 1, "epoch_budget": args.epoch, "batch_size": bs,
+                       "best_top1": best_acc, "best_loss": best_loss,
+                       "wall_s": round(time.time() - start, 1)}, f, indent=2)
+    multihost_barrier("fine-tune done", logger)
     logger.debug(f"fine-tune finish\ttime: {time_to_str(time.time() - start)}  "
                  f"best top1 {best_acc:.4f} best loss {best_loss:.4f}")
     run.best_acc, run.best_loss = best_acc, best_loss
@@ -409,8 +460,11 @@ def get_args(argv=None):
     p.add_argument("--eval_samples", type=int, default=10000)
     p.add_argument("--eval_train", type=int, default=0,
                    help="1 = also run the eval pass on the train split each epoch")
-    p.add_argument("--mesh_shape", type=str, default="", help="not ported yet (refused)")
-    p.add_argument("--multihost", type=int, default=0, help="not ported yet (refused)")
+    p.add_argument("--mesh_shape", type=str, default="",
+                   help="N = train on N ranks of a process group, one per GPU (torchrun "
+                        "--nproc_per_node N); '' = one process (or the whole group under one)")
+    p.add_argument("--multihost", type=int, default=0,
+                   help="1 = bring the process group up from torch's env:// variables")
     p.add_argument("--image_size", type=int, default=299,
                    help="network input side (299 = notebook parity; >= 75)")
     p.add_argument("--max_steps_per_epoch", type=int, default=0,
@@ -424,10 +478,10 @@ def get_args(argv=None):
     p.add_argument("--compute_dtype", default="bfloat16", choices=sorted(_DTYPES))
     p.add_argument("--device", default=None, help="default cuda; 'cpu' runs the plain path")
     args = p.parse_args(argv)
-    bad = [f"--{k} {getattr(args, k)!r}: not ported yet (ROADMAP.md {item})"
-           for k, (off, item) in UNPORTED.items() if getattr(args, k) != off]
-    if bad:
-        raise SystemExit("jckx_torch finetune: " + "; ".join(bad))
+    shape = parse_mesh_shape(args.mesh_shape)
+    if shape is not None and len(shape) != 1:
+        raise SystemExit(f"jckx_torch finetune: --mesh_shape is 1-D (the batch shards over one "
+                         f"'data' axis); got {args.mesh_shape!r}")
     return args
 
 

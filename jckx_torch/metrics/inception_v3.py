@@ -75,15 +75,18 @@ class BasicConv2d(nn.Module):
         self.bn = _BN(cout)
         self.stride, self.padding = stride, padding
         # set by InceptionV3.forward_train for the length of one call:
-        # batch-statistic BN, and this momentum for the running statistics
+        # batch-statistic BN (over bn_mesh's data axis when one is set), and
+        # this momentum for the running statistics
         self.bn_momentum: Optional[float] = None
+        self.bn_mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv2d(x, self.conv.weight.to(x.dtype), stride=self.stride, padding=self.padding)
         if self.bn_momentum is None:
             return self.bn_relu(y, x.dtype)
-        out, mean, var = bn_relu_train(y, self.bn.weight, self.bn.bias, BN_EPS)
-        n = y.numel() // y.shape[1]
+        mesh = self.bn_mesh
+        out, mean, var = bn_relu_train(y, self.bn.weight, self.bn.bias, BN_EPS, mesh)
+        n = y.numel() // y.shape[1] * (mesh.size if mesh is not None else 1)
         m, bn = self.bn_momentum, self.bn
         with torch.no_grad():
             bn.running_mean.mul_(1 - m).add_(m * mean)
@@ -269,19 +272,22 @@ class InceptionV3(nn.Module):
         return self._head(self._pooled(x, compute_dtype, fast_stem))
 
     def forward_train(self, x: torch.Tensor, dropout_keep: Optional[torch.Tensor] = None,
-                      compute_dtype=torch.float32, momentum: float = 0.1) -> torch.Tensor:
+                      compute_dtype=torch.float32, momentum: float = 0.1,
+                      mesh=None) -> torch.Tensor:
         """The train-mode forward (``apply_train``): batch-statistic BN with
         the running statistics updated in place (no gradient), then dropout
         ``where(keep, x / 0.5, 0)`` on the pooled f32 features when
-        ``dropout_keep`` (N, 2048) bool is given. → logits (N, K) f32."""
+        ``dropout_keep`` (N, 2048) bool is given. → logits (N, K) f32.
+        ``mesh``: x is this rank's rows, and every BN takes (and keeps as
+        running statistics) the statistics of the global batch."""
         convs = [m for m in self.modules() if isinstance(m, BasicConv2d)]
         for m in convs:
-            m.bn_momentum = momentum
+            m.bn_momentum, m.bn_mesh = momentum, mesh
         try:
             x = self._pooled(x, compute_dtype, fast_stem=False)
         finally:
             for m in convs:
-                m.bn_momentum = None
+                m.bn_momentum = m.bn_mesh = None
         if dropout_keep is not None:
             x = torch.where(dropout_keep, x / 0.5, 0.0)
         return self._head(x)

@@ -31,6 +31,14 @@ cache, ``extract_features``, ``inception_score``, ``fid``, ``intra_fid``).
   backbone's first convolution in its space-to-depth form; its real
   features are cached under their own key (jckx's ``-s2d`` tag), since
   the two stems agree only to rounding.
+- ``mesh`` (a process mesh; jckx ``:59-120``): the extraction runs
+  data-parallel. The batch is rounded up to a multiple of the data axis
+  (jckx's ``_round_bs``), each rank takes its rows of every batch (a host
+  set uploads only those) and the features are gathered in order, so
+  every rank holds all of them and computes the same metrics. The forward
+  is per-sample (running-statistic BN), so the split changes nothing but
+  rounding. The ranks agree on whether the real-feature cache exists, and
+  rank 0 alone writes it.
 """
 
 from __future__ import annotations
@@ -70,8 +78,10 @@ def _content_sig(sd: dict) -> str:
 class Metrics:
     def __init__(self, metric_source, config=None, backbone: Optional[inception_v3.InceptionV3] = None,
                  batch_size: int = 256, compute_dtype=torch.bfloat16, cache_dir: str = "./data",
-                 num_classes: int = 100, device=None, fast_stem: Optional[bool] = None):
+                 num_classes: int = 100, device=None, fast_stem: Optional[bool] = None,
+                 mesh=None):
         self._logger = MainLogger(config)
+        self.mesh = mesh
         self.device = resolve_device(device if device is not None else getattr(config, "device", None))
         self.batch_size = batch_size
         self.compute_dtype = compute_dtype
@@ -104,19 +114,23 @@ class Metrics:
         self._real_super_stats = None
         self._real_knn_radii = {}
 
-        os.makedirs(cache_dir, exist_ok=True)
         tag = self._fingerprint(real_u8, real_labels) + ("-s2d" if self.fast_stem else "")
         cache = os.path.join(cache_dir, f"metric_data_jckx_torch_{tag}.npz")
-        if os.path.exists(cache):
+        have = os.path.exists(cache)
+        if mesh is not None:
+            have = not mesh.any(not have)  # extract together unless every rank has it
+        if have:
             with np.load(cache) as z:
                 self.real_features = z["features"]
             self._logger.debug(f"loaded cached real features {self.real_features.shape}")
         else:
             self._logger.debug(f"extracting real features for {len(real_labels)} images")
             self.real_features = self._extract_u8(real_u8)
-            tmp = f"{cache}.tmp.{os.getpid()}.npz"
-            np.savez_compressed(tmp, features=self.real_features)
-            os.replace(tmp, cache)
+            if mesh is None or mesh.lead:
+                os.makedirs(cache_dir, exist_ok=True)
+                tmp = f"{cache}.tmp.{os.getpid()}.npz"
+                np.savez_compressed(tmp, features=self.real_features)
+                os.replace(tmp, cache)
         self._real_mu_sigma = None
 
     # ------------------------------------------------------------ backbone
@@ -181,55 +195,56 @@ class Metrics:
     _SLAB_BYTES = 256 * 1024 * 1024
 
     def _batched(self, images, to01) -> np.ndarray:
-        """Features of every row of ``images`` in batches of ``batch_size``;
-        a short last batch is padded with copies of the last row (the
-        forward is per-sample). A device tensor is sliced in place. A host
-        array goes up in slabs of whole batches, at most ``_SLAB_BYTES``
-        each, through ``PinnedSlabs`` (jckx's ``_batched``, ``:380-437``):
-        slab s+1 is gathered and its copy enqueued while the card runs slab
-        s's forwards. Both give the same batches, so the same features."""
+        """Features of every row of ``images`` in batches of ``batch_size``
+        (over a mesh: rounded up to a multiple of its data axis, each rank
+        taking its rows of every batch); a short last batch is padded with
+        copies of the last row (the forward is per-sample). A device tensor
+        is indexed in place. A host array goes up in slabs of whole
+        batches, at most ``_SLAB_BYTES`` each, through ``PinnedSlabs``
+        (jckx's ``_batched``, ``:380-437``): slab s+1 is gathered and its
+        copy enqueued while the card runs slab s's forwards. Both give the
+        same batches, so the same features."""
         n = images.shape[0]
         if n == 0:
             return np.zeros((0, self.num_classes), np.float32)
-        bs = min(self.batch_size, n)
-        nb = -(-n // bs)
+        size, rank = (1, 0) if self.mesh is None else (self.mesh.size, self.mesh.rank)
+        bs = -(-min(self.batch_size, n) // size) * size
+        nb, lb = -(-n // bs), bs // size
+        # this rank's rows of every batch, the last batch padded with the last row
+        rows = np.minimum(np.arange(nb * bs).reshape(nb, bs)[:, rank * lb:(rank + 1) * lb], n - 1)
         with torch.inference_mode():
             if isinstance(images, torch.Tensor):
-                batches = (self._padded(images[i:i + bs].to(self.device), bs)
-                           for i in range(0, n, bs))
-                outs = [self._features01(to01(b)) for b in batches]
+                idx = torch.from_numpy(rows).to(images.device)
+                outs = [self._features01(to01(images.index_select(0, i).to(self.device)))
+                        for i in idx]
             else:
-                outs = self._slab_features(np.asarray(images), bs, nb, to01)
-            return torch.cat(outs)[:n].cpu().numpy()
+                outs = self._slab_features(np.asarray(images), rows, to01)
+            feats = torch.cat(outs)  # (nb·lb, K): this rank's rows, batch-major
+            if self.mesh is not None:
+                feats = self.mesh.all_gather_rows(feats).reshape(size, nb, lb, -1)
+                feats = feats.transpose(0, 1).reshape(nb * bs, -1)
+            return feats[:n].cpu().numpy()
 
-    @staticmethod
-    def _padded(chunk: torch.Tensor, bs: int) -> torch.Tensor:
-        if chunk.shape[0] == bs:
-            return chunk
-        return torch.cat([chunk, chunk[-1:].expand(bs - chunk.shape[0], *chunk.shape[1:])])
-
-    def _slab_features(self, images: np.ndarray, bs: int, nb: int, to01) -> list:
+    def _slab_features(self, images: np.ndarray, rows: np.ndarray, to01) -> list:
+        """Features of ``images[rows[b]]`` for every batch b, uploaded in slabs."""
         from jckx_torch.data.pipeline import PinnedSlabs
 
-        n = images.shape[0]
-        per_slab = min(nb, max(1, self._SLAB_BYTES // (images[:1].nbytes * bs)))  # batches
+        nb, lb = rows.shape
+        per_slab = min(nb, max(1, self._SLAB_BYTES // (images[:1].nbytes * lb)))  # batches
         dtype = torch.from_numpy(np.empty(0, images.dtype)).dtype
-        slabs = PinnedSlabs(self.device, [(images.shape[1:], dtype)], per_slab * bs)
+        slabs = PinnedSlabs(self.device, [(images.shape[1:], dtype)], per_slab * lb)
 
         def upload(first: int):
-            rows = min(per_slab, nb - first) * bs
-            lo = first * bs
-            hi = min(n, lo + rows)
-            (host,) = slabs.fill(rows)
-            host[:hi - lo] = images[lo:hi]
-            host[hi - lo:] = images[-1]  # the last batch's padding
-            return slabs.upload(rows)
+            take = rows[first:first + per_slab].ravel()
+            (host,) = slabs.fill(take.size)
+            np.take(images, take, axis=0, out=host, mode="clip")
+            return slabs.upload(take.size)
 
         outs = []
         nxt = upload(0)
         for first in range(0, nb, per_slab):
             (dev,) = slabs.use(nxt)
-            outs += [self._features01(to01(dev[i:i + bs])) for i in range(0, dev.shape[0], bs)]
+            outs += [self._features01(to01(dev[i:i + lb])) for i in range(0, dev.shape[0], lb)]
             del dev
             if first + per_slab < nb:
                 nxt = upload(first + per_slab)

@@ -76,12 +76,13 @@ class CGenerator(Generator):
         self.num_classes = num_classes
 
     def forward(self, z: torch.Tensor, labels_onehot: torch.Tensor,
-                compute_dtype=torch.float32, subpixel: bool = False) -> torch.Tensor:
+                compute_dtype=torch.float32, subpixel: bool = False, mesh=None) -> torch.Tensor:
         """z (N, z_dim) or (N, 1, 1, z_dim), one-hot labels (N, K) → images
-        (N, S, S, C) in [-1, 1] — counterpart of ``cgenerator_apply``."""
+        (N, S, S, C) in [-1, 1] — counterpart of ``cgenerator_apply``;
+        ``mesh`` as in ``Generator.forward``."""
         z = z.reshape(z.shape[0], -1)
         return super().forward(torch.cat([z, labels_onehot.to(z.dtype)], dim=-1), compute_dtype,
-                               subpixel)
+                               subpixel, mesh)
 
 
 class CDiscriminator(nn.Module):
@@ -105,15 +106,16 @@ class CDiscriminator(nn.Module):
             weights_init(self, gen)
 
     def forward(self, x: torch.Tensor, labels_onehot: torch.Tensor, compute_dtype=torch.float32,
-                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+                keep: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
         """images (N, S, S, C), one-hot labels (N, K), the dropout keep-mask
         (N, 256) or None → per-sample logits (N,) in f32 — counterpart of
-        ``cdiscriminator_apply``."""
+        ``cdiscriminator_apply``; ``mesh`` as in ``Generator.forward``."""
         x = x.permute(0, 3, 1, 2).to(compute_dtype)
         for i in range(self.geo.n_up):
             x = conv2d(x, getattr(self, f"conv{i + 1}").weight.to(compute_dtype), stride=2, padding=1)
             norm = getattr(self, f"norm{i + 1}")
-            x = bn_act(x, norm.weight, norm.bias, act="leaky_relu", negative_slope=0.2)
+            x = bn_act(x, norm.weight, norm.bias, act="leaky_relu", negative_slope=0.2,
+                       mesh=mesh)
         feat = x.reshape(x.shape[0], -1).float()  # NCHW-logical: (C, H, W) rows
         lab = self.label_embedding(labels_onehot.float())
         lab = torch.where(lab >= 0, lab, 0.2 * lab)

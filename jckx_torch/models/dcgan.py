@@ -111,12 +111,14 @@ class Generator(nn.Module):
             weights_init(self, gen)
 
     def forward(self, z: torch.Tensor, compute_dtype=torch.float32,
-                subpixel: bool = False) -> torch.Tensor:
+                subpixel: bool = False, mesh=None) -> torch.Tensor:
         """z: (N, in_dim) or (N, 1, 1, in_dim) → images (N, S, S, C) in [-1, 1],
         in ``compute_dtype`` — counterpart of ``generator_apply``, with its
         casts: z and the weights in the compute dtype, BN output in x's
         dtype, tanh in f32 cast back to the compute dtype. ``subpixel``:
-        the stride-2 layers in the sub-pixel form (``ops/conv.py``)."""
+        the stride-2 layers in the sub-pixel form (``ops/conv.py``).
+        ``mesh``: z is this member's rows of a batch sharded on its data
+        axis, and BN takes the global statistics (``parallel/mesh.py``)."""
         n_up = self.geo.n_up
         x = z.reshape(z.shape[0], -1, 1, 1).to(compute_dtype)
         for i in range(n_up):
@@ -124,7 +126,7 @@ class Generator(nn.Module):
             stride, pad = (1, 0) if i == 0 else (2, 1)
             x = conv_transpose2d(x, w, stride=stride, padding=pad, subpixel=subpixel)
             norm = getattr(self, f"norm{i + 1}")
-            x = bn_act(x, norm.weight, norm.bias, act="relu")
+            x = bn_act(x, norm.weight, norm.bias, act="relu", mesh=mesh)
         w = getattr(self, f"conv{n_up + 1}").weight.to(compute_dtype)
         x = conv_transpose2d(x, w, stride=2, padding=1, subpixel=subpixel)
         return torch.tanh(x.float()).to(compute_dtype).permute(0, 2, 3, 1)
@@ -146,15 +148,16 @@ class Discriminator(nn.Module):
         if gen is not None:
             weights_init(self, gen)
 
-    def forward(self, x: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, compute_dtype=torch.float32, mesh=None) -> torch.Tensor:
         """images (N, S, S, C) → per-sample logits (N,) in f32 — counterpart
-        of ``discriminator_apply``."""
+        of ``discriminator_apply``; ``mesh`` as in ``Generator.forward``."""
         n_up = self.geo.n_up
         x = x.permute(0, 3, 1, 2).to(compute_dtype)
         for i in range(n_up):
             w = getattr(self, f"conv{i + 1}").weight.to(compute_dtype)
             x = conv2d(x, w, stride=2, padding=1)
             norm = getattr(self, f"norm{i + 1}")
-            x = bn_act(x, norm.weight, norm.bias, act="leaky_relu", negative_slope=0.2)
+            x = bn_act(x, norm.weight, norm.bias, act="leaky_relu", negative_slope=0.2,
+                       mesh=mesh)
         x = conv2d(x, getattr(self, f"conv{n_up + 1}").weight.to(compute_dtype))
         return x.reshape(x.shape[0]).float()

@@ -24,6 +24,14 @@ x (nothing of size x is saved but x itself), ``dbeta = Σ dz`` and
 and ``dx = a · (dz − dbeta / n − (x − mean) · inv · dgamma / n)``. Plain
 torch ops: jckx's VJP is plain jnp, not a Pallas kernel.
 
+Over a mesh (``mesh``, ``parallel/mesh.py``; jckx's sync-BN under a
+sharded jit) the forward's sum and sum of squares are summed over the data
+axis before the division by the global row count; the backward's two
+reductions, ``Σ dz`` and ``Σ dz · x``, are summed over it as one (2, C)
+tensor before ``dx``, while ``dgamma`` and ``dbeta`` stay this rank's own
+sums: the train step's gradient average adds the ranks' shares, and would
+leave them R times too large from the global sums.
+
 ``bn_relu_train_plain`` is the same function as one autograd-differentiated
 composition: the reference the card holds the kernel route and the
 hand-written backward against (``chip_smoke.py``, ``tests/test_torch_gpu.py``).
@@ -47,12 +55,17 @@ def _per_channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return v[:, None, None] if x.dim() == 4 else v
 
 
-def _moments_affine(xf, scale, bias, eps):
-    """x in f32 → (mean, biased var, inv, a, sh), f32, per channel."""
+def _moments_affine(xf, scale, bias, eps, mesh=None):
+    """x in f32 → (mean, biased var, inv, a, sh), f32, per channel; the
+    sums over ``mesh``'s data axis when one is given."""
     axes = _axes(xf)
     n = xf.numel() // xf.shape[1 if xf.dim() == 4 else -1]
-    mean = xf.sum(axes) / n
-    var = (xf * xf).sum(axes) / n - mean * mean
+    sums = torch.stack([xf.sum(axes), (xf * xf).sum(axes)])
+    if mesh is not None:
+        sums = mesh.all_reduce(sums)
+        n *= mesh.size
+    mean = sums[0] / n
+    var = sums[1] / n - mean * mean
     inv = torch.rsqrt(var + eps)
     a = scale.float() * inv
     return mean, var, inv, a, bias.float() - mean * a
@@ -60,13 +73,14 @@ def _moments_affine(xf, scale, bias, eps):
 
 class _BNReLUTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, scale, bias, eps):
+    def forward(ctx, x, scale, bias, eps, mesh):
         if (x.device.type == "cuda" and x.dim() == 4
                 and not x.is_contiguous(memory_format=torch.channels_last)):
             raise ValueError("bn_relu_train on the card needs a channels_last NCHW tensor")
-        mean, var, inv, a, sh = _moments_affine(x.float(), scale, bias, eps)
+        mean, var, inv, a, sh = _moments_affine(x.float(), scale, bias, eps, mesh)
         out = _unrows(normalize_act_op(_rows(x), a.contiguous(), sh.contiguous(), "relu", 0.0), x)
         ctx.save_for_backward(x, a, sh, inv, mean)
+        ctx.mesh = mesh
         ctx.mark_non_differentiable(mean, var)
         return out, mean, var
 
@@ -78,26 +92,36 @@ class _BNReLUTrain(torch.autograd.Function):
         xf = x.float()
         pos = xf * _per_channel(a, x) + _per_channel(sh, x) > 0.0
         dz = torch.where(pos, dout.float(), 0.0)
-        dbeta = dz.sum(axes)
-        dgamma = inv * ((dz * xf).sum(axes) - mean * dbeta)
-        dx = _per_channel(a, x) * (dz - _per_channel(dbeta / n, x)
-                                   - (xf - _per_channel(mean, x)) * _per_channel(inv * dgamma / n, x))
-        return dx.to(x.dtype), dgamma, dbeta, None
+        sums = torch.stack([dz.sum(axes), (dz * xf).sum(axes)])  # this rank's Σdz, Σdz·x
+        dbeta = sums[0]
+        dgamma = inv * (sums[1] - mean * dbeta)
+        if ctx.mesh is not None:
+            # dx needs the global sums; dgamma / dbeta stay this rank's
+            # share, which the gradient average over the ranks adds up
+            sums = ctx.mesh.all_reduce(sums)
+            n *= ctx.mesh.size
+        dbeta_all = sums[0]
+        dgamma_all = inv * (sums[1] - mean * dbeta_all)
+        dx = _per_channel(a, x) * (dz - _per_channel(dbeta_all / n, x)
+                                   - (xf - _per_channel(mean, x))
+                                   * _per_channel(inv * dgamma_all / n, x))
+        return dx.to(x.dtype), dgamma, dbeta, None, None
 
 
-def bn_relu_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-3):
-    """relu(batch-norm(x)) with batch statistics. → (out, mean, biased_var);
-    see the module docstring."""
-    return _BNReLUTrain.apply(x, scale, bias, eps)
+def bn_relu_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-3,
+                  mesh=None):
+    """relu(batch-norm(x)) with batch statistics (over ``mesh``'s data axis
+    when one is given). → (out, mean, biased_var); see the module docstring."""
+    return _BNReLUTrain.apply(x, scale, bias, eps, mesh)
 
 
 def bn_relu_train_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                        eps: float = 1e-3, one_rounding: bool = False):
+                        eps: float = 1e-3, one_rounding: bool = False, mesh=None):
     """``bn_relu_train`` as plain torch ops that autograd differentiates
     (through the statistics); ``one_rounding`` takes the multiply-add in
     f64, rounded once to f32. → (out, mean, biased_var)."""
     xf = x.float()  # one cast: autograd then sums x's gradient in f32 before rounding it
-    mean, var, _, a, sh = _moments_affine(xf, scale, bias, eps)
+    mean, var, _, a, sh = _moments_affine(xf, scale, bias, eps, mesh)
     a, sh = _per_channel(a, x), _per_channel(sh, x)
     z = (x.double() * a.double() + sh.double()).float() if one_rounding else xf * a + sh
     return torch.relu(z).to(x.dtype), mean.detach(), var.detach()

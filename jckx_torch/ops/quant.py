@@ -236,16 +236,18 @@ def _dequantize(y: torch.Tensor, act_scale: torch.Tensor, wscale: torch.Tensor) 
     return x.contiguous(memory_format=torch.channels_last)
 
 
-def quantized_generator_apply(qp: QuantParams, z: torch.Tensor, geo: GANGeometry) -> torch.Tensor:
+def quantized_generator_apply(qp: QuantParams, z: torch.Tensor, geo: GANGeometry,
+                              mesh=None) -> torch.Tensor:
     """Int8 serving forward: z (N, in_dim) → images (N, S, S, C) in [-1, 1],
-    f32 (tanh), ready for ``serve.tanh_to_u8``."""
+    f32 (tanh), ready for ``serve.tanh_to_u8``; over ``mesh`` z is this
+    member's rows and BN takes the global statistics."""
     x = z.reshape(z.shape[0], -1, 1, 1).float()
     for i in range(geo.n_up):
         a = qp[f"a{i}_scale"]
         stride, pad = (1, 0) if i == 0 else (2, 1)
         y = conv_transpose2d_int8(quantize_act(x, a), qp[f"convt{i}_q"], stride, pad)
         x = bn_act(_dequantize(y, a, qp[f"convt{i}_wscale"]), qp[f"bn{i}_scale"],
-                   qp[f"bn{i}_bias"], act="relu")
+                   qp[f"bn{i}_bias"], act="relu", mesh=mesh)
     a = qp[f"a{geo.n_up}_scale"]
     y = conv_transpose2d_int8(quantize_act(x, a), qp["convt_out_q"], 2, 1)
     return torch.tanh(_dequantize(y, a, qp["convt_out_wscale"])).permute(0, 2, 3, 1)
@@ -256,8 +258,9 @@ def quantized_generator_apply(qp: QuantParams, z: torch.Tensor, geo: GANGeometry
 
 def make_sampler(G, *, quant: Optional[str] = None, compute_dtype=torch.bfloat16, seed: int = 0,
                  subpixel: bool = False, probes: Optional[Sequence[torch.Tensor]] = None):
-    """→ ``(params, apply)``; ``apply(params, z, onehot_or_None)`` renders
-    tanh images (N, S, S, C). ``G`` is a loaded ``Generator`` or
+    """→ ``(params, apply)``; ``apply(params, z, onehot_or_None, mesh=None)``
+    renders tanh images (N, S, S, C) (over ``mesh``: this member's rows of a
+    sharded batch, with global BN statistics). ``G`` is a loaded ``Generator`` or
     ``CGenerator`` on its device.
 
     ``quant`` None: the float forward of ``G`` itself in ``compute_dtype``
@@ -271,20 +274,20 @@ def make_sampler(G, *, quant: Optional[str] = None, compute_dtype=torch.bfloat16
         raise ValueError(f"quant={quant!r}: supported modes are None (float) and 'int8'")
     geo = G.geo
     if quant is None:
-        def apply(p, z, onehot=None):
+        def apply(p, z, onehot=None, mesh=None):
             if onehot is not None:
-                return p(z, onehot, compute_dtype, subpixel)
-            return p(z, compute_dtype, subpixel)
+                return p(z, onehot, compute_dtype, subpixel, mesh)
+            return p(z, compute_dtype, subpixel, mesh)
 
         return G, apply
     if probes is None:
         probes = calibration_probes(seed, geo, G.conv1.weight.shape[0])
     params = quantize_generator(G, calibrate_generator(G, probes, compute_dtype))
 
-    def apply(p, z, onehot=None):
+    def apply(p, z, onehot=None, mesh=None):
         z = z.reshape(z.shape[0], -1).float()
         if onehot is not None:
             z = torch.cat([z, onehot.to(z.dtype)], dim=-1)
-        return quantized_generator_apply(p, z, geo)
+        return quantized_generator_apply(p, z, geo, mesh)
 
     return params, apply

@@ -35,13 +35,27 @@ batch, dtype and sampler were fixed at export, so the flags that would
 change them are refused, and the daemon answers ``/interpolate`` with a
 400. ``--watch`` reloads a replaced artifact like a checkpoint.
 
-Refused by name: ``--mesh_shape`` (ROADMAP A13), and jckx's StableHLO
-``.jaxexp`` artifacts, which need JAX (``python -m jckx.serve``).
+``--mesh_shape N`` (``GeneratorService(mesh=...)``; ``jckx/serve.py:125``,
+``:328-356``, ``:834-846``) serves from one process over a local mesh of N
+devices, ``cuda:0`` … ``cuda:N-1``: G is replicated on each device, and
+each renders its batch/N rows of every request batch, one worker thread
+per device, with the BN statistics summed over the devices in device order
+before each device's kernel normalizes its own rows (4 launches per
+device per batch). z is drawn on the first device, as unsharded, so a
+sharded render equals the unsharded one up to the reassociation of the
+statistics. ``/interpolate`` renders unsharded, as jckx does (a walk is a
+one-shot of at most 4096 rows); the daemon and ``--watch`` serve through
+the sharded service unchanged. Refused: a 2-D shape, a batch the mesh does
+not divide, and a mesh with a ``.pt2`` artifact.
+
+Refused by name: jckx's StableHLO ``.jaxexp`` artifacts, which need JAX
+(``python -m jckx.serve``).
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import hashlib
 import io
 import json
@@ -57,12 +71,11 @@ from jckx_torch.checkpoint.checkpoint import GEOMETRY_FIELDS, load_generator
 from jckx_torch.data.pipeline import one_hot
 from jckx_torch.logging.artifacts import encode_png, make_grid, save_image_grid
 from jckx_torch.ops.quant import make_sampler
+from jckx_torch.parallel.mesh import DATA_AXIS, make_mesh, parse_mesh_shape
 from jckx_torch.utils.device import resolve_device
 
 # undrained batches a request may hold on the device (6 MiB each at 64², bs512)
 WINDOW = 8
-# flag → (its value when off, the ROADMAP.md item that brings it)
-UNPORTED = {"mesh_shape": ("", "A13 (multi-GPU serving: the request batch over ranks)")}
 JAXEXP_REFUSAL = ("a jckx .jaxexp artifact is a StableHLO program and needs JAX: serve it with "
                   "`python -m jckx.serve`, or export the checkpoint with `python -m jckx_torch "
                   "export` and serve the .pt2")
@@ -149,7 +162,9 @@ class GeneratorService:
     explicit overrides and raise where they contradict them. ``quant="int8"``
     serves the W8A8 sampler calibrated from ``seed``; ``subpixel`` the
     sub-pixel ConvTranspose; ``truncation`` t > 0 draws z from N(0, 1)
-    truncated to [-t, t]."""
+    truncated to [-t, t]. ``mesh``, a ``LocalMesh``, splits every request
+    batch over its devices (its first device is the service's; ``device``
+    must then be left unset or name it)."""
 
     def __init__(
         self,
@@ -165,6 +180,7 @@ class GeneratorService:
         quant: Optional[str] = None,
         truncation: float = 0.0,
         device=None,
+        mesh=None,
     ):
         if batch_size < 1:
             raise ValueError(f"batch_size {batch_size} must be >= 1")
@@ -177,7 +193,16 @@ class GeneratorService:
         if ckpt_path.endswith(".pt2"):
             raise ValueError(f"{ckpt_path} is a sealed artifact: serve it through "
                              f"export.ArtifactService")
+        if mesh is not None:
+            if batch_size % mesh.size:
+                raise ValueError(f"serving batch_size {batch_size} is not divisible by the mesh "
+                                 f"'data' axis ({mesh.size} shards)")
+            if device is not None and torch.device(device) != mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's first device "
+                                 f"{mesh.devices[0]}")
+            device = mesh.devices[0]
         self.device = resolve_device(device)
+        self.mesh = mesh
         loaded = load_generator(ckpt_path, use_ema=use_ema, conditional=conditional,
                                 num_classes=num_classes, geo_overrides=geo_overrides)
         self.conditional, self.geo, self.num_classes = loaded.conditional, loaded.geo, loaded.num_classes
@@ -191,6 +216,12 @@ class GeneratorService:
         # the float G itself, or the int8 params calibrated from the seed
         self.params, self.sampler_apply = make_sampler(
             self.G, quant=quant, compute_dtype=compute_dtype, seed=seed, subpixel=self.subpixel)
+        # the params replicated on each device of the mesh (one copy per distinct device)
+        self._replicas = {self.device: self.params}
+        for dev in (mesh.devices if mesh is not None else []):
+            if dev not in self._replicas:
+                self._replicas[dev] = (copy.deepcopy(self.params).to(dev) if quant is None else
+                                       {k: v.to(dev) for k, v in self.params.items()})
 
     def draw_z(self, gen: torch.Generator, shape) -> torch.Tensor:
         """z of the service's law from ``gen``, on the service's device."""
@@ -200,13 +231,25 @@ class GeneratorService:
                                                generator=gen)
         return torch.randn(shape, generator=gen, device=self.device)
 
-    def render_latents(self, z: torch.Tensor, onehot: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def render_latents(self, z: torch.Tensor, onehot: Optional[torch.Tensor] = None,
+                       sharded: bool = True) -> torch.Tensor:
         """One forward of the service's sampler on ``z`` (B, z_dim) and, for
-        CGAN, float class weights ``onehot`` (B, K) → uint8 (B, S, S, C)."""
+        CGAN, float class weights ``onehot`` (B, K) → uint8 (B, S, S, C) on
+        the service's device; over the mesh (unless ``sharded`` is false)
+        each device renders its rows."""
         with torch.inference_mode():
             z = z.to(self.device)
             onehot = None if onehot is None else onehot.to(self.device)
-            return tanh_to_u8(self.sampler_apply(self.params, z, onehot))
+            if self.mesh is None or not sharded:
+                return tanh_to_u8(self.sampler_apply(self.params, z, onehot))
+            mesh = self.mesh
+
+            def shard(i: int, dev: torch.device) -> torch.Tensor:
+                zi = mesh.rows(z, i).to(dev)
+                oi = None if onehot is None else mesh.rows(onehot, i).to(dev)
+                return tanh_to_u8(self.sampler_apply(self._replicas[dev], zi, oi, mesh))
+
+            return torch.cat([part.to(self.device) for part in mesh.run(shard)])
 
     def render(self, z: torch.Tensor, labels: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One generator forward on ``z`` (B, z_dim), and for CGAN the class
@@ -286,7 +329,7 @@ class GeneratorService:
         elif label_a is not None or label_b is not None:
             raise ValueError("labels given but the checkpoint is unconditional")
         z = interpolation_latents(self.endpoint_z(seed_a), self.endpoint_z(seed_b), t, kind)
-        return self.render_latents(z, onehot).cpu().numpy()
+        return self.render_latents(z, onehot, sharded=False).cpu().numpy()
 
 
 # ----------------------------------------------------------------- HTTP mode
@@ -547,7 +590,9 @@ def get_args(argv=None):
     p.add_argument("--z_dim", type=int, default=None)
     p.add_argument("--batch_size", type=int, default=None, help="the render batch (default 512)")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--mesh_shape", default="", help="not ported yet (refused)")
+    p.add_argument("--mesh_shape", default="",
+                   help="N = split every request batch over a local mesh of N devices "
+                        "(cuda:0..N-1; 1-D only); '' = one device")
     p.add_argument("--listen", default="",
                    help="run as an HTTP daemon instead of writing a grid: 'PORT' or "
                         "'HOST:PORT' (GET /healthz, /metrics; POST /generate, /interpolate)")
@@ -569,14 +614,31 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
+def serving_mesh(spec: str, device=None):
+    """``--mesh_shape``: a 1-D local mesh over ``cuda:0`` … ``cuda:N-1`` (on
+    the CPU, N times the CPU). → None for ''."""
+    shape = parse_mesh_shape(spec)
+    if shape is None:
+        return None
+    if len(shape) != 1:
+        # serving shards the request batch over ONE 'data' axis (jckx/serve.py:840-846)
+        raise SystemExit(f"--mesh_shape for serving is 1-D (the request batch shards over a "
+                         f"single 'data' axis); got {spec!r} — pass the total device count "
+                         f"(e.g. '8')")
+    dev = resolve_device(device)
+    devices = ([dev] * shape[0] if dev.type != "cuda" else
+               [torch.device("cuda", i) for i in range(shape[0])])
+    if dev.type == "cuda" and shape[0] > torch.cuda.device_count():
+        raise SystemExit(f"--mesh_shape {spec}: needs {shape[0]} CUDA devices, have "
+                         f"{torch.cuda.device_count()}")
+    return make_mesh(shape, (DATA_AXIS,), devices=devices)
+
+
 def main(args) -> None:
     # cheap checks before the (slow) checkpoint load
-    bad = [f"--{k} {getattr(args, k)!r}: not ported yet (ROADMAP.md {item})"
-           for k, (off, item) in UNPORTED.items() if getattr(args, k) != off]
     if args.ckpt.endswith(".jaxexp"):
-        bad.append(f"--ckpt {args.ckpt}: {JAXEXP_REFUSAL}")
-    if bad:
-        raise SystemExit("jckx_torch serve: " + "; ".join(bad))
+        raise SystemExit(f"jckx_torch serve: --ckpt {args.ckpt}: {JAXEXP_REFUSAL}")
+    mesh = serving_mesh(args.mesh_shape, args.device)
     listen_host, listen_port = "", 0
     if args.listen:
         listen_host, _, port_s = args.listen.rpartition(":")
@@ -598,11 +660,11 @@ def main(args) -> None:
 
         if (overrides or args.conditional is not None or args.num_classes is not None
                 or args.batch_size is not None or args.subpixel or args.quant
-                or args.truncation or args.interpolate):
+                or args.truncation or args.interpolate or mesh is not None):
             raise SystemExit(
-                "--ckpt *.pt2 is a sealed artifact: geometry / conditioning / batch / subpixel / "
-                "quant / truncation were fixed at export time (and interpolation needs the live "
-                "sampler): re-export, or serve the checkpoint instead")
+                "--ckpt *.pt2 is a sealed artifact: geometry / conditioning / batch / mesh / "
+                "subpixel / quant / truncation were fixed at export time (and interpolation "
+                "needs the live sampler): re-export, or serve the checkpoint instead")
 
         def build_svc():
             return ArtifactService(args.ckpt, seed=args.seed, device=args.device)
@@ -613,7 +675,8 @@ def main(args) -> None:
                 geo_overrides=overrides or None,
                 batch_size=512 if args.batch_size is None else args.batch_size,
                 seed=args.seed, subpixel=bool(args.subpixel), quant=args.quant or None,
-                truncation=args.truncation, device=args.device)
+                truncation=args.truncation, device=None if mesh is not None else args.device,
+                mesh=mesh)
 
     svc = build_svc()
     if args.listen:

@@ -45,8 +45,23 @@ and logs of jckx run there:
 
 The artifacts are jckx's: ``real_image.png``, ``<metric>/<iters>_fake_image
 .png``, CGAN's labelled class panel ``img/<iters>_fake_image.png``,
-``loss.png``, ``metrics.jsonl`` and the run log. Not ported yet: the mesh
-(ROADMAP A13).
+``loss.png``, ``metrics.jsonl`` and the run log.
+
+Data parallel over a process mesh (``mesh``; jckx ``:73-102``): every rank
+runs this trainer on the same seeded permutation and keeps its rows of
+each global batch. The resident plane holds the whole uint8 set on every
+rank, as jckx replicates ``images_dev``, and gathers only the rank's rows;
+the streaming plane's slabs hold only the rank's rows of each launch
+(jckx: each process uploads its addressable shards). The steps average
+gradients and telemetry over the ranks (``train/steps.py``), so every rank
+sees the same metrics and takes the same decisions (the nan-guard, the
+evals). An eval renders each rank's share of the fixed inputs with global
+BN statistics, through the kernel, and gathers them in order; the metrics
+engine extracts its features data-parallel. Rank 0 alone writes files:
+logs, ``metrics.jsonl``, grids, checkpoints, the real-feature cache
+(jckx's ``_lead``). ``--resume`` reads on every rank. SIGTERM keeps jckx's
+contract (the scheduler signals every rank); the ranks agree at each
+launch boundary on whether any was signalled, so they stop together.
 """
 
 from __future__ import annotations
@@ -100,27 +115,48 @@ def fixed_eval_inputs(seed: int, geo: GANGeometry, conditional: bool, num_classe
     return z, one_hot(labels, num_classes)
 
 
-def sample_eval_images(G, z: torch.Tensor, onehot: Optional[torch.Tensor], cd) -> torch.Tensor:
+def sample_eval_images(G, z: torch.Tensor, onehot: Optional[torch.Tensor], cd,
+                       mesh=None) -> torch.Tensor:
     """G on the eval inputs with no grad (on the card, through the fused BN
-    kernel): one forward for DCGAN, chunks of ``EVAL_CHUNK`` for CGAN."""
+    kernel): one forward for DCGAN, chunks of ``EVAL_CHUNK`` for CGAN. Over
+    ``mesh`` each rank renders its rows of every forward with the global
+    statistics, and the rows are gathered in order."""
+    def forward(zz, oh):
+        if mesh is None:
+            return G(zz, cd) if oh is None else G(zz, oh, cd)
+        zz, oh = mesh.rows(zz), None if oh is None else mesh.rows(oh)
+        out = G(zz, cd, mesh=mesh) if oh is None else G(zz, oh, cd, mesh=mesh)
+        return mesh.all_gather_rows(out)
+
     with torch.no_grad():
         if onehot is None:
-            return G(z, cd)
-        return torch.cat([G(z[i:i + EVAL_CHUNK], onehot[i:i + EVAL_CHUNK], cd)
+            return forward(z, None)
+        return torch.cat([forward(z[i:i + EVAL_CHUNK], onehot[i:i + EVAL_CHUNK])
                           for i in range(0, z.shape[0], EVAL_CHUNK)])
 
 
 class _BaseGANTrainer:
-    """``Trainer(cfg, G, D, data_pre, metrics=None).train()``; ``metrics``
-    replaces the InceptionV3 engine (the tests pass a stub)."""
+    """``Trainer(cfg, G, D, data_pre, metrics=None, mesh=None).train()``;
+    ``metrics`` replaces the InceptionV3 engine (the tests pass a stub),
+    ``mesh`` is the process mesh of a data-parallel run."""
 
     conditional = False
 
-    def __init__(self, cfg: Config, G, D, data_pre, metrics=None):
+    def __init__(self, cfg: Config, G, D, data_pre, metrics=None, mesh=None):
+        self.mesh = mesh
+        self.lead = mesh is None or mesh.lead
+        if mesh is not None and cfg.batch_size % mesh.size:
+            raise ValueError(
+                f"global batch_size {cfg.batch_size} is not divisible by the mesh 'data' axis "
+                f"({mesh.size} shards): pick a multiple of {mesh.size}")
+        self.local_bs = cfg.batch_size // (mesh.size if mesh is not None else 1)
         if not cfg.save_path:
             ts = cfg.model_path or datetime.now().strftime("%Y%m%d_%H%M%S")
             cfg.save_path = os.path.join(cfg.save_root, "cgan" if self.conditional else "dcgan", ts)
-        os.makedirs(cfg.save_path, exist_ok=True)
+        if self.lead:
+            os.makedirs(cfg.save_path, exist_ok=True)
+        else:
+            cfg.log_file = 0  # rank 0 alone writes the log and metrics.jsonl
         self.logger = MainLogger(cfg)
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
@@ -151,6 +187,7 @@ class _BaseGANTrainer:
         self.logger.debug(
             f"G params: {sum(p.numel() for p in G.parameters()):,}  D params: "
             f"{sum(p.numel() for p in D.parameters()):,}  device: {self.device}  "
+            f"mesh: {mesh.shape if mesh is not None else {'data': 1}}  "
             f"compute: {cfg.compute_dtype}")
 
         self.metric = metrics
@@ -159,7 +196,7 @@ class _BaseGANTrainer:
 
             self.metric = Metrics(data_pre.metric_source, cfg, batch_size=cfg.eval_batch_size,
                                   compute_dtype=self.cd, cache_dir=cfg.data_dir,
-                                  num_classes=self.num_classes, device=self.device)
+                                  num_classes=self.num_classes, device=self.device, mesh=mesh)
 
         if cfg.lr_schedule != "constant" and cfg.lr_decay_steps <= 0:
             # the horizon describes the run, so a resume keeps decaying
@@ -181,15 +218,23 @@ class _BaseGANTrainer:
                              f"at step {self.state.step}")
         if cfg.resume:  # a latest.ckpt in the run dir wins over --init_from_torch
             path = latest_checkpoint(self.save_path)
+            if mesh is not None:
+                mesh.agree(path is not None, f"--resume: {self.save_path}/latest.ckpt exists")
             if path is None:
                 self.logger.debug("resume requested but no latest.ckpt found")
             else:
                 self._restore(path)
                 self.logger.debug(f"resumed from {path} at step {self.state.step}")
         make_step = make_cgan_train_step if self.conditional else make_dcgan_train_step
-        self.step_fn = make_step(cfg, self.geo)
+        self.step_fn = make_step(cfg, self.geo, mesh)
         self.eval_z, self.eval_onehot = fixed_eval_inputs(
             cfg.seed, self.geo, self.conditional, self.num_classes, cfg.sample_count, self.device)
+        rows = self.eval_z.shape[0]
+        forwards = ([min(EVAL_CHUNK, rows - i) for i in range(0, rows, EVAL_CHUNK)]
+                    if self.conditional else [rows])
+        if mesh is not None and cfg.eval_every > 0 and any(f % mesh.size for f in forwards):
+            raise ValueError(f"the eval's G forwards of {forwards} rows do not split over the "
+                             f"mesh's {mesh.size} ranks (--sample_count, or the class count)")
 
     # ------------------------------------------------------------ restore
 
@@ -228,8 +273,9 @@ class _BaseGANTrainer:
         if self._poisoned:
             raise RuntimeError(self._poisoned)
         cfg = self.cfg
-        bs = cfg.batch_size
+        bs, lb = cfg.batch_size, self.local_bs
         spe = self.n_data // bs
+        lo = (self.mesh.rank if self.mesh is not None else 0) * lb  # this rank's rows
         if spe == 0:
             raise ValueError(f"batch_size {bs} exceeds the dataset ({self.n_data} rows): "
                              f"0 steps/epoch — nothing would train")
@@ -238,8 +284,9 @@ class _BaseGANTrainer:
         K = max(1, min(log_k, cfg.eval_every if cfg.eval_every > 0 else log_k, spe))
         losses_d = [p[0] for p in self._resumed_losses]
         losses_g = [p[1] for p in self._resumed_losses]
-        save_image_grid(os.path.join(self.save_path, "real_image.png"),
-                        self.data_pre.images_u8[:64], ncol=8, padding=5)
+        if self.lead:
+            save_image_grid(os.path.join(self.save_path, "real_image.png"),
+                            self.data_pre.images_u8[:64], ncol=8, padding=5)
 
         start = time.time()
         self.logger.debug("train start")
@@ -274,7 +321,7 @@ class _BaseGANTrainer:
                 # the card runs launch N (jckx gan_trainer.py:566-580)
                 uploader = ThreadPoolExecutor(1, thread_name_prefix="jckx-upload")
                 slabs = PinnedSlabs(self.device, [(self.data_pre.images_u8.shape[1:], torch.uint8),
-                                                  ((), torch.int64)], K * bs)
+                                                  ((), torch.int64)], K * lb)
 
                 def _upload(rows: np.ndarray):
                     u8, labels = slabs.fill(len(rows))
@@ -284,7 +331,8 @@ class _BaseGANTrainer:
                 def _submit(first: int):
                     return uploader.submit(_upload, order[first:first + min(K, spe - first)].ravel())
             for epoch in range(start_epoch, cfg.epoch):
-                order = rng.permutation(self.n_data)[: spe * bs].reshape(spe, bs)
+                # every rank draws the same permutation and keeps its rows of each batch
+                order = rng.permutation(self.n_data)[: spe * bs].reshape(spe, bs)[:, lo:lo + lb]
                 done, resume_offset = resume_offset, 0
                 upload_next = _submit(done) if self._streaming and done < spe else None
                 while done < spe:
@@ -295,7 +343,7 @@ class _BaseGANTrainer:
                         if done + k < spe:
                             upload_next = _submit(done + k)
                         u8, labels = slabs.use(slab)
-                        batches = [(u8[j * bs:(j + 1) * bs], labels[j * bs:(j + 1) * bs])
+                        batches = [(u8[j * lb:(j + 1) * lb], labels[j * lb:(j + 1) * lb])
                                    for j in range(k)]
                         del slab, u8, labels
                     else:
@@ -340,13 +388,17 @@ class _BaseGANTrainer:
                     it += k
                     done += k
                     last_step_of_run = epoch == cfg.epoch - 1 and done >= spe
-                    if self._preempt.is_set():
+                    stop = self._preempt.is_set()
+                    if self.mesh is not None:
+                        stop = self.mesh.any(stop)  # the ranks stop at the same boundary
+                    if stop:
                         self.preempted = True
                         self.logger.warning(f"SIGTERM received — saving latest.ckpt at step {it} "
                                             f"and exiting (continue with --resume)")
-                        self.ckpt.save_latest(state_payload(self.state, {
-                            "bests": dict(self.bests), "losses": list(zip(losses_d, losses_g)),
-                            "serve_config": self._serve_config()}))
+                        if self.lead:
+                            self.ckpt.save_latest(state_payload(self.state, {
+                                "bests": dict(self.bests), "losses": list(zip(losses_d, losses_g)),
+                                "serve_config": self._serve_config()}))
                         if not last_step_of_run:
                             break
                         # the signal landed in the run's last launch: its
@@ -370,7 +422,8 @@ class _BaseGANTrainer:
                 self._resumed_losses = list(zip(losses_d, losses_g))
         self.logger.debug(f"train finish\ttime: {time_to_str(time.time() - start)}\t"
                           f"fused BN kernel launches in this process: {fused_bn_act.LAUNCHES}")
-        save_loss_curve(os.path.join(self.save_path, "loss.png"), losses_d, losses_g)
+        if self.lead:
+            save_loss_curve(os.path.join(self.save_path, "loss.png"), losses_d, losses_g)
         return last_metrics
 
     # --------------------------------------------------------------- steps
@@ -395,7 +448,7 @@ class _BaseGANTrainer:
         """The fixed eval inputs through the EMA generator when on, else G
         (``sample_eval_images``)."""
         G = self.state.ema_g if self.state.ema_g is not None else self.state.G
-        return sample_eval_images(G, self.eval_z, self.eval_onehot, self.cd)
+        return sample_eval_images(G, self.eval_z, self.eval_onehot, self.cd, self.mesh)
 
     def _extra_metrics(self, feats) -> dict:
         """KID and precision / recall / density / coverage from the eval's
@@ -409,12 +462,20 @@ class _BaseGANTrainer:
 
     def _save_best(self, typ: str, iters: int, values, images, base: dict) -> None:
         """The best-metric checkpoint of ``typ`` (its name carries
-        ``values``) and its grid of ``images``."""
+        ``values``) and its grid of ``images``; rank 0 only."""
+        if not self.lead:
+            return
         self.ckpt.save(typ, iters, values, {
             **base, "bests": dict(self.bests), "iters": iters,
             "serve_config": self._serve_config()})
         save_image_grid(os.path.join(self.save_path, typ, f"{iters}_fake_image.png"), images, ncol=8)
         self.logger.debug(f"{iters} model save ({typ})")
+
+    def _save_latest(self, base: dict, losses_d, losses_g) -> None:
+        if self.lead:
+            self.ckpt.save_latest({**base, "bests": dict(self.bests),
+                                   "losses": list(zip(losses_d, losses_g)),
+                                   "serve_config": self._serve_config()})
 
 
 class DCGANTrainer(_BaseGANTrainer):
@@ -437,9 +498,7 @@ class DCGANTrainer(_BaseGANTrainer):
                 self.bests[typ] = value
                 self.logger.debug(f"{iters} {'lowest' if typ == 'fid' else 'highest'} {typ}")
                 self._save_best(typ, iters, (value,), denorm, base)
-        self.ckpt.save_latest({**base, "bests": dict(self.bests),
-                               "losses": list(zip(losses_d, losses_g)),
-                               "serve_config": self._serve_config()})
+        self._save_latest(base, losses_d, losses_g)
 
 
 class CGANTrainer(_BaseGANTrainer):
@@ -470,9 +529,8 @@ class CGANTrainer(_BaseGANTrainer):
                 self.bests[typ] = value
                 self.logger.debug(f"{iters} {'highest' if typ == 'is' else 'lowest'} {typ}")
                 self._save_best(typ, iters, values, per_class, base)
-        names = [self.data_pre.idx_to_labels[i] for i in range(self.num_classes)]
-        save_labeled_grid(os.path.join(self.save_path, "img", f"{iters}_fake_image.png"),
-                          per_class[:100], names[:100])
-        self.ckpt.save_latest({**base, "bests": dict(self.bests),
-                               "losses": list(zip(losses_d, losses_g)),
-                               "serve_config": self._serve_config()})
+        if self.lead:
+            names = [self.data_pre.idx_to_labels[i] for i in range(self.num_classes)]
+            save_labeled_grid(os.path.join(self.save_path, "img", f"{iters}_fake_image.png"),
+                              per_class[:100], names[:100])
+        self._save_latest(base, losses_d, losses_g)

@@ -24,6 +24,14 @@ the run returns, the trace is written into ``<dir>`` as a Chrome trace,
 TensorBoard's PyTorch profiler plug-in): a different format from jckx's
 XPlane ``.xplane.pb``, by design.
 
+Data parallel (``--mesh_shape N``, ``--multihost``; jckx ``main.py:81-90``):
+one process per GPU, launched by ``torchrun --nproc_per_node N -m jckx_torch
+train --mesh_shape N --multihost``. ``run`` brings the process group up
+from the ``env://`` variables (a group the caller already initialized is
+kept), builds the process mesh, and gives every rank the lead's run dir
+name; rank 0 alone writes ``config.json``, the log and the artifacts. A
+mesh larger than the world raises, naming ``torchrun --nproc_per_node``.
+
 ``-t 1 -pm <ts>`` trains nothing: it scores the run's ``latest.ckpt``
 through ``jckx_torch.evaluate`` with the run's own seed, data, dtype and
 eval sizes, so it reproduces the run's last logged eval (``main.py:32-74``),
@@ -45,9 +53,10 @@ from jckx_torch.data.pipeline import CGANDataPreprocessor, DCGANDataPreprocessor
 from jckx_torch.logging.main_logger import MainLogger
 from jckx_torch.models.cgan import CDiscriminator, CGenerator
 from jckx_torch.models.dcgan import Discriminator, Generator
+from jckx_torch.parallel.mesh import process_mesh
 from jckx_torch.train.gan_trainer import CGANTrainer, DCGANTrainer
 from jckx_torch.train.state import geometry
-from jckx_torch.utils.device import resolve_device
+from jckx_torch.utils.device import multihost_barrier, resolve_device
 
 
 def run_test_mode(cfg: Config, metrics=None) -> dict:
@@ -116,20 +125,27 @@ def run(cfg: Config, metrics=None):
     if cfg.test:
         return run_test_mode(cfg, metrics)
     device = resolve_device(cfg.device)
+    mesh = process_mesh(cfg.mesh_shape, cfg.mesh_axes, cfg.multihost, device, MainLogger())
     ts = cfg.model_path or datetime.now().strftime("%Y%m%d_%H%M%S")
+    if mesh is not None:
+        ts = mesh.broadcast_object(ts)  # the lead's run dir on every rank
     cfg.save_path = os.path.join(cfg.save_root, cfg.model.lower(), ts)
-    os.makedirs(cfg.save_path, exist_ok=True)
-    tmp = os.path.join(cfg.save_path, "config.json.tmp")
-    with open(tmp, "w") as f:
-        f.write(cfg.to_json())
-    os.replace(tmp, os.path.join(cfg.save_path, "config.json"))
+    if mesh is None or mesh.lead:
+        os.makedirs(cfg.save_path, exist_ok=True)
+        tmp = os.path.join(cfg.save_path, "config.json.tmp")
+        with open(tmp, "w") as f:
+            f.write(cfg.to_json())
+        os.replace(tmp, os.path.join(cfg.save_path, "config.json"))
+    else:
+        cfg.log_file = 0  # rank 0 alone writes the log
 
     logger = MainLogger(cfg)
     if getattr(cfg, "inherited_from", None):
         logger.debug(f"config inherited from {cfg.inherited_from} (flags given now override)")
     logger.debug(f"config: {cfg.to_json()}")
     logger.debug(f"device: {device}"
-                 + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+                 + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+                 + (f", rank {mesh.rank} of mesh {mesh.shape}" if mesh is not None else ""))
 
     geo = geometry(cfg)
     gen = torch.Generator().manual_seed(cfg.seed)
@@ -139,12 +155,13 @@ def run(cfg: Config, metrics=None):
             cfg.num_classes = data_pre.num_classes
             G = CGenerator(geo, cfg.num_classes, gen=gen)
             D = CDiscriminator(geo, cfg.num_classes, gen=gen)
-            trainer = CGANTrainer(cfg, G, D, data_pre, metrics=metrics)
+            trainer = CGANTrainer(cfg, G, D, data_pre, metrics=metrics, mesh=mesh)
         else:
             data_pre = DCGANDataPreprocessor(cfg)
             G, D = Generator(geo, gen=gen), Discriminator(geo, gen=gen)
-            trainer = DCGANTrainer(cfg, G, D, data_pre, metrics=metrics)
+            trainer = DCGANTrainer(cfg, G, D, data_pre, metrics=metrics, mesh=mesh)
         trainer.train()
+    multihost_barrier("train done", logger)
     return trainer
 
 

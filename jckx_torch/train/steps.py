@@ -52,7 +52,22 @@ never launched in the step, and the dropout masks are explicit inputs.
 The random draws (real noise, z, fake noise, α, and CGAN's masks) come
 from a ``torch.Generator`` on the batch's device, seeded from (seed, step),
 so a restored state draws what the uninterrupted run would. ``draws`` lets
-a test inject jckx's. Every bn_act in the step has an input that requires
+a test inject jckx's.
+
+Data parallel over a mesh (``mesh``, ``parallel/mesh.py``; jckx jits the
+step with the batch on ``data`` and the state replicated,
+``jckx/train/steps.py:405-439``): each rank steps on its rows of the
+global batch. It draws the global batch's draws from the generator of
+(seed, step), as the single-rank run does, and keeps its rows
+(``shard_draws``). Every BN layer takes the global statistics through an
+all-reduce inside autograd, so the penalty's input gradient, and its
+second-order terms, carry every rank's rows. After each backward the
+model's gradients are averaged over the ranks through one flat buffer,
+once per model per update (D, then G through the updated D; FusedProp
+both), so every rank takes the same Adam step and the replicas stay
+bit-identical. The telemetry is averaged too, so every rank returns the
+global values. ``--remat`` recomputes forwards that hold collectives:
+every rank recomputes in the same order. Every bn_act in the step has an input that requires
 grad, so on the card it takes the differentiable plain composition, never
 the kernel (``kernels/fused_bn_act.py``).
 
@@ -124,6 +139,27 @@ def make_draws(seed: int, step: int, n: int, geo: GANGeometry,
     return draws
 
 
+def shard_draws(draws: StepDraws, mesh) -> StepDraws:
+    """This rank's rows of a global batch's draws (the draws themselves
+    with no mesh)."""
+    if mesh is None:
+        return draws
+    return StepDraws(**{k: None if v is None else mesh.rows(v) for k, v in vars(draws).items()})
+
+
+def _average_grads(mesh, module) -> None:
+    if mesh is not None:
+        mesh.average_grads(module.parameters())
+
+
+def _telemetry(out: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """The six scalars, f32 and detached, averaged over the mesh's ranks."""
+    vals = torch.stack([out[k].detach().float() for k in METRIC_NAMES])
+    if mesh is not None:
+        vals = mesh.mean(vals)
+    return dict(zip(METRIC_NAMES, vals.unbind()))
+
+
 def _maybe_remat(fn: Callable, on: bool) -> Callable:
     """``fn`` under non-reentrant activation checkpointing when ``on``."""
     if not on:
@@ -140,9 +176,10 @@ def _update_ema(cfg: Config, state: GANTrainState) -> None:
 
 
 def _gan_step(cfg: Config, state: GANTrainState, real: torch.Tensor, draws: StepDraws,
-              G: Callable, D: Callable, gp_in_grad: bool) -> Dict[str, torch.Tensor]:
+              G: Callable, D: Callable, gp_in_grad: bool, mesh=None) -> Dict[str, torch.Tensor]:
     """The faithful iteration shared by both families. ``G(z)`` builds the
-    fake; ``D(x, keep)`` gives logits under the pass's dropout mask."""
+    fake; ``D(x, keep)`` gives logits under the pass's dropout mask;
+    ``mesh`` averages the gradients and the telemetry over its ranks."""
     cd = compute_dtype(cfg)
     lam, f = cfg.lambda_gp, cfg.instance_noise
     real_n = instance_noise_blend(real.to(cd), draws.real_noise, f)
@@ -160,6 +197,7 @@ def _gan_step(cfg: Config, state: GANTrainState, real: torch.Tensor, draws: Step
     loss_for_grad = bce + lam * gp if gp_in_grad else bce
     state.opt_d.zero_grad(set_to_none=True)
     loss_for_grad.backward()
+    _average_grads(mesh, state.D)
     adam_step(state.opt_d, cfg)
 
     # ---- G update, through the updated D -----------------------------
@@ -168,20 +206,21 @@ def _gan_step(cfg: Config, state: GANTrainState, real: torch.Tensor, draws: Step
     state.opt_g.zero_grad(set_to_none=True)
     # only G's gradient: D's weight gradients of this pass are never formed
     loss_g.backward(inputs=list(state.G.parameters()))
+    _average_grads(mesh, state.G)
     adam_step(state.opt_g, cfg)
     _update_ema(cfg, state)
     state.step += 1
 
     with torch.no_grad():
-        out = {"loss_d": bce + lam * gp, "gp": gp,
-               "d_x": torch.sigmoid(logits_r).mean(),
-               "d_gz1": torch.sigmoid(logits_f).mean(),
-               "loss_g": loss_g, "d_gz2": torch.sigmoid(logits_g).mean()}
-        return {k: v.detach().float() for k, v in out.items()}
+        return _telemetry({"loss_d": bce + lam * gp, "gp": gp,
+                           "d_x": torch.sigmoid(logits_r).mean(),
+                           "d_gz1": torch.sigmoid(logits_f).mean(),
+                           "loss_g": loss_g, "d_gz2": torch.sigmoid(logits_g).mean()}, mesh)
 
 
 def _fused_prop_step(cfg: Config, state: GANTrainState, real: torch.Tensor, draws: StepDraws,
-                     G: Callable, D: Callable, gp_in_grad: bool) -> Dict[str, torch.Tensor]:
+                     G: Callable, D: Callable, gp_in_grad: bool,
+                     mesh=None) -> Dict[str, torch.Tensor]:
     """The FusedProp iteration (jckx ``step_fp``, ``_fused_prop_fake_side``
     ``:74-90``); arguments as ``_gan_step``'s."""
     cd = compute_dtype(cfg)
@@ -211,6 +250,8 @@ def _fused_prop_step(cfg: Config, state: GANTrainState, real: torch.Tensor, draw
     fake_n.backward(dx)  # G's chain from the fake's cotangent
     for p, a, b in zip(params_d, grads_d, grads_f):
         p.grad = a + b
+    _average_grads(mesh, state.D)
+    _average_grads(mesh, state.G)
     adam_step(state.opt_d, cfg)
     adam_step(state.opt_g, cfg)
     _update_ema(cfg, state)
@@ -218,10 +259,9 @@ def _fused_prop_step(cfg: Config, state: GANTrainState, real: torch.Tensor, draw
 
     with torch.no_grad():
         d_gz = torch.sigmoid(logits_f).mean()
-        out = {"loss_d": bce_r + bce_f + lam * gp, "gp": gp,
-               "d_x": torch.sigmoid(logits_r).mean(), "d_gz1": d_gz,
-               "loss_g": loss_g, "d_gz2": d_gz}  # one shared forward
-        return {k: v.detach().float() for k, v in out.items()}
+        return _telemetry({"loss_d": bce_r + bce_f + lam * gp, "gp": gp,
+                           "d_x": torch.sigmoid(logits_r).mean(), "d_gz1": d_gz,
+                           "loss_g": loss_g, "d_gz2": d_gz}, mesh)  # one shared forward
 
 
 def _step_fn(cfg: Config) -> Callable:
@@ -235,38 +275,46 @@ def _remat_flags(cfg: Config):
     return cfg.remat in ("g", "both"), cfg.remat in ("d", "both")
 
 
-def make_dcgan_train_step(cfg: Config, geo: GANGeometry) -> Callable:
+def _rank_draws(state: GANTrainState, real: torch.Tensor, geo: GANGeometry, mesh,
+                conditional: bool) -> StepDraws:
+    """The global batch's draws of (seed, step), this rank's rows."""
+    n = real.shape[0] * (mesh.size if mesh is not None else 1)
+    return shard_draws(make_draws(state.seed, state.step, n, geo, real.device, conditional),
+                       mesh)
+
+
+def make_dcgan_train_step(cfg: Config, geo: GANGeometry, mesh=None) -> Callable:
     """→ ``step(state, real, draws=None) -> {name: f32 scalar}``; ``real`` is
-    the decoded batch (N, S, S, C) in [-1, 1] on the state's device."""
+    the decoded batch (N, S, S, C) in [-1, 1] on the state's device: over
+    ``mesh``, this rank's rows, and ``draws`` (when injected) this rank's."""
     cd = compute_dtype(cfg)
     run, (remat_g, remat_d) = _step_fn(cfg), _remat_flags(cfg)
 
     def step(state: GANTrainState, real: torch.Tensor,
              draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
         if draws is None:
-            draws = make_draws(state.seed, state.step, real.shape[0], geo, real.device)
-        G = _maybe_remat(lambda z: state.G(z, cd), remat_g)
-        D = _maybe_remat(lambda x: state.D(x, cd), remat_d)
+            draws = _rank_draws(state, real, geo, mesh, conditional=False)
+        G = _maybe_remat(lambda z: state.G(z, cd, mesh=mesh), remat_g)
+        D = _maybe_remat(lambda x: state.D(x, cd, mesh=mesh), remat_d)
         return run(cfg, state, real, draws, G=G, D=lambda x, keep: D(x),
-                   gp_in_grad=cfg.gp_in_d_grad)
+                   gp_in_grad=cfg.gp_in_d_grad, mesh=mesh)
 
     return step
 
 
-def make_cgan_train_step(cfg: Config, geo: GANGeometry) -> Callable:
+def make_cgan_train_step(cfg: Config, geo: GANGeometry, mesh=None) -> Callable:
     """→ ``step(state, real, onehot, draws=None) -> {name: f32 scalar}``;
-    ``onehot`` (N, K) holds the batch's labels."""
+    ``onehot`` (N, K) holds the batch's labels; ``mesh`` as for DCGAN."""
     cd = compute_dtype(cfg)
     run, (remat_g, remat_d) = _step_fn(cfg), _remat_flags(cfg)
 
     def step(state: GANTrainState, real: torch.Tensor, onehot: torch.Tensor,
              draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
         if draws is None:
-            draws = make_draws(state.seed, state.step, real.shape[0], geo, real.device,
-                               conditional=True)
+            draws = _rank_draws(state, real, geo, mesh, conditional=True)
         onehot = onehot.float()
-        G = _maybe_remat(lambda z: state.G(z, onehot, cd), remat_g)
-        D = _maybe_remat(lambda x, keep: state.D(x, onehot, cd, keep), remat_d)
-        return run(cfg, state, real, draws, G=G, D=D, gp_in_grad=True)
+        G = _maybe_remat(lambda z: state.G(z, onehot, cd, mesh=mesh), remat_g)
+        D = _maybe_remat(lambda x, keep: state.D(x, onehot, cd, keep, mesh=mesh), remat_d)
+        return run(cfg, state, real, draws, G=G, D=D, gp_in_grad=True, mesh=mesh)
 
     return step

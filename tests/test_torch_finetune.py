@@ -207,9 +207,11 @@ def test_cli_finetune_and_its_refusals(tmp_path, capsys):
                 "--eval_samples", "8", "-mlr", "0.01", "--save_dir", str(save),
                 "--data_dir", str(tmp_path / "data")]) == 0
     assert (save / "loss_bset.npz").exists()
-    for argv, item in ((["--mesh_shape", "8"], "A13"), (["--multihost", "1"], "A13")):
-        with pytest.raises(SystemExit, match=item):
-            cli(["finetune", *argv])
+    with pytest.raises(SystemExit, match="1-D"):
+        cli(["finetune", "--mesh_shape", "4,2"])
+    for argv in (["--mesh_shape", "8"], ["--mesh_shape", "8", "--multihost", "1"]):
+        with pytest.raises(ValueError, match="needs 8 ranks, have 1.*torchrun --nproc_per_node 8"):
+            cli(["finetune", "--device", "cpu", *argv])
     with pytest.raises(SystemExit) as e:
         cli(["finetune", "-h"])
     assert e.value.code == 0 and "--scan_steps" in capsys.readouterr().out

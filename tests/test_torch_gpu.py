@@ -618,3 +618,89 @@ def test_streamed_trainer_on_the_card_equals_resident(tmp_path, monkeypatch, con
     slab = [st for st, sizes in copies.items() if 16 * 32 * 32 * 3 in sizes]
     assert len(slab) == 1 and copies[slab[0]].count(16 * 32 * 32 * 3) == 6, copies
     assert 16 * 8 in copies[slab[0]] and slab[0] not in kernels, (copies, kernels)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sharded_bn_act_on_a_local_mesh_matches_unsharded(dtype):
+    """Sync-BN over ``[cuda:0, cuda:0]``: each member normalizes its rows
+    with the statistics summed over both (the kernel once per member),
+    within one ulp of the unsharded call (the sums reassociate)."""
+    from jckx_torch.parallel import make_mesh
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = (torch.randn(64, 256, 8, 8, generator=g, device=dev) * 2 + 0.5).to(
+        getattr(torch, dtype), memory_format=torch.channels_last)
+    scale = torch.rand(256, generator=g, device=dev) + 0.5
+    bias = torch.randn(256, generator=g, device=dev)
+    mesh = make_mesh((2,), devices=[dev, dev])
+    with torch.no_grad():
+        before = fba.LAUNCHES
+        parts = mesh.run(lambda i, d: fba.bn_act(mesh.rows(x), scale, bias, "relu", mesh=mesh))
+        torch.cuda.synchronize()
+        assert fba.LAUNCHES - before == 2
+        ref = fba.bn_act(x, scale, bias, "relu")
+        torch.cuda.synchronize()
+        assert fba.LAUNCHES - before == 3
+    for p in parts:
+        assert p.is_contiguous(memory_format=torch.channels_last)
+    _assert_close(torch.cat(parts), ref)
+
+
+@pytest.fixture
+def nccl_world_of_one(tmp_path):
+    """A one-rank NCCL process group over a file store, and its mesh."""
+    import torch.distributed as dist
+
+    from jckx_torch.parallel import make_mesh
+
+    dev = torch.device("cuda", _card().index or 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        yield make_mesh((1,), device=dev), dev
+    finally:
+        dist.destroy_process_group()
+
+
+def test_nccl_world_of_one_all_reduce_is_the_identity(nccl_world_of_one):
+    mesh, dev = nccl_world_of_one
+    assert mesh.distributed and mesh.size == 1
+    t = torch.randn(2, 512, device=dev)
+    assert torch.equal(mesh.all_reduce(t), t) and torch.equal(mesh.all_gather_rows(t), t)
+    leaf = t.clone().requires_grad_(True)
+    y = mesh.all_reduce(leaf)
+    (g,) = torch.autograd.grad((y * y).sum(), leaf, create_graph=True)
+    assert torch.equal(g, 2 * t)
+    p = torch.nn.Parameter(torch.zeros(3, device=dev))
+    p.grad = torch.tensor([1.0, -2.0, 3.5], device=dev)
+    mesh.average_grads([p])
+    assert torch.equal(p.grad, torch.tensor([1.0, -2.0, 3.5], device=dev))
+    assert mesh.any(True) and not mesh.any(False)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sync_bn_relu_train_on_a_world_of_one_equals_the_plain_one(nccl_world_of_one, dtype):
+    """``bn_relu_train`` over a one-rank NCCL mesh: its forward (the
+    kernel) and its hand-written backward, whose sums pass through the
+    all-reduce, equal the call without a mesh bit for bit."""
+    from jckx_torch.ops.norm import bn_relu_train
+
+    mesh, dev = nccl_world_of_one
+    g = torch.Generator(device=dev).manual_seed(4)
+    x0 = torch.randn(16, 64, 15, 15, generator=g, device=dev).to(
+        getattr(torch, dtype), memory_format=torch.channels_last)
+    dout = torch.randn(16, 64, 15, 15, generator=g, device=dev).to(
+        getattr(torch, dtype), memory_format=torch.channels_last)
+    scale0 = torch.rand(64, generator=g, device=dev) + 0.5
+    bias0 = torch.randn(64, generator=g, device=dev)
+    outs = []
+    for m in (mesh, None):
+        x = x0.clone().requires_grad_(True)
+        scale, bias = scale0.clone().requires_grad_(True), bias0.clone().requires_grad_(True)
+        out, mean, var = bn_relu_train(x, scale, bias, mesh=m)
+        out.backward(dout)
+        outs.append((out, mean, var, x.grad, scale.grad, bias.grad))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)

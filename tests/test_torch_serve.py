@@ -356,7 +356,7 @@ def test_cli_serves_every_mode(tmp_path, capsys):
                                  "--labels", "1,7", "--kind", "lerp"] + common))
     assert "5-frame lerp walk" in capsys.readouterr().out
     assert np.asarray(Image.open(out)).shape == (18 + 2, 5 * 18 + 2, 3)
-    refusals = (([latest, "--mesh_shape", "8"], "A13"), ([str(tmp_path / "m.jaxexp")], "jckx.serve"),
+    refusals = (([latest, "--mesh_shape", "4,2"], "1-D"), ([str(tmp_path / "m.jaxexp")], "jckx.serve"),
                 ([latest, "--watch", "5"], "--listen"),
                 ([latest, "--interpolate", "3,4", "--listen", "8099"], "POST /interpolate"),
                 ([latest, "--listen", "host:0"], "--listen expects"),

@@ -228,23 +228,32 @@ def test_cli_flags_and_refusals(tmp_path):
     base = ["--device", "cpu", "--save_root", str(tmp_path)]
     # the train step's modes and the data planes are ported
     # (tests/test_torch_fused_prop.py, tests/test_torch_remat.py and
-    # tests/test_torch_stream_trainer.py train with them); the mesh and
-    # multihost are still refused by ROADMAP item
+    # tests/test_torch_stream_trainer.py train with them), and so is the
+    # mesh's data axis (tests/test_torch_dp_trainer.py); a model axis and
+    # its knobs are still refused by ROADMAP item, and a data axis larger
+    # than the world raises naming torchrun
     modes = ["--fused_prop", "1", "--remat", "both", "--sanitize", "--profile_dir", "p"]
     planes = ["--data_placement", "stream", "--hbm_data_budget", "1", "-w", "3"]
-    cfg = get_arg_parse(["-m", "CGAN"] + modes + planes)
+    mesh = ["--mesh_shape", "2,1", "--mesh_axes", "data,model", "--multihost"]
+    cfg = get_arg_parse(["-m", "CGAN"] + modes + planes + mesh)
     assert (cfg.fused_prop, cfg.remat, cfg.sanitize, cfg.profile_dir) == (1, "both", True, "p")
     assert (cfg.data_placement, cfg.hbm_data_budget, cfg.num_worker) == ("stream", 1, 3)
+    assert (cfg.mesh_shape, cfg.mesh_axes, cfg.multihost) == ("2,1", "data,model", True)
     check_ported(cfg)
-    for argv, item in ((["-m", "CGAN", "--mesh_shape", "2"] + modes, "A13"), (["-t", "1"], "-pm"),
+    model_axis = ["--mesh_shape", "1,2", "--mesh_axes", "data,model"]
+    for argv, item in ((["-m", "CGAN"] + model_axis + modes, "A13b"), (["-t", "1"], "-pm"),
                        (["-t", "1", "-pm", "nope"], "no latest.ckpt"),
-                       (["--fused_prop", "1", "--multihost"], "A13"),
-                       (["--mesh_shape", "2"], "A13"), (["--mesh_shape", "2"] + planes, "A13"),
-                       (["--remat", "g", "--hbm_data_budget", "1", "--multihost"], "A13")):
+                       (["--fused_prop", "1", "--model_axis_mode", "spatial"], "A13b"),
+                       (model_axis, "A13b"), (model_axis + planes, "A13b"),
+                       (["--remat", "g", "--hbm_data_budget", "1", "--tp_min_dim", "64"], "A13b"),
+                       (["--spatial_replicate_grads", "0"], "A13b")):
         with pytest.raises(SystemExit, match=item) as err:
             tmain.main(argv + base)
         assert not [f for f in ("fused_prop", "remat", "data_placement", "hbm_data_budget")
                     if f in str(err.value)]
+    for argv in (["--mesh_shape", "2"], ["--mesh_shape", "2"] + planes + modes):
+        with pytest.raises(ValueError, match="needs 2 ranks, have 1.*torchrun --nproc_per_node 2"):
+            tmain.main(argv + base)
     assert os.listdir(tmp_path) == []  # refused before any run dir
 
     from jckx_torch.__main__ import main as cli
@@ -255,11 +264,11 @@ def test_cli_flags_and_refusals(tmp_path):
                 "--eval_samples", "8", "--save_dir", str(tmp_path / "bk"),
                 "--data_dir", str(tmp_path / "data")]) == 0
     MainLogger.reset()
-    with pytest.raises(SystemExit, match="A13"):
+    with pytest.raises(SystemExit, match="A13b"):
         cli(["train", "-m", "CGAN", "--fused_prop", "1", "--data_placement", "stream",
-             "--multihost"] + base)
-    with pytest.raises(SystemExit, match="A13"):
-        cli(["serve", "--ckpt", "x.pt", "--mesh_shape", "8"])
+             "--multihost"] + model_axis + base)
+    with pytest.raises(SystemExit, match="1-D"):
+        cli(["serve", "--ckpt", "x.pt", "--mesh_shape", "4,2"])
     with pytest.raises(SystemExit, match="jckx.serve"):
         cli(["serve", "--ckpt", "x.jaxexp"])
 
