@@ -176,7 +176,17 @@ Run from the root of a checkout, on a machine with a CUDA card and
     pair (the first within 10 % in delta norm of one rank's); then the bf16
     step timed on the NCCL world of one (in turns against no mesh) and on
     the gloo pair, with the collectives per step by kind and their share;
-31. prints a ``{"kernels": [...]}`` line, then, last, the
+31. the mesh's model axis (``phase_mesh_model``): at full width, 8 f32
+    steps and one eval each, gloo pairs of child processes on this card as
+    (1, 2) data x model meshes: DCGAN under ``tp``, ``spatial`` and
+    ``spatial --spatial_replicate_grads 0``, CGAN under ``tp``, each first
+    step against ``phase_mesh``'s plain run (telemetry within 3e-3, masked
+    Adam deltas on all but 0.1 % of each net's, every leaf's gradient
+    within 5 % in L2), ``0`` against ``1`` within 1e-6, every eval render
+    through the kernel bit-identical to the once-rounded route, the TP
+    checkpoint served; then the bf16 step of a TP pair and a spatial pair
+    timed, with the collectives per step by kind and their host share;
+32. prints a ``{"kernels": [...]}`` line, then, last, the
     ``{"ok": true, "device": {...}}`` line.
 
 Any failed phase exits nonzero before the last line is printed. Without a
@@ -2603,6 +2613,16 @@ def phase_data_planes(tmp: str, dev, card: str) -> int:
 MESH_STEPS = 8                          # phase_mesh: steps of each run (one launch, one eval)
 MESH_ROWS = TRAIN_BATCH * MESH_STEPS    # its synthetic rows: one epoch of MESH_STEPS steps
 MESH_TIMED = 6                          # bf16 steps timed per turn
+MESH_WARM = 2                           # phase_mesh_model: untimed bf16 steps first (8 in all)
+# phase_mesh_model's first-step rule: G's f32 gradient at full width is so
+# ill-conditioned that nudging the weights by 1e-6 relative moves it 1.9 %
+# in L2 and flips 20 masked Adam deltas (10 in each of two leaves), and a
+# per-leaf 0.1 % bound allows no flip in a 495-element BN leaf; so the
+# flips are counted over each net (0.1 % of its masked deltas), and every
+# leaf's gradient must lie within 5 % in L2 of the plain run's (ROADMAP C:
+# rounding error up to ~5 % of a leaf's largest gradient at full width)
+MODEL_GRAD_GAP = 0.05
+MODEL_FLOOR = 1e-6
 FT_MESH_BATCH = 8                       # fine-tune rows per rank
 
 
@@ -2703,11 +2723,22 @@ def _warm_step(dev, conditional: bool) -> None:
 
 
 def _snapshot(state) -> dict:
-    """G's and D's parameters and gradients, on the host."""
+    """G's and D's parameters and gradients, on the host, whole: a tensor-
+    parallel state's slices are all-gathered (every rank must call it)."""
+    from jckx_torch.parallel import tp
+
     rec = {}
     for name, net in (("G", state.G), ("D", state.D)):
-        rec[name] = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
-        rec[name + "_grad"] = {k: p.grad.detach().cpu().clone() for k, p in net.named_parameters()}
+        dims = tp.tp_dims(net)
+
+        def whole(t, k):
+            t = t.detach()
+            if dims.get(k) is not None:
+                t = state.mesh.all_gather(t, dims[k], "model")
+            return t.cpu().clone()
+
+        rec[name] = {k: whole(v, k) for k, v in net.state_dict().items()}
+        rec[name + "_grad"] = {k: whole(p.grad, k) for k, p in net.named_parameters()}
     return rec
 
 
@@ -2737,12 +2768,26 @@ def child_train(spec: dict) -> None:
         return m
 
     gan_trainer._BaseGANTrainer._train_step = step_and_keep_the_first
+    if spec.get("perturb"):  # the comparison's noise floor: the same run from nudged weights
+        make_state = gan_trainer.create_dcgan_state
+
+        def nudged(cfg, G, D, mesh=None):
+            with torch.no_grad():
+                g = torch.Generator().manual_seed(5)
+                for p in list(G.parameters()) + list(D.parameters()):
+                    p.mul_(1 + spec["perturb"] * torch.randn(p.shape, generator=g).to(p.device))
+            return make_state(cfg, G, D, mesh)
+
+        gan_trainer.create_dcgan_state = nudged
     fba.LAUNCHES = 0
     tr = tmain.run(get_arg_parse(spec["argv"]))
     rank = dist.get_rank() if dist.is_initialized() else 0
     rec = {"launches": fba.LAUNCHES, "step": tr.state.step, "evals": tr.evals}
+    last = _snapshot(tr.state)
+    if spec.get("renders"):
+        rec["renders_equal_once"] = _renders_equal_once(tr)
     if rank == 0:
-        rec.update(_snapshot(tr.state), first=first, telemetry=telemetry)
+        rec.update(last, first=first, telemetry=telemetry)
     torch.save(rec, f"{spec['out']}.rank{rank}.pt")
     if dist.is_initialized():
         dist.destroy_process_group()
@@ -2903,7 +2948,78 @@ def child_finetune(spec: dict) -> None:
     dist.destroy_process_group()
 
 
-CHILDREN = {"train": child_train, "time": child_time, "finetune": child_finetune}
+def _renders_equal_once(tr) -> tuple:
+    """The trainer's eval render again through the kernel (a TP generator
+    gathered first, as its evals do) and through ``bn_act_one_rounding``:
+    → (bit-identical, the render's shape)."""
+    import torch
+
+    from jckx_torch.kernels import fused_bn_act as fba
+    from jckx_torch.parallel import tp
+    from jckx_torch.train.gan_trainer import sample_eval_images
+
+    G = tr.state.ema_g if tr.state.ema_g is not None else tr.state.G
+    if getattr(G, "tp_dims", None) is not None:
+        G = tp.gathered(G, tr.mesh)
+
+    def render():
+        return sample_eval_images(G, tr.eval_z, tr.eval_onehot, tr.cd, tr.mesh)
+
+    got = render()
+    once = with_bn_act(fba.bn_act_one_rounding, render)
+    return bool(torch.equal(got, once)), tuple(got.shape)
+
+
+def child_time_model(spec: dict) -> None:
+    """bf16 DCGAN steps at full width (global batch 128) on a gloo pair of
+    this card laid out as a (1, 2) mesh in ``spec["mode"]``: host ms per
+    step (each synchronised; ``MESH_WARM`` untimed, then ``MESH_TIMED``),
+    and over the timed steps the mesh's collectives by kind (calls and
+    bytes per step) and their host share of the step."""
+    import torch
+    import torch.distributed as dist
+
+    from jckx_torch.configs import Config
+    from jckx_torch.models.dcgan import Discriminator, GANGeometry, Generator
+    from jckx_torch.parallel import make_mesh
+    from jckx_torch.train.state import create_dcgan_state
+    from jckx_torch.train.steps import make_dcgan_train_step
+
+    dev = _child_init("gloo")
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+    mesh = make_mesh((1, 2), ("data", "model"), device=dev)
+    cfg, geo = Config(), GANGeometry()
+    cfg.compute_dtype, cfg.max_learning_rate = "bfloat16", TRAIN_LR
+    cfg.model_axis_mode = spec["mode"]
+    gen = torch.Generator().manual_seed(0)
+    state = create_dcgan_state(cfg, Generator(geo, gen=gen).to(dev),
+                               Discriminator(geo, gen=gen).to(dev), mesh)
+    real = (torch.rand(TRAIN_BATCH, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+            * 2 - 1).to(dev)
+    step = make_dcgan_train_step(cfg, geo, mesh)
+    ms = []
+    for i in range(MESH_WARM + MESH_TIMED):
+        if i == MESH_WARM:
+            mesh.stats.reset()
+        t0 = time.perf_counter()
+        step(state, real)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    timed = ms[MESH_WARM:]
+    stats = mesh.stats.as_dict()
+    host_s = sum(v["host_s"] for v in stats.values())
+    rec = {"ms": timed, "per_step": {k: {"calls": v["calls"] / MESH_TIMED,
+                                         "bytes": v["bytes"] / MESH_TIMED,
+                                         "host_ms": 1e3 * v["host_s"] / MESH_TIMED}
+                                     for k, v in stats.items()},
+           "host_share": host_s / (1e-3 * sum(timed)), "rank": dist.get_rank()}
+    torch.save(rec, f"{spec['out']}.rank{dist.get_rank()}.pt")
+    dist.destroy_process_group()
+
+
+CHILDREN = {"train": child_train, "time": child_time, "finetune": child_finetune,
+            "time_model": child_time_model}
 
 
 def _mesh_argv(tmp: str, model: str, run: str, extra=()) -> list:
@@ -3175,6 +3291,195 @@ def phase_mesh(tmp: str, dev, card: str) -> int:
     return launches
 
 
+def phase_mesh_model(tmp: str, card: str) -> int:
+    """The mesh's model axis (``--mesh_shape 1,2 --mesh_axes data,model``)
+    at full width (64², base width 64, global batch 128, ``MESH_STEPS``
+    steps and one eval, f32, TF32 off), each run a gloo pair of child
+    processes sharing this card (NCCL cannot put two ranks on one GPU),
+    all at once:
+
+    - DCGAN under ``--model_axis_mode tp`` (``--tp_min_dim 128``: G's
+      512 / 256 / 128 stages and D's 128 / 256 / 512 sharded) and under
+      ``spatial``, and CGAN (K = 100) under ``tp``, each against
+      ``phase_mesh``'s plain run of the same command on the first step:
+      telemetry within 3e-3, masked Adam deltas within 5 % of lr on all
+      but 0.1 % of each net's, and every leaf's gradient within 5 % in L2
+      (``MODEL_GRAD_GAP`` says why), beside the noise floor of the plain
+      run from weights nudged by ``MODEL_FLOOR``;
+    - DCGAN under ``spatial --spatial_replicate_grads 0`` (Adam on each
+      rank's half of the flat parameters) against ``1``: the first step's
+      parameters within 1e-6 of each leaf's largest magnitude, the last
+      step's gap printed;
+    - the eval of each run: the kernel's launches on every rank (a TP
+      generator all-gathered first, then 4 per DCGAN render, 8 per CGAN
+      render), and the render bit-identical to ``bn_act_one_rounding``;
+    - the TP run's ``latest.ckpt`` (full tensors) served by
+      ``GeneratorService`` (4 launches for a batch of 64);
+
+    then the bf16 step of a TP pair and of a spatial pair (2 warm + 6
+    timed steps): ms per rank, the collectives per step by kind and their
+    host share. → the kernel launches of the runs' evals and the serve."""
+    import torch
+
+    from jckx_torch.kernels import fused_bn_act as fba
+    from jckx_torch.serve import GeneratorService
+
+    t_phase = time.perf_counter()
+    out = os.path.join(tmp, "mesh_out")
+    pair = ["--device", "cuda:0", "--mesh_shape", "1,2", "--mesh_axes", "data,model",
+            "--multihost"]
+    runs = {"tp": ("DCGAN", ["--model_axis_mode", "tp"]),
+            "spatial": ("DCGAN", ["--model_axis_mode", "spatial"]),
+            "spatial_rg0": ("DCGAN", ["--model_axis_mode", "spatial",
+                                      "--spatial_replicate_grads", "0"]),
+            "tp_cgan": ("CGAN", ["--model_axis_mode", "tp"])}
+    procs = {name: _start_group("train", {
+        "backend": "gloo", "renders": True, "out": os.path.join(out, name),
+        "argv": _mesh_argv(tmp, model, name, pair + flags)}, 2)
+        for name, (model, flags) in runs.items()}
+    # the comparison's noise floor: the plain run from weights nudged by 1e-6
+    procs["floor"] = [_start_child("train", {
+        "backend": "none", "perturb": MODEL_FLOOR, "out": os.path.join(out, "floor"),
+        "argv": _mesh_argv(tmp, "DCGAN", "floor", ["--device", "cuda"])})]
+    for name, ps in procs.items():
+        _join(ps, f"phase_mesh_model {name}")
+    load = lambda name, r=0: torch.load(os.path.join(out, f"{name}.rank{r}.pt"),  # noqa: E731
+                                        weights_only=False)
+    res = {name: [load(name, r) for r in range(2)] for name in runs}
+    plain = {"DCGAN": load("plain"), "CGAN": load("plain_cgan")}
+    runs_s = time.perf_counter() - t_phase
+    floor = load("floor")["first"]
+    print(f"noise floor: the plain DCGAN run from weights nudged by {MODEL_FLOOR:g} relative "
+          f"against the plain run, step 1: telemetry max |diff| "
+          f"{max(abs(floor['telemetry'][k] - plain['DCGAN']['first']['telemetry'][k]) for k in floor['telemetry']):.3g}; "
+          + _gaps_text(_pair_gaps(_init_params("DCGAN"), floor, plain["DCGAN"]["first"]))
+          + f" (not held)   [{card}]")
+    launches = 0
+    for name, (model, _) in runs.items():
+        r0, r1 = res[name]
+        one = plain[model]
+        want = 4 if model == "DCGAN" else 8  # one render of 64, or 1000 rows in chunks of 500
+        check(r0["launches"] == r1["launches"] == want and r0["evals"] == [MESH_STEPS],
+              f"{name}: launches {r0['launches']} / {r1['launches']}, want {want} per rank; "
+              f"evals {r0['evals']}")
+        check(r0["renders_equal_once"][0] and r1["renders_equal_once"][0],
+              f"{name}: the eval render differs from the plain route with the kernel's rounding")
+        launches += r0["launches"] + r1["launches"]
+        t1, t1_one = r0["first"]["telemetry"], one["first"]["telemetry"]
+        gaps = {k: abs(t1[k] - t1_one[k]) for k in t1_one}
+        for k, gap in gaps.items():
+            check(gap <= 3e-3 + 3e-3 * abs(t1_one[k]), f"{name}, step 1, {k}: {t1[k]} vs "
+                                                        f"{t1_one[k]}")
+        start = _init_params(model)
+        for i, net in enumerate(("G", "D")):
+            check({k: v.shape for k, v in r0["first"][net].items()}
+                  == {k: v.shape for k, v in one["first"][net].items()},
+                  f"{name}: the gathered {net} has other shapes than the plain run's")
+        gaps_g = _pair_gaps(start, r0["first"], one["first"], grads=name != "spatial_rg0")
+        for net, v in gaps_g.items():
+            check(v["flipped"] <= 1e-3 * v["masked"] and v["covered"] > 0.5,
+                  f"{name} {net}: {v['flipped']} of {v['masked']} masked Adam deltas differ by "
+                  f"> 5 % of lr (covered {v['covered']:.3f})")
+            check(v["grad_gap"] <= MODEL_GRAD_GAP, f"{name} {net}.{v['grad_gap_leaf']}: gradient "
+                                                   f"{v['grad_gap']:.3g} from the plain run's in L2")
+        tele = _metrics_of(tmp, model, name)
+        tele_one = _metrics_of(tmp, model, "plain" if model == "DCGAN" else "plain_cgan")
+        check(all(math.isfinite(tele[k]) for k in METRIC_NAMES_ALL[:6] + ("fid",)),
+              f"{name}: non-finite metrics {tele}")
+        last = max(abs(tele[k] - tele_one[k]) for k in METRIC_NAMES_ALL[:6])
+        print(f"{model} {name} on a (1, 2) data x model mesh of two gloo ranks of this card "
+              f"(bs{TRAIN_BATCH}, f32) against the plain run: step 1 telemetry max |diff| "
+              f"{max(gaps.values()):.3g} (<= 3e-3); " + _gaps_text(gaps_g)
+              + f"; after step {MESH_STEPS} telemetry max |diff| "
+              f"{last:.3g} (not held), eval fid {tele['fid']:.6g} vs {tele_one['fid']:.6g}; "
+              f"{r0['launches']} + {r1['launches']} kernel launches at the eval, render "
+              f"{r0['renders_equal_once'][1]} bit-identical to bn_act_one_rounding   [{card}]")
+    on, off = res["spatial"][0], res["spatial_rg0"][0]
+    for when in ("first", "last"):
+        a = on["first"] if when == "first" else on
+        b = off["first"] if when == "first" else off
+        gap = max(float((b[net][k] - v).abs().max()) / (float(v.abs().max()) + 1e-30)
+                  for net in ("G", "D") for k, v in a[net].items() if v.is_floating_point())
+        if when == "first":
+            check(gap <= 1e-6, f"spatial_replicate_grads 0 vs 1 after step 1: {gap:.3g} of a "
+                               f"leaf's largest magnitude")
+        print(f"--spatial_replicate_grads 0 against 1 (DCGAN spatial, f32) after "
+              f"{'step 1' if when == 'first' else f'step {MESH_STEPS}'}: parameters at most "
+              f"{gap:.3g} of a leaf's largest magnitude apart"
+              + (" (<= 1e-6)" if when == "first" else " (not held)") + f"   [{card}]")
+
+    # the TP run's checkpoint, served
+    ckpt = os.path.join(tmp, "mesh_save", "tp", "dcgan", "tp", "latest.ckpt")
+    svc = GeneratorService(ckpt, batch_size=64, compute_dtype=torch.bfloat16, device="cuda")
+    before = fba.LAUNCHES
+    images = svc.sample(64, seed=0)
+    served = fba.LAUNCHES - before
+    check(images.shape == (64, 64, 64, 3) and svc.step == MESH_STEPS and served == 4,
+          f"the TP checkpoint served {images.shape} at step {svc.step} with {served} launches")
+    launches += served
+    print(f"the TP run's latest.ckpt (full tensors, step {svc.step}) served by GeneratorService: "
+          f"64 images, {served} kernel launches   [{card}]")
+
+    # the bf16 step of each layout, timed
+    t0 = time.perf_counter()
+    for mode in ("tp", "spatial"):
+        _join(_start_group("time_model", {"mode": mode, "out": os.path.join(out, f"time_{mode}")},
+                           2), f"phase_mesh_model time_{mode}")
+    timing_s = time.perf_counter() - t0
+    numbers = {"card": card, "runs_s": runs_s, "timing_s": timing_s}
+    for mode in ("tp", "spatial"):
+        t = [load(f"time_{mode}", r) for r in range(2)]
+        med = [statistics.median(x["ms"]) for x in t]
+        numbers[mode] = {"step_ms_per_rank": med, "ms": [x["ms"] for x in t],
+                         "collectives_per_step": t[0]["per_step"],
+                         "host_share": [x["host_share"] for x in t]}
+        c = t[0]["per_step"]
+        kinds = ", ".join(f"{k} {v['calls']:g} calls / {v['bytes'] / 2**20:.2f} MiB / "
+                          f"{v['host_ms']:.2f} ms" for k, v in c.items() if v["calls"])
+        print(f"bf16 DCGAN step (64², width 64, bs{TRAIN_BATCH}) under {mode} on a (1, 2) mesh "
+              f"of two gloo ranks of this card: {med[0]:.3f} / {med[1]:.3f} ms per rank "
+              f"(medians of {MESH_TIMED} after {MESH_WARM} warm steps); collectives per step "
+              f"(rank 0): {kinds}; their host share of a step {100 * t[0]['host_share']:.1f} % / "
+              f"{100 * t[1]['host_share']:.1f} %   [{card}]")
+    print("mesh_model_numbers " + json.dumps(numbers))
+    print(f"phase_mesh_model: {time.perf_counter() - t_phase:.1f} s ({runs_s:.1f} s the runs at "
+          f"once, {timing_s:.1f} s the timing); {launches} kernel launches")
+    return launches
+
+
+def _pair_gaps(start: dict, got: dict, want: dict, grads: bool = True) -> dict:
+    """A model-axis pair's first step (``got``) against the plain run's
+    (``want``), per net: Adam deltas from ``start`` that differ by > 5 % of
+    lr where the plain gradient clears 1 % of its leaf's maximum (flipped,
+    and masked), the share the mask covers, and (with ``grads``) the
+    largest per-leaf gap of the gradients in L2 relative to the plain
+    run's. A ``ShardedAdam`` run keeps no whole gradient: ``grads`` off."""
+    out = {}
+    for i, net in enumerate(("G", "D")):
+        flipped = masked = total = 0
+        worst = (0.0, "")
+        for k, g in want[net + "_grad"].items():
+            mask = g.abs() > 1e-2 * g.abs().max() + 1e-12
+            d = ((got[net][k] - start[i][k]) - (want[net][k] - start[i][k])).abs()
+            flipped += int((d > 0.05 * TRAIN_LR)[mask].sum())
+            masked += int(mask.sum())
+            total += mask.numel()
+            if grads:
+                gap = float((got[net + "_grad"][k] - g).norm() / (g.norm() + 1e-30))
+                worst = max(worst, (gap, k))
+        out[net] = {"flipped": flipped, "masked": masked, "covered": masked / total,
+                    "grad_gap": worst[0], "grad_gap_leaf": worst[1]}
+    return out
+
+
+def _gaps_text(gaps: dict) -> str:
+    return "; ".join(
+        f"{net}: {v['flipped']} of {v['masked']:,} masked Adam deltas off by > 5 % of lr "
+        f"(covering {100 * v['covered']:.1f} %)"
+        + (f", gradients at most {v['grad_gap']:.3g} apart in L2 ({v['grad_gap_leaf']})"
+           if v["grad_gap_leaf"] else "") for net, v in gaps.items())
+
+
 @contextlib.contextmanager
 def keep_latest_of_step(step: int, dst: str):
     """While inside, copy ``latest.ckpt`` to ``dst`` when a trainer writes it
@@ -3258,6 +3563,7 @@ def main() -> None:
         finetune_launches = phase_finetune(ctr, tmp, card)
         plane_launches = phase_data_planes(tmp, dev, card)
         mesh_launches = phase_mesh(tmp, dev, card)
+        mesh_launches += phase_mesh_model(tmp, card)
     print(json.dumps({"kernels": [{
         "name": "fused_bn_act", "route": "cuda",
         "source": "jckx_torch/kernels/csrc/fused_bn_act.cu",
@@ -3275,7 +3581,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 4 and sys.argv[1] == "--child":  # a child process of phase_mesh
+    if len(sys.argv) == 4 and sys.argv[1] == "--child":  # a child of phase_mesh(_model)
         CHILDREN[sys.argv[2]](json.loads(sys.argv[3]))
     else:
         main()

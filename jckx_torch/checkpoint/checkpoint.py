@@ -45,6 +45,8 @@ from jckx_torch.checkpoint.jckx_ckpt import read_jckx_checkpoint
 from jckx_torch.checkpoint.torch_convert import infer_gan_config
 from jckx_torch.models.cgan import CGenerator
 from jckx_torch.models.dcgan import GANGeometry, Generator
+from jckx_torch.parallel.mesh import reshard, shard_tree
+from jckx_torch.parallel.tp import payload_dims
 from jckx_torch.train.state import GANTrainState, adam_count, ema_copy
 
 _EXTRA_KEYS = ("step", "seed", "ema_g")
@@ -62,15 +64,24 @@ def _cpu(obj):
 
 
 def state_payload(state: GANTrainState, extra: Optional[dict] = None) -> Dict[str, Any]:
-    """A host copy of the state as the reference's dict plus the extras."""
-    out = {"model_g": _cpu(state.G.state_dict()), "model_d": _cpu(state.D.state_dict()),
-           "optimizer_g": _cpu(state.opt_g.state_dict()),
-           "optimizer_d": _cpu(state.opt_d.state_dict()),
-           "step": int(state.step), "seed": int(state.seed)}
+    """A host copy of the state as the reference's dict plus the extras,
+    with full tensors: a state sharded over a model axis is gathered first
+    (jckx's snapshot that gathers to replicated, ``jckx/train/
+    gan_trainer.py:268-281``), so every rank of such a state must call it."""
+    out = {"model_g": state.G.state_dict(), "model_d": state.D.state_dict(),
+           "optimizer_g": state.opt_g.state_dict(), "optimizer_d": state.opt_d.state_dict()}
     if state.ema_g is not None:
-        out["ema_g"] = _cpu(state.ema_g.state_dict())
-    out.update(extra or {})
+        out["ema_g"] = state.ema_g.state_dict()
+    if _sharded(state):
+        out = reshard(out, payload_dims(state.G, state.D, state.ema_g, out), state.mesh)
+    out = _cpu(out)
+    out.update({"step": int(state.step), "seed": int(state.seed)}, **(extra or {}))
     return out
+
+
+def _sharded(state: GANTrainState) -> bool:
+    """Whether the state's nets hold slices of a model axis (TP)."""
+    return state.mesh is not None and getattr(state.G, "tp_dims", None) is not None
 
 
 def save_checkpoint(path: str, payload: Dict[str, Any]) -> None:
@@ -149,15 +160,21 @@ def restore_checkpoint(path: str, state: GANTrainState, lr: float) -> Dict[str, 
 
     Weights load strictly; Adam's moments and counts come along when the
     file has them. The step is the file's ``step``, else (a reference
-    file) the Adam count, as jckx's importer reads it. ``lr`` replaces the
+    file) the Adam count, as jckx's importer reads it. A state sharded over
+    a model axis takes its slices of the file's full tensors, so a run
+    resumes under any layout. ``lr`` replaces the
     saved learning rate, as jckx's importer takes it from its caller.
     → the file's other keys."""
     ckpt = load_checkpoint(path)
+    if _sharded(state):  # full tensors → this member's slices, whatever layout wrote them
+        ckpt = shard_tree(ckpt, payload_dims(state.G, state.D, state.ema_g, ckpt), state.mesh)
     state.G.load_state_dict(ckpt["model_g"], strict=True)
     state.D.load_state_dict(ckpt["model_d"], strict=True)
     for key, opt in (("optimizer_g", state.opt_g), ("optimizer_d", state.opt_d)):
         if ckpt.get(key, {}).get("state"):
             opt.load_state_dict(ckpt[key])
+        elif hasattr(opt, "sync_params"):
+            opt.sync_params()
         for group in opt.param_groups:
             group["lr"] = lr
     state.step = int(ckpt.get("step", adam_count(state.opt_g)))

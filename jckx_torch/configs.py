@@ -9,16 +9,15 @@ fields of ``jckx.configs.Config`` that the port's trainers read.
 The port adds ``--device`` (default ``cuda``, ``cuda:{LOCAL_RANK}`` under
 ``torchrun``; ``cpu`` runs the plain PyTorch path).
 
-The mesh is jckx's data axis (``parallel/mesh.py``): ``--mesh_shape N``
-(or ``--mesh_axes data,model`` with a ``model`` axis of 1) trains on N
-ranks of a process group, one process per GPU, brought up from torch's
-``env://`` variables when ``--multihost`` is given or N > 1 (``torchrun
---nproc_per_node N -m jckx_torch train --mesh_shape N --multihost``). The
-flags of ``jckx`` that have no meaning in the port yet (a ``model`` axis
-larger than 1 and the tensor / spatial knobs) stay on the command line so
-that a ``jckx`` command line parses, but fail loudly when set away from
-their defaults, naming the ``ROADMAP.md`` item that brings them
-(``UNPORTED``, ``check_mesh``).
+The mesh is jckx's (``parallel/mesh.py``): ``--mesh_shape N`` trains on N
+ranks of a process group on the data axis, and ``--mesh_shape D,M
+--mesh_axes data,model`` on D·M ranks, the ``model`` axis sharding each
+layer's output channels (``--model_axis_mode tp``, leaves of at least
+``--tp_min_dim``) or the activations' height (``spatial``, with
+``--spatial_replicate_grads 0|1``); one process per GPU, brought up from
+torch's ``env://`` variables when ``--multihost`` is given or the mesh has
+more than one rank (``torchrun --nproc_per_node D·M -m jckx_torch train
+--mesh_shape D,M --mesh_axes data,model --multihost``).
 
 The data planes are jckx's (``:115-124``): ``--data_placement hbm`` keeps
 the uint8 set on the device, ``stream`` gathers each launch's rows on the
@@ -47,7 +46,7 @@ import os
 from dataclasses import dataclass
 from typing import Optional
 
-from jckx_torch.parallel.mesh import A13B, check_mesh, parse_mesh_axes, parse_mesh_shape
+from jckx_torch.parallel.mesh import check_mesh, parse_mesh_axes, parse_mesh_shape
 
 RANDOMSEED = 12345  # the reference's global seed (change_randomseed.py:1)
 MODELS = ("DCGAN", "CGAN")
@@ -120,7 +119,7 @@ class Config:
     data_placement: str = "auto"
     hbm_data_budget: int = 4 << 30
 
-    # --- the mesh (data axis; the model axis's knobs are UNPORTED) ---
+    # --- the mesh: data axis, and a model axis of tp or spatial ---
     mesh_shape: str = ""               # "N": N ranks on the data axis ('' = one process)
     mesh_axes: str = "data"
     model_axis_mode: str = "tp"
@@ -134,27 +133,22 @@ class Config:
         return json.dumps(dataclasses.asdict(self), indent=2)
 
 
-# field → (the value that means "off", the ROADMAP.md item that brings it)
-UNPORTED = {
-    "model_axis_mode": ("tp", A13B),
-    "tp_min_dim": (128, A13B),
-    "spatial_replicate_grads": (1, A13B),
-}
-
-
 def check_ported(cfg: Config) -> None:
-    """Raise ``SystemExit`` naming the ROADMAP item for every flag set away
-    from its default that the port has no meaning for yet, and for a mesh
-    it cannot run (a ``model`` axis larger than 1: ``check_mesh``)."""
+    """Raise ``SystemExit`` for a mesh or a model-axis knob that ``train``
+    cannot run: a malformed mesh (``check_mesh``), a ``--tp_min_dim`` below
+    1, a ``--spatial_replicate_grads`` other than 0 or 1."""
     bad = []
-    for name, (off, item) in UNPORTED.items():
-        val = getattr(cfg, name)
-        if val != off:
-            bad.append(f"--{name} {val!r}: not ported yet (ROADMAP.md {item})")
     try:
-        check_mesh(parse_mesh_shape(cfg.mesh_shape), parse_mesh_axes(cfg.mesh_axes))
+        check_mesh(parse_mesh_shape(cfg.mesh_shape), parse_mesh_axes(cfg.mesh_axes),
+                   model_axis=True)
     except ValueError as e:
         bad.append(f"--mesh_shape {cfg.mesh_shape!r} --mesh_axes {cfg.mesh_axes!r}: {e}")
+    if cfg.model_axis_mode not in ("tp", "spatial"):
+        bad.append(f"--model_axis_mode {cfg.model_axis_mode!r}: expected tp or spatial")
+    if cfg.tp_min_dim < 1:
+        bad.append(f"--tp_min_dim {cfg.tp_min_dim}: must be at least 1")
+    if cfg.spatial_replicate_grads not in (0, 1):
+        bad.append(f"--spatial_replicate_grads {cfg.spatial_replicate_grads}: expected 0 or 1")
     if bad:
         raise SystemExit("jckx_torch: " + "; ".join(bad))
 

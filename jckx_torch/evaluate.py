@@ -115,7 +115,7 @@ def evaluate(args, metrics=None) -> dict:
     if trunc < 0:  # checked before the (slow) load, as serve refuses it
         raise ValueError(f"truncation {trunc} must be >= 0 (0 = off)")
     device = resolve_device(args.device)
-    mesh = process_mesh(args.mesh_shape, device=device)
+    mesh = process_mesh(args.mesh_shape, device=device, what="evaluate")
     use_ema = None if args.use_ema is None else bool(args.use_ema)
     geo_overrides = {k: getattr(args, k) for k in GEOMETRY_FIELDS if getattr(args, k) is not None}
     G, conditional, geo, ncls, step, _ = load_generator(

@@ -43,8 +43,9 @@ does not build or launch raises.
 
 Sync-BN over a mesh (``mesh``, ``parallel/mesh.py``): the statistics are
 the per-channel sum and sum of squares, one (2, C) f32 tensor, summed over
-the mesh's data axis before the division by the global row count. That is
-jckx's global batch statistics, which a sharded jit has by construction
+the mesh's data axis (``axis``; over data × model, ``"world"``, where the
+activation's height is sharded on the model axis) before the division by
+the global row count. That is jckx's global batch statistics, which a sharded jit has by construction
 (``jckx/ops/norm.py:9-12``), and the GPU form of its ``custom_partitioning``
 rule (``:133-171``): each rank, or each device of a local mesh, then
 normalizes its own rows with the global ``inv`` / ``shift``, through the
@@ -89,23 +90,24 @@ def _unrows(y2d: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return y2d.reshape(n, h, w, c).permute(0, 3, 1, 2)
 
 
-def _stats(x2d: torch.Tensor, mesh=None):
+def _stats(x2d: torch.Tensor, mesh=None, axis: str = "data"):
     """f32 batch mean and E[x²] − mean², as jckx's ``_stats`` (``:66-71``):
     the per-channel sum and sum of squares as one (2, C) tensor, summed
-    over ``mesh``'s data axis when one is given, over the global row count."""
+    over ``mesh``'s ``axis`` when a mesh is given (``"data"``; ``"world"``
+    for a height-sharded activation), over the global row count."""
     xf = x2d.float()
     sums = torch.stack([xf.sum(0), (xf * xf).sum(0)])
     n = x2d.shape[0]
     if mesh is not None:
-        sums = mesh.all_reduce(sums)
-        n *= mesh.size
+        sums = mesh.all_reduce(sums, axis)
+        n *= mesh.axis_size(axis)
     mean = sums[0] / n
     var = sums[1] / n - mean * mean
     return mean, var
 
 
-def _affine(x2d, scale, bias, eps, mesh=None):
-    mean, var = _stats(x2d, mesh)
+def _affine(x2d, scale, bias, eps, mesh=None, axis="data"):
+    mean, var = _stats(x2d, mesh, axis)
     inv = torch.rsqrt(var + eps) * scale.float()
     shift = bias.float() - mean * inv
     return inv, shift
@@ -127,14 +129,16 @@ def normalize_act_plain(x2d, inv, shift, act="none", negative_slope=0.2):
     return _activate(x2d.float() * inv + shift, act, negative_slope).to(x2d.dtype)
 
 
-def bn_act_plain(x, scale, bias, act="none", negative_slope=0.2, eps=1e-5, mesh=None):
+def bn_act_plain(x, scale, bias, act="none", negative_slope=0.2, eps=1e-5, mesh=None,
+                 axis="data"):
     """Batch-stat BN + activation in plain PyTorch (``_bn_act_xla``)."""
     x2d = _rows(x)
-    inv, shift = _affine(x2d, scale, bias, eps, mesh)
+    inv, shift = _affine(x2d, scale, bias, eps, mesh, axis)
     return _unrows(normalize_act_plain(x2d, inv, shift, act, negative_slope), x)
 
 
-def bn_act_one_rounding(x, scale, bias, act="none", negative_slope=0.2, eps=1e-5, mesh=None):
+def bn_act_one_rounding(x, scale, bias, act="none", negative_slope=0.2, eps=1e-5, mesh=None,
+                        axis="data"):
     """``bn_act_plain`` with the kernel's rounding: the multiply-add in f64,
     rounded once to f32 as the kernel's ``fmaf`` rounds it (the product of
     a bf16 or f32 x and an f32 inv is exact in f64). A whole render through
@@ -142,7 +146,7 @@ def bn_act_one_rounding(x, scale, bias, act="none", negative_slope=0.2, eps=1e-5
     version drifts by one ulp here and there and batch statistics carry
     that through the later layers (chip_smoke.py, tests/test_torch_gpu.py)."""
     x2d = _rows(x)
-    inv, shift = _affine(x2d, scale, bias, eps, mesh)
+    inv, shift = _affine(x2d, scale, bias, eps, mesh, axis)
     y = (x2d.double() * inv.double() + shift.double()).float()
     return _unrows(_activate(y, act, negative_slope).to(x2d.dtype), x)
 
@@ -203,13 +207,13 @@ def _normalize_act_fake(x2d, inv, shift, act, negative_slope):
     return torch.empty_like(x2d)
 
 
-def bn_act(x, scale, bias, act="none", negative_slope=0.2, eps=1e-5, mesh=None):
+def bn_act(x, scale, bias, act="none", negative_slope=0.2, eps=1e-5, mesh=None, axis="data"):
     """Batch-stat BN fused with activation. See the module docstring."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)):
-        return bn_act_plain(x, scale, bias, act, negative_slope, eps, mesh)
+        return bn_act_plain(x, scale, bias, act, negative_slope, eps, mesh, axis)
     if (x.device.type == "cuda" and x.dim() == 4
             and not x.is_contiguous(memory_format=torch.channels_last)):
         raise ValueError("bn_act on the card needs a channels_last NCHW tensor")
     x2d = _rows(x)
-    inv, shift = _affine(x2d, scale, bias, eps, mesh)
+    inv, shift = _affine(x2d, scale, bias, eps, mesh, axis)
     return _unrows(normalize_act_op(x2d, inv, shift, act, negative_slope), x)

@@ -308,7 +308,8 @@ def _load_splits(args, logger):
 
 def train(args) -> FinetuneRun:
     device = resolve_device(args.device)
-    mesh = process_mesh(args.mesh_shape, multihost=bool(args.multihost), device=device)
+    mesh = process_mesh(args.mesh_shape, multihost=bool(args.multihost), device=device,
+                        what="the fine-tune")
     bs = args.batch_size
     if mesh is not None and bs % mesh.size:
         raise ValueError(f"batch_size {bs} not divisible by data axis ({mesh.size})")

@@ -33,11 +33,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from jckx_torch.kernels.fused_bn_act import bn_act
-from jckx_torch.models.dcgan import (GANGeometry, Generator, _BatchStatNorm, _ConvWeight,
-                                     init_module)
-from jckx_torch.ops.conv import conv2d
+from jckx_torch.models.dcgan import (Discriminator, GANGeometry, Generator, _BatchStatNorm,
+                                     _ConvWeight, init_module)
 from jckx_torch.ops.init import linear_init
+from jckx_torch.parallel.layout import Layout
 
 HIDDEN = 256    # linear1's width (model/CGAN.py:112)
 DROPOUT = 0.25  # model/CGAN.py:120
@@ -76,13 +75,14 @@ class CGenerator(Generator):
         self.num_classes = num_classes
 
     def forward(self, z: torch.Tensor, labels_onehot: torch.Tensor,
-                compute_dtype=torch.float32, subpixel: bool = False, mesh=None) -> torch.Tensor:
+                compute_dtype=torch.float32, subpixel: bool = False, mesh=None,
+                par=None) -> torch.Tensor:
         """z (N, z_dim) or (N, 1, 1, z_dim), one-hot labels (N, K) → images
         (N, S, S, C) in [-1, 1] — counterpart of ``cgenerator_apply``;
-        ``mesh`` as in ``Generator.forward``."""
+        ``mesh`` and ``par`` as in ``Generator.forward``."""
         z = z.reshape(z.shape[0], -1)
         return super().forward(torch.cat([z, labels_onehot.to(z.dtype)], dim=-1), compute_dtype,
-                               subpixel, mesh)
+                               subpixel, mesh, par)
 
 
 class CDiscriminator(nn.Module):
@@ -105,22 +105,24 @@ class CDiscriminator(nn.Module):
         if gen is not None:
             weights_init(self, gen)
 
+    trunk = Discriminator.trunk
+
     def forward(self, x: torch.Tensor, labels_onehot: torch.Tensor, compute_dtype=torch.float32,
-                keep: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
+                keep: Optional[torch.Tensor] = None, mesh=None, par=None) -> torch.Tensor:
         """images (N, S, S, C), one-hot labels (N, K), the dropout keep-mask
         (N, 256) or None → per-sample logits (N,) in f32 — counterpart of
-        ``cdiscriminator_apply``; ``mesh`` as in ``Generator.forward``."""
-        x = x.permute(0, 3, 1, 2).to(compute_dtype)
-        for i in range(self.geo.n_up):
-            x = conv2d(x, getattr(self, f"conv{i + 1}").weight.to(compute_dtype), stride=2, padding=1)
-            norm = getattr(self, f"norm{i + 1}")
-            x = bn_act(x, norm.weight, norm.bias, act="leaky_relu", negative_slope=0.2,
-                       mesh=mesh)
-        feat = x.reshape(x.shape[0], -1).float()  # NCHW-logical: (C, H, W) rows
-        lab = self.label_embedding(labels_onehot.float())
+        ``cdiscriminator_apply``; ``mesh`` and ``par`` as in
+        ``Generator.forward``."""
+        lay = par if par is not None else Layout(mesh)
+        feat = self.trunk(x, compute_dtype, lay)
+        feat = feat.reshape(feat.shape[0], -1).float()  # NCHW-logical: (C, H, W) rows
+        k2 = 2 * self.num_classes
+        lab = lay.linear(labels_onehot.float(), self.label_embedding.weight,
+                         self.label_embedding.bias, k2)
         lab = torch.where(lab >= 0, lab, 0.2 * lab)
-        h = self.linear1(torch.cat([feat, lab], dim=-1))
+        h = lay.linear(torch.cat([feat, lab], dim=-1), self.linear1.weight, self.linear1.bias,
+                       HIDDEN)
         if keep is not None:
             h = h * keep.to(h.dtype) / (1.0 - DROPOUT)
-        out = self.linear2(h)
+        out = lay.linear(h, self.linear2.weight, self.linear2.bias, 1)
         return out.reshape(out.shape[0])

@@ -10,6 +10,10 @@ Layouts: the public forward functions keep the JAX package's NHWC
 activations are NCHW-logical tensors in ``torch.channels_last`` memory, so
 the fused BN kernel reads each one as ``(N·H·W, C)`` rows without a copy.
 
+Each layer runs through a layout (``parallel/layout.py``): whole
+activations by default; under a mesh's model axis, sharded channels
+(``parallel/tp.py``) or rows (``parallel/spatial.py``).
+
 Parameters carry the reference's state-dict names (``conv{i}.weight``,
 ``norm{i}.weight`` / ``norm{i}.bias``), and each norm registers the
 ``running_mean`` / ``running_var`` / ``num_batches_tracked`` buffers of
@@ -28,8 +32,9 @@ import torch
 import torch.nn as nn
 
 from jckx_torch.kernels.fused_bn_act import bn_act
-from jckx_torch.ops.conv import conv2d, conv_transpose2d
+from jckx_torch.ops.conv import conv2d
 from jckx_torch.ops.init import bn_scale_init, conv_init
+from jckx_torch.parallel.layout import Layout
 
 
 @dataclass(frozen=True)
@@ -111,24 +116,30 @@ class Generator(nn.Module):
             weights_init(self, gen)
 
     def forward(self, z: torch.Tensor, compute_dtype=torch.float32,
-                subpixel: bool = False, mesh=None) -> torch.Tensor:
+                subpixel: bool = False, mesh=None, par=None) -> torch.Tensor:
         """z: (N, in_dim) or (N, 1, 1, in_dim) → images (N, S, S, C) in [-1, 1],
         in ``compute_dtype`` — counterpart of ``generator_apply``, with its
         casts: z and the weights in the compute dtype, BN output in x's
         dtype, tanh in f32 cast back to the compute dtype. ``subpixel``:
         the stride-2 layers in the sub-pixel form (``ops/conv.py``).
         ``mesh``: z is this member's rows of a batch sharded on its data
-        axis, and BN takes the global statistics (``parallel/mesh.py``)."""
+        axis, and BN takes the global statistics (``parallel/mesh.py``).
+        ``par``: a model-axis layout (``parallel/layout.py``) in place of
+        ``mesh``; under ``spatial`` the images are this member's rows."""
+        # this module's bn_act, looked up per call (a test may route it elsewhere)
+        lay = par if par is not None else Layout(mesh, subpixel, bn_act)
         n_up = self.geo.n_up
         x = z.reshape(z.shape[0], -1, 1, 1).to(compute_dtype)
-        for i in range(n_up):
+        h = 1
+        for i, width in enumerate(self.geo.stage_widths()):
             w = getattr(self, f"conv{i + 1}").weight.to(compute_dtype)
             stride, pad = (1, 0) if i == 0 else (2, 1)
-            x = conv_transpose2d(x, w, stride=stride, padding=pad, subpixel=subpixel)
+            x = lay.conv_transpose2d(x, w, stride, pad, h)
+            h = 4 if i == 0 else 2 * h
             norm = getattr(self, f"norm{i + 1}")
-            x = bn_act(x, norm.weight, norm.bias, act="relu", mesh=mesh)
+            x = lay.bn_act(x, norm.weight, norm.bias, "relu", width, h)
         w = getattr(self, f"conv{n_up + 1}").weight.to(compute_dtype)
-        x = conv_transpose2d(x, w, stride=2, padding=1, subpixel=subpixel)
+        x = lay.conv_transpose2d(x, w, 2, 1, h)
         return torch.tanh(x.float()).to(compute_dtype).permute(0, 2, 3, 1)
 
 
@@ -148,16 +159,25 @@ class Discriminator(nn.Module):
         if gen is not None:
             weights_init(self, gen)
 
-    def forward(self, x: torch.Tensor, compute_dtype=torch.float32, mesh=None) -> torch.Tensor:
-        """images (N, S, S, C) → per-sample logits (N,) in f32 — counterpart
-        of ``discriminator_apply``; ``mesh`` as in ``Generator.forward``."""
-        n_up = self.geo.n_up
+    def trunk(self, x: torch.Tensor, compute_dtype, lay) -> torch.Tensor:
+        """images (N, S, S, C) → the last stage's NCHW activation (N, C, s, s)
+        with all its rows (the part both families share)."""
         x = x.permute(0, 3, 1, 2).to(compute_dtype)
-        for i in range(n_up):
+        h = self.geo.image_size
+        for i, width in enumerate(reversed(self.geo.stage_widths())):
             w = getattr(self, f"conv{i + 1}").weight.to(compute_dtype)
-            x = conv2d(x, w, stride=2, padding=1)
+            x = lay.conv2d(x, w, 2, 1, h)
+            h //= 2
             norm = getattr(self, f"norm{i + 1}")
-            x = bn_act(x, norm.weight, norm.bias, act="leaky_relu", negative_slope=0.2,
-                       mesh=mesh)
-        x = conv2d(x, getattr(self, f"conv{n_up + 1}").weight.to(compute_dtype))
+            x = lay.bn_act(x, norm.weight, norm.bias, "leaky_relu", width, h)
+        return lay.full_height(x, h)
+
+    def forward(self, x: torch.Tensor, compute_dtype=torch.float32, mesh=None,
+                par=None) -> torch.Tensor:
+        """images (N, S, S, C) → per-sample logits (N,) in f32 — counterpart
+        of ``discriminator_apply``; ``mesh`` and ``par`` as in
+        ``Generator.forward``."""
+        lay = par if par is not None else Layout(mesh)
+        x = self.trunk(x, compute_dtype, lay)
+        x = conv2d(x, getattr(self, f"conv{self.geo.n_up + 1}").weight.to(compute_dtype))
         return x.reshape(x.shape[0]).float()

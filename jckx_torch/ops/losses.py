@@ -33,18 +33,26 @@ def instance_noise_blend(x: torch.Tensor, noise: torch.Tensor,
 
 def gradient_penalty(d_score_fn: Callable[[torch.Tensor], torch.Tensor],
                      alpha: torch.Tensor, real: torch.Tensor, fake: torch.Tensor,
-                     create_graph: bool = True) -> torch.Tensor:
+                     create_graph: bool = True, layout=None, image_h: int = 0) -> torch.Tensor:
     """``mean((‖∇ₓ Σ D(x̂)‖₂ − 1)²)`` at x̂ = α·real + (1 − α)·fake.
 
     ``d_score_fn`` maps images to per-sample sigmoid scores (N,); ``alpha``
     is (N, 1, 1, 1), U[0, 1) per sample, cast to the images' dtype. The
     per-sample norm is taken in f32 with ``+1e-24`` inside the root, as in
-    jckx, so its grad stays finite at a zero gradient."""
+    jckx, so its grad stays finite at a zero gradient. Over a mesh's model
+    axis ``layout`` (``parallel/layout.py``) turns this member's gradient
+    into the global score's and sums each row's squares over the members
+    that hold its pixels; ``image_h`` is the images' global height."""
     n = real.shape[0]
     alpha = alpha.to(real.dtype)
     interp = (alpha * real + (1.0 - alpha) * fake).detach().requires_grad_(True)
     (grads,) = torch.autograd.grad(d_score_fn(interp).sum(), interp,
                                    create_graph=create_graph)
+    if layout is not None:
+        grads = layout.input_grad(grads, image_h)
     grads = grads.reshape(n, -1).float()
-    norms = torch.sqrt(torch.sum(grads * grads, dim=1) + 1e-24)
+    sumsq = torch.sum(grads * grads, dim=1)
+    if layout is not None:
+        sumsq = layout.row_sumsq(sumsq, image_h)
+    norms = torch.sqrt(sumsq + 1e-24)
     return torch.mean((norms - 1.0) ** 2)

@@ -55,15 +55,15 @@ def _per_channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return v[:, None, None] if x.dim() == 4 else v
 
 
-def _moments_affine(xf, scale, bias, eps, mesh=None):
+def _moments_affine(xf, scale, bias, eps, mesh=None, axis="data"):
     """x in f32 → (mean, biased var, inv, a, sh), f32, per channel; the
-    sums over ``mesh``'s data axis when one is given."""
+    sums over ``mesh``'s ``axis`` when a mesh is given."""
     axes = _axes(xf)
     n = xf.numel() // xf.shape[1 if xf.dim() == 4 else -1]
     sums = torch.stack([xf.sum(axes), (xf * xf).sum(axes)])
     if mesh is not None:
-        sums = mesh.all_reduce(sums)
-        n *= mesh.size
+        sums = mesh.all_reduce(sums, axis)
+        n *= mesh.axis_size(axis)
     mean = sums[0] / n
     var = sums[1] / n - mean * mean
     inv = torch.rsqrt(var + eps)

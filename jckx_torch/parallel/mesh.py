@@ -1,18 +1,23 @@
-"""The data axis of a device mesh — port of ``jckx/parallel/mesh.py``.
+"""The device mesh — port of ``jckx/parallel/mesh.py``: its ``make_mesh``
+(``:34-55``) over a ``data`` and a ``model`` axis, ``spatial_sharding``
+(``:81-93``), ``reshard`` (``:138-149``) and ``tp_state_sharding``
+(``:152-178``).
 
-jckx lays a ``jax.sharding.Mesh`` over its chips: the batch is sharded on
-the ``data`` axis, the state replicated, and XLA inserts the all-reduces of
-the batch statistics and the gradients. PyTorch runs eagerly, so the port
-names each collective itself. A mesh here is an object that the callers
-pass down explicitly (to every ``bn_act``, the train steps, the metrics
-engine); there is no module-level mesh.
+jckx lays a ``jax.sharding.Mesh`` over its chips and leaves the
+collectives to GSPMD. PyTorch runs eagerly, so the port names each
+collective itself. A mesh here is an object that the callers pass down
+explicitly (to every ``bn_act``, the train steps, the metrics engine);
+there is no module-level mesh.
 
 Two kinds, one interface:
 
 - ``ProcessMesh``: the ranks of the default ``torch.distributed`` process
-  group on the ``data`` axis, one process per GPU (``torchrun``). NCCL on
-  the card, gloo on the CPU. Training, ``evaluate`` and the fine-tune run
-  on it. Without a process group it is a mesh of one rank whose
+  group laid out as a ``(D, M)`` grid on ``("data", "model")``, one process
+  per GPU (``torchrun``). NCCL on the card, gloo on the CPU (and for ranks
+  that share one card). Rank r sits at data index r // M and model index
+  r % M, as jckx's ``np.array(devices).reshape(shape)`` places devices.
+  Training runs on both axes; ``evaluate`` and the fine-tune on the data
+  axis. Without a process group it is a mesh of one rank whose
   collectives are the identity.
 - ``LocalMesh``: devices of one process on the ``data`` axis, one worker
   thread per device (``run``). jckx serves from one process over a 1-D
@@ -20,39 +25,66 @@ Two kinds, one interface:
   of devices may repeat one (``[cpu, cpu]`` in the tests, ``[cuda:0,
   cuda:0]`` on one card), as jckx's tests use virtual CPU devices.
 
-Both give the callers the same operations:
+``size`` and ``rank`` are the data axis's: ``rows(x)`` is this member's
+slice of a global batch (the counterpart of ``shard_batch`` /
+``put_global``: every member holds the same global value and keeps its
+slice). The M members of a model group hold the same rows and make the
+same draws. ``model_size`` and ``model_rank`` are the model axis's.
 
-- ``rows(x)``: this member's rows of a global batch (the counterpart of
-  ``shard_batch`` / ``put_global``: every member holds the same global
-  value and keeps its slice);
-- ``all_reduce(t)``: the sum over the data axis of a small f32 tensor
-  (the BN statistics). On a process mesh it is differentiable to any
-  order when ``t`` requires grad (``_AllReduceSum``: its backward is the
-  same all-reduce), which the WGAN-GP penalty needs: its input gradient
-  runs through the statistics of every rank. On a local mesh the members
-  add their partials in device order, so a render is the same from run
-  to run;
-- ``all_gather_rows(t)``: the members' rows concatenated in order;
-- ``average_grads(params)`` (process mesh): the gradients averaged over
-  the ranks through one flat buffer, one collective per call;
-- ``any(flag)`` (process mesh): whether any rank raised a host flag.
+The collectives take the axis they run over: ``"data"``, ``"model"`` or
+``"world"`` (both). Each is one call here, counted in ``stats`` by kind
+(calls, bytes, host seconds):
 
-A ``model`` axis of size 1 is accepted and does nothing, as in jckx; a
-larger one is tensor or spatial parallelism, refused by name (``A13B``).
+- ``all_reduce(t, axis)``: the sum of a tensor (BN statistics, the
+  penalty's input gradient). Inside autograd (``t`` requires grad) it is
+  differentiable to any order: its backward is the same sum
+  (``_AllReduceSum``). The WGAN-GP penalty differentiates through it;
+- ``all_gather(t, dim, axis)`` / ``reduce_scatter(t, dim, axis)``: the
+  members' slices of ``dim`` concatenated in order, and its adjoint, the
+  sum over the members of which each keeps its slice. Each is the other's
+  backward, so both are differentiable to any order;
+- ``halo(x)`` (model axis, dim 2 of NCHW): x with one row of each
+  neighbour on the model axis above and below it (zeros at the global
+  edges). Its backward is its adjoint: each halo row's cotangent goes back
+  to the neighbour that sent it and is added to that row there;
+- ``all_gather_rows(t)``: the data axis's rows concatenated in order;
+- ``average_grads(params, sharded)`` (process mesh): the gradients of the
+  global mean loss, through one flat buffer per kind (below);
+- ``any(flag)`` / ``agree`` / ``broadcast_object`` over the world.
+
+Gradients over a model axis. Each rank's autograd takes the exact adjoint
+of every collective, so a rank's ``backward`` gives the gradient, for its
+own copy of each leaf, of the sum over ALL ranks of their losses. The M
+members of a model group compute the same loss, so that sum is M times the
+data axis's. ``average_grads`` therefore sums a replicated leaf's copies
+over the world and a sharded leaf's (one per data index) over the data
+axis, and divides both by D·M: the gradient of the global mean loss, equal
+on every copy. With M = 1 that is the data axis's mean. A
+gradient that the step uses as a value rather than a cotangent (the
+penalty's input gradient) is brought to the logical one by the layout
+(``parallel/tp.py``, ``parallel/spatial.py``).
+
+gloo on the card. NCCL cannot put two ranks on one GPU, so ranks that
+share one run gloo. Its collectives follow one rule keyed on the backend
+(``_STAGED``): a point-to-point exchange runs on host copies, a
+reduce-scatter is an all-reduce of a host copy of which each member keeps
+its slice, and a 16-bit float travels as f32 (``_wire``).
 """
 
 from __future__ import annotations
 
 import math
 import threading
-from typing import Callable, List, Optional, Sequence
+import time
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-A13B = "A13b (tensor / spatial parallel)"
+WORLD = "world"  # both axes
+_BUFFERS = ("running_mean", "running_var", "num_batches_tracked")  # BN's, never read
 
 
 def parse_mesh_shape(spec: str):
@@ -67,10 +99,12 @@ def parse_mesh_axes(spec) -> tuple:
     return tuple(spec)
 
 
-def check_mesh(shape: Optional[Sequence[int]], axes: Sequence[str] = (DATA_AXIS,)) -> None:
+def check_mesh(shape: Optional[Sequence[int]], axes: Sequence[str] = (DATA_AXIS,),
+               model_axis: bool = False, what: str = "this command") -> None:
     """Raise ``ValueError`` for a mesh the port cannot run: axes other than
     ``data`` / ``model``, a shape whose rank differs from the axes', or a
-    ``model`` axis larger than 1."""
+    ``model`` axis larger than 1 where ``model_axis`` is off (serving,
+    ``evaluate``, the fine-tune: jckx runs those on a ``data`` axis)."""
     axes = tuple(axes)
     unknown = [a for a in axes if a not in (DATA_AXIS, MODEL_AXIS)]
     if unknown or len(set(axes)) != len(axes):
@@ -83,10 +117,10 @@ def check_mesh(shape: Optional[Sequence[int]], axes: Sequence[str] = (DATA_AXIS,
     if any(s < 1 for s in shape):
         raise ValueError(f"mesh shape {tuple(shape)}: every axis needs at least 1 member")
     sizes = dict(zip(axes, shape))
-    if sizes.get(MODEL_AXIS, 1) > 1:
-        raise ValueError(f"a {MODEL_AXIS!r} axis of {sizes[MODEL_AXIS]} is tensor or spatial "
-                         f"parallelism: not ported yet (ROADMAP.md {A13B}); the port runs the "
-                         f"{DATA_AXIS!r} axis")
+    if not model_axis and sizes.get(MODEL_AXIS, 1) > 1:
+        raise ValueError(f"a {MODEL_AXIS!r} axis of {sizes[MODEL_AXIS]} shards a training run "
+                         f"(--model_axis_mode tp|spatial); {what} runs on the {DATA_AXIS!r} "
+                         f"axis only")
 
 
 def local_batch_size(global_batch: int, mesh, axis: str = DATA_AXIS) -> int:
@@ -98,28 +132,214 @@ def local_batch_size(global_batch: int, mesh, axis: str = DATA_AXIS) -> int:
     return global_batch // n
 
 
+def spatial_sharding(x: torch.Tensor, mesh, dim: int = 2) -> torch.Tensor:
+    """This member's rows of ``x``'s height (``dim``: 2 for NCHW, 1 for NHWC)
+    over the model axis — ``spatial_sharding(mesh, "model")``'s layout, the
+    height split in M contiguous blocks in model order."""
+    m = mesh.model_size if mesh is not None else 1
+    if m == 1:
+        return x
+    h = x.shape[dim]
+    if h % m:
+        raise ValueError(f"height {h} does not split over a model axis of {m}")
+    return x.narrow(dim, mesh.model_rank * (h // m), h // m)
+
+
+def tp_leaf_dim(shape, min_dim: int, m: int, out_dim: int = 0) -> Optional[int]:
+    """jckx's tensor-parallel rule for one leaf (``tp_state_sharding``): a
+    4-D convolution kernel is sharded on its output channels (``out_dim``:
+    1 for a ``ConvTranspose2d``'s ``(in, out, k, k)``, 0 for a ``Conv2d``'s
+    ``(out, in, k, k)``), a 1-D leaf on its length, each when that length is
+    at least ``min_dim`` and divisible by ``m``. → the sharded dim, or None
+    (replicated: everything else, 2-D matrices and scalars included)."""
+    shape = tuple(shape)
+    if len(shape) == 4 and shape[out_dim] >= min_dim and shape[out_dim] % m == 0:
+        return out_dim
+    if len(shape) == 1 and shape[0] >= min_dim and shape[0] % m == 0:
+        return 0
+    return None
+
+
+def module_tp_dims(state_dict: Dict[str, torch.Tensor], transposed: bool, min_dim: int,
+                   m: int) -> Dict[str, Optional[int]]:
+    """``tp_leaf_dim`` for every parameter of a net's state dict (full
+    shapes): G's convolutions are transposed, D's are not. BN's running
+    buffers stay replicated (they are never read)."""
+    return {k: None if k.endswith(_BUFFERS) else tp_leaf_dim(v.shape, min_dim, m, int(transposed))
+            for k, v in state_dict.items()}
+
+
+def tp_state_sharding(state: dict, mesh, min_dim: int = 128) -> dict:
+    """The tensor-parallel layout of a checkpoint-shaped state (``model_g``,
+    ``model_d``, optional ``ema_g``, ``optimizer_g`` / ``optimizer_d`` as
+    torch state dicts of full tensors): the same tree with, at every
+    tensor, its sharded dim over the model axis or None. Adam's moments
+    and the EMA mirror their parameters; steps and scalars are replicated
+    (jckx ``tp_state_sharding``)."""
+    m = mesh.model_size if hasattr(mesh, "model_size") else mesh.shape.get(MODEL_AXIS, 1)
+    out: dict = {}
+    for key, transposed in (("model_g", True), ("ema_g", True), ("model_d", False)):
+        if key in state:
+            out[key] = module_tp_dims(state[key], transposed, min_dim, m)
+    for key, net in (("optimizer_g", "model_g"), ("optimizer_d", "model_d")):
+        if key in state:
+            out[key] = optimizer_tp_dims(out[net], state[key])
+    return out
+
+
+def optimizer_tp_dims(net_dims: Dict[str, Optional[int]], opt_state: dict) -> dict:
+    """The dims of a torch Adam state dict over a net whose parameters (in
+    registration order, BN buffers skipped) have ``net_dims``: each moment
+    mirrors its parameter, the step is replicated."""
+    dims = [d for k, d in net_dims.items() if not k.endswith(_BUFFERS)]
+    return {"state": {idx: {k: (dims[int(idx)] if isinstance(v, torch.Tensor) and v.dim() > 0
+                                else None) for k, v in st.items()}
+                      for idx, st in opt_state.get("state", {}).items()}}
+
+
+def shard_tree(tree: dict, dims: dict, mesh) -> dict:
+    """Full tensors → this member's slices where ``dims`` (a
+    ``tp_state_sharding`` tree) names a dim; everything else as it is."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, dims.get(k) if isinstance(dims, dict) else None, mesh)
+                for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor) and isinstance(dims, int):
+        return tree.chunk(mesh.model_size, dims)[mesh.model_rank].clone()
+    return tree
+
+
+def reshard(tree: dict, dims: dict, mesh) -> dict:
+    """This member's slices → full tensors on every member of the model
+    axis: each leaf that ``dims`` names a dim of is all-gathered along it
+    (jckx ``reshard(tree, replicated)``). Every member must call it, with
+    the same tree."""
+    if isinstance(tree, dict):
+        return {k: reshard(v, dims.get(k) if isinstance(dims, dict) else None, mesh)
+                for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor) and isinstance(dims, int):
+        with torch.no_grad():
+            return mesh.all_gather(tree, dims, MODEL_AXIS)
+    return tree
+
+
+def _like(out: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``out`` in ``t``'s memory format (channels_last for an activation)."""
+    if t.dim() == 4 and not t.is_contiguous() and t.is_contiguous(memory_format=torch.channels_last):
+        return out.contiguous(memory_format=torch.channels_last)
+    return out
+
+
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over the default process group, inside autograd: the backward of
-    a sum over ranks is the same sum of the cotangents, and it is taken by
-    this Function again, so the result is differentiable to any order."""
+    """Sum over a mesh axis, inside autograd: the backward of a sum over
+    ranks is the same sum of the cotangents, and it is taken by this
+    Function again, so the result is differentiable to any order."""
 
     @staticmethod
-    def forward(ctx, t):
-        out = t.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out)
-        return out
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return mesh._all_reduce(t, axis)
 
     @staticmethod
     def backward(ctx, g):
-        return _AllReduceSum.apply(g)
+        return _AllReduceSum.apply(g, ctx.mesh, ctx.axis), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """The members' slices concatenated along ``dim``; backward: the
+    reduce-scatter of the cotangent (``_ReduceScatter``)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dim, axis):
+        ctx.mesh, ctx.dim, ctx.axis = mesh, dim, axis
+        return mesh._all_gather(t, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ReduceScatter.apply(g, ctx.mesh, ctx.dim, ctx.axis), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """The sum over the members, of which each keeps its slice of ``dim``;
+    backward: the all-gather of the cotangent (``_AllGather``)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dim, axis):
+        ctx.mesh, ctx.dim, ctx.axis = mesh, dim, axis
+        return mesh._reduce_scatter(t, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllGather.apply(g, ctx.mesh, ctx.dim, ctx.axis), None, None, None
+
+
+class _Halo(torch.autograd.Function):
+    """x (N, C, h, W) → (N, C, h + 2, W): the last row of the member above
+    on the model axis, x, the first row of the member below (zeros at the
+    global edges); backward: ``_HaloAdjoint``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        from_up, from_down = mesh._neighbours(x[:, :, :1], x[:, :, -1:])
+        return torch.cat([from_up, x, from_down], dim=2)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _HaloAdjoint.apply(g, ctx.mesh), None
+
+
+class _HaloAdjoint(torch.autograd.Function):
+    """The adjoint of ``_Halo``: g (N, C, h + 2, W) → (N, C, h, W), its
+    middle rows plus the halo rows of the neighbours sent back (the one
+    below's top row onto the last row, the one above's bottom row onto
+    the first); backward: ``_Halo``."""
+
+    @staticmethod
+    def forward(ctx, g, mesh):
+        ctx.mesh = mesh
+        # my top halo row came from the member above: it goes back up, and so on
+        from_up, from_down = mesh._neighbours(g[:, :, :1], g[:, :, -1:])
+        out = g[:, :, 1:-1].clone()
+        out[:, :, :1] += from_up
+        out[:, :, -1:] += from_down
+        return out
+
+    @staticmethod
+    def backward(ctx, gg):
+        return _Halo.apply(gg, ctx.mesh), None
+
+
+class CollectiveStats:
+    """Calls, bytes and host seconds of the mesh's collectives, by kind."""
+
+    KINDS = ("all_reduce", "all_gather", "reduce_scatter", "halo_send_recv")
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.calls = {k: 0 for k in self.KINDS}
+        self.bytes = {k: 0 for k in self.KINDS}
+        self.seconds = {k: 0.0 for k in self.KINDS}
+
+    def add(self, kind: str, nbytes: int, seconds: float) -> None:
+        self.calls[kind] += 1
+        self.bytes[kind] += int(nbytes)
+        self.seconds[kind] += seconds
+
+    def as_dict(self) -> dict:
+        return {k: {"calls": self.calls[k], "bytes": self.bytes[k],
+                    "host_s": self.seconds[k]} for k in self.KINDS}
 
 
 class Mesh:
     """The axes and sizes common to both kinds: ``shape`` maps each axis
     name to its size (jckx's ``Mesh.shape``), ``size`` is the data axis's."""
 
+    model_axis = False  # whether this kind of mesh may hold a model axis > 1
+
     def __init__(self, shape: Sequence[int], axes: Sequence[str]):
-        check_mesh(shape, axes)
+        check_mesh(shape, axes, model_axis=self.model_axis, what="a local mesh (serving)")
         self.axis_names = tuple(axes)
         self.shape = dict(zip(self.axis_names, (int(s) for s in shape)))
 
@@ -128,8 +348,20 @@ class Mesh:
         return self.shape.get(DATA_AXIS, 1)
 
     @property
+    def model_size(self) -> int:
+        return self.shape.get(MODEL_AXIS, 1)
+
+    @property
+    def model_rank(self) -> int:
+        return 0
+
+    @property
     def rank(self) -> int:
         raise NotImplementedError
+
+    def axis_size(self, axis: str) -> int:
+        return {DATA_AXIS: self.size, MODEL_AXIS: self.model_size,
+                WORLD: self.size * self.model_size}[axis]
 
     def rows(self, x: torch.Tensor, rank: Optional[int] = None) -> torch.Tensor:
         """The slice of a global batch (leading dim) that member ``rank``
@@ -142,64 +374,206 @@ class Mesh:
         return f"{type(self).__name__}({self.shape})"
 
 
+# backends whose point-to-point and reduce-scatter run on host copies
+_STAGED = ("gloo",)
+
+
 class ProcessMesh(Mesh):
-    """The ranks of the default process group on the data axis (the whole
-    world). Without a process group: one rank, no collectives. ``device``
-    holds the small tensors of ``any`` (NCCL takes CUDA tensors only)."""
+    """The ranks of the default process group as a (data, model) grid; see
+    the module docstring. Without a process group: one rank, no
+    collectives. ``device`` holds the small tensors of ``any`` (NCCL takes
+    CUDA tensors only). Every rank builds every sub-group, in the same
+    order: one ``model`` group per data index, one ``data`` group per
+    model index."""
+
+    model_axis = True
 
     def __init__(self, shape: Sequence[int], axes: Sequence[str], device=None):
         super().__init__(shape, axes)
         self.distributed = dist.is_available() and dist.is_initialized()
         self.device = torch.device("cpu" if device is None else device)
+        self.stats = CollectiveStats()
+        self.global_rank = dist.get_rank() if self.distributed else 0
+        d, m = self.size, self.model_size
+        self._groups: Dict[str, object] = {WORLD: None, DATA_AXIS: None, MODEL_AXIS: None}
+        self._staged = self.distributed and dist.get_backend() in _STAGED
+        if self.distributed and m > 1:
+            for i in range(d):
+                g = dist.new_group(list(range(i * m, (i + 1) * m)))
+                if i == self.rank:
+                    self._groups[MODEL_AXIS] = g
+            for j in range(m):
+                g = dist.new_group(list(range(j, d * m, m)))
+                if j == self.model_rank:
+                    self._groups[DATA_AXIS] = g
 
     @property
     def rank(self) -> int:
-        return dist.get_rank() if self.distributed else 0
+        """This rank's index on the data axis."""
+        return self.global_rank // self.model_size
+
+    @property
+    def model_rank(self) -> int:
+        return self.global_rank % self.model_size
 
     @property
     def lead(self) -> bool:
-        """Rank 0: the one rank that writes files."""
-        return self.rank == 0
+        """World rank 0: the one rank that writes files."""
+        return self.global_rank == 0
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        if not self.distributed:
-            return t
-        if torch.is_grad_enabled() and t.requires_grad:
-            return _AllReduceSum.apply(t)
-        out = t.detach().clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out)
+    def _live(self, axis: str) -> bool:
+        return self.distributed and self.axis_size(axis) > 1
+
+    def _timed(self, kind: str, nbytes: int, fn: Callable):
+        t0 = time.perf_counter()
+        out = fn()
+        self.stats.add(kind, nbytes, time.perf_counter() - t0)
         return out
 
-    def all_gather_rows(self, t: torch.Tensor) -> torch.Tensor:
-        if not self.distributed:
-            return t
-        t = t.contiguous()
-        parts = [torch.empty_like(t) for _ in range(self.size)]
-        dist.all_gather(parts, t)
-        return torch.cat(parts)
+    # ---- raw collectives (no autograd) --------------------------------
 
-    def average_grads(self, params) -> None:
-        """Each parameter's ``.grad`` replaced by its mean over the ranks,
-        through one flat buffer (one collective for the whole model)."""
+    def _wire(self, t: torch.Tensor) -> torch.Tensor:
+        """What a collective sends: on a staged backend a 16-bit float
+        travels (and is summed) as f32, rounded once on the way back."""
+        if self._staged and t.dtype in (torch.bfloat16, torch.float16):
+            return t.float()
+        return t
+
+    def _all_reduce(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        out = self._wire(t.detach()).clone(memory_format=torch.contiguous_format)
+        if self._live(axis):
+            self._timed("all_reduce", out.numel() * out.element_size(),
+                        lambda: dist.all_reduce(out, group=self._groups[axis]))
+        return out.to(t.dtype)
+
+    def _all_gather(self, t: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+        if not self._live(axis):
+            return t.detach().clone()
+        part = self._wire(t.detach()).contiguous()
+        parts = [torch.empty_like(part) for _ in range(self.axis_size(axis))]
+        self._timed("all_gather", part.numel() * part.element_size() * len(parts),
+                    lambda: dist.all_gather(parts, part, group=self._groups[axis]))
+        return _like(torch.cat(parts, dim=dim).to(t.dtype), t)
+
+    def _reduce_scatter(self, t: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+        n = self.axis_size(axis)
+        idx = self.model_rank if axis == MODEL_AXIS else self.rank
+        if not self._live(axis):
+            return t.detach().clone()
+        if t.shape[dim] % n:
+            raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} does not split "
+                             f"over {n} members")
+        full = t.detach().contiguous()
+        nbytes = full.numel() * full.element_size()
+        if self._staged:
+            # a 16-bit float is summed in f32 and rounded once
+            host = full.to("cpu", torch.promote_types(full.dtype, torch.float32), copy=True)
+            self._timed("reduce_scatter", nbytes,
+                        lambda: dist.all_reduce(host, group=self._groups[axis]))
+            out = host.chunk(n, dim)[idx].to(t.device, t.dtype)
+        else:
+            chunks = [c.contiguous() for c in full.chunk(n, dim)]
+            out = torch.empty_like(chunks[idx])
+            self._timed("reduce_scatter", nbytes,
+                        lambda: dist.reduce_scatter(out, chunks, group=self._groups[axis]))
+        return _like(out, t)
+
+    def _neighbours(self, to_up: torch.Tensor, to_down: torch.Tensor):
+        """Send ``to_up`` to the model-axis member above and ``to_down`` to
+        the one below; → (what the one above sent down, what the one below
+        sent up), zeros where there is no neighbour."""
+        m, i = self.model_size, self.model_rank
+        recv_up, recv_down = torch.zeros_like(to_down), torch.zeros_like(to_up)
+        if not self._live(MODEL_AXIS):
+            return recv_up, recv_down
+        dev, dtype = to_up.device, to_up.dtype
+        stage = ((lambda t: self._wire(t).to("cpu").contiguous()) if self._staged
+                 else (lambda t: t.contiguous()))
+        s_up, s_down = stage(to_up), stage(to_down)
+        r_up, r_down = stage(recv_up), stage(recv_down)
+        group = self._groups[MODEL_AXIS]
+        ops = []
+        if i > 0:
+            ops += [dist.P2POp(dist.isend, s_up, self.global_rank - 1, group),
+                    dist.P2POp(dist.irecv, r_up, self.global_rank - 1, group)]
+        if i < m - 1:
+            ops += [dist.P2POp(dist.isend, s_down, self.global_rank + 1, group),
+                    dist.P2POp(dist.irecv, r_down, self.global_rank + 1, group)]
+
+        def run():
+            for w in dist.batch_isend_irecv(ops):
+                w.wait()
+
+        self._timed("halo_send_recv", sum(op.tensor.numel() * op.tensor.element_size()
+                                          for op in ops), run)
+        return r_up.to(dev, dtype), r_down.to(dev, dtype)
+
+    # ---- the collectives the callers use --------------------------------
+
+    def all_reduce(self, t: torch.Tensor, axis: str = DATA_AXIS) -> torch.Tensor:
+        if not self._live(axis):
+            return t
+        if torch.is_grad_enabled() and t.requires_grad:
+            return _AllReduceSum.apply(t, self, axis)
+        return self._all_reduce(t, axis)
+
+    def all_gather(self, t: torch.Tensor, dim: int, axis: str = MODEL_AXIS) -> torch.Tensor:
+        if not self._live(axis):
+            return t
+        if torch.is_grad_enabled() and t.requires_grad:
+            return _AllGather.apply(t, self, dim, axis)
+        return self._all_gather(t, dim, axis)
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int, axis: str = MODEL_AXIS) -> torch.Tensor:
+        if not self._live(axis):
+            return t
+        if torch.is_grad_enabled() and t.requires_grad:
+            return _ReduceScatter.apply(t, self, dim, axis)
+        return self._reduce_scatter(t, dim, axis)
+
+    def halo(self, x: torch.Tensor) -> torch.Tensor:
+        """x (N, C, h, W) with a row of each model-axis neighbour around it
+        (``_Halo``); zeros at the global edges (and with no model axis)."""
+        if torch.is_grad_enabled() and x.requires_grad and self._live(MODEL_AXIS):
+            out = _Halo.apply(x, self)
+        else:
+            up, down = self._neighbours(x[:, :, :1], x[:, :, -1:])
+            out = torch.cat([up, x, down], dim=2)
+        return out.contiguous(memory_format=torch.channels_last)
+
+    def all_gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        if not self._live(DATA_AXIS):
+            return t
+        return self._all_gather(t, 0, DATA_AXIS)
+
+    def average_grads(self, params, sharded: Sequence[bool] = ()) -> None:
+        """Each parameter's ``.grad`` replaced by the gradient of the global
+        mean loss (module docstring): the copies of a replicated leaf summed
+        over the world, those of a leaf sharded on the model axis
+        (``sharded[i]``) over the data axis, both divided by D·M; one flat
+        buffer, one collective, per kind."""
         if not self.distributed:
             return
-        grads = [p.grad for p in params if p.grad is not None]
-        if not grads:
-            return
-        flat = torch._utils._flatten_dense_tensors(grads)
-        dist.all_reduce(flat)
-        flat.div_(self.size)
-        for g, avg in zip(grads, torch._utils._unflatten_dense_tensors(flat, grads)):
-            g.copy_(avg)
+        params = list(params)
+        sharded = list(sharded) or [False] * len(params)
+        total = self.size * self.model_size
+        for want, axis in ((False, WORLD), (True, DATA_AXIS)):
+            grads = [p.grad for p, s in zip(params, sharded) if s == want and p.grad is not None]
+            if not grads:
+                continue
+            flat = torch._utils._flatten_dense_tensors(grads)
+            flat = self._all_reduce(flat, axis).div_(total)
+            for g, avg in zip(grads, torch._utils._unflatten_dense_tensors(flat, grads)):
+                g.copy_(avg)
 
     def mean(self, t: torch.Tensor) -> torch.Tensor:
-        """The mean over the ranks of a tensor without gradient."""
-        if not self.distributed:
+        """The mean over the data axis of a tensor without gradient."""
+        if not self._live(DATA_AXIS):
             return t
-        return self.all_reduce(t.detach()) / self.size
+        return self._all_reduce(t, DATA_AXIS) / self.size
 
     def broadcast_object(self, obj):
-        """Rank 0's ``obj`` (picklable) on every rank."""
+        """World rank 0's ``obj`` (picklable) on every rank."""
         if not self.distributed:
             return obj
         box = [obj]
@@ -308,7 +682,7 @@ class LocalMesh(Mesh):
         self._barrier.wait()  # every member has read the slots before any refills them
         return parts
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+    def all_reduce(self, t: torch.Tensor, axis: str = DATA_AXIS) -> torch.Tensor:
         parts = self._exchange(t)
         total = parts[0].clone()
         for p in parts[1:]:
@@ -324,22 +698,22 @@ def make_mesh(shape: Optional[Sequence[int]] = None, axes: Sequence[str] = (DATA
     """Build a mesh. With ``devices``, a ``LocalMesh`` over them (jckx's
     rule: the first prod(shape) of them; default shape: all on ``data``).
     Without, a ``ProcessMesh`` over the default process group's world (or
-    a world of one rank); its data axis must equal the world size.
+    a world of one rank), whose axes' product must equal the world size.
     ``device`` is this rank's device (process mesh only)."""
     axes = parse_mesh_axes(axes)
     if devices is not None:
         devices = list(devices)
         if shape is None:
             shape, axes = (len(devices),), tuple(axes[:1]) or (DATA_AXIS,)
-        check_mesh(shape, axes)
+        check_mesh(shape, axes, model_axis=True)
         total = math.prod(shape)
-        if total > len(devices):
+        if total > len(devices):  # jckx's first refusal; a model axis is LocalMesh's
             raise ValueError(f"mesh shape {tuple(shape)} needs {total} devices, have {len(devices)}")
         return LocalMesh(shape, axes, devices[:total])
     world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
     if shape is None:
         shape, axes = (world,), tuple(axes[:1]) or (DATA_AXIS,)
-    check_mesh(shape, axes)
+    check_mesh(shape, axes, model_axis=True)
     total = math.prod(shape)
     if total != world:
         raise ValueError(
@@ -350,17 +724,20 @@ def make_mesh(shape: Optional[Sequence[int]] = None, axes: Sequence[str] = (DATA
 
 
 def process_mesh(mesh_shape: str = "", mesh_axes: str = DATA_AXIS, multihost: bool = False,
-                 device=None, logger=None) -> Optional[ProcessMesh]:
+                 device=None, logger=None, model_axis: bool = False,
+                 what: str = "this command") -> Optional[ProcessMesh]:
     """The mesh of a training, evaluation or fine-tune process from its
     flags. A process group the caller already initialized is kept;
     otherwise one is brought up from torch's ``env://`` variables
     (``init_multihost``) when ``multihost`` is set or the mesh has more
-    than one rank. → None for a lone process with no mesh asked for (one
-    rank, no collectives, as before the mesh existed)."""
+    than one rank. ``model_axis``: a ``model`` axis > 1 is allowed (train);
+    elsewhere it is refused naming ``what``. → None for a lone process with
+    no mesh asked for (one rank, no collectives, as before the mesh
+    existed)."""
     from jckx_torch.utils.device import init_multihost
 
     shape, axes = parse_mesh_shape(mesh_shape), parse_mesh_axes(mesh_axes)
-    check_mesh(shape, axes)
+    check_mesh(shape, axes, model_axis=model_axis, what=what)
     if not dist.is_initialized() and (multihost or (shape and math.prod(shape) > 1)):
         ok, err = init_multihost(device)
         if not ok and logger is not None:

@@ -59,7 +59,16 @@ evals). An eval renders each rank's share of the fixed inputs with global
 BN statistics, through the kernel, and gathers them in order; the metrics
 engine extracts its features data-parallel. Rank 0 alone writes files:
 logs, ``metrics.jsonl``, grids, checkpoints, the real-feature cache
-(jckx's ``_lead``). ``--resume`` reads on every rank. SIGTERM keeps jckx's
+(jckx's ``_lead``).
+
+With a model axis (``--mesh_shape D,M --mesh_axes data,model``) the M
+ranks of a model group hold the same rows and draws, and the state and the
+step are laid out by ``--model_axis_mode`` (``train/state.py``,
+``train/steps.py``, ``parallel/``). Under TP each eval gathers G's (or the
+EMA's) shards once and renders over the data axis through the kernel;
+under ``spatial`` the eval renders as above. Checkpoints hold full tensors
+(every rank gathers, rank 0 writes), and ``--resume`` / ``--init_from_torch``
+slice them for this run's layout. ``--resume`` reads on every rank. SIGTERM keeps jckx's
 contract (the scheduler signals every rank); the ranks agree at each
 launch boundary on whether any was signalled, so they stop together.
 """
@@ -86,6 +95,7 @@ from jckx_torch.kernels import fused_bn_act
 from jckx_torch.logging.artifacts import save_image_grid, save_labeled_grid, save_loss_curve
 from jckx_torch.logging.main_logger import MainLogger, time_to_str
 from jckx_torch.models.dcgan import GANGeometry
+from jckx_torch.parallel import tp
 from jckx_torch.train.state import create_dcgan_state, geometry
 from jckx_torch.train.steps import (METRIC_NAMES, compute_dtype, derive_seed,
                                     make_cgan_train_step, make_dcgan_train_step)
@@ -187,7 +197,9 @@ class _BaseGANTrainer:
         self.logger.debug(
             f"G params: {sum(p.numel() for p in G.parameters()):,}  D params: "
             f"{sum(p.numel() for p in D.parameters()):,}  device: {self.device}  "
-            f"mesh: {mesh.shape if mesh is not None else {'data': 1}}  "
+            f"mesh: {mesh.shape if mesh is not None else {'data': 1}}"
+            + (f" ({cfg.model_axis_mode})" if mesh is not None and mesh.model_size > 1 else "")
+            + "  "
             f"compute: {cfg.compute_dtype}")
 
         self.metric = metrics
@@ -203,7 +215,7 @@ class _BaseGANTrainer:
             cfg.lr_decay_steps = max(1, (self.n_data // cfg.batch_size) * cfg.epoch)
             self.logger.debug(f"lr_schedule={cfg.lr_schedule}: decay horizon auto-set to "
                               f"{cfg.lr_decay_steps} steps ({cfg.epoch} epochs)")
-        self.state = create_dcgan_state(cfg, G.to(self.device), D.to(self.device))
+        self.state = create_dcgan_state(cfg, G.to(self.device), D.to(self.device), mesh)
         self.save_path = cfg.save_path
         self.ckpt = BestMetricCheckpointer(self.save_path)
         self.bests = {"fid": 1e10, "is": 0.0, "intra_fid": 1e10}
@@ -395,10 +407,11 @@ class _BaseGANTrainer:
                         self.preempted = True
                         self.logger.warning(f"SIGTERM received — saving latest.ckpt at step {it} "
                                             f"and exiting (continue with --resume)")
+                        payload = state_payload(self.state, {  # every rank: TP gathers
+                            "bests": dict(self.bests), "losses": list(zip(losses_d, losses_g)),
+                            "serve_config": self._serve_config()})
                         if self.lead:
-                            self.ckpt.save_latest(state_payload(self.state, {
-                                "bests": dict(self.bests), "losses": list(zip(losses_d, losses_g)),
-                                "serve_config": self._serve_config()}))
+                            self.ckpt.save_latest(payload)
                         if not last_step_of_run:
                             break
                         # the signal landed in the run's last launch: its
@@ -446,8 +459,12 @@ class _BaseGANTrainer:
 
     def sample_eval(self) -> torch.Tensor:
         """The fixed eval inputs through the EMA generator when on, else G
-        (``sample_eval_images``)."""
+        (``sample_eval_images``). Under TP its shards are all-gathered once
+        first, as jckx's ``_eval_params_g`` reshards to replicated (``:450-
+        461``); the render then runs over the data axis."""
         G = self.state.ema_g if self.state.ema_g is not None else self.state.G
+        if getattr(G, "tp_dims", None) is not None:
+            G = tp.gathered(G, self.mesh)
         return sample_eval_images(G, self.eval_z, self.eval_onehot, self.cd, self.mesh)
 
     def _extra_metrics(self, feats) -> dict:

@@ -31,6 +31,10 @@ from the ``env://`` variables (a group the caller already initialized is
 kept), builds the process mesh, and gives every rank the lead's run dir
 name; rank 0 alone writes ``config.json``, the log and the artifacts. A
 mesh larger than the world raises, naming ``torchrun --nproc_per_node``.
+A model axis (``--mesh_shape D,M --mesh_axes data,model --model_axis_mode
+tp|spatial``) runs on D·M ranks: ``torchrun --nproc_per_node
+D·M -m jckx_torch train --mesh_shape D,M --mesh_axes data,model
+--model_axis_mode tp --multihost``.
 
 ``-t 1 -pm <ts>`` trains nothing: it scores the run's ``latest.ckpt``
 through ``jckx_torch.evaluate`` with the run's own seed, data, dtype and
@@ -125,7 +129,8 @@ def run(cfg: Config, metrics=None):
     if cfg.test:
         return run_test_mode(cfg, metrics)
     device = resolve_device(cfg.device)
-    mesh = process_mesh(cfg.mesh_shape, cfg.mesh_axes, cfg.multihost, device, MainLogger())
+    mesh = process_mesh(cfg.mesh_shape, cfg.mesh_axes, cfg.multihost, device, MainLogger(),
+                        model_axis=True)
     ts = cfg.model_path or datetime.now().strftime("%Y%m%d_%H%M%S")
     if mesh is not None:
         ts = mesh.broadcast_object(ts)  # the lead's run dir on every rank

@@ -71,11 +71,26 @@ every rank recomputes in the same order. Every bn_act in the step has an input t
 grad, so on the card it takes the differentiable plain composition, never
 the kernel (``kernels/fused_bn_act.py``).
 
+With a model axis (a ``(D, M)`` mesh; jckx ``:405-439`` with
+``tp_state_sharding`` or the spatial constraint) the M ranks of a model
+group step on the same rows and draws, and the nets run in
+``cfg.model_axis_mode``'s layout (``parallel/layout.py``): under ``tp``
+each rank's nets hold their slices of the wide layers and gather each
+sliced activation along channels; under ``spatial`` the images, the noise
+and every activation are the rank's block of rows, with halo exchanges
+around the convolutions (``_localize`` takes the blocks of the batch and
+the draws). The penalty reads its input gradient through the layout, and
+``ProcessMesh.average_grads`` turns every rank's gradients into the
+global mean's (sharded leaves over the data axis, replicated ones over
+the world); a ``ShardedAdam`` (``--spatial_replicate_grads 0``) reduces
+its own.
+
 → the six telemetry scalars of jckx, f32 tensors on the device, detached.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
@@ -87,6 +102,8 @@ from jckx_torch.configs import Config
 from jckx_torch.models.cgan import DROPOUT, HIDDEN
 from jckx_torch.models.dcgan import GANGeometry
 from jckx_torch.ops.losses import bce_from_logits, gradient_penalty, instance_noise_blend
+from jckx_torch.parallel.layout import make_layout
+from jckx_torch.parallel.tp import sharded_flags
 from jckx_torch.train.state import GANTrainState, adam_step
 
 METRIC_NAMES = ("loss_d", "gp", "d_x", "d_gz1", "loss_g", "d_gz2")
@@ -147,9 +164,12 @@ def shard_draws(draws: StepDraws, mesh) -> StepDraws:
     return StepDraws(**{k: None if v is None else mesh.rows(v) for k, v in vars(draws).items()})
 
 
-def _average_grads(mesh, module) -> None:
-    if mesh is not None:
-        mesh.average_grads(module.parameters())
+def _average_grads(mesh, module, opt) -> None:
+    """The gradient of the global mean loss on every rank (``average_grads``
+    over the mesh, sharded leaves by their flags); an optimizer that
+    reduces its own gradients (``ShardedAdam``) does it in its step."""
+    if mesh is not None and not getattr(opt, "reduces_grads", False):
+        mesh.average_grads(module.parameters(), sharded_flags(module))
 
 
 def _telemetry(out: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
@@ -176,10 +196,13 @@ def _update_ema(cfg: Config, state: GANTrainState) -> None:
 
 
 def _gan_step(cfg: Config, state: GANTrainState, real: torch.Tensor, draws: StepDraws,
-              G: Callable, D: Callable, gp_in_grad: bool, mesh=None) -> Dict[str, torch.Tensor]:
+              G: Callable, D: Callable, gp_in_grad: bool, mesh=None,
+              layout=None) -> Dict[str, torch.Tensor]:
     """The faithful iteration shared by both families. ``G(z)`` builds the
     fake; ``D(x, keep)`` gives logits under the pass's dropout mask;
-    ``mesh`` averages the gradients and the telemetry over its ranks."""
+    ``mesh`` averages the gradients and the telemetry over its ranks;
+    ``layout`` is the model axis's (the penalty reads its input gradient
+    through it)."""
     cd = compute_dtype(cfg)
     lam, f = cfg.lambda_gp, cfg.instance_noise
     real_n = instance_noise_blend(real.to(cd), draws.real_noise, f)
@@ -193,11 +216,12 @@ def _gan_step(cfg: Config, state: GANTrainState, real: torch.Tensor, draws: Step
     bce = (bce_from_logits(logits_r, cfg.label_real)
            + bce_from_logits(logits_f, cfg.label_fake))
     gp = gradient_penalty(lambda x: torch.sigmoid(D(x, draws.keep_gp)), draws.alpha,
-                          real_n, fake_n, create_graph=gp_in_grad)
+                          real_n, fake_n, create_graph=gp_in_grad, layout=layout,
+                          image_h=cfg.image_size)
     loss_for_grad = bce + lam * gp if gp_in_grad else bce
     state.opt_d.zero_grad(set_to_none=True)
     loss_for_grad.backward()
-    _average_grads(mesh, state.D)
+    _average_grads(mesh, state.D, state.opt_d)
     adam_step(state.opt_d, cfg)
 
     # ---- G update, through the updated D -----------------------------
@@ -206,7 +230,7 @@ def _gan_step(cfg: Config, state: GANTrainState, real: torch.Tensor, draws: Step
     state.opt_g.zero_grad(set_to_none=True)
     # only G's gradient: D's weight gradients of this pass are never formed
     loss_g.backward(inputs=list(state.G.parameters()))
-    _average_grads(mesh, state.G)
+    _average_grads(mesh, state.G, state.opt_g)
     adam_step(state.opt_g, cfg)
     _update_ema(cfg, state)
     state.step += 1
@@ -220,7 +244,7 @@ def _gan_step(cfg: Config, state: GANTrainState, real: torch.Tensor, draws: Step
 
 def _fused_prop_step(cfg: Config, state: GANTrainState, real: torch.Tensor, draws: StepDraws,
                      G: Callable, D: Callable, gp_in_grad: bool,
-                     mesh=None) -> Dict[str, torch.Tensor]:
+                     mesh=None, layout=None) -> Dict[str, torch.Tensor]:
     """The FusedProp iteration (jckx ``step_fp``, ``_fused_prop_fake_side``
     ``:74-90``); arguments as ``_gan_step``'s."""
     cd = compute_dtype(cfg)
@@ -234,7 +258,8 @@ def _fused_prop_step(cfg: Config, state: GANTrainState, real: torch.Tensor, draw
     logits_r = D(real_n, draws.keep_real)
     bce_r = bce_from_logits(logits_r, cfg.label_real)
     gp = gradient_penalty(lambda x: torch.sigmoid(D(x, draws.keep_gp)), draws.alpha,
-                          real_n, fake_n.detach(), create_graph=gp_in_grad)
+                          real_n, fake_n.detach(), create_graph=gp_in_grad, layout=layout,
+                          image_h=cfg.image_size)
     grads_d = torch.autograd.grad(bce_r + lam * gp if gp_in_grad else bce_r, params_d)
 
     # ---- the shared fake side: one D forward, two cotangent pulls --------
@@ -250,8 +275,8 @@ def _fused_prop_step(cfg: Config, state: GANTrainState, real: torch.Tensor, draw
     fake_n.backward(dx)  # G's chain from the fake's cotangent
     for p, a, b in zip(params_d, grads_d, grads_f):
         p.grad = a + b
-    _average_grads(mesh, state.D)
-    _average_grads(mesh, state.G)
+    _average_grads(mesh, state.D, state.opt_d)
+    _average_grads(mesh, state.G, state.opt_g)
     adam_step(state.opt_d, cfg)
     adam_step(state.opt_g, cfg)
     _update_ema(cfg, state)
@@ -283,21 +308,35 @@ def _rank_draws(state: GANTrainState, real: torch.Tensor, geo: GANGeometry, mesh
                        mesh)
 
 
+def _localize(layout, real: torch.Tensor, draws: StepDraws):
+    """This member's part of its data rows: under ``spatial`` a block of
+    the images' height (the batch and the noise), as jckx constrains the
+    decoded batch to ``P("data", "model", None, None)``."""
+    if layout is None:
+        return real, draws
+    return layout.images(real), dataclasses.replace(
+        draws, real_noise=layout.images(draws.real_noise),
+        fake_noise=layout.images(draws.fake_noise))
+
+
 def make_dcgan_train_step(cfg: Config, geo: GANGeometry, mesh=None) -> Callable:
     """→ ``step(state, real, draws=None) -> {name: f32 scalar}``; ``real`` is
     the decoded batch (N, S, S, C) in [-1, 1] on the state's device: over
-    ``mesh``, this rank's rows, and ``draws`` (when injected) this rank's."""
+    ``mesh``, this rank's rows, and ``draws`` (when injected) this rank's.
+    With a model axis the nets run in ``cfg.model_axis_mode``'s layout."""
     cd = compute_dtype(cfg)
     run, (remat_g, remat_d) = _step_fn(cfg), _remat_flags(cfg)
+    layout = make_layout(mesh, cfg.model_axis_mode)
 
     def step(state: GANTrainState, real: torch.Tensor,
              draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
         if draws is None:
             draws = _rank_draws(state, real, geo, mesh, conditional=False)
-        G = _maybe_remat(lambda z: state.G(z, cd, mesh=mesh), remat_g)
-        D = _maybe_remat(lambda x: state.D(x, cd, mesh=mesh), remat_d)
+        real, draws = _localize(layout, real, draws)
+        G = _maybe_remat(lambda z: state.G(z, cd, mesh=mesh, par=layout), remat_g)
+        D = _maybe_remat(lambda x: state.D(x, cd, mesh=mesh, par=layout), remat_d)
         return run(cfg, state, real, draws, G=G, D=lambda x, keep: D(x),
-                   gp_in_grad=cfg.gp_in_d_grad, mesh=mesh)
+                   gp_in_grad=cfg.gp_in_d_grad, mesh=mesh, layout=layout)
 
     return step
 
@@ -307,14 +346,18 @@ def make_cgan_train_step(cfg: Config, geo: GANGeometry, mesh=None) -> Callable:
     ``onehot`` (N, K) holds the batch's labels; ``mesh`` as for DCGAN."""
     cd = compute_dtype(cfg)
     run, (remat_g, remat_d) = _step_fn(cfg), _remat_flags(cfg)
+    layout = make_layout(mesh, cfg.model_axis_mode)
 
     def step(state: GANTrainState, real: torch.Tensor, onehot: torch.Tensor,
              draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
         if draws is None:
             draws = _rank_draws(state, real, geo, mesh, conditional=True)
+        real, draws = _localize(layout, real, draws)
         onehot = onehot.float()
-        G = _maybe_remat(lambda z: state.G(z, onehot, cd, mesh=mesh), remat_g)
-        D = _maybe_remat(lambda x, keep: state.D(x, onehot, cd, keep, mesh=mesh), remat_d)
-        return run(cfg, state, real, draws, G=G, D=D, gp_in_grad=True, mesh=mesh)
+        G = _maybe_remat(lambda z: state.G(z, onehot, cd, mesh=mesh, par=layout), remat_g)
+        D = _maybe_remat(lambda x, keep: state.D(x, onehot, cd, keep, mesh=mesh, par=layout),
+                         remat_d)
+        return run(cfg, state, real, draws, G=G, D=D, gp_in_grad=True, mesh=mesh,
+                   layout=layout)
 
     return step

@@ -135,8 +135,8 @@ def step_cases_rank(rank: int, world: int, store: str, inputs: str, out: str) ->
     record["gp_sync"] = penalty_terms(gp_case, data["gp"], mesh)
     sync = ProcessMesh.all_reduce
 
-    def detached(self, t):
-        return sync(self, t.detach())
+    def detached(self, t, axis="data"):
+        return sync(self, t.detach(), axis)
 
     ProcessMesh.all_reduce = detached
     try:

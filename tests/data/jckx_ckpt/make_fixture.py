@@ -20,9 +20,14 @@ would carry to the port:
 
 Both runs use 64 synthetic rows, batch 16, one epoch of 4 steps, lr 2e-4,
 f32, and evals after steps 2 and 4, so ``latest.ckpt`` is at step 4.
-XLA runs single-threaded on one device so that the bytes do not depend on
-the machine; ``config.json``'s paths are made relative
-(``tests/test_torch_jckx_ckpt.py`` regenerates the fixture and compares).
+XLA runs on one device with its Eigen thread pool off, so a rerun on the
+same host writes the same bytes. Another host may not: XLA's CPU code
+generation follows the host's instruction set (AVX2, AVX-512), which
+reorders float sums, and the checkpoints' and renders' last bits move
+with it. ``config.json``'s paths are made relative.
+``tests/test_torch_jckx_ckpt.py`` regenerates the fixture and compares it
+with the committed files: names, configs and inputs exactly, the floats
+within a stated number of f32 ulps.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import tempfile
 
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=1 "
-                           "--xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1")
+                           "--xla_cpu_multi_thread_eigen=false")
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(HERE))))

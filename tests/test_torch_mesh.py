@@ -9,8 +9,10 @@ bring-up (``jckx_torch/utils/device.py``) against jckx's, on the CPU.
   schedulers' variables: a lone host degrades to ``(False, err)``, cluster
   env re-raises (tests/test_multihost.py:300-344 with jckx's variables), a
   complete ``env://`` set brings a world of one up.
-- the refusals: a ``model`` axis > 1 names A13b, a 2-D serving mesh, a
-  batch the data axis does not divide.
+- the model axis: a ``(D, M)`` process mesh passes ``check_ported`` with
+  its knobs; the refusals are jckx's: a 2-D serving mesh, a model axis on
+  a local mesh or on ``evaluate`` / the fine-tune, a batch the data axis
+  does not divide, knobs out of their range.
 - a local mesh's collectives: sums in device order, rows gathered in
   order, a member's error raised in the caller.
 """
@@ -26,7 +28,7 @@ import torch.distributed as dist
 from jckx.parallel import make_mesh as jmake_mesh
 from jckx.parallel import parse_mesh_shape as jparse
 from jckx_torch.configs import check_ported, get_arg_parse
-from jckx_torch.parallel import (A13B, LocalMesh, ProcessMesh, local_batch_size, make_mesh,
+from jckx_torch.parallel import (LocalMesh, ProcessMesh, local_batch_size, make_mesh,
                                  parse_mesh_shape, process_mesh)
 from jckx_torch.utils.device import cluster_env_present, init_multihost, multihost_barrier
 
@@ -73,11 +75,8 @@ def test_make_mesh_errors_match_jckx(shape):
     with pytest.raises(ValueError) as theirs:
         jmake_mesh(shape, axes, devices=jax.devices())
     with pytest.raises(ValueError) as ours:
-        make_mesh(shape, axes if len(shape) == 1 else ("data", "model"), devices=["cpu"] * 8)
-    if len(shape) == 1:  # a model axis > 1 is refused before the device count
-        assert str(ours.value) == str(theirs.value)
-    else:
-        assert A13B in str(ours.value)
+        make_mesh(shape, axes, devices=["cpu"] * 8)
+    assert str(ours.value) == str(theirs.value)  # the device count, before the model axis
 
 
 def test_process_mesh_counts_the_process_group(clean_env):
@@ -151,13 +150,19 @@ def test_init_multihost_brings_up_a_world_of_one(clean_env):
 
 
 def test_refusals_name_their_item(tmp_path):
-    for argv in (["--mesh_shape", "2,2", "--mesh_axes", "data,model"],
-                 ["--model_axis_mode", "spatial"], ["--tp_min_dim", "64"]):
-        with pytest.raises(SystemExit, match="A13b"):
+    for argv in (["--mesh_shape", "2", "--tp_min_dim", "0"], ["--spatial_replicate_grads", "2"]):
+        with pytest.raises(SystemExit, match="tp_min_dim|spatial_replicate_grads"):
             check_ported(get_arg_parse(argv))
     for argv in (["--mesh_shape", "2"], ["--mesh_shape", "4,1", "--mesh_axes", "data,model"],
-                 ["--multihost"]):
-        check_ported(get_arg_parse(argv))  # the data axis is ported
+                 ["--multihost"], ["--mesh_shape", "2,2", "--mesh_axes", "data,model"],
+                 ["--model_axis_mode", "spatial", "--spatial_replicate_grads", "0"],
+                 ["--tp_min_dim", "64"]):
+        check_ported(get_arg_parse(argv))  # both axes are ported for train
+    for what in ("evaluate", "the fine-tune"):  # jckx runs them on a data axis
+        with pytest.raises(ValueError, match=f"{what} runs on the 'data' axis only"):
+            process_mesh("1,2", "data,model", what=what)
+    with pytest.raises(ValueError, match="serving"):
+        make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
     with pytest.raises(SystemExit, match="mesh_axes"):
         check_ported(get_arg_parse(["--mesh_shape", "2,2"]))  # two sizes, one axis
     from jckx_torch.serve import serving_mesh

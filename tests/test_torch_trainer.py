@@ -228,10 +228,11 @@ def test_cli_flags_and_refusals(tmp_path):
     base = ["--device", "cpu", "--save_root", str(tmp_path)]
     # the train step's modes and the data planes are ported
     # (tests/test_torch_fused_prop.py, tests/test_torch_remat.py and
-    # tests/test_torch_stream_trainer.py train with them), and so is the
-    # mesh's data axis (tests/test_torch_dp_trainer.py); a model axis and
-    # its knobs are still refused by ROADMAP item, and a data axis larger
-    # than the world raises naming torchrun
+    # tests/test_torch_stream_trainer.py train with them), and so are the
+    # mesh's data axis (tests/test_torch_dp_trainer.py) and its model axis
+    # (tests/test_torch_model_axis_trainer.py); knobs out of their range
+    # are refused by name, and a mesh larger than the world raises naming
+    # torchrun, as jckx's does
     modes = ["--fused_prop", "1", "--remat", "both", "--sanitize", "--profile_dir", "p"]
     planes = ["--data_placement", "stream", "--hbm_data_budget", "1", "-w", "3"]
     mesh = ["--mesh_shape", "2,1", "--mesh_axes", "data,model", "--multihost"]
@@ -241,17 +242,22 @@ def test_cli_flags_and_refusals(tmp_path):
     assert (cfg.mesh_shape, cfg.mesh_axes, cfg.multihost) == ("2,1", "data,model", True)
     check_ported(cfg)
     model_axis = ["--mesh_shape", "1,2", "--mesh_axes", "data,model"]
-    for argv, item in ((["-m", "CGAN"] + model_axis + modes, "A13b"), (["-t", "1"], "-pm"),
-                       (["-t", "1", "-pm", "nope"], "no latest.ckpt"),
-                       (["--fused_prop", "1", "--model_axis_mode", "spatial"], "A13b"),
-                       (model_axis, "A13b"), (model_axis + planes, "A13b"),
-                       (["--remat", "g", "--hbm_data_budget", "1", "--tp_min_dim", "64"], "A13b"),
-                       (["--spatial_replicate_grads", "0"], "A13b")):
+    check_ported(get_arg_parse(["-m", "CGAN"] + model_axis + modes + [
+        "--model_axis_mode", "spatial", "--tp_min_dim", "64", "--spatial_replicate_grads", "0"]))
+    for argv, item in ((["-m", "CGAN", "--mesh_shape", "2,2"] + modes, "mesh_axes"),
+                       (["-t", "1"], "-pm"), (["-t", "1", "-pm", "nope"], "no latest.ckpt"),
+                       (["--fused_prop", "1", "--model_axis_mode", "spatial", "--tp_min_dim", "0"],
+                        "tp_min_dim"),
+                       (model_axis + planes + ["--tp_min_dim", "-1"], "tp_min_dim"),
+                       (["--remat", "g", "--hbm_data_budget", "1", "--spatial_replicate_grads",
+                         "2"], "spatial_replicate_grads"),
+                       (["--mesh_shape", "1,2,1", "--mesh_axes", "data,model,data"], "at most once")):
         with pytest.raises(SystemExit, match=item) as err:
             tmain.main(argv + base)
         assert not [f for f in ("fused_prop", "remat", "data_placement", "hbm_data_budget")
                     if f in str(err.value)]
-    for argv in (["--mesh_shape", "2"], ["--mesh_shape", "2"] + planes + modes):
+    for argv in (["--mesh_shape", "2"], ["--mesh_shape", "2"] + planes + modes, model_axis,
+                 ["-m", "CGAN"] + model_axis + modes + ["--model_axis_mode", "spatial"]):
         with pytest.raises(ValueError, match="needs 2 ranks, have 1.*torchrun --nproc_per_node 2"):
             tmain.main(argv + base)
     assert os.listdir(tmp_path) == []  # refused before any run dir
@@ -264,7 +270,7 @@ def test_cli_flags_and_refusals(tmp_path):
                 "--eval_samples", "8", "--save_dir", str(tmp_path / "bk"),
                 "--data_dir", str(tmp_path / "data")]) == 0
     MainLogger.reset()
-    with pytest.raises(SystemExit, match="A13b"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         cli(["train", "-m", "CGAN", "--fused_prop", "1", "--data_placement", "stream",
              "--multihost"] + model_axis + base)
     with pytest.raises(SystemExit, match="1-D"):
