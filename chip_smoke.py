@@ -185,8 +185,21 @@ Run from the root of a checkout, on a machine with a CUDA card and
     within 5 % in L2), ``0`` against ``1`` within 1e-6, every eval render
     through the kernel bit-identical to the once-rounded route, the TP
     checkpoint served; then the bf16 step of a TP pair and a spatial pair
-    timed, with the collectives per step by kind and their host share;
-32. prints a ``{"kernels": [...]}`` line, then, last, the
+    timed, with the collectives per step by kind and their host share; the
+    first step's telemetry gap printed by field, and the spatial pair's
+    first step against the plain step from the same weights and batch on
+    the card (f32, and computed in f64) and on the CPU (f32: gloo, no
+    cuDNN), by field;
+32. the capacity planner (``phase_plan``): ``python -m jckx_torch plan
+    --device cuda`` at the reference geometry in bf16 on an (8,) data mesh,
+    (1, 2) ``tp`` (``--tp_min_dim 128``) and ``spatial`` meshes and one
+    rank (bf16 and f32): every report's memory read on the card and
+    fitting; TP's and spatial's collectives per kind equal to the gloo
+    pairs' counts of 31, their bytes too once gloo's widening of 16-bit
+    floats to f32 is undone; the floors beside the step's device ms of 9,
+    the planned peak memory beside a real one-card step's, and the f32
+    step's FLOPs beside jckx's XLA count (within 25 %);
+33. prints a ``{"kernels": [...]}`` line, then, last, the
     ``{"ok": true, "device": {...}}`` line.
 
 Any failed phase exits nonzero before the last line is printed. Without a
@@ -2623,6 +2636,7 @@ MESH_WARM = 2                           # phase_mesh_model: untimed bf16 steps f
 # rounding error up to ~5 % of a leaf's largest gradient at full width)
 MODEL_GRAD_GAP = 0.05
 MODEL_FLOOR = 1e-6
+GAP_THREADS = 2                         # CPU threads of each rank of the first-step control
 FT_MESH_BATCH = 8                       # fine-tune rows per rank
 
 
@@ -3018,8 +3032,46 @@ def child_time_model(spec: dict) -> None:
     dist.destroy_process_group()
 
 
+def child_first_step(spec: dict) -> None:
+    """One DCGAN step at full width (batch 128) from the trainer's initial
+    weights on a seeded batch, on ``spec["device"]`` (the card, or the CPU
+    with ``GAP_THREADS`` threads), alone (``mode`` "") or as a gloo rank of
+    a (1, 2) mesh in ``spec["mode"]``; f32, or with ``spec["f64"]`` the
+    step's compute in f64 (its compute dtype patched; the parameters and
+    Adam stay f32). Rank 0 saves the step's telemetry to ``<out><mode>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from jckx_torch.configs import Config
+    from jckx_torch.models.dcgan import Discriminator, GANGeometry, Generator
+    from jckx_torch.parallel import make_mesh
+    from jckx_torch.train import steps
+    from jckx_torch.train.state import create_dcgan_state
+    from jckx_torch.train.steps import make_dcgan_train_step
+
+    if spec.get("f64"):
+        steps.compute_dtype = lambda cfg: torch.float64
+    card = _child_init("gloo" if spec["mode"] else "none")
+    dev = card if spec["device"] == "cuda" else torch.device("cpu")
+    torch.set_num_threads(GAP_THREADS)
+    mesh = make_mesh((1, 2), ("data", "model"), device=dev) if spec["mode"] else None
+    cfg, geo = Config(), GANGeometry()
+    cfg.compute_dtype, cfg.max_learning_rate = "float32", TRAIN_LR
+    cfg.model_axis_mode = spec["mode"] or cfg.model_axis_mode
+    gen = torch.Generator().manual_seed(12345)  # the trainer's seed
+    state = create_dcgan_state(cfg, Generator(geo, gen=gen).to(dev),
+                               Discriminator(geo, gen=gen).to(dev), mesh)
+    real = (torch.rand(TRAIN_BATCH, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+            * 2 - 1).to(dev)
+    m = make_dcgan_train_step(cfg, geo, mesh)(state, real)
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        torch.save({k: float(v) for k, v in m.items()}, f"{spec['out']}{spec['mode']}.pt")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 CHILDREN = {"train": child_train, "time": child_time, "finetune": child_finetune,
-            "time_model": child_time_model}
+            "time_model": child_time_model, "first_step": child_first_step}
 
 
 def _mesh_argv(tmp: str, model: str, run: str, extra=()) -> list:
@@ -3389,7 +3441,8 @@ def phase_mesh_model(tmp: str, card: str) -> int:
         last = max(abs(tele[k] - tele_one[k]) for k in METRIC_NAMES_ALL[:6])
         print(f"{model} {name} on a (1, 2) data x model mesh of two gloo ranks of this card "
               f"(bs{TRAIN_BATCH}, f32) against the plain run: step 1 telemetry max |diff| "
-              f"{max(gaps.values()):.3g} (<= 3e-3); " + _gaps_text(gaps_g)
+              f"{max(gaps.values()):.3g} (<= 3e-3; by field: {_fields_text(gaps)}); "
+              + _gaps_text(gaps_g)
               + f"; after step {MESH_STEPS} telemetry max |diff| "
               f"{last:.3g} (not held), eval fid {tele['fid']:.6g} vs {tele_one['fid']:.6g}; "
               f"{r0['launches']} + {r1['launches']} kernel launches at the eval, render "
@@ -3441,10 +3494,191 @@ def phase_mesh_model(tmp: str, card: str) -> int:
               f"(medians of {MESH_TIMED} after {MESH_WARM} warm steps); collectives per step "
               f"(rank 0): {kinds}; their host share of a step {100 * t[0]['host_share']:.1f} % / "
               f"{100 * t[1]['host_share']:.1f} %   [{card}]")
+
+    # the spatial pair's first step against the plain step, on the card (f32,
+    # f64) and on the CPU (f32): which fields differ, and whether without
+    # cuDNN or in f64
+    t0 = time.perf_counter()
+    numbers["first_step_gaps"] = gaps = _first_step_gaps(out)
+    for where, by_field in gaps.items():
+        print(f"first DCGAN step (64², width 64, bs{TRAIN_BATCH}, the same weights, batch and "
+              f"draws) of a spatial (1, 2) gloo pair against the plain step on the {where}: "
+              f"|diff| by field {_fields_text(by_field)}   [{card}]")
+    gaps_s = time.perf_counter() - t0
+    numbers["gaps_s"] = gaps_s
     print("mesh_model_numbers " + json.dumps(numbers))
     print(f"phase_mesh_model: {time.perf_counter() - t_phase:.1f} s ({runs_s:.1f} s the runs at "
-          f"once, {timing_s:.1f} s the timing); {launches} kernel launches")
-    return launches
+          f"once, {timing_s:.1f} s the timing, {gaps_s:.1f} s the first-step control); "
+          f"{launches} kernel launches")
+    return launches, numbers
+
+
+def _fields_text(gaps: dict) -> str:
+    return ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+
+
+FIRST_STEP_RUNS = {"card": ("cuda", False), "card, computed in f64": ("cuda", True),
+                   "CPU": ("cpu", False)}  # name: (device, f64)
+
+
+def _first_step_gaps(out: str) -> dict:
+    """``child_first_step`` on the card in f32 and in f64 and on the CPU in
+    f32, each alone and as a spatial gloo pair, all at once. → {run name
+    (``FIRST_STEP_RUNS``): {field: |pair - plain|}} of the first step's
+    telemetry."""
+    import torch
+
+    procs = []
+    for i, (where, f64) in enumerate(FIRST_STEP_RUNS.values()):
+        spec = {"device": where, "f64": f64, "out": os.path.join(out, f"first_{i}")}
+        procs += [_start_child("first_step", {**spec, "mode": ""})]
+        procs += _start_group("first_step", {**spec, "mode": "spatial"}, 2)
+    _join(procs, "phase_mesh_model first-step control", timeout=600)
+    gaps = {}
+    for i, name in enumerate(FIRST_STEP_RUNS):
+        load = lambda mode: torch.load(  # noqa: E731
+            os.path.join(out, f"first_{i}{mode}.pt"), weights_only=False)
+        plain, pair = load(""), load("spatial")
+        gaps[name] = {k: abs(pair[k] - plain[k]) for k in plain}
+    return gaps
+
+
+# ---------------------------------------------------------------- the planner
+
+# jckx.plan's XLA count for the same step: ``python -m jckx.plan --topology ""
+# --devices 1 -m DCGAN -b 128 --compute_dtype float32`` at 64², width 64 (CPU)
+JCKX_PLAN_F32_FLOPS = 3.916e11
+PLAN_RUNS = {  # name: ``plan`` flags beyond the reference geometry in bf16
+    "dp8": ["--devices", "8"],
+    "tp": ["--devices", "2", "--mesh_shape", "1,2", "--mesh_axes", "data,model",
+           "--model_axis_mode", "tp", "--tp_min_dim", "128"],
+    "spatial": ["--devices", "2", "--mesh_shape", "1,2", "--mesh_axes", "data,model",
+                "--model_axis_mode", "spatial"],
+    "one": ["--devices", "1"],
+    "one_f32": ["--devices", "1", "--compute_dtype", "float32"],
+}
+
+
+def _real_step_memory(dev) -> dict:
+    """A real unsharded bf16 DCGAN step at full width on this card, as the
+    trainer builds it (no mesh, uint8 zeros decoded): the bytes the step's
+    state and batch hold before its second step (what this process held
+    before them left out), and its peak above them."""
+    import torch
+
+    from jckx_torch.configs import Config
+    from jckx_torch.data.pipeline import decode_batch
+    from jckx_torch.models.dcgan import Discriminator, GANGeometry, Generator
+    from jckx_torch.train.state import create_dcgan_state
+    from jckx_torch.train.steps import make_dcgan_train_step
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    cfg, geo = Config(), GANGeometry()
+    gen = torch.Generator().manual_seed(cfg.seed)
+    state = create_dcgan_state(cfg, Generator(geo, gen=gen).to(dev),
+                               Discriminator(geo, gen=gen).to(dev))
+    step = make_dcgan_train_step(cfg, geo)
+    u8 = torch.zeros((TRAIN_BATCH, 64, 64, 3), dtype=torch.uint8, device=dev)
+    step(state, decode_batch(u8, 64, torch.bfloat16))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(state, decode_batch(u8, 64, torch.bfloat16))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del state, step, u8
+    torch.cuda.empty_cache()
+    return {"argument_mb": (before - held) / 2**20, "temp_mb": (peak - before) / 2**20,
+            "peak_mb": (peak - held) / 2**20}
+
+
+def phase_plan(dev, card: str, train_t: dict, mesh_model: dict) -> dict:
+    """``python -m jckx_torch plan --device cuda`` at the reference geometry
+    (``PLAN_RUNS``, all at once): every report's memory read on the card
+    and fitting; the TP and spatial reports' collectives per kind equal to
+    ``phase_mesh_model``'s gloo pairs' per bf16 step (``mesh_model``), and
+    their bytes: the report counts a 16-bit tensor at its own width, gloo
+    sends it as f32, so 2 x the report's bf16 bytes + its f32 bytes equal
+    gloo's. Prints the unsharded step's floors beside its device ms from
+    ``phase_train_timing`` (``train_t``), the planned memory beside a real
+    one-card step's, and the f32 FLOPs beside jckx's count (within 25 %).
+    Launches no kernel: the planned step is differentiated."""
+    from jckx_torch.kernels import fused_bn_act as fba
+    from jckx_torch.utils.comm import HLO_OPS  # the mesh's kinds → the report's op names
+
+    t0 = time.perf_counter()
+    launches = fba.LAUNCHES
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = ["-m", "DCGAN", "-b", str(TRAIN_BATCH), "--image_size", "64", "--base_width", "64",
+            "--device", "cuda"]
+    procs = {name: subprocess.Popen([sys.executable, "-m", "jckx_torch", "plan", *base, *flags],
+                                    cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)
+             for name, flags in PLAN_RUNS.items()}
+    reports = {}
+    for name, p in procs.items():
+        out, err = p.communicate(timeout=300)
+        check(p.returncode == 0, f"plan {name} exited {p.returncode}:\n{err[-4000:]}")
+        reports[name] = json.loads(out)
+    for name, r in reports.items():
+        mem = r["per_chip"]["memory"]
+        check("error" not in mem and mem["fits"] and 0 < mem["peak_mb"] < mem["hbm_mb"]
+              and "cuda" in r["backend"] and "CAVEAT" not in r["backend"],
+              f"plan {name}: backend {r['backend']!r}, memory {mem}")
+        ops = {op: (v["count"], v["bytes_total"]) for op, v in r["cross_shard_ops"].items()}
+        print(f"plan {name} ({r['geometry']}, mesh {r['mesh']['shape']}): "
+              f"{r['per_chip']['step_flops']:.4g} FLOP, {r['per_chip']['step_hbm_bytes']:.4g} "
+              f"bytes (unfused), memory {mem}, collectives (calls, bytes) {ops}, floors "
+              f"{r['step_floors_us']} µs, bound {r['bound']}   [{card}]")
+    for mode in ("tp", "spatial"):
+        gloo = mesh_model[mode]["collectives_per_step"]
+        ops = reports[mode]["cross_shard_ops"]
+        for kind, op in HLO_OPS.items():
+            mine = ops.get(op, {"count": 0, "bytes_total": 0, "by_dtype": {}})
+            by = mine["by_dtype"]
+            widened = 2 * by.get("bf16", {}).get("bytes", 0) + by.get("f32", {}).get("bytes", 0)
+            check(mine["count"] == gloo[kind]["calls"] and widened == gloo[kind]["bytes"]
+                  and set(by) <= {"bf16", "f32"},
+                  f"plan {mode} {op}: {mine['count']} calls, {by} against the gloo pair's "
+                  f"{gloo[kind]['calls']:g} calls of {gloo[kind]['bytes']:g} bytes per step")
+        inventory = "; ".join(
+            f"{op} {v['count']}: " + ", ".join(f"{d} {b['bytes']:,} B" for d, b in v["by_dtype"].items())
+            for op, v in ops.items())
+        print(f"plan {mode}: collectives per kind equal to the gloo pair's per bf16 step "
+              f"(phase_mesh_model), bytes equal once gloo's widening to f32 is undone: "
+              f"{inventory}   [{card}]")
+    one = reports["one"]
+    floors, busy_ms = one["step_floors_us"], train_t["step_ms_card"]
+    shares = {k: v / (1e3 * busy_ms) for k, v in floors.items()} if busy_ms else {}
+    print(f"the unsharded bf16 DCGAN step's floors {floors} µs (bound {one['bound']}) beside its "
+          f"device busy time {busy_ms} ms (phase_train_timing): the floors' shares of it "
+          + ", ".join(f"{k} {100 * v:.2f} %" for k, v in shares.items()) + f"   [{card}]")
+    real = _real_step_memory(dev)
+    mem = one["per_chip"]["memory"]
+    check(abs(mem["temp_mb"] - real["temp_mb"]) <= 0.25 * real["temp_mb"],
+          f"planned step temporaries {mem['temp_mb']} MB against a real step's "
+          f"{real['temp_mb']:.1f} MB")
+    print(f"planned memory of the unsharded bf16 step: peak {mem['peak_mb']} MB, arguments "
+          f"{mem['argument_mb']} MB, temporaries {mem['temp_mb']} MB; a real one-card step "
+          f"(torch.cuda.max_memory_allocated, less what this process held before it): peak "
+          f"{real['peak_mb']:.1f} MB, arguments {real['argument_mb']:.1f} MB, temporaries "
+          f"{real['temp_mb']:.1f} MB   [{card}]")
+    flops = reports["one_f32"]["per_chip"]["step_flops"]
+    ratio = flops / JCKX_PLAN_F32_FLOPS
+    check(0.75 <= ratio <= 1.25, f"plan's f32 step FLOPs {flops:.4g} against jckx's "
+                                 f"{JCKX_PLAN_F32_FLOPS:.4g}")
+    print(f"the unsharded f32 step: {flops:.4g} FLOP (torch.utils.flop_counter's registry) "
+          f"against jckx.plan's {JCKX_PLAN_F32_FLOPS:.4g} (XLA's cost analysis): {ratio:.4f}x; "
+          f"bf16 {one['per_chip']['step_flops']:.4g}   [{card}]")
+    check(fba.LAUNCHES == launches, f"the planner launched the kernel "
+                                    f"{fba.LAUNCHES - launches} times in this process")
+    seconds = time.perf_counter() - t0
+    numbers = {"card": card, "reports": reports, "real_step_memory": real,
+               "floor_shares": shares, "flops_vs_jckx": ratio, "seconds": seconds}
+    print("plan_numbers " + json.dumps(numbers))
+    print(f"phase_plan: {seconds:.1f} s; 0 kernel launches")
+    return numbers
 
 
 def _pair_gaps(start: dict, got: dict, want: dict, grads: bool = True) -> dict:
@@ -3550,7 +3784,7 @@ def main() -> None:
         with keep_latest_of_step(8, step8):
             tr, steps, _, train_launches = phase_train(tmp)
         watch_launches = phase_watch(step8, os.path.join(tr.save_path, "latest.ckpt"), tmp)
-        phase_train_timing(tr, steps, tmp, card)
+        train_t = phase_train_timing(tr, steps, tmp, card)
         fused_launches = phase_fused_prop_train(tmp, card)
         fused_launches += phase_profile_dir(tmp, card)
         fused_launches += phase_jckx_ckpt(tmp, dev, card)
@@ -3563,7 +3797,9 @@ def main() -> None:
         finetune_launches = phase_finetune(ctr, tmp, card)
         plane_launches = phase_data_planes(tmp, dev, card)
         mesh_launches = phase_mesh(tmp, dev, card)
-        mesh_launches += phase_mesh_model(tmp, card)
+        model_launches, mesh_model = phase_mesh_model(tmp, card)
+        mesh_launches += model_launches
+    phase_plan(dev, card, train_t, mesh_model)
     print(json.dumps({"kernels": [{
         "name": "fused_bn_act", "route": "cuda",
         "source": "jckx_torch/kernels/csrc/fused_bn_act.cu",

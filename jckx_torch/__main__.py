@@ -7,9 +7,11 @@
     python -m jckx_torch panel --seeds 0,1 -m DCGAN --dataset synthetic -e 1
     python -m jckx_torch finetune --dataset cifar100 -e 300
 
+    python -m jckx_torch plan -m DCGAN -b 128 --devices 8
+
 Each command keeps its own module path too (``python -m jckx_torch.serve``,
-``python -m jckx_torch.metrics.inception_train``). jckx's ``plan`` is
-refused by name with its ROADMAP item.
+``python -m jckx_torch.metrics.inception_train``, ``python -m
+jckx_torch.plan``). Every jckx command has its counterpart here.
 """
 
 from __future__ import annotations
@@ -26,10 +28,7 @@ _COMMANDS = {
     "doctor": "environment readiness check: the card, its link, the kernel build",
     "panel": "train one config across N seeds, one quality verdict",
     "finetune": "fine-tune the InceptionV3 metric backbone (loss_bset.npz for --metric_backbone)",
-}
-# jckx commands the port does not have yet → the ROADMAP.md item that brings them
-UNPORTED = {
-    "plan": "A14 (the capacity planner)",
+    "plan": "capacity planner: one rank's step FLOPs, bytes, memory, collectives vs H100 floors",
 }
 
 
@@ -45,9 +44,6 @@ def main(argv=None) -> int:
         print(_usage())
         return 0
     cmd, rest = argv[0], argv[1:]
-    if cmd in UNPORTED:
-        print(f"'{cmd}' is not ported yet (ROADMAP.md {UNPORTED[cmd]})", file=sys.stderr)
-        return 2
     if cmd not in _COMMANDS:
         print(f"unknown command {cmd!r}\n\n{_usage()}", file=sys.stderr)
         return 2

@@ -33,7 +33,7 @@ same draws. ``model_size`` and ``model_rank`` are the model axis's.
 
 The collectives take the axis they run over: ``"data"``, ``"model"`` or
 ``"world"`` (both). Each is one call here, counted in ``stats`` by kind
-(calls, bytes, host seconds):
+(calls, bytes, host seconds; calls and bytes also by the dtype on the wire):
 
 - ``all_reduce(t, axis)``: the sum of a tensor (BN statistics, the
   penalty's input gradient). Inside autograd (``t`` requires grad) it is
@@ -68,7 +68,8 @@ gloo on the card. NCCL cannot put two ranks on one GPU, so ranks that
 share one run gloo. Its collectives follow one rule keyed on the backend
 (``_STAGED``): a point-to-point exchange runs on host copies, a
 reduce-scatter is an all-reduce of a host copy of which each member keeps
-its slice, and a 16-bit float travels as f32 (``_wire``).
+its slice, and a 16-bit float travels as f32 (``_wire``); ``stats`` counts
+what travels, so a 16-bit tensor there counts as f32 bytes.
 """
 
 from __future__ import annotations
@@ -310,7 +311,9 @@ class _HaloAdjoint(torch.autograd.Function):
 
 
 class CollectiveStats:
-    """Calls, bytes and host seconds of the mesh's collectives, by kind."""
+    """Calls, bytes and host seconds of the mesh's collectives, by kind, and
+    the calls and bytes of each kind by the dtype that went over the wire
+    (``by_dtype[kind][dtype] = [calls, bytes]``; ``utils/comm.py`` reads it)."""
 
     KINDS = ("all_reduce", "all_gather", "reduce_scatter", "halo_send_recv")
 
@@ -321,11 +324,15 @@ class CollectiveStats:
         self.calls = {k: 0 for k in self.KINDS}
         self.bytes = {k: 0 for k in self.KINDS}
         self.seconds = {k: 0.0 for k in self.KINDS}
+        self.by_dtype: Dict[str, Dict[torch.dtype, List[int]]] = {k: {} for k in self.KINDS}
 
-    def add(self, kind: str, nbytes: int, seconds: float) -> None:
+    def add(self, kind: str, nbytes: int, seconds: float, dtype: torch.dtype) -> None:
         self.calls[kind] += 1
         self.bytes[kind] += int(nbytes)
         self.seconds[kind] += seconds
+        entry = self.by_dtype[kind].setdefault(dtype, [0, 0])
+        entry[0] += 1
+        entry[1] += int(nbytes)
 
     def as_dict(self) -> dict:
         return {k: {"calls": self.calls[k], "bytes": self.bytes[k],
@@ -424,10 +431,11 @@ class ProcessMesh(Mesh):
     def _live(self, axis: str) -> bool:
         return self.distributed and self.axis_size(axis) > 1
 
-    def _timed(self, kind: str, nbytes: int, fn: Callable):
+    def _timed(self, kind: str, wire: torch.Tensor, nbytes: int, fn: Callable):
+        """``fn()``, counted as one ``kind`` call of ``nbytes`` in ``wire``'s dtype."""
         t0 = time.perf_counter()
         out = fn()
-        self.stats.add(kind, nbytes, time.perf_counter() - t0)
+        self.stats.add(kind, nbytes, time.perf_counter() - t0, wire.dtype)
         return out
 
     # ---- raw collectives (no autograd) --------------------------------
@@ -442,7 +450,7 @@ class ProcessMesh(Mesh):
     def _all_reduce(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         out = self._wire(t.detach()).clone(memory_format=torch.contiguous_format)
         if self._live(axis):
-            self._timed("all_reduce", out.numel() * out.element_size(),
+            self._timed("all_reduce", out, out.numel() * out.element_size(),
                         lambda: dist.all_reduce(out, group=self._groups[axis]))
         return out.to(t.dtype)
 
@@ -451,7 +459,7 @@ class ProcessMesh(Mesh):
             return t.detach().clone()
         part = self._wire(t.detach()).contiguous()
         parts = [torch.empty_like(part) for _ in range(self.axis_size(axis))]
-        self._timed("all_gather", part.numel() * part.element_size() * len(parts),
+        self._timed("all_gather", part, part.numel() * part.element_size() * len(parts),
                     lambda: dist.all_gather(parts, part, group=self._groups[axis]))
         return _like(torch.cat(parts, dim=dim).to(t.dtype), t)
 
@@ -464,17 +472,16 @@ class ProcessMesh(Mesh):
             raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} does not split "
                              f"over {n} members")
         full = t.detach().contiguous()
-        nbytes = full.numel() * full.element_size()
         if self._staged:
             # a 16-bit float is summed in f32 and rounded once
             host = full.to("cpu", torch.promote_types(full.dtype, torch.float32), copy=True)
-            self._timed("reduce_scatter", nbytes,
+            self._timed("reduce_scatter", host, host.numel() * host.element_size(),
                         lambda: dist.all_reduce(host, group=self._groups[axis]))
             out = host.chunk(n, dim)[idx].to(t.device, t.dtype)
         else:
             chunks = [c.contiguous() for c in full.chunk(n, dim)]
             out = torch.empty_like(chunks[idx])
-            self._timed("reduce_scatter", nbytes,
+            self._timed("reduce_scatter", full, full.numel() * full.element_size(),
                         lambda: dist.reduce_scatter(out, chunks, group=self._groups[axis]))
         return _like(out, t)
 
@@ -504,8 +511,8 @@ class ProcessMesh(Mesh):
             for w in dist.batch_isend_irecv(ops):
                 w.wait()
 
-        self._timed("halo_send_recv", sum(op.tensor.numel() * op.tensor.element_size()
-                                          for op in ops), run)
+        self._timed("halo_send_recv", s_up, sum(op.tensor.numel() * op.tensor.element_size()
+                                                for op in ops), run)
         return r_up.to(dev, dtype), r_down.to(dev, dtype)
 
     # ---- the collectives the callers use --------------------------------

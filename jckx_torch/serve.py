@@ -348,8 +348,10 @@ def make_http_server(svc, host: str = "0.0.0.0", port: int = 8000):
       "label_a"?, "label_b"?, "kind"?, "format"?} → one walk.
 
     Bad requests get a JSON 400, unknown paths a 404, a failed render a JSON
-    500. Requests run on handler threads, but sampling is serialized under
-    one lock (one device pipeline). Returns the not yet running
+    500. A POST is counted before its reply goes out (jckx counts it after),
+    so a client that has its reply finds it in ``/metrics``. Requests run on
+    handler threads, but sampling is serialized under one lock (one device
+    pipeline). Returns the not yet running
     ``ThreadingHTTPServer``, which carries ``swap_service(new_svc)``: a hot
     swap under the sampling lock; the counters persist across swaps."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -363,15 +365,27 @@ def make_http_server(svc, host: str = "0.0.0.0", port: int = 8000):
     stats_lock = threading.Lock()
     stats = {"requests": 0, "images": 0, "errors": 0, "latency_sum": 0.0}
 
-    def _count(images: int = 0, error: bool = False, seconds: float = 0.0):
+    def _count(images: int = 0, error: bool = False, seconds: float = 0.0, requests: int = 1):
         with stats_lock:
-            stats["requests"] += 1
+            stats["requests"] += requests
             stats["images"] += images
             stats["errors"] += int(error)
             stats["latency_sum"] += seconds
 
     def _is_int(v):  # JSON true / false are ints to isinstance
         return isinstance(v, int) and not isinstance(v, bool)
+
+    def _error(code: int, msg: str):
+        """A JSON error reply: (code, content type, body)."""
+        return code, "application/json", json.dumps({"error": msg}).encode()
+
+    def _images(imgs: np.ndarray, fmt: str, ncol: int):
+        """Rendered uint8 images as a reply: an ``.npy`` or a PNG grid."""
+        if fmt == "npy":
+            buf = io.BytesIO()
+            np.save(buf, imgs)
+            return 200, "application/octet-stream", buf.getvalue()
+        return 200, "image/png", encode_png(make_grid(imgs, ncol=ncol))
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *a):  # quiet: the CLI owns stdout
@@ -383,9 +397,6 @@ def make_http_server(svc, host: str = "0.0.0.0", port: int = 8000):
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
-
-        def _error(self, code: int, msg: str):
-            self._reply(code, "application/json", json.dumps({"error": msg}).encode())
 
         def do_GET(self):
             if self.path == "/metrics":
@@ -402,7 +413,7 @@ def make_http_server(svc, host: str = "0.0.0.0", port: int = 8000):
                 ))
                 return self._reply(200, "text/plain; version=0.0.4", body.encode())
             if self.path != "/healthz":
-                return self._error(404, "unknown path (GET /healthz or /metrics)")
+                return self._reply(*_error(404, "unknown path (GET /healthz or /metrics)"))
             s = cur()
             self._reply(200, "application/json", json.dumps({
                 "status": "ok", "step": s.step, "conditional": s.conditional,
@@ -417,57 +428,61 @@ def make_http_server(svc, host: str = "0.0.0.0", port: int = 8000):
             elif self.path == "/interpolate":
                 handler = self._interpolate
             else:
-                return self._error(404, "unknown path (POST /generate or /interpolate)")
+                return self._reply(*_error(404, "unknown path (POST /generate or /interpolate)"))
+            # counted before the body goes out: a client that has its reply
+            # and reads /metrics next sees its own request
             t0 = time.perf_counter()
             try:
-                n = handler()  # image count on success, None on any error
-            except Exception:  # noqa: BLE001 — e.g. the client hung up mid-write:
-                n = None       # the request must still be counted
+                n, reply = handler()  # image count (None on an error), the reply
+            except Exception:  # noqa: BLE001 — e.g. the client hung up mid-read:
+                n, reply = None, None  # the request must still be counted
             _count(images=n or 0, error=n is None, seconds=time.perf_counter() - t0)
+            if reply is None:
+                return
+            try:
+                self._reply(*reply)
+            except Exception:  # noqa: BLE001 — the client hung up mid-write: an error,
+                if n is not None:  # as jckx counts it, and still one request
+                    _count(images=-n, error=True, requests=0)
 
         def _read_json(self):
+            """→ (the request's JSON object, None) or (None, a 400 reply)."""
             try:
                 length = int(self.headers.get("Content-Length") or 0)
                 req = json.loads(self.rfile.read(length) or b"{}")
                 if not isinstance(req, dict):
                     raise ValueError("body must be a JSON object")
-                return req
+                return req, None
             except ValueError as e:
-                self._error(400, f"bad JSON body: {e}")
-                return None
+                return None, _error(400, f"bad JSON body: {e}")
 
-        def _send_images(self, imgs: np.ndarray, fmt: str, ncol: int):
-            if fmt == "npy":
-                buf = io.BytesIO()
-                np.save(buf, imgs)
-                return self._reply(200, "application/octet-stream", buf.getvalue())
-            self._reply(200, "image/png", encode_png(make_grid(imgs, ncol=ncol)))
+        # the POST handlers: → (image count, or None on an error; the reply)
 
         def _interpolate(self):
             s = cur()
             if not hasattr(s, "interpolate"):
-                return self._error(400, "this serving artifact has no interpolation path "
-                                        "(serve a checkpoint, not a sealed *.pt2)")
-            req = self._read_json()
-            if req is None:
-                return None
+                return None, _error(400, "this serving artifact has no interpolation path "
+                                         "(serve a checkpoint, not a sealed *.pt2)")
+            req, bad = self._read_json()
+            if bad is not None:
+                return None, bad
             for field in ("seed_a", "seed_b"):
                 if not _is_int(req.get(field)):
-                    return self._error(400, f"'{field}' must be an int")
+                    return None, _error(400, f"'{field}' must be an int")
             # capped over HTTP, as jckx caps it (there each distinct value
             # compiles a program under the sampling lock)
             steps = req.get("steps", 10)
             if not _is_int(steps) or not 2 <= steps <= 64:
-                return self._error(400, "'steps' must be an int in [2, 64]")
+                return None, _error(400, "'steps' must be an int in [2, 64]")
             fmt = req.get("format", "png")
             if fmt not in ("png", "npy"):
-                return self._error(400, "'format' must be 'png' or 'npy'")
+                return None, _error(400, "'format' must be 'png' or 'npy'")
             kind = req.get("kind", "slerp")
             labs = {}
             for field in ("label_a", "label_b"):
                 if field in req:
                     if not _is_int(req[field]):
-                        return self._error(400, f"'{field}' must be an int")
+                        return None, _error(400, f"'{field}' must be an int")
                     labs[field] = req[field]
             try:
                 try:
@@ -475,46 +490,42 @@ def make_http_server(svc, host: str = "0.0.0.0", port: int = 8000):
                         imgs = s.interpolate(req["seed_a"], req["seed_b"], steps=steps,
                                              kind=kind, **labs)
                 except ValueError as e:  # the service's validation → a clear 400
-                    return self._error(400, str(e))
-                self._send_images(imgs, fmt, ncol=steps)
-                return steps
+                    return None, _error(400, str(e))
+                return steps, _images(imgs, fmt, ncol=steps)
             except Exception as e:  # noqa: BLE001 — boundary: report, don't die
-                self._error(500, f"generation failed: {type(e).__name__}: {e}")
-                return None
+                return None, _error(500, f"generation failed: {type(e).__name__}: {e}")
 
         def _generate(self):
             s = cur()  # one consistent service per request, even mid-swap
-            req = self._read_json()
-            if req is None:
-                return None
+            req, bad = self._read_json()
+            if bad is not None:
+                return None, bad
             n = req.get("n", 1)
             if not _is_int(n) or not 1 <= n <= 4096:
-                return self._error(400, "'n' must be an int in [1, 4096]")
+                return None, _error(400, "'n' must be an int in [1, 4096]")
             labels = req.get("labels")
             if labels is not None:
                 if not s.conditional:
-                    return self._error(400, "'labels' given but the checkpoint is "
-                                            "unconditional (DCGAN)")
+                    return None, _error(400, "'labels' given but the checkpoint is "
+                                             "unconditional (DCGAN)")
                 if (not isinstance(labels, list) or not labels
                         or not all(_is_int(x) and 0 <= x < s.num_classes for x in labels)):
-                    return self._error(400, f"'labels' must be a non-empty list of ints in "
-                                            f"[0, {s.num_classes})")
+                    return None, _error(400, f"'labels' must be a non-empty list of ints in "
+                                             f"[0, {s.num_classes})")
             fmt = req.get("format", "png")
             if fmt not in ("png", "npy"):
-                return self._error(400, "'format' must be 'png' or 'npy'")
+                return None, _error(400, "'format' must be 'png' or 'npy'")
             seed = None
             if "seed" in req:
                 if not _is_int(req["seed"]):
-                    return self._error(400, "'seed' must be an int")
+                    return None, _error(400, "'seed' must be an int")
                 seed = req["seed"]
             try:  # a failed render comes back as a JSON 500, not a dropped connection
                 with lock:
                     imgs = s.sample(n, labels=labels, seed=seed)
-                self._send_images(imgs, fmt, ncol=max(1, int(np.ceil(np.sqrt(n)))))
-                return n
+                return n, _images(imgs, fmt, ncol=max(1, int(np.ceil(np.sqrt(n)))))
             except Exception as e:  # noqa: BLE001 — boundary: report, don't die
-                self._error(500, f"generation failed: {type(e).__name__}: {e}")
-                return None
+                return None, _error(500, f"generation failed: {type(e).__name__}: {e}")
 
     srv = ThreadingHTTPServer((host, port), Handler)
 

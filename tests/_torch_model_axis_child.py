@@ -129,3 +129,77 @@ def train_rank(rank: int, shape: tuple, store: str, argv: list, out: str) -> Non
     tr = tmain.run(get_arg_parse([a.replace("{rank}", str(rank)) for a in argv]),
                    metrics=RenderStub())
     _finish(out, rank, {"step": tr.state.step, "evals": tr.evals})
+
+
+# ------------------------------------------------------------ the planner's step
+
+def plan_stats_rank(rank: int, shape: tuple, store: str, cases: dict, out: str) -> None:
+    """The collectives of the trainer's second step (uint8 zeros decoded,
+    weights drawn from the config's seed) on a real gloo group, for each
+    case (name → (mesh shape, config fields)): every kind's calls and bytes
+    and the dtypes on the wire, to hold ``jckx_torch.plan``'s fake-group
+    inventory against."""
+    from jckx_torch.configs import Config
+    from jckx_torch.data.pipeline import decode_batch
+    from jckx_torch.models.dcgan import Discriminator, Generator
+    from jckx_torch.parallel import make_mesh
+    from jckx_torch.train.state import create_dcgan_state, geometry
+    from jckx_torch.train.steps import make_dcgan_train_step
+
+    group(rank, shape, store)
+    rec = {}
+    for name, (mesh_shape, fields) in cases.items():
+        mesh = make_mesh(tuple(mesh_shape), ("data", "model"), device="cpu")
+        cfg = Config()
+        for k, v in fields.items():
+            setattr(cfg, k, v)
+        geo = geometry(cfg)
+        gen = torch.Generator().manual_seed(cfg.seed)
+        state = create_dcgan_state(cfg, Generator(geo, gen=gen), Discriminator(geo, gen=gen), mesh)
+        step = make_dcgan_train_step(cfg, geo, mesh)
+        u8 = torch.zeros((cfg.batch_size // mesh.size, cfg.image_size, cfg.image_size,
+                          cfg.channels), dtype=torch.uint8)
+        for i in range(2):
+            if i == 1:
+                mesh.stats.reset()
+            step(state, decode_batch(u8, cfg.image_size))
+        rec[name] = {"calls": dict(mesh.stats.calls), "bytes": dict(mesh.stats.bytes),
+                     "dtypes": {k: sorted(str(d) for d in v)
+                                for k, v in mesh.stats.by_dtype.items()}}
+    _finish(out, rank, rec)
+
+
+# ------------------------------------------------------------ f64 first step
+
+F64_GEOMETRY = dict(image_size=64, base_width=16, batch_size=8)
+
+
+def f64_first_step(mesh=None, mode: str = "spatial") -> dict:
+    """One DCGAN step at 64², width 16, batch 8 from seeded weights and a
+    seeded batch, computed in f64 (the step's compute dtype patched; the
+    parameters and Adam stay f32), over ``mesh`` in ``mode``'s layout or
+    alone. → the telemetry."""
+    from jckx_torch.configs import Config
+    from jckx_torch.models.dcgan import Discriminator, Generator
+    from jckx_torch.train import steps
+    from jckx_torch.train.state import create_dcgan_state, geometry
+
+    cfg = Config()
+    for k, v in F64_GEOMETRY.items():
+        setattr(cfg, k, v)
+    cfg.compute_dtype, cfg.model_axis_mode, cfg.max_learning_rate = "float32", mode, 2e-4
+    geo = geometry(cfg)
+    gen = torch.Generator().manual_seed(0)
+    state = create_dcgan_state(cfg, Generator(geo, gen=gen), Discriminator(geo, gen=gen), mesh)
+    real = torch.rand(cfg.batch_size, cfg.image_size, cfg.image_size, 3,
+                      generator=torch.Generator().manual_seed(1)) * 2 - 1
+    m = steps.make_dcgan_train_step(cfg, geo, mesh)(state, real)
+    return {k: float(m[k]) for k in steps.METRIC_NAMES}
+
+
+def f64_step_rank(rank: int, shape: tuple, store: str, out: str) -> None:
+    from jckx_torch.train import steps
+
+    mesh = group(rank, shape, store)
+    steps.compute_dtype = lambda cfg: torch.float64
+    _finish(out, rank, f64_first_step(mesh))

@@ -704,3 +704,26 @@ def test_sync_bn_relu_train_on_a_world_of_one_equals_the_plain_one(nccl_world_of
         outs.append((out, mean, var, x.grad, scale.grad, bias.grad))
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mesh", [["--devices", "8"],
+                                  ["--devices", "2", "--mesh_shape", "1,2", "--mesh_axes",
+                                   "data,model", "--model_axis_mode", "spatial"]],
+                         ids=["dp8", "spatial"])
+def test_plan_on_the_card_reads_its_memory(mesh):
+    """A toy ``plan --device cuda``: the memory is the card's allocator's
+    (no ``error``), fits, and its peak holds the arguments and the
+    temporaries; the fake group is gone afterwards."""
+    import torch.distributed as dist
+
+    from jckx_torch.plan import plan
+
+    _card()
+    r = plan(["--image_size", "16", "-b", "16", "--base_width", "16", "--tp_min_dim", "16",
+              "--device", "cuda", *mesh])
+    mem = r["per_chip"]["memory"]
+    assert "error" not in mem and mem["fits"], mem
+    assert 0 < mem["argument_mb"] <= mem["peak_mb"] < mem["hbm_mb"]
+    assert abs(mem["peak_mb"] - mem["argument_mb"] - mem["temp_mb"]) <= 0.16  # each rounded
+    assert "CAVEAT" not in r["backend"] and r["per_chip"]["step_flops"] > 0
+    assert not dist.is_initialized()

@@ -42,7 +42,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 class Daemon:
-    """A service behind an HTTP front on an ephemeral port of 127.0.0.1."""
+    """A service behind an HTTP front on an ephemeral port of 127.0.0.1.
+    It keeps the number of counted requests it has had answered (POSTs to
+    /generate and /interpolate) for ``metrics``."""
+
+    COUNTED = ("/generate", "/interpolate")
 
     def __init__(self, make_http_server, svc):
         self.svc = svc
@@ -50,6 +54,8 @@ class Daemon:
         self.port = self.srv.server_address[1]
         self.thread = threading.Thread(target=self.srv.serve_forever, daemon=True)
         self.thread.start()
+        self.answered = 0
+        self._lock = threading.Lock()
 
     def request(self, path, body=None, raw=None):
         url = f"http://127.0.0.1:{self.port}{path}"
@@ -57,14 +63,29 @@ class Daemon:
         req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
         try:
             with urllib.request.urlopen(req, timeout=TIMEOUT) as r:
-                return r.status, r.headers.get("Content-Type"), r.read()
+                reply = r.status, r.headers.get("Content-Type"), r.read()
         except urllib.error.HTTPError as e:
-            return e.code, e.headers.get("Content-Type"), e.read()
+            reply = e.code, e.headers.get("Content-Type"), e.read()
+        if data is not None and path in self.COUNTED:
+            with self._lock:
+                self.answered += 1
+        return reply
 
-    def metrics(self):
-        _, _, body = self.request("/metrics")
-        return dict(line.split() for line in body.decode().splitlines()
-                    if line and not line.startswith("#"))
+    def metrics(self, wait=10.0):
+        """The /metrics counters, read once ``jckx_generate_requests_total``
+        has reached the requests already answered, or after ``wait``
+        seconds: jckx's daemon counts a request after writing its reply, so
+        a read right after the reply can come before the count. The port's
+        counts before it replies: its own tests read with ``wait=0``."""
+        deadline = time.monotonic() + wait
+        while True:
+            _, _, body = self.request("/metrics")
+            m = dict(line.split() for line in body.decode().splitlines()
+                     if line and not line.startswith("#"))
+            if int(m["jckx_generate_requests_total"]) >= self.answered \
+                    or time.monotonic() > deadline:
+                return m
+            time.sleep(0.01)
 
     def close(self):
         self.srv.shutdown()
@@ -263,7 +284,7 @@ def test_http_concurrent_clients_during_hot_swap(tmp_path):
                 assert code == 200 and np.load(io.BytesIO(body)).shape == (2, 16, 16, 3)
             else:
                 assert code == 200 and _png_size(body)[0] > 0
-        m = d.metrics()
+        m = d.metrics(wait=0)
         assert m["jckx_generate_requests_total"] == str(1 + len(jobs))
         assert m["jckx_generate_images_total"] == str(2 + 24 * 2)
         assert m["jckx_generate_errors_total"] == "6"
@@ -288,7 +309,7 @@ def test_http_render_failure_is_a_json_500(tmp_path):
         for p, body in (("/generate", {"n": 2}), ("/interpolate", {"seed_a": 1, "seed_b": 2})):
             code, ctype, reply = d.request(p, body)
             assert code == 500 and "card fell over" in json.loads(reply)["error"]
-        assert d.metrics()["jckx_generate_errors_total"] == "2"
+        assert d.metrics(wait=0)["jckx_generate_errors_total"] == "2"
     finally:
         d.close()
 

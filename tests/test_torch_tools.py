@@ -177,12 +177,15 @@ def test_front_door_dispatches_every_command(tmp_path, capsys):
     assert "wrote 6 samples" in capsys.readouterr().out
     assert cli(["doctor", "--probe_timeout", "5"]) == 1
     capsys.readouterr()
-    assert cli(["plan"]) == 2 and "A14" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as e:  # plan is a command now
+        cli(["plan", "-h"])
+    assert e.value.code == 0 and "--peak_tflops" in capsys.readouterr().out
     with pytest.raises(SystemExit) as e:  # finetune is a command now
         cli(["finetune", "-h"])
     assert e.value.code == 0 and "--max_steps_per_epoch" in capsys.readouterr().out
     assert cli([]) == 0
     usage = capsys.readouterr().out
-    assert all(c in usage for c in ("export", "convert", "inspect", "doctor", "panel", "finetune"))
+    assert all(c in usage for c in ("export", "convert", "inspect", "doctor", "panel", "finetune",
+                                    "plan"))
     np.testing.assert_array_equal(  # the served artifact is the exported one
         texport.load_exported(str(tmp_path / "g.pt2"), device="cpu")(0).shape, (4, 16, 16, 3))

@@ -264,7 +264,10 @@ def test_cli_flags_and_refusals(tmp_path):
 
     from jckx_torch.__main__ import main as cli
 
-    assert cli(["nope"]) == 2 and cli(["plan"]) == 2 and cli([]) == 0
+    assert cli(["nope"]) == 2 and cli([]) == 0
+    with pytest.raises(SystemExit) as e:  # plan answers (its flags, then the config's)
+        cli(["plan", "-h"])
+    assert e.value.code == 0
     assert cli(["finetune", "--device", "cpu", "--dataset", "synthetic", "--synthetic_size", "16",
                 "-b", "8", "-e", "1", "--image_size", "75", "--compute_dtype", "float32",
                 "--eval_samples", "8", "--save_dir", str(tmp_path / "bk"),
