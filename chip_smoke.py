@@ -30,8 +30,8 @@ Run from the root of a checkout, on a machine with a CUDA card and
 6. holds one train step at full width (64², z 100, base width 64, batch
    16, f32, TF32 off; DCGAN, then CGAN with K = 100 and its four dropout
    masks) on the card against the same step on the CPU, from the same
-   weights and the same draws: the six telemetry scalars within 3e-3,
-   and Adam's deltas where the CPU's gradient clears 1 % of its leaf's
+   weights and the same draws (cuDNN deterministic): the six telemetry
+   scalars within 3e-3, and Adam's deltas where the CPU's gradient clears 1 % of its leaf's
    maximum within 5 % of lr (tests/test_step_torch_parity.py:22-35) on
    all but 0.1 % of those elements; the differentiated step launches no
    kernel;
@@ -146,7 +146,8 @@ Run from the root of a checkout, on a machine with a CUDA card and
     through the kernel within 1 LSB of jckx's renders, ``evaluate`` end to
     end, ``convert`` to ``.pt`` and ``inspect``, and ``train --resume`` of
     jckx's run dir (one more eval, the port's ``latest.ckpt`` at step 8);
-29. the data planes (``phase_data_planes``): the native I/O library
+29. the data planes (``phase_data_planes``, in a child process of its own:
+    ``child_planes`` says why): the native I/O library
     builds and loads (no numpy fallback on the card); a CIFAR-100 pickle of
     50,000 seeded rows is parsed and written to jckx's cache, then mapped
     (both times printed; equal arrays); real features of 10,000 mapped rows
@@ -199,7 +200,26 @@ Run from the root of a checkout, on a machine with a CUDA card and
     floats to f32 is undone; the floors beside the step's device ms of 9,
     the planned peak memory beside a real one-card step's, and the f32
     step's FLOPs beside jckx's XLA count (within 25 %);
-33. prints a ``{"kernels": [...]}`` line, then, last, the
+33. the superstep (``phase_superstep``): the train step as one CUDA graph
+    at full width, bs128, bf16. For DCGAN, CGAN, FusedProp, ``--remat
+    both`` and cosine, 8 steps of a trainer through its superstep (the
+    first eager, then the capture, 7 replays under
+    ``torch.cuda.set_sync_debug_mode("error")``) equal 8 eager steps of a
+    twin from the same seed bit for bit (telemetry, G, D, the EMA, Adam's
+    moments and counts; cuDNN deterministic for the check); the fine-tune
+    at 299²: one eager step, the capture and a launch of K = 8 replays
+    equal 9 eager steps bit for bit, 94 launches counted per step either
+    way. Then, recaptured under the default algorithms, eager and graph in
+    turns on one state for DCGAN, CGAN and the fine-tune: host ms per
+    step, device busy ms and share, device events per step, the capture's
+    seconds and the graph pool's MB; in one fine-tune replay the
+    profiler's ``bn_act`` kernels equal the 94 launches the superstep
+    counted (a window that falls short, a record CUPTI dropped, is taken
+    again, up to 3).
+    Every other phase that trains through the trainer or the fine-tune's
+    ``train()`` on one card, without a mesh or ``--sanitize``, runs its
+    steps through the superstep too;
+34. prints a ``{"kernels": [...]}`` line, then, last, the
     ``{"ok": true, "device": {...}}`` line.
 
 Any failed phase exits nonzero before the last line is printed. Without a
@@ -209,6 +229,7 @@ card, or outside a checkout of the repo, it exits nonzero at once.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -550,16 +571,18 @@ def phase_timing(svc, dev, card: str):
         full = device_ms(lambda x: fba.bn_act(x, scale, bias, act="relu"), [(x,) for x in xs])
         lib = device_ms(lambda x: F.relu_(F.batch_norm(x, None, None, scale, bias, training=True,
                                                         eps=1e-5)), [(x,) for x in xs])
+        lib2 = device_ms(_addcmul_relu, x2ds)
         moved = 2 * nbytes + 2 * c * 4           # x read, y written, inv + shift read
         bytes_ms = moved / HBM_BYTES_PER_S * 1e3
         ops_ms = 3 * rows * c / F32_FLOPS_PER_S * 1e3  # FMA + activation, f32
         bound = max(bytes_ms, ops_ms)
         rows_out.append({"layer": f"{s}x{s}x{c}", "rows": rows, "C": c, "ms": ms, "bound_ms": bound,
                          "bytes_ms": bytes_ms, "ops_ms": ops_ms, "plain_ms": plain,
-                         "bn_act_ms": full, "library_ms": lib})
+                         "bn_act_ms": full, "library_ms": lib, "addcmul_relu_ms": lib2})
         print(f"  layer {s:>2}x{s:<2}x{c:<3} kernel {ms * 1e3:8.2f} us  bound {bound * 1e3:6.2f} us "
               f"({100 * bound / ms:5.1f} %)  plain {plain * 1e3:8.2f} us  bn_act (stats + kernel) "
-              f"{full * 1e3:8.2f} us  F.batch_norm + relu {lib * 1e3:8.2f} us   [{card}]")
+              f"{full * 1e3:8.2f} us  F.batch_norm + relu {lib * 1e3:8.2f} us  the same function "
+              f"in two library calls (addcmul, relu_) {lib2 * 1e3:8.2f} us   [{card}]")
     print("bn_act_layers " + json.dumps({"card": card, "batch": BATCH, "dtype": "bfloat16",
                                          "layers": rows_out}))
 
@@ -597,9 +620,21 @@ def phase_timing(svc, dev, card: str):
           f"({u8.numel() / 2**20:.1f} MiB) copied to fresh pageable memory in {copy * 1e3:.3f} ms"
           f"   [{card}]")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    out = {k: sum(r[k] for r in rows_out) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    out = {k: sum(r[k] for r in rows_out)
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms", "addcmul_relu_ms")}
+    print(f"per G forward at batch {BATCH}, bf16, the four BN layers: kernel {out['ms']:.5f} ms, "
+          f"bound {out['bound_ms']:.5f} ms, plain {out['plain_ms']:.5f} ms, F.batch_norm + relu "
+          f"{out['library_ms']:.5f} ms, addcmul + relu_ {out['addcmul_relu_ms']:.5f} ms   [{card}]")
     out["bound_by"] = "bytes" if all(r["bytes_ms"] >= r["ops_ms"] for r in rows_out) else "operations"
     return out
+
+
+def _addcmul_relu(x2d, inv, shift):
+    """The kernel's function in two library calls: ``torch.addcmul(shift,
+    x2d, inv)`` into a tensor of x's dtype (f32 arithmetic), then ``relu_``."""
+    import torch
+
+    return torch.addcmul(shift, x2d, inv, out=torch.empty_like(x2d)).relu_()
 
 
 def profile_window(run, what: str, card: str, top_n: int = 10) -> dict:
@@ -626,11 +661,14 @@ def profile_window(run, what: str, card: str, top_n: int = 10) -> dict:
         return {}
     window = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
     busy, (lo, hi) = 0.0, spans[0]
+    idle = []  # the card's idle gaps between device events, in us
     for s, e in spans[1:]:  # union of the device intervals
         if s > hi:
             busy, lo = busy + hi - lo, s
+            idle.append(s - hi)
         hi = max(hi, e)
     busy += hi - lo
+    long_gaps = [g for g in idle if g > 10.0]
     by_name, by_kind = {}, {}
     for e in kernels:
         dt = e.time_range.end - e.time_range.start
@@ -641,13 +679,16 @@ def profile_window(run, what: str, card: str, top_n: int = 10) -> dict:
     total = sum(t for t, _ in by_name.values())
     print(f"profiled {what}: window {window / 1e3:.3f} ms, card busy {busy / 1e3:.3f} ms "
           f"({100 * busy / window:.1f} %, idle {100 - 100 * busy / window:.1f} %), "
-          f"{len(kernels)} device events   [{card}]")
+          f"{len(kernels)} device events; {len(long_gaps)} idle gaps over 10 us between them, "
+          f"{sum(long_gaps) / 1e3:.3f} ms in all   [{card}]")
     print("  by kind: " + ", ".join(f"{kind} {100 * t / total:.1f} %"
                                     for kind, t in sorted(by_kind.items(), key=lambda kv: -kv[1])))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
     for name, (t, k) in top:
         print(f"  {t / 1e3:8.3f} ms {100 * t / total:5.1f} %  x{k:<4} {name[:90]}")
     return {"window_ms": window / 1e3, "busy_ms": busy / 1e3, "events": len(kernels),
+            "gaps_over_10us": len(long_gaps), "gap_ms_over_10us": sum(long_gaps) / 1e3,
+            "calls": {name: k for name, (_, k) in by_name.items()},
             "by_kind": {kind: t / 1e3 for kind, t in by_kind.items()},
             "top": [(name[:90], t / 1e3, k) for name, (t, k) in top]}
 
@@ -663,7 +704,11 @@ def phase_train_vs_cpu(dev, conditional: bool = False, fused_prop: int = 0) -> N
     """One full-width train step (DCGAN, or CGAN with K = 100; the faithful
     step, or FusedProp with ``fused_prop``) on the card against the CPU,
     from the same weights, draws, masks and labels, in f32 with TF32 off
-    (set in ``main``)."""
+    (set in ``main``), cuDNN deterministic on the card: its default
+    algorithms sum in an order that changes from run to run, and one
+    masked element of CGAN's ``G.norm1.weight`` (499 masked, so none may
+    flip) changed sign in 2 of 7 such runs on an H100, in none of 3 with
+    deterministic algorithms."""
     import torch
 
     from jckx_torch.configs import Config
@@ -705,8 +750,9 @@ def phase_train_vs_cpu(dev, conditional: bool = False, fused_prop: int = 0) -> N
               **{"D." + k: v.detach().cpu().clone() for k, v in D.state_dict().items()}}
         before = fba.LAUNCHES
         t0 = time.perf_counter()
-        m = step(state, real.to(device), *extra,
-                 StepDraws(**{k: v.to(device) for k, v in draws.items()}))
+        with _deterministic_cudnn():
+            m = step(state, real.to(device), *extra,
+                     StepDraws(**{k: v.to(device) for k, v in draws.items()}))
         if device.type == "cuda":
             torch.cuda.synchronize()
         dt = time.perf_counter() - t0
@@ -1745,12 +1791,14 @@ def phase_bn_relu_train(dev, card: str) -> dict:
     nchw = [(fba._unrows(x, torch.empty(FT_BATCH, c, side, side, device="meta")),) for x in xs]
     lib = device_ms(lambda x: F.relu_(F.batch_norm(x, None, None, scale, bias, training=True,
                                                     eps=1e-3)), nchw)
+    lib2 = device_ms(lambda x: _addcmul_relu(x, inv, shift), [(x,) for x in xs])
     bound = max((2 * nbytes + 2 * c * 4) / HBM_BYTES_PER_S, 3 * rows * c / F32_FLOPS_PER_S) * 1e3
     print(f"kernel at the largest fine-tune map ({rows} rows x {c}, bf16): {ms * 1e3:.2f} us, bound "
           f"{bound * 1e3:.2f} us (bytes; {100 * bound / ms:.1f} %), plain {plain * 1e3:.2f} us, "
-          f"F.batch_norm + relu {lib * 1e3:.2f} us   [{card}]")
+          f"F.batch_norm + relu {lib * 1e3:.2f} us, the same function in two library calls "
+          f"(addcmul, relu_) {lib2 * 1e3:.2f} us   [{card}]")
     out = {"card": card, "rows": rows, "C": c, "ms": ms, "bound_ms": bound, "plain_ms": plain,
-           "library_ms": lib, "max_gaps": worst}
+           "library_ms": lib, "addcmul_relu_ms": lib2, "max_gaps": worst}
     print("bn_relu_train_numbers " + json.dumps(out))
     return out
 
@@ -1972,6 +2020,309 @@ def phase_finetune(ctr, tmp: str, card: str) -> int:
     return launches + ev_launches
 
 
+SUPERSTEP_STEPS = 8   # phase_superstep: steps held bit for bit, and timed per turn
+SUPERSTEP_MODES = [("DCGAN", "DCGAN", ()), ("CGAN", "CGAN", ()),
+                   ("FusedProp", "DCGAN", ("--fused_prop", "1")),
+                   ("--remat both", "DCGAN", ("--remat", "both")),
+                   ("cosine", "DCGAN", ("--lr_schedule", "cosine"))]
+
+
+def _step_trainer(tmp: str, model: str, flags: tuple, run: str):
+    """A trainer at the reference geometry (bs128, bf16, lr 2e-4, EMA
+    0.999) over the 4,096 synthetic rows, built as ``train.main.run``
+    builds it but with no evals: the phase drives its launches."""
+    import torch
+
+    from jckx_torch.configs import get_arg_parse
+    from jckx_torch.data.pipeline import CGANDataPreprocessor, DCGANDataPreprocessor
+    from jckx_torch.logging.main_logger import MainLogger
+    from jckx_torch.models.cgan import CDiscriminator, CGenerator
+    from jckx_torch.models.dcgan import Discriminator, Generator
+    from jckx_torch.train.gan_trainer import CGANTrainer, DCGANTrainer
+    from jckx_torch.train.state import geometry
+
+    cfg = get_arg_parse(["-m", model, "--dataset", "synthetic", "-b", str(TRAIN_BATCH), "-e", "1",
+                         "-mlr", str(TRAIN_LR), "--eval_every", "0", "--ema_decay", "0.999",
+                         *flags] + _run_dir_args(tmp, model, run))
+    cfg.save_path = os.path.join(cfg.save_root, model.lower(), run)
+    geo, gen = geometry(cfg), torch.Generator().manual_seed(cfg.seed)
+    MainLogger.reset()
+    if model == "CGAN":
+        data = CGANDataPreprocessor(cfg)
+        cfg.num_classes = data.num_classes
+        tr = CGANTrainer(cfg, CGenerator(geo, cfg.num_classes, gen=gen),
+                         CDiscriminator(geo, cfg.num_classes, gen=gen), data)
+    else:
+        tr = DCGANTrainer(cfg, Generator(geo, gen=gen), Discriminator(geo, gen=gen),
+                          DCGANDataPreprocessor(cfg))
+    MainLogger.reset()
+    return tr
+
+
+def _trainer_tensors(tr) -> dict:
+    """G, D, the EMA and both Adams' moments and counts, by name."""
+    s = tr.state
+    out = {f"{m}.{k}": v for m, net in (("G", s.G), ("D", s.D), ("EMA", s.ema_g))
+           for k, v in net.state_dict().items()}
+    for name, opt in (("opt_g", s.opt_g), ("opt_d", s.opt_d)):
+        for i, st in opt.state_dict()["state"].items():
+            out.update({f"{name}.{i}.{k}": v for k, v in st.items()})
+    return out
+
+
+@contextlib.contextmanager
+def _no_host_sync():
+    """``torch.cuda.set_sync_debug_mode("error")``: an operation that
+    synchronises the host with the card raises."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    import torch
+
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def _turns(run_eager, run_graph, steps: int, what: str, card: str):
+    """Eager and graph in turns (eager, graph, graph, eager) on one state:
+    one warm launch, then host ms per step over ``steps`` steps ending in a
+    synchronise (and the ms until the host had enqueued them), then the
+    profiler over ``steps`` more (device busy ms and share, device events
+    and the card's idle gaps over 10 us per step). → {"eager": [...],
+    "graph": [...]}."""
+    import torch
+
+    out = {"eager": [], "graph": []}
+    for turn in ("eager", "graph", "graph", "eager"):
+        run = run_eager if turn == "eager" else run_graph
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0) / steps
+        prof = profile_window(run, f"{steps} {what} steps, {turn}", card,
+                              top_n=10 if not out[turn] else 0)
+        check(bool(prof), f"{what}: the profiler saw no device activity in the {turn} steps")
+        rec = {"host_ms": host_ms, "enqueue_ms": 1e3 * (t1 - t0) / steps,
+               "busy_ms": prof["busy_ms"] / steps,
+               "busy_share": prof["busy_ms"] / prof["window_ms"],
+               "events": prof["events"] / steps,
+               "long_gaps": prof["gaps_over_10us"] / steps,
+               "long_gap_ms": prof["gap_ms_over_10us"] / steps}
+        out[turn].append(rec)
+    for turn, recs in out.items():
+        print(f"{what} step, {turn}: " + "; ".join(
+            f"host {r['host_ms']:.3f} ms (enqueued in {r['enqueue_ms']:.3f}), card busy "
+            f"{r['busy_ms']:.3f} ms ({100 * r['busy_share']:.1f} % of the window), "
+            f"{r['events']:.1f} device events, {r['long_gaps']:.1f} idle gaps over 10 us "
+            f"({r['long_gap_ms']:.3f} ms)" for r in recs) + f"   [{card}]")
+    return out
+
+
+def _replayed_launches(replay, card: str, tries: int = 3) -> dict:
+    """The fused kernel's launches in one ``replay()`` of a graph, as the
+    profiler sees its ``bn_act`` kernels and as ``LAUNCHES`` counts them.
+    The profiler may drop a record (CUPTI lost ~0.5 % of one 16.5 k-event
+    window on an H100), never add one: a window that sees more fails, and
+    one that sees fewer is taken again, up to ``tries`` windows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from jckx_torch.kernels import fused_bn_act as fba
+
+    for attempt in range(1, tries + 1):
+        torch.cuda.synchronize()
+        before = fba.LAUNCHES
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            replay()
+            torch.cuda.synchronize()
+        added = fba.LAUNCHES - before
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen = sum("bn_act" in e.name for e in device)
+        print(f"one replay, window {attempt}: the profiler saw {seen} bn_act kernels among "
+              f"{len(device)} device events; the superstep added {added} launches   [{card}]")
+        check(seen <= added, f"the profiler saw {seen} bn_act kernels in one replay, more than "
+                             f"the {added} the superstep counted")
+        if seen == added:
+            return {"seen": seen, "added": added, "windows": attempt}
+    fail(f"the profiler saw fewer bn_act kernels than the superstep's {added} in {tries} windows")
+
+
+def phase_superstep(tmp: str, dev, card: str) -> int:
+    """The train step as one CUDA graph (``train/superstep.py``) at full
+    width, bs128, bf16:
+
+    - for DCGAN, CGAN, FusedProp, ``--remat both`` and cosine, two
+      trainers from the same seed step on the same 8 batches: one eagerly,
+      one through its superstep (the first step eager, then the capture,
+      7 replays under ``set_sync_debug_mode("error")``); telemetry,
+      parameters, EMA and Adam's moments and counts bit for bit (cuDNN
+      deterministic for the check);
+    - the fine-tune at 299²: one eager step and the capture, then a launch
+      of K = 8 replays under the same mode, against 9 eager steps from the
+      same weights, rows and draws: loss, accuracy, weights and running
+      statistics bit for bit; 94 launches counted per step either way;
+    - recaptured under the default algorithms, eager and graph in turns on
+      one state (DCGAN, CGAN, the fine-tune): host ms per step, device busy
+      ms and share, device events and idle gaps per step; the capture's
+      seconds and the graph pool's MB; in one fine-tune replay the
+      profiler's ``bn_act`` kernels equal the launches the superstep
+      counted (``_replayed_launches``).
+
+    → the fine-tune's kernel launches."""
+    import numpy as np
+    import torch
+
+    from jckx_torch.kernels import fused_bn_act as fba
+    from jckx_torch.metrics import inception_v3 as tiv
+    from jckx_torch.metrics.inception_train import (draw_step, make_optimizer, make_superstep,
+                                                    make_train_step, step_inputs)
+    from jckx_torch.train.superstep import CudaGraph
+
+    t_phase = time.perf_counter()
+    n = SUPERSTEP_STEPS
+    perm = torch.randperm(4096, generator=torch.Generator().manual_seed(5))
+    rows = [{"idx": r} for r in perm[:n * TRAIN_BATCH].view(n, TRAIN_BATCH).to(dev).unbind()]
+    numbers = {"card": card, "batch": TRAIN_BATCH, "dtype": "bfloat16", "gan": {}, "finetune": {}}
+    timed = {}
+    for name, model, flags in SUPERSTEP_MODES:
+        eager = _step_trainer(tmp, model, flags, "superstep_eager")
+        graphed = _step_trainer(tmp, model, flags, "superstep_graph")
+        check(graphed.superstep is not None and graphed.superstep.graph_cls is CudaGraph,
+              f"{name}: the trainer on the card has no CUDA graph")
+        eager.superstep = None
+        with _deterministic_cudnn():
+            want = eager._launch(rows)
+            got = [graphed._launch(rows[:1])]
+            with _no_host_sync():
+                got.append(graphed._launch(rows[1:]))
+            torch.cuda.synchronize()
+        ss = graphed.superstep
+        check((ss.captures, ss.replays, ss.launches) == (1, n - 1, 0),
+              f"{name}: {ss.captures} captures, {ss.replays} replays, {ss.launches} launches")
+        check(torch.equal(torch.cat(got), want), f"{name}: replayed telemetry differs from eager")
+        a, b = _trainer_tensors(graphed), _trainer_tensors(eager)
+        check(a.keys() == b.keys(), f"{name}: the states hold different tensors")
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        check(not differ, f"{name}: replayed steps differ from eager ones in {differ[:5]}")
+        values = sum(v.numel() for v in a.values())
+        print(f"{name} ({graphed.geo.image_size}², width {graphed.geo.base_width}, "
+              f"bs{TRAIN_BATCH}, bf16): {n} steps through the superstep "
+              f"(1 eager, then captured, {n - 1} replayed with no host synchronisation) equal "
+              f"{n} eager steps bit for bit: telemetry and {values:,} values of G, D, the EMA and "
+              f"Adam's moments and counts (cuDNN deterministic)   [{card}]")
+        if name in ("DCGAN", "CGAN"):
+            timed[name] = graphed
+        del eager, graphed, a, b
+        gc.collect()
+    for name, tr in timed.items():
+        ss = tr.superstep
+        ss.invalidate()
+        tr._launch(rows[:1])  # eager, then captured under the default algorithms
+        torch.cuda.synchronize()
+        print(f"{name}: capture {ss.capture_s:.3f} s, graph pool {ss.pool_bytes / 1e6:.1f} MB"
+              f"   [{card}]")
+
+        def as_eager(tr=tr, ss=ss):
+            tr.superstep = None
+            try:
+                return tr._launch(rows)
+            finally:
+                tr.superstep = ss
+
+        res = _turns(as_eager, lambda tr=tr: tr._launch(rows), n,
+                     f"{name} train (bs{TRAIN_BATCH}, bf16)", card)
+        numbers["gan"][name] = {"capture_s": ss.capture_s, "pool_mb": ss.pool_bytes / 1e6, **res}
+    del timed, tr, ss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the fine-tune: 9 eager steps against 1 eager + a launch of K = 8 replays
+    g = torch.Generator().manual_seed(21)
+    data = torch.randint(0, 256, (2560, 32, 32, 3), generator=g, dtype=torch.uint8).to(dev)
+    labels = torch.randint(0, 100, (2560,), generator=g).to(dev)
+    order = torch.randperm(2560, generator=g)[:9 * FT_BATCH].view(9, FT_BATCH).to(dev)
+
+    def fresh():
+        net = tiv.init(0, num_classes=100).to(dev)
+        return net, make_train_step(net, make_optimizer(net, 0.1), torch.bfloat16, FT_SIZE)
+
+    def feed(gen, first):
+        return lambda j: step_inputs(order[(first + j) % 9], draw_step(gen, FT_BATCH, dev))
+
+    launches = 0
+    with _deterministic_cudnn():
+        net_e, step_e = fresh()
+        gen = torch.Generator(device=dev).manual_seed(7)
+        before = fba.LAUNCHES
+        want = torch.stack([torch.stack(step_e(data, labels, order[i],
+                                               draw_step(gen, FT_BATCH, dev))) for i in range(9)])
+        torch.cuda.synchronize()
+        eager_launches = fba.LAUNCHES - before
+        want_w = tiv.to_jckx_flat(net_e)
+        del net_e, step_e
+        gc.collect()
+        net, step = fresh()
+        ss = make_superstep(step, data, labels, CudaGraph)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        before = fba.LAUNCHES
+        got = [ss.replay(1, feed(gen, 0))]
+        with _no_host_sync():
+            got.append(ss.replay(8, feed(gen, 1)))
+        torch.cuda.synchronize()
+        graph_launches = fba.LAUNCHES - before
+    launches += eager_launches + graph_launches
+    check(eager_launches == graph_launches == 9 * FT_CONVS and ss.launches == FT_CONVS,
+          f"fine-tune launches: eager {eager_launches}, through the superstep {graph_launches} "
+          f"({ss.launches} a replay); want {9 * FT_CONVS}")
+    check(torch.equal(torch.cat(got), want), "fine-tune: replayed loss / accuracy differ from eager")
+    got_w = tiv.to_jckx_flat(net)
+    differ = [k for k in want_w if not np.array_equal(want_w[k], got_w[k])]
+    check(not differ, f"fine-tune: the K = 8 launch differs from its eager run in {differ[:5]}")
+    print(f"fine-tune ({FT_SIZE}², bs{FT_BATCH}, bf16): 1 eager step + a launch of K = 8 replays "
+          f"(no host synchronisation) equal 9 eager steps bit for bit: loss, accuracy and "
+          f"{sum(v.size for v in got_w.values()):,} weights and running statistics; "
+          f"{FT_CONVS} kernel launches per step either way (cuDNN deterministic)   [{card}]")
+
+    ss.invalidate()
+    gen = torch.Generator(device=dev).manual_seed(8)
+    before = fba.LAUNCHES
+    ss.replay(1, feed(gen, 0))  # eager, then captured under the default algorithms
+    torch.cuda.synchronize()
+    print(f"fine-tune: capture {ss.capture_s:.3f} s, graph pool {ss.pool_bytes / 1e6:.1f} MB"
+          f"   [{card}]")
+    k = 4
+    res = _turns(lambda: [step(data, labels, order[i], draw_step(gen, FT_BATCH, dev))
+                          for i in range(k)],
+                 lambda: ss.replay(k, feed(gen, 0)), k,
+                 f"fine-tune ({FT_SIZE}², bs{FT_BATCH}, bf16)", card)
+    counted = _replayed_launches(lambda: ss.replay(1, feed(gen, 0)), card)
+    check(counted["added"] == FT_CONVS, f"one fine-tune replay counted {counted['added']} launches")
+    launches += fba.LAUNCHES - before
+    numbers["finetune"] = {"capture_s": ss.capture_s, "pool_mb": ss.pool_bytes / 1e6,
+                           "bn_act_in_one_replay": counted, **res}
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print("superstep_numbers " + json.dumps(numbers))
+    del ss, step, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_fused_prop_train(tmp: str, card: str) -> int:
     """DCGAN with ``--fused_prop 1`` through the entry point at full width,
     as ``phase_train`` (32 steps, evals after 8, 16, 32: 4 launches each,
@@ -2178,9 +2529,19 @@ def phase_profile_dir(tmp: str, card: str) -> int:
            "the kernel (bn_act_*)": any("bn_act_vec" in n or "bn_act_scalar" in n for n in names),
            "aten::cudnn_convolution": "aten::cudnn_convolution" in names}
     check(all(has.values()), f"the trace lacks {[k for k, v in has.items() if not v]}")
+    # steps 2-4 are replays of the step's graph: their kernels, correlated
+    # with the host's graph launches, are in the trace
+    replays = {e["args"]["correlation"] for e in events if "cudaGraphLaunch" in e.get("name", "")
+               and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and e.get("args", {}).get("correlation") in replays]
+    check(len(replays) == 3 and len(kernels) >= 3 * 100,
+          f"--profile_dir: {len(replays)} graph launches, {len(kernels)} kernels of theirs in the "
+          f"trace; want 3 replayed steps' kernels")
     print(f"--profile_dir: {wall:.1f} s run of 4 steps + 1 eval wrote {os.path.basename(traces[0])} "
           f"({os.path.getsize(traces[0]) / 2**20:.1f} MiB, {len(events)} events) naming "
-          f"{', '.join(has)}; {launches} kernel launches   [{card}]")
+          f"{', '.join(has)}, and {len(kernels)} device kernels of the {len(replays)} replayed "
+          f"steps' graph launches; {launches} kernel launches   [{card}]")
     return launches
 
 
@@ -2459,23 +2820,25 @@ def phase_data_planes(tmp: str, dev, card: str) -> int:
             tr = _plane_trainer(cfg, pre, eng)
             check(tr._streaming is (placement == "stream"), f"{placement}: streaming {tr._streaming}")
             if profiled:
-                # from the last step of launch 2 to the first of launch 4: launch
-                # 3, whose start enqueues slab 4's gather and copy
+                # from the end of launch 2 to the start of launch 4: launch 3,
+                # whose start enqueues slab 4's gather and copy (launches, not
+                # steps: a launch's steps after the first are graph replays)
                 prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                           torch.profiler.ProfilerActivity.CUDA])
-                calls, real_step = [0], tr._train_step
+                calls, real_launch = [0], tr._launch
 
-                def step(u8, labels, prof=prof, calls=calls, real_step=real_step):
+                def launch(batches, prof=prof, calls=calls, real_launch=real_launch):
                     calls[0] += 1
-                    if calls[0] == 16:
-                        prof.start()
-                    if calls[0] == 25:
+                    if calls[0] == 4:
                         torch.cuda.synchronize()
                         prof.stop()
                         prof_out["prof"] = prof
-                    return real_step(u8, labels)
+                    rows = real_launch(batches)
+                    if calls[0] == 2:
+                        prof.start()
+                    return rows
 
-                tr._train_step = step
+                tr._launch = launch
             t0 = time.perf_counter()
             tr.train()
             torch.cuda.synchronize()
@@ -2548,15 +2911,15 @@ def phase_data_planes(tmp: str, dev, card: str) -> int:
         tr = _plane_trainer(cfg, CGANDataPreprocessor(cfg), eng, conditional=True)
         check(tr._streaming and tr.images_dev is None, "auto did not stream 153.6 MB over a "
                                                         "100 MB budget")
-        real_step, calls = tr._train_step, [0]
+        real_launch, calls = tr._launch, [0]
 
-        def cut(u8, labels):
+        def cut(batches):
             calls[0] += 1
-            if calls[0] == 8:
+            if calls[0] == 1:
                 os.kill(os.getpid(), signal.SIGTERM)  # preempt_save: latest.ckpt after this launch
-            return real_step(u8, labels)
+            return real_launch(batches)
 
-        tr._train_step = cut
+        tr._launch = cut
         t0 = time.perf_counter()
         tr.train()
         tr._evaluate(tr.state.step, [], [])
@@ -2772,16 +3135,22 @@ def child_train(spec: dict) -> None:
     dev = _child_init(spec["backend"])
     _warm_step(dev, "CGAN" in spec["argv"])
     first, telemetry = {}, []
-    train_step = gan_trainer._BaseGANTrainer._train_step
+    train_step, launch = gan_trainer._BaseGANTrainer._train_step, gan_trainer._BaseGANTrainer._launch
 
     def step_and_keep_the_first(self, u8, labels):
+        # a run's first step is eager on every path (the superstep's warm step)
         m = train_step(self, u8, labels)
-        telemetry.append({k: float(v) for k, v in m.items()})
         if not first:
-            first.update(_snapshot(self.state), telemetry=telemetry[0])
+            first.update(_snapshot(self.state), telemetry={k: float(v) for k, v in m.items()})
         return m
 
+    def launch_and_keep_telemetry(self, batches):
+        rows = launch(self, batches)
+        telemetry.extend(dict(zip(METRIC_NAMES_ALL[:6], r)) for r in rows.tolist())
+        return rows
+
     gan_trainer._BaseGANTrainer._train_step = step_and_keep_the_first
+    gan_trainer._BaseGANTrainer._launch = launch_and_keep_telemetry
     if spec.get("perturb"):  # the comparison's noise floor: the same run from nudged weights
         make_state = gan_trainer.create_dcgan_state
 
@@ -3070,8 +3439,38 @@ def child_first_step(spec: dict) -> None:
         dist.destroy_process_group()
 
 
+def child_planes(spec: dict) -> None:
+    """``phase_data_planes`` in a process of its own: in the script's
+    process, after its earlier profiler windows and CUDA graphs, the
+    profiler missed the slab's host→device copy in 7 of 7 windows over 5
+    full runs on an H100 (fresh processes: 6 of 6 recorded), and the
+    phase's profiled launch reads it. Writes its launches to
+    ``spec["out"]``."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    launches = phase_data_planes(spec["tmp"], dev, spec["card"])
+    with open(spec["out"], "w") as f:
+        json.dump({"launches": launches}, f)
+
+
+def phase_data_planes_alone(tmp: str, card: str) -> int:
+    """``phase_data_planes`` in a child process (``child_planes``), its
+    lines printed here. → its kernel launches."""
+    out = os.path.join(tmp, "planes_out.json")
+    (stdout,) = _join([_start_child("planes", {"tmp": tmp, "card": card, "out": out})],
+                      "phase_data_planes", timeout=900)
+    print(stdout, end="")
+    with open(out) as f:
+        return json.load(f)["launches"]
+
+
 CHILDREN = {"train": child_train, "time": child_time, "finetune": child_finetune,
-            "time_model": child_time_model, "first_step": child_first_step}
+            "time_model": child_time_model, "first_step": child_first_step,
+            "planes": child_planes}
 
 
 def _mesh_argv(tmp: str, model: str, run: str, extra=()) -> list:
@@ -3795,10 +4194,15 @@ def main() -> None:
         phase_train_timing(ctr, csteps, tmp, card)
         panel_launches = phase_panel(tmp, card)
         finetune_launches = phase_finetune(ctr, tmp, card)
-        plane_launches = phase_data_planes(tmp, dev, card)
+        # the children below share the card: free the trainers' graphs first
+        del tr, ctr
+        gc.collect()
+        torch.cuda.empty_cache()
+        plane_launches = phase_data_planes_alone(tmp, card)
         mesh_launches = phase_mesh(tmp, dev, card)
         model_launches, mesh_model = phase_mesh_model(tmp, card)
         mesh_launches += model_launches
+        superstep_launches = phase_superstep(tmp, dev, card)
     phase_plan(dev, card, train_t, mesh_model)
     print(json.dumps({"kernels": [{
         "name": "fused_bn_act", "route": "cuda",
@@ -3807,7 +4211,7 @@ def main() -> None:
         "launches": (launches + train_launches + cgan_launches + ctrain_launches + eval_launches
                      + mode_launches + http_launches + watch_launches + export_launches
                      + panel_launches + finetune_launches + fused_launches + plane_launches
-                     + mesh_serve_launches + mesh_launches),
+                     + mesh_serve_launches + mesh_launches + superstep_launches),
         "max_abs_err": max_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],

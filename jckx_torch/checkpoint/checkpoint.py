@@ -47,7 +47,8 @@ from jckx_torch.models.cgan import CGenerator
 from jckx_torch.models.dcgan import GANGeometry, Generator
 from jckx_torch.parallel.mesh import reshard, shard_tree
 from jckx_torch.parallel.tp import payload_dims
-from jckx_torch.train.state import GANTrainState, adam_count, ema_copy
+from jckx_torch.train.state import (GANTrainState, adam_count, ema_copy, load_optimizer_state,
+                                     optimizer_state, set_lr)
 
 _EXTRA_KEYS = ("step", "seed", "ema_g")
 GEOMETRY_FIELDS = ("z_dim", "image_size", "channels", "base_width")
@@ -69,7 +70,7 @@ def state_payload(state: GANTrainState, extra: Optional[dict] = None) -> Dict[st
     (jckx's snapshot that gathers to replicated, ``jckx/train/
     gan_trainer.py:268-281``), so every rank of such a state must call it."""
     out = {"model_g": state.G.state_dict(), "model_d": state.D.state_dict(),
-           "optimizer_g": state.opt_g.state_dict(), "optimizer_d": state.opt_d.state_dict()}
+           "optimizer_g": optimizer_state(state.opt_g), "optimizer_d": optimizer_state(state.opt_d)}
     if state.ema_g is not None:
         out["ema_g"] = state.ema_g.state_dict()
     if _sharded(state):
@@ -172,11 +173,10 @@ def restore_checkpoint(path: str, state: GANTrainState, lr: float) -> Dict[str, 
     state.D.load_state_dict(ckpt["model_d"], strict=True)
     for key, opt in (("optimizer_g", state.opt_g), ("optimizer_d", state.opt_d)):
         if ckpt.get(key, {}).get("state"):
-            opt.load_state_dict(ckpt[key])
+            load_optimizer_state(opt, ckpt[key])
         elif hasattr(opt, "sync_params"):
             opt.sync_params()
-        for group in opt.param_groups:
-            group["lr"] = lr
+        set_lr(opt, lr)
     state.step = int(ckpt.get("step", adam_count(state.opt_g)))
     state.seed = int(ckpt.get("seed", state.seed))
     has_ema, want_ema = "ema_g" in ckpt, state.ema_g is not None

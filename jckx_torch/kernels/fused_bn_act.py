@@ -66,9 +66,19 @@ from jckx_torch.kernels import _build
 
 # Kernel launches since the last reset; chip_smoke.py reads it to show
 # that the serving path and the trainer's eval sampling went through the
-# kernel, and the differentiated train steps did not.
+# kernel, and the differentiated train steps did not. A replayed CUDA graph
+# launches its kernels without this wrapper: train/superstep.py adds its
+# step's count per replay (``add_launches``).
 LAUNCHES = 0
 _LAUNCHES_LOCK = threading.Lock()  # a local mesh launches from one thread per device
+
+
+def add_launches(n: int) -> None:
+    """Add ``n`` to ``LAUNCHES`` (negative: take back what a capture counted)."""
+    global LAUNCHES
+    with _LAUNCHES_LOCK:
+        LAUNCHES += n
+
 
 _ACTS = {"none": 0, "relu": 1, "leaky_relu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -165,7 +175,6 @@ def normalize_act(x2d, inv, shift, act="none", negative_slope=0.2):
     """Launch the kernel: ``x2d`` a contiguous CUDA ``(rows, C)`` tensor in
     bf16 or f32, ``inv`` / ``shift`` contiguous f32 ``(C,)`` on the same
     device. → a new tensor like ``x2d``. Raises on anything else."""
-    global LAUNCHES
     if x2d.device.type != "cuda":
         raise ValueError(f"normalize_act launches a CUDA kernel; x is on {x2d.device}")
     if x2d.dtype not in _DTYPES:
@@ -187,8 +196,7 @@ def normalize_act(x2d, inv, shift, act="none", negative_slope=0.2):
                       torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"jckx_bn_act failed with CUDA error {rc}")
-    with _LAUNCHES_LOCK:
-        LAUNCHES += 1
+    add_launches(1)
     return y
 
 

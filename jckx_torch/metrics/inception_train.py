@@ -19,10 +19,17 @@ the device (``data/augment.py``), ImageNet normalization, the train-mode
 forward in the compute dtype (``InceptionV3.forward_train``: batch-stat BN
 through ``ops/norm.bn_relu_train``, whose normalize pass is the hand
 kernel on the card, 94 launches per step), mean cross-entropy and
-accuracy, backward, SGD. Loss and accuracy stay on the device: the host
-reads them once per epoch (or every ``--scan_steps`` steps). The eval
-forward folds the running statistics into plain BN, as jckx's, and
-launches no kernel.
+accuracy, backward, SGD. On the card the step is one CUDA graph, as
+jckx's step is one ``jax.jit`` program (``:97-104``): captured after the
+run's first step, which runs eagerly, and replayed (``train/superstep.py``;
+the draws are made on the host into the graph's inputs, and the batch's
+indices copied in). Launches go as jckx's (``:496-530``): ``--scan_steps
+K`` replays K steps per launch and reads their loss once, at its end, to
+log its mean (jckx's ``make_superstep``, ``:107-130``); ``0`` replays one
+step per launch. Either way the host reads the epoch's loss and accuracy
+once, at its end. Over a mesh the steps stay eager (gloo's collectives
+cannot be captured), and so do they on the CPU. The eval forward folds the
+running statistics into plain BN, as jckx's, and launches no kernel.
 
 Random draws (crop boxes, flips, dropout masks) come from one
 ``torch.Generator`` on the device seeded with ``--seed``; a step takes
@@ -58,7 +65,7 @@ import json
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Callable, List, NamedTuple
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -71,6 +78,7 @@ from jckx_torch.logging.main_logger import MainLogger, time_to_str
 from jckx_torch.metrics import inception_v3
 from jckx_torch.metrics.metrics import IMAGENET_MEAN, IMAGENET_STD
 from jckx_torch.parallel.mesh import parse_mesh_shape, process_mesh
+from jckx_torch.train.superstep import Superstep, graph_for
 from jckx_torch.utils.device import multihost_barrier, resolve_device
 
 FEATURES = 2048  # the pooled width that dropout masks
@@ -145,6 +153,23 @@ def make_train_step(net: inception_v3.InceptionV3, opt: torch.optim.Optimizer,
         return loss.detach(), acc
 
     return step
+
+
+def step_inputs(idx: torch.Tensor, draws: StepDraws) -> dict:
+    """A step's inputs as a superstep takes them: the batch's indices and
+    its draws, by name."""
+    return {"idx": idx, **draws.crops._asdict(), "keep": draws.keep}
+
+
+def make_superstep(step: Callable, data_u8: torch.Tensor, labels_all: torch.Tensor,
+                   graph) -> Superstep:
+    """``make_train_step``'s step as a ``Superstep`` on the resident set:
+    its inputs ``step_inputs``', its output (loss, acc)."""
+    def body(x: dict) -> torch.Tensor:
+        draws = StepDraws(CropDraws(*(x[k] for k in CropDraws._fields)), x["keep"])
+        return torch.stack(step(data_u8, labels_all, x["idx"], draws))
+
+    return Superstep(body, data_u8.device, graph)
 
 
 def make_eval_fn(net: inception_v3.InceptionV3, compute_dtype=torch.bfloat16,
@@ -270,6 +295,7 @@ class FinetuneRun:
     labels: torch.Tensor
     generator: torch.Generator
     start_epoch: int
+    superstep: Optional[Superstep] = None  # the step's graph on the card
     epochs: List[dict] = field(default_factory=list)
 
 
@@ -351,30 +377,45 @@ def train(args) -> FinetuneRun:
     resume = bool(args.resume) and os.path.exists(state_path)
     if mesh is not None:
         resume = mesh.agree(resume, f"--resume: {state_path} exists")
+    graph, why_eager = graph_for(device, mesh=mesh)
+    superstep = make_superstep(step, data_dev, labels_dev, graph) if graph else None
+    logger.debug("train step: " + ("one CUDA graph, captured after the run's first (eager) step "
+                                   "and replayed" if graph else f"eager, {why_eager}"))
     if resume:
         epoch, best_acc, best_loss, patience = load_train_state(state_path, net, opt, gen)
+        if superstep is not None:  # the momentum buffers are new tensors
+            superstep.invalidate()
         start_epoch = epoch + 1
         for _ in range(start_epoch):  # fast-forward the shuffle stream
             rng.permutation(len(y))
         logger.debug(f"resumed at epoch {start_epoch} (best top1 {best_acc:.4f}, "
                      f"best loss {best_loss:.4f})")
-    run = FinetuneRun(best_acc, best_loss, net, step, data_dev, labels_dev, gen, start_epoch)
+    run = FinetuneRun(best_acc, best_loss, net, step, data_dev, labels_dev, gen, start_epoch,
+                      superstep)
+    launch = max(args.scan_steps, 1)  # steps per launch
     start = time.time()
     for epoch in range(start_epoch, args.epoch):
         t0 = time.perf_counter()
         order = rng.permutation(len(y))[: steps_per_epoch * bs].reshape(steps_per_epoch, bs)
         order_dev = torch.from_numpy(order).to(device)  # one upload per epoch
         losses, accs = [], []
-        for i in range(steps_per_epoch):
-            loss, acc = step(data_dev, labels_dev, order_dev[i], draw_step(gen, bs, device))
-            losses.append(loss)  # device tensors: no host read inside the epoch…
-            accs.append(acc)
-            if args.scan_steps > 0 and (i + 1) % args.scan_steps == 0:
-                # …except every --scan_steps steps, which bounds how far the
-                # host runs ahead and changes no result
-                group = torch.stack(losses[-args.scan_steps:]).mean().item()
-                logger.debug(f"epoch {epoch} steps {i + 1 - args.scan_steps}-{i}: "
-                             f"mean loss {group:.4f}")
+        for i in range(0, steps_per_epoch, launch):
+            k = min(launch, steps_per_epoch - i)
+            if superstep is None:
+                for j in range(i, i + k):
+                    loss, acc = step(data_dev, labels_dev, order_dev[j], draw_step(gen, bs, device))
+                    losses.append(loss)  # device tensors: no host read inside the epoch…
+                    accs.append(acc)
+            else:
+                rows = superstep.replay(k, lambda j: step_inputs(order_dev[i + j],
+                                                                 draw_step(gen, bs, device)))
+                losses += rows[:, 0].unbind()
+                accs += rows[:, 1].unbind()
+            if k == args.scan_steps:
+                # …except at the end of a launch of --scan_steps steps, which
+                # bounds how far the host runs ahead and changes no result
+                group = torch.stack(losses[-k:]).mean().item()
+                logger.debug(f"epoch {epoch} steps {i}-{i + k - 1}: mean loss {group:.4f}")
         tr_loss = float(torch.stack(losses).mean()) if losses else float("nan")
         tr_acc = float(torch.stack(accs).mean()) if accs else float("nan")
         train_s = time.perf_counter() - t0
@@ -456,8 +497,10 @@ def get_args(argv=None):
     p.add_argument("--nan_guard", type=int, default=1,
                    help="abort on non-finite epoch loss (0 = continue)")
     p.add_argument("--scan_steps", type=int, default=0,
-                   help="read the loss on the host every K steps (0 = once per epoch); the "
-                        "draws come from the same generator either way, so it changes no result")
+                   help="K steps per launch (K replays of the step's graph on the card), their "
+                        "mean loss read and logged at its end (0 = one step per launch, the loss "
+                        "read once per epoch); the draws come from the same generator either way, "
+                        "so it changes no result")
     p.add_argument("--eval_samples", type=int, default=10000)
     p.add_argument("--eval_train", type=int, default=0,
                    help="1 = also run the eval pass on the train split each epoch")

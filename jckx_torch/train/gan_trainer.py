@@ -2,12 +2,19 @@
 ``DCGANTrainer`` and ``CGANTrainer`` (``jckx/train/gan_trainer.py``;
 reference train/dcgan_trainer.py:34-239, train/cgan_trainer.py:34-270).
 
-One host loop over single train steps (``train/steps.py``). jckx runs K
-steps per device launch with ``lax.scan``; the port keeps its grouping as
-the unit of host work and of telemetry: steps go in launches of
-``K = min(log_every, eval_every, steps_per_epoch)`` (``:516-517``), the
-six scalars of a launch come to the host once, at its end, and the checks
-and logs of jckx run there:
+One host loop over launches of train steps (``train/steps.py``). jckx runs
+K steps per device launch, each step one compiled program, with
+``lax.scan`` (``:279-322``, ``:681-691``). On the card the port runs each
+step as the replay of a CUDA graph captured once (``train/superstep.py``):
+the run's first step, and the first after a restore, is the eager step,
+then the step is captured, and a launch of k steps is k replays. The
+resident plane's indices and the streamed slab's rows are copied into the
+graph's inputs, with the draws of (seed, step) and a cosine schedule's lr
+made on the host before each replay. The step stays eager on the CPU,
+under ``--sanitize`` and on a mesh (the log says which). Steps go in
+launches of ``K = min(log_every, eval_every, steps_per_epoch)``
+(``:516-517``), the six scalars of a launch come to the host once, at its
+end, and the checks and logs of jckx run there:
 
 - the data order of each epoch is ``np.random.RandomState(seed)``'s
   permutation (``:513,659-661``), so both packages see the same batches;
@@ -19,12 +26,14 @@ and logs of jckx run there:
   order, gathered by ``-w`` C++ threads into a pinned host buffer and
   copied on a side stream (``data/pipeline.py``), by a single uploader
   thread that prepares slab N+1 while the card runs launch N: at most two
-  slabs are on the device. Both planes hand ``_train_step`` the same uint8
+  slabs are on the device. Both planes hand each step the same uint8
   rows, so they train identically. SIGTERM and the nan-guard abort shut the
   uploader down (its queued slab dropped, a running one joined) before the
   gather threads close; an uploader's error reaches the train thread;
 - ``nan_guard`` aborts on non-finite telemetry, rolling back to
-  ``latest.ckpt``; SIGTERM (``preempt_save``) saves ``latest.ckpt`` at the
+  ``latest.ckpt`` (a restore rebinds the optimizers' state, so the graph is
+  recaptured, as after ``--resume`` or ``--init_from_torch``); SIGTERM
+  (``preempt_save``) saves ``latest.ckpt`` at the
   next launch boundary and returns with ``preempted`` set (the entry
   point exits 143);
 - evals fall on launch boundaries (``:779-783``): after the first launch,
@@ -79,6 +88,7 @@ import os
 import signal
 import threading
 import time
+import weakref
 from datetime import datetime
 from typing import Optional
 
@@ -96,9 +106,10 @@ from jckx_torch.logging.artifacts import save_image_grid, save_labeled_grid, sav
 from jckx_torch.logging.main_logger import MainLogger, time_to_str
 from jckx_torch.models.dcgan import GANGeometry
 from jckx_torch.parallel import tp
-from jckx_torch.train.state import create_dcgan_state, geometry
-from jckx_torch.train.steps import (METRIC_NAMES, compute_dtype, derive_seed,
-                                    make_cgan_train_step, make_dcgan_train_step)
+from jckx_torch.train.state import create_dcgan_state, geometry, schedule_lr
+from jckx_torch.train.steps import (METRIC_NAMES, StepDraws, compute_dtype, derive_seed,
+                                    make_cgan_train_step, make_draws, make_dcgan_train_step)
+from jckx_torch.train.superstep import Superstep, graph_for
 from jckx_torch.utils.device import resolve_device
 
 EVAL_CHUNK = 500  # CGAN eval rows per G forward (jckx gan_trainer.py:919)
@@ -224,6 +235,14 @@ class _BaseGANTrainer:
         self._preempt = threading.Event()
         self.preempted = False
         self.evals: list = []  # the iterations evaluated, in order
+        graph, why_eager = graph_for(self.device, cfg.sanitize, mesh)
+        # the body holds the trainer weakly: a dropped trainer frees its
+        # graph's memory at once, not at the next cyclic collection
+        body = weakref.WeakMethod(self._graph_body)
+        self.superstep = Superstep(lambda x: body()(x), self.device, graph) if graph else None
+        self.logger.debug("train step: " + (
+            "one CUDA graph, captured after the run's first (eager) step and replayed"
+            if graph else f"eager, {why_eager}"))
         if cfg.init_from_torch:
             self._restore(cfg.init_from_torch)
             self.logger.info(f"warm-started from torch checkpoint {cfg.init_from_torch} "
@@ -254,6 +273,8 @@ class _BaseGANTrainer:
         extra = restore_checkpoint(path, self.state, self.cfg.max_learning_rate)
         self.bests.update(extra.get("bests", {}))
         self._resumed_losses = [tuple(p) for p in extra.get("losses", [])]
+        if self.superstep is not None:  # the optimizers' state and the EMA are new tensors
+            self.superstep.invalidate()
         if "jckx_rng" in extra:
             self.logger.warning(
                 f"{path} was written by jckx: its weights, Adam state and step carry over; "
@@ -355,18 +376,16 @@ class _BaseGANTrainer:
                         if done + k < spe:
                             upload_next = _submit(done + k)
                         u8, labels = slabs.use(slab)
-                        batches = [(u8[j * lb:(j + 1) * lb], labels[j * lb:(j + 1) * lb])
-                                   for j in range(k)]
+                        batches = [{"u8": u8[j * lb:(j + 1) * lb],
+                                    **({"labels": labels[j * lb:(j + 1) * lb]}
+                                       if self.conditional else {})} for j in range(k)]
                         del slab, u8, labels
                     else:
                         idx = torch.from_numpy(order[done:done + k].astype(np.int64)).to(self.device)
-                        batches = [self._resident_batch(idx[j]) for j in range(k)]
-                    ms = []
-                    for u8_j, labels_j in batches:
-                        m = self._train_step(u8_j, labels_j)
-                        ms.append(torch.stack([m[n] for n in METRIC_NAMES]))
+                        batches = [{"idx": idx[j]} for j in range(k)]
+                    vals = self._launch(batches)
                     del batches  # this slab's memory goes back once its steps have run
-                    vals = torch.stack(ms).cpu().numpy()  # (k, 6): the launch's one sync
+                    vals = vals.cpu().numpy()  # (k, 6): the launch's one sync
                     ms_np = {n: vals[:, i] for i, n in enumerate(METRIC_NAMES)}
                     launch_dt = time.time() - t_launch
                     if cfg.nan_guard:
@@ -441,6 +460,49 @@ class _BaseGANTrainer:
 
     # --------------------------------------------------------------- steps
 
+    def _launch(self, batches: list) -> torch.Tensor:
+        """One launch: a step on each entry of ``batches``, its data inputs
+        (``{"idx": ...}`` on the resident plane, ``{"u8": ..., "labels":
+        ...}`` streamed) → the (k, 6) telemetry on the device. Through the
+        superstep when there is one, else one eager ``_train_step`` each;
+        the superstep's eager step before a capture is ``_train_step`` too
+        (its own draws and lr are the feed's, made again)."""
+        def eager(x):
+            m = self._train_step(*self._batch(x))
+            return torch.stack([m[n] for n in METRIC_NAMES])
+
+        if self.superstep is None:
+            return torch.stack([eager(x) for x in batches])
+        s0 = self.state.step
+
+        def feed(j: int) -> dict:
+            # the host's part of step s0 + j: its lr and draws, which a capture would freeze
+            self.state.step = s0 + j
+            schedule_lr(self.cfg, self.state)
+            draws = make_draws(self.state.seed, self.state.step, self.local_bs, self.geo,
+                               self.device, self.conditional)
+            return {**batches[j], **{k: v for k, v in vars(draws).items() if v is not None}}
+
+        rows = self.superstep.replay(len(batches), feed, warm=eager)
+        self.state.step = s0 + len(batches)
+        return rows
+
+    def _graph_body(self, x: dict) -> torch.Tensor:
+        """The step the superstep captures: ``_train_step`` on its inputs'
+        rows, with their draws, and no lr or count (the feed's)."""
+        u8, labels = self._batch(x)
+        real = decode_batch(u8, self.cfg.image_size, self.cd)
+        draws = StepDraws(**{k: x.get(k) for k in StepDraws.__dataclass_fields__})
+        extra = (one_hot(labels, self.num_classes),) if self.conditional else ()
+        m = self.step_fn.body(self.state, real, *extra, draws)
+        return torch.stack([m[n] for n in METRIC_NAMES])
+
+    def _batch(self, x: dict):
+        """A step's uint8 rows and labels (None for DCGAN) from its inputs."""
+        if "idx" in x:
+            return self._resident_batch(x["idx"])
+        return x["u8"], x.get("labels")
+
     def _resident_batch(self, rows: torch.Tensor):
         """The resident set's uint8 rows ``rows`` (a device index) and their
         labels (None for DCGAN)."""
@@ -448,8 +510,8 @@ class _BaseGANTrainer:
         return self.images_dev.index_select(0, rows), labels
 
     def _train_step(self, u8: torch.Tensor, labels: Optional[torch.Tensor]):
-        """One train step on a uint8 NHWC batch on the device and its class
-        labels (unused by DCGAN); both data planes call it."""
+        """One eager train step on a uint8 NHWC batch on the device and its
+        class labels (unused by DCGAN); both data planes call it."""
         real = decode_batch(u8, self.cfg.image_size, self.cd)
         if self.conditional:
             return self.step_fn(self.state, real, one_hot(labels, self.num_classes))

@@ -13,10 +13,21 @@ Parameters and Adam moments stay f32; the models cast weights to the
 compute dtype inside their forward.
 
 ``lr_schedule="cosine"`` scales each update by the cosine factor at the
-optimizer's own step count, as jckx's ``make_optimizer`` (``:73-86``) does,
-by setting the group's lr to ``max_lr · factor(count)`` before the step.
-The count lives in the optimizer's state, so a resumed run continues its
-decay and the state dict is the same as under the constant schedule.
+step count, as jckx's ``make_optimizer`` (``:73-86``) does at optax's
+count: ``schedule_lr`` sets both groups' lr to ``max_lr · factor(step)``
+before the step, from the state's own counter (a restored state carries
+it, so a resumed run continues its decay).
+
+On the card both optimizers are ``capturable``: Adam's count and bias
+correction live on the device, so a step can be captured into a CUDA
+graph and replayed (``train/superstep.py``), and eager and replayed
+steps take the same update, bit for bit. Under cosine there the lr is a
+0-d device tensor that ``schedule_lr`` fills, outside any graph, where a
+Python float would be frozen into the capture. The CPU keeps torch's
+default Adam and a float lr. Checkpoints hold the lr as a float either
+way (``optimizer_state``), and ``load_optimizer_state`` keeps this run's
+own lr and ``capturable``, so a file written on one device resumes on the
+other.
 
 Over a mesh's model axis (``mesh``, ``parallel/``) the state is laid out
 as jckx lays it:
@@ -71,6 +82,9 @@ def geometry(cfg: Config) -> GANGeometry:
 
 
 def make_optimizer(cfg: Config, params) -> torch.optim.Adam:
+    """Adam over ``params``: ``capturable``, and under cosine with a device
+    lr, when they are on the card (module docstring)."""
+    params = list(params)
     if cfg.lr_schedule not in ("constant", "cosine"):
         raise ValueError(f"lr_schedule={cfg.lr_schedule!r}: expected 'constant' or 'cosine'")
     if cfg.lr_schedule == "cosine":
@@ -79,12 +93,17 @@ def make_optimizer(cfg: Config, params) -> torch.optim.Adam:
         if cfg.lr_decay_steps <= 0:
             raise ValueError("lr_schedule=cosine needs lr_decay_steps > 0 (the trainer "
                              "fills it with epochs x steps_per_epoch)")
-    return torch.optim.Adam(params, lr=cfg.max_learning_rate,
-                            betas=(cfg.adam_beta1, cfg.adam_beta2), eps=1e-8)
+    on_card = bool(params) and params[0].device.type == "cuda"
+    lr = cfg.max_learning_rate
+    if on_card and cfg.lr_schedule == "cosine":
+        lr = torch.tensor(lr, dtype=torch.float32, device=params[0].device)
+    return torch.optim.Adam(params, lr=lr, betas=(cfg.adam_beta1, cfg.adam_beta2), eps=1e-8,
+                            capturable=on_card)
 
 
 def adam_count(opt: torch.optim.Optimizer) -> int:
-    """Steps the optimizer has taken (0 before the first)."""
+    """Steps the optimizer has taken (0 before the first); a host read on
+    the card, so never inside a captured step."""
     for group in opt.param_groups:
         for p in group["params"]:
             st = opt.state.get(p)
@@ -101,13 +120,44 @@ def cosine_factor(cfg: Config, count: int) -> float:
     return (1.0 - alpha) * cos + alpha
 
 
-def adam_step(opt: torch.optim.Adam, cfg: Config) -> None:
-    """One update, under the configured schedule."""
-    if cfg.lr_schedule == "cosine":
-        lr = cfg.max_learning_rate * cosine_factor(cfg, adam_count(opt))
-        for group in opt.param_groups:
+def set_lr(opt, lr: float) -> None:
+    """Every group's lr to ``lr``: filled into a device lr, else assigned."""
+    for group in opt.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
             group["lr"] = lr
-    opt.step()
+
+
+def schedule_lr(cfg: Config, state: "GANTrainState", step: Optional[int] = None) -> None:
+    """Under cosine, both optimizers' lr for the update of ``step`` (the
+    state's by default); nothing under the constant schedule."""
+    if cfg.lr_schedule == "cosine":
+        lr = cfg.max_learning_rate * cosine_factor(cfg, state.step if step is None else step)
+        for opt in (state.opt_g, state.opt_d):
+            set_lr(opt, lr)
+
+
+_OWN_GROUP_KEYS = ("lr", "capturable")
+
+
+def optimizer_state(opt) -> dict:
+    """``opt.state_dict()`` with every group's lr as a float, as a CPU run
+    writes it."""
+    sd = opt.state_dict()
+    for group in sd["param_groups"]:
+        group["lr"] = float(group["lr"])
+    return sd
+
+
+def load_optimizer_state(opt, sd: dict) -> None:
+    """``opt.load_state_dict(sd)`` keeping ``opt``'s own lr kind and
+    ``capturable`` (torch places the step count by the file's flag), so a
+    file written on the CPU resumes on the card and back. The caller sets
+    the lr's value."""
+    own = [{k: group[k] for k in _OWN_GROUP_KEYS} for group in opt.param_groups]
+    opt.load_state_dict({**sd, "param_groups": [{**group, **mine} for group, mine
+                                                in zip(sd["param_groups"], own)]})
 
 
 def ema_copy(G: Generator) -> Generator:
@@ -177,6 +227,7 @@ class ShardedAdam:
 
     def state_dict(self) -> dict:
         group = {k: v for k, v in self.inner.param_groups[0].items() if k != "params"}
+        group["lr"] = float(group["lr"])
         out = {"state": {}, "param_groups": [{**group, "params": list(range(len(self.params)))}]}
         st = self.inner.state.get(self.master)
         if st:
@@ -188,14 +239,15 @@ class ShardedAdam:
 
     def load_state_dict(self, sd: dict) -> None:
         for k, v in sd["param_groups"][0].items():
-            if k != "params":
+            if k not in ("params",) + _OWN_GROUP_KEYS:
                 self.inner.param_groups[0][k] = v
         self.sync_params()
         if not sd.get("state"):
             return
         per = [sd["state"][i] for i in range(len(self.params))]
         self.inner.state[self.master] = {
-            "step": torch.as_tensor(per[0]["step"], dtype=torch.float32).clone(),
+            "step": torch.as_tensor(per[0]["step"], dtype=torch.float32).to(
+                self.master.device if self.inner.defaults["capturable"] else "cpu", copy=True),
             **{k: self._mine(self._flat([s[k] for s in per])).to(self.master.device)
                for k in ("exp_avg", "exp_avg_sq")}}
 

@@ -48,6 +48,16 @@ penalty differentiates twice) and stays twice differentiable for the
 penalty. The recompute reruns the forward, so the forward must have no
 side effect: the norms' running buffers are never written, the kernel is
 never launched in the step, and the dropout masks are explicit inputs.
+The forwards draw nothing, so the checkpoint does not save and restore
+the RNG state (``preserve_rng_state=False``), which a CUDA graph capture
+forbids; the recompute is the same function either way.
+
+A made step is ``step(state, real, ..., draws=None)``: the draws of
+(seed, step) when none are injected, the lr of the step
+(``state.schedule_lr``), the step's device work, ``state.step += 1``.
+Its ``step.body(state, real, ..., draws)`` is the device work alone: no
+host read, no lr, no count, so ``train/superstep.py`` can capture it
+into a CUDA graph, and does the rest on the host around each replay.
 
 The random draws (real noise, z, fake noise, α, and CGAN's masks) come
 from a ``torch.Generator`` on the batch's device, seeded from (seed, step),
@@ -104,7 +114,7 @@ from jckx_torch.models.dcgan import GANGeometry
 from jckx_torch.ops.losses import bce_from_logits, gradient_penalty, instance_noise_blend
 from jckx_torch.parallel.layout import make_layout
 from jckx_torch.parallel.tp import sharded_flags
-from jckx_torch.train.state import GANTrainState, adam_step
+from jckx_torch.train.state import GANTrainState, schedule_lr
 
 METRIC_NAMES = ("loss_d", "gp", "d_x", "d_gz1", "loss_g", "d_gz2")
 
@@ -184,7 +194,7 @@ def _maybe_remat(fn: Callable, on: bool) -> Callable:
     """``fn`` under non-reentrant activation checkpointing when ``on``."""
     if not on:
         return fn
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def _update_ema(cfg: Config, state: GANTrainState) -> None:
@@ -222,7 +232,7 @@ def _gan_step(cfg: Config, state: GANTrainState, real: torch.Tensor, draws: Step
     state.opt_d.zero_grad(set_to_none=True)
     loss_for_grad.backward()
     _average_grads(mesh, state.D, state.opt_d)
-    adam_step(state.opt_d, cfg)
+    state.opt_d.step()
 
     # ---- G update, through the updated D -----------------------------
     logits_g = D((1.0 - f) * fake + f * fake_noise, draws.keep_g)
@@ -231,9 +241,8 @@ def _gan_step(cfg: Config, state: GANTrainState, real: torch.Tensor, draws: Step
     # only G's gradient: D's weight gradients of this pass are never formed
     loss_g.backward(inputs=list(state.G.parameters()))
     _average_grads(mesh, state.G, state.opt_g)
-    adam_step(state.opt_g, cfg)
+    state.opt_g.step()
     _update_ema(cfg, state)
-    state.step += 1
 
     with torch.no_grad():
         return _telemetry({"loss_d": bce + lam * gp, "gp": gp,
@@ -277,10 +286,9 @@ def _fused_prop_step(cfg: Config, state: GANTrainState, real: torch.Tensor, draw
         p.grad = a + b
     _average_grads(mesh, state.D, state.opt_d)
     _average_grads(mesh, state.G, state.opt_g)
-    adam_step(state.opt_d, cfg)
-    adam_step(state.opt_g, cfg)
+    state.opt_d.step()
+    state.opt_g.step()
     _update_ema(cfg, state)
-    state.step += 1
 
     with torch.no_grad():
         d_gz = torch.sigmoid(logits_f).mean()
@@ -291,6 +299,15 @@ def _fused_prop_step(cfg: Config, state: GANTrainState, real: torch.Tensor, draw
 
 def _step_fn(cfg: Config) -> Callable:
     return _fused_prop_step if cfg.fused_prop else _gan_step
+
+
+def _advance(cfg: Config, state: GANTrainState, work: Callable) -> Dict[str, torch.Tensor]:
+    """A made step around its device work (module docstring): the lr of
+    ``state.step``, ``work()``, then ``state.step += 1``."""
+    schedule_lr(cfg, state)
+    out = work()
+    state.step += 1
+    return out
 
 
 def _remat_flags(cfg: Config):
@@ -328,16 +345,21 @@ def make_dcgan_train_step(cfg: Config, geo: GANGeometry, mesh=None) -> Callable:
     run, (remat_g, remat_d) = _step_fn(cfg), _remat_flags(cfg)
     layout = make_layout(mesh, cfg.model_axis_mode)
 
-    def step(state: GANTrainState, real: torch.Tensor,
-             draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
-        if draws is None:
-            draws = _rank_draws(state, real, geo, mesh, conditional=False)
+    def body(state: GANTrainState, real: torch.Tensor,
+             draws: StepDraws) -> Dict[str, torch.Tensor]:
         real, draws = _localize(layout, real, draws)
         G = _maybe_remat(lambda z: state.G(z, cd, mesh=mesh, par=layout), remat_g)
         D = _maybe_remat(lambda x: state.D(x, cd, mesh=mesh, par=layout), remat_d)
         return run(cfg, state, real, draws, G=G, D=lambda x, keep: D(x),
                    gp_in_grad=cfg.gp_in_d_grad, mesh=mesh, layout=layout)
 
+    def step(state: GANTrainState, real: torch.Tensor,
+             draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
+        if draws is None:
+            draws = _rank_draws(state, real, geo, mesh, conditional=False)
+        return _advance(cfg, state, lambda: body(state, real, draws))
+
+    step.body = body
     return step
 
 
@@ -348,10 +370,8 @@ def make_cgan_train_step(cfg: Config, geo: GANGeometry, mesh=None) -> Callable:
     run, (remat_g, remat_d) = _step_fn(cfg), _remat_flags(cfg)
     layout = make_layout(mesh, cfg.model_axis_mode)
 
-    def step(state: GANTrainState, real: torch.Tensor, onehot: torch.Tensor,
-             draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
-        if draws is None:
-            draws = _rank_draws(state, real, geo, mesh, conditional=True)
+    def body(state: GANTrainState, real: torch.Tensor, onehot: torch.Tensor,
+             draws: StepDraws) -> Dict[str, torch.Tensor]:
         real, draws = _localize(layout, real, draws)
         onehot = onehot.float()
         G = _maybe_remat(lambda z: state.G(z, onehot, cd, mesh=mesh, par=layout), remat_g)
@@ -360,4 +380,11 @@ def make_cgan_train_step(cfg: Config, geo: GANGeometry, mesh=None) -> Callable:
         return run(cfg, state, real, draws, G=G, D=D, gp_in_grad=True, mesh=mesh,
                    layout=layout)
 
+    def step(state: GANTrainState, real: torch.Tensor, onehot: torch.Tensor,
+             draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
+        if draws is None:
+            draws = _rank_draws(state, real, geo, mesh, conditional=True)
+        return _advance(cfg, state, lambda: body(state, real, onehot, draws))
+
+    step.body = body
     return step

@@ -727,3 +727,184 @@ def test_plan_on_the_card_reads_its_memory(mesh):
     assert abs(mem["peak_mb"] - mem["argument_mb"] - mem["temp_mb"]) <= 0.16  # each rounded
     assert "CAVEAT" not in r["backend"] and r["per_chip"]["step_flops"] > 0
     assert not dist.is_initialized()
+
+
+class _TinyData:
+    """48 seeded 32² rows, 10 classes: the tiny trainers' resident set."""
+
+    def __init__(self):
+        import numpy as np
+
+        rng = np.random.RandomState(0)
+        self.images_u8 = rng.randint(0, 256, (48, 32, 32, 3)).astype(np.uint8)
+        self.labels_np = rng.randint(0, 10, 48).astype(np.int32)
+        self.num_classes = 10
+        self.idx_to_labels = {i: str(i) for i in range(10)}
+        self.metric_source = (self.images_u8, self.labels_np)
+
+
+def _tiny_trainer(tmp_path, name, conditional=False, **over):
+    """The tiny trainer (16², width 8, batch 8, f32, EMA 0.5, no evals) on
+    the card from seed-0 weights."""
+    from jckx_torch.configs import Config
+    from jckx_torch.models.cgan import CDiscriminator, CGenerator
+    from jckx_torch.train.gan_trainer import CGANTrainer, DCGANTrainer
+
+    geo = GANGeometry(z_dim=100, image_size=16, channels=3, base_width=8)
+    cfg = Config()
+    for k, v in dict(dataset="synthetic", batch_size=8, epoch=1, image_size=16, base_width=8,
+                     compute_dtype="float32", max_learning_rate=2e-4, ema_decay=0.5,
+                     log_every=8, eval_every=0, log_file=0, save_root=str(tmp_path),
+                     model_path=name, save_path=str(tmp_path / name), **over).items():
+        setattr(cfg, k, v)
+    gen = torch.Generator().manual_seed(0)
+    if conditional:
+        return CGANTrainer(cfg, CGenerator(geo, 10, gen=gen), CDiscriminator(geo, 10, gen=gen),
+                           _TinyData())
+    return DCGANTrainer(cfg, Generator(geo, gen=gen), Discriminator(geo, gen=gen), _TinyData())
+
+
+def _trainer_state(tr):
+    s = tr.state
+    out = {f"{m}.{k}": v for m, net in (("G", s.G), ("D", s.D), ("EMA", s.ema_g))
+           for k, v in net.state_dict().items()}
+    for name, opt in (("opt_g", s.opt_g), ("opt_d", s.opt_d)):
+        for i, st in opt.state_dict()["state"].items():
+            out.update({f"{name}.{i}.{k}": v for k, v in st.items()})
+    return out
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = before
+
+
+@pytest.mark.parametrize("mode", ["dcgan", "cgan", "fused_prop", "remat_both", "cosine"])
+def test_replayed_gan_steps_equal_eager_steps(tmp_path, deterministic_cudnn, mode):
+    """8 steps of the tiny trainer through its superstep (the first eager,
+    then captured, 7 replayed under ``set_sync_debug_mode("error")``: no
+    host synchronisation inside a replayed step) against 8 eager steps from
+    the same weights on the same rows: parameters, Adam's moments and
+    counts, the EMA and the telemetry bit for bit, with cuDNN
+    deterministic (its default algorithms may sum in another order from
+    run to run). A process's first tiny run can end a few ulp from later
+    ones (PERF.md §7), so a throwaway run goes first."""
+    from jckx_torch.train.superstep import CudaGraph
+
+    _card()
+    over = {"cgan": {}, "fused_prop": {"fused_prop": 1}, "remat_both": {"remat": "both"},
+            "cosine": {"lr_schedule": "cosine", "min_learning_rate": 5e-5,
+                       "lr_decay_steps": 8}}.get(mode, {})
+    conditional = mode == "cgan"
+    perm = torch.randperm(48, generator=torch.Generator().manual_seed(1)).to("cuda")
+    rows = [{"idx": perm[(8 * j) % 48:(8 * j) % 48 + 8]} for j in range(8)]
+    warm = _tiny_trainer(tmp_path, "warm", conditional, **over)
+    warm.superstep = None
+    warm._launch(rows[:2])
+    eager = _tiny_trainer(tmp_path, "eager", conditional, **over)
+    graphed = _tiny_trainer(tmp_path, "graphed", conditional, **over)
+    assert graphed.superstep.graph_cls is CudaGraph
+    eager.superstep = None
+    want = eager._launch(rows)
+    got = [graphed._launch(rows[:1])]  # the eager step, then the capture
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got.append(graphed._launch(rows[1:]))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    ss = graphed.superstep
+    assert (ss.captures, ss.replays, ss.launches) == (1, 7, 0)
+    assert eager.state.step == graphed.state.step == 8
+    assert torch.equal(torch.cat(got), want)
+    a, b = _trainer_state(graphed), _trainer_state(eager)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(torch.as_tensor(a[k]), torch.as_tensor(b[k])), k
+
+
+def _tiny_finetune(dev):
+    """InceptionV3's fine-tune step at 75², batch 8, f32 on the card from
+    seed-0 weights, over 64 seeded rows."""
+    from jckx_torch.metrics import inception_v3 as tiv
+    from jckx_torch.metrics.inception_train import make_optimizer, make_train_step
+
+    g = torch.Generator().manual_seed(11)
+    data = torch.randint(0, 256, (64, 32, 32, 3), generator=g, dtype=torch.uint8).to(dev)
+    labels = torch.randint(0, 10, (64,), generator=g).to(dev)
+    net = tiv.init(0, num_classes=10).to(dev)
+    step = make_train_step(net, make_optimizer(net, 0.01), torch.float32, 75)
+    return net, step, data, labels
+
+
+def test_finetune_superstep_equals_its_eager_run(deterministic_cudnn):
+    """The fine-tune step through its superstep: one eager step and the
+    capture, then a launch of K = 4 replays under ``set_sync_debug_mode
+    ("error")``, against 5 eager steps from the same weights, rows and
+    draws: the weights, running statistics, loss and accuracy bit for
+    bit; 94 kernel launches counted per step either way."""
+    from jckx_torch.metrics import inception_v3 as tiv
+    from jckx_torch.metrics.inception_train import draw_step, make_superstep, step_inputs
+    from jckx_torch.train.superstep import CudaGraph
+
+    dev = _card()
+    order = torch.randperm(64, generator=torch.Generator().manual_seed(2))[:40].view(5, 8).to(dev)
+    net_e, step_e, data, labels = _tiny_finetune(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    before = fba.LAUNCHES
+    want = torch.stack([torch.stack(step_e(data, labels, order[i], draw_step(gen, 8, dev)))
+                        for i in range(5)])
+    assert fba.LAUNCHES - before == 5 * 94
+
+    net_g, step_g, _, _ = _tiny_finetune(dev)
+    ss = make_superstep(step_g, data, labels, CudaGraph)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    before = fba.LAUNCHES
+    got = [ss.replay(1, lambda j: step_inputs(order[j], draw_step(gen, 8, dev)))]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got.append(ss.replay(4, lambda j: step_inputs(order[1 + j], draw_step(gen, 8, dev))))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert fba.LAUNCHES - before == 5 * 94 and ss.launches == 94
+    assert (ss.captures, ss.replays) == (1, 4) and ss.pool_bytes > 0
+    assert torch.equal(torch.cat(got), want)
+    a, b = tiv.to_jckx_flat(net_g), tiv.to_jckx_flat(net_e)
+    for k in b:
+        assert (a[k] == b[k]).all(), k
+
+
+def test_profiler_counts_the_replayed_kernel_launches():
+    """In one replay of the fine-tune's graph the profiler sees the fused
+    kernel (``bn_act`` kernels) launched as often as the superstep added to
+    ``LAUNCHES``: 94. The profiler may drop a record (CUPTI), never add one,
+    so a window that sees fewer is taken again, up to three."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from jckx_torch.metrics.inception_train import draw_step, make_superstep, step_inputs
+    from jckx_torch.train.superstep import CudaGraph
+
+    dev = _card()
+    _, step, data, labels = _tiny_finetune(dev)
+    ss = make_superstep(step, data, labels, CudaGraph)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    idx = torch.arange(8, device=dev)
+    feed = lambda j: step_inputs(idx, draw_step(gen, 8, dev))  # noqa: E731
+    ss.replay(2, feed)  # the eager step, the capture, one replay
+    seen = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        before = fba.LAUNCHES
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ss.replay(1, feed)
+            torch.cuda.synchronize()
+        assert fba.LAUNCHES - before == 94
+        seen.append(sum(e.device_type == torch.autograd.DeviceType.CUDA and "bn_act" in e.name
+                        for e in prof.events()))
+        if seen[-1] == 94:
+            break
+    assert max(seen) <= 94 and seen[-1] == 94, seen
