@@ -52,8 +52,8 @@ Run from the root of a checkout, on a machine with a CUDA card and
    steps within 1 % relative;
 9. times training of each family beside the card's name and power limit:
    img/s on the host clock, one eval (the real features apart from the
-   fake side), and a profiled window of 8 steps (busy share, top 10
-   kernels; its device busy time / 8 is the step's time on the card);
+   fake side), and a profiled window of 4 steps (busy share, top 10
+   kernels; its device busy time / 4 is the step's time on the card);
 10. holds the int8 convolution's card route (im2col + ``torch._int_mm``)
     against the exact f64 route on random int8 at batch 512 on every G
     layer (in_dim 100 and 200): bit-identical int32;
@@ -136,8 +136,8 @@ Run from the root of a checkout, on a machine with a CUDA card and
     in the real batch raises naming the backward function;
 26. trains DCGAN with ``--fused_prop 1`` as in 7 (12 launches from the
     evals, none from the steps) and times its step against the faithful
-    step on the same state, in turns: device ms and device events per step
-    (profiler), host ms, img/s;
+    step on the same state, in turns of 4 steps: device ms and device
+    events per step (profiler), host ms, img/s;
 27. a short ``--profile_dir`` run (4 steps + 1 eval): one Chrome trace
     naming ``jckx_torch::normalize_act``, the kernel and
     ``aten::cudnn_convolution``;
@@ -210,16 +210,34 @@ Run from the root of a checkout, on a machine with a CUDA card and
     at 299²: one eager step, the capture and a launch of K = 8 replays
     equal 9 eager steps bit for bit, 94 launches counted per step either
     way. Then, recaptured under the default algorithms, eager and graph in
-    turns on one state for DCGAN, CGAN and the fine-tune: host ms per
-    step, device busy ms and share, device events per step, the capture's
-    seconds and the graph pool's MB; in one fine-tune replay the
+    turns of 4 steps on one state for DCGAN, CGAN and the fine-tune: host
+    ms per step, device busy ms and share, device events per step, the
+    capture's seconds and the graph pool's MB; in one fine-tune replay the
     profiler's ``bn_act`` kernels equal the 94 launches the superstep
     counted (a window that falls short, a record CUPTI dropped, is taken
     again, up to 3).
     Every other phase that trains through the trainer or the fine-tune's
     ``train()`` on one card, without a mesh or ``--sanitize``, runs its
     steps through the superstep too;
-34. prints a ``{"kernels": [...]}`` line, then, last, the
+34. jckx's inference programs as CUDA graphs (``phase_inference_graph``,
+    ``utils/graphs.GraphedProgram``): with cuDNN deterministic, a request
+    of 4096 through the float, sub-pixel, int8, truncated (0.7) and CGAN
+    samplers (labels, random classes) at bs512 bf16 and a DCGAN and a CGAN
+    ``.pt2`` at batch 64 is one replay per batch after the capture, with
+    no host synchronisation in a render, and equals the same object's
+    eager route byte for byte; so do an HTTP ``/generate`` of 4096, the
+    two trainers' eval renders, ``evaluate``'s renders, features and FID /
+    IS / intra-FID on the CGAN run, and the features of 10,000 fakes; one
+    replay's ``bn_act`` kernels in the profiler equal the launches it
+    counted (float, int8); then, under the default algorithms, eager and
+    graph in turns for the float and int8 samplers and a ``.pt2`` at batch
+    512 (img/s, host ms per batch, busy share, device events per batch and
+    per request, idle gaps, the copies' share) and for ``extract_features``
+    of 10,000 rows (s), with each graph's capture s and pool MB.
+    Every other phase that serves, renders an eval or extracts features on
+    one card, without a mesh, replays these graphs too; its comparisons
+    with the plain routes call the programs eagerly (``with_bn_act``);
+35. prints a ``{"kernels": [...]}`` line, then, last, the
     ``{"ok": true, "device": {...}}`` line.
 
 Any failed phase exits nonzero before the last line is printed. Without a
@@ -395,16 +413,43 @@ def phase_kernel_vs_plain(dev) -> float:
     return worst
 
 
+@contextlib.contextmanager
+def programs_eager():
+    """Every graphed program (``utils/graphs.GraphedProgram``) calls its
+    function eagerly meanwhile: a replay runs what its capture recorded,
+    so it would not see a swapped BN route, nor run Python to record."""
+    from jckx_torch.utils.graphs import GraphedProgram
+
+    call = GraphedProgram.__call__
+    GraphedProgram.__call__ = lambda self, *args: self.fn(*args)
+    try:
+        yield
+    finally:
+        GraphedProgram.__call__ = call
+
+
+@contextlib.contextmanager
+def eager_route(obj, attr: str = "program"):
+    """``obj``'s eager route: its graphed program set to None meanwhile."""
+    program = getattr(obj, attr)
+    setattr(obj, attr, None)
+    try:
+        yield program
+    finally:
+        setattr(obj, attr, program)
+
+
 def with_bn_act(bn, render):
     """``render()`` with every generator BN layer, of the float and of the
-    int8 forward, routed through ``bn``."""
+    int8 forward, routed through ``bn`` (and every graphed program eager)."""
     import jckx_torch.models.dcgan as tdcgan
     import jckx_torch.ops.quant as tquant
 
     kernel_route = tdcgan.bn_act
     tdcgan.bn_act = tquant.bn_act = bn
     try:
-        return render()
+        with programs_eager():
+            return render()
     finally:
         tdcgan.bn_act = tquant.bn_act = kernel_route
 
@@ -955,14 +1000,15 @@ def phase_train_timing(tr, steps, tmp: str, card: str) -> dict:
           f"{' + intra-FID' if tr.conditional else ''} {fake_s:.3f} s; one whole trainer eval with "
           f"its checkpoints and grids {eval_s:.3f} s   [{card}]")
 
-    prof = profile_window(lambda: [tr.step_fn(tr.state, real, *extra) for _ in range(n)],
-                          f"{n} {model} train steps at batch {TRAIN_BATCH}, bf16", card)
+    k = 4  # steps profiled (cut from 8 for the script's time)
+    prof = profile_window(lambda: [tr.step_fn(tr.state, real, *extra) for _ in range(k)],
+                          f"{k} {model} train steps at batch {TRAIN_BATCH}, bf16", card)
     # the card's busy time, not CUDA events: the host cannot enqueue the
     # steps ahead of the card, so events around them time the host
-    card_ms = prof["busy_ms"] / n if prof else None
+    card_ms = prof["busy_ms"] / k if prof else None
     print(f"one {model} train step at batch {TRAIN_BATCH}, bf16: "
           + (f"{card_ms:.3f} ms" if prof else "not measured")
-          + f" on the card (profiler busy time / {n}), {host_ms:.3f} ms on the host clock   [{card}]")
+          + f" on the card (profiler busy time / {k}), {host_ms:.3f} ms on the host clock   [{card}]")
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"peak device memory {peak:.2f} GiB")
     MainLogger.reset()  # the fresh engine above bound the logger to this run's dir
@@ -1107,7 +1153,8 @@ def count_int8_flips(render) -> list:
     tquant.quantize_act = record
     try:
         runs.append([])
-        render()
+        with programs_eager():  # a replay would record nothing
+            render()
         runs.append([])
         with_bn_act(fba.bn_act_plain, render)
     finally:
@@ -1488,20 +1535,15 @@ def _cli(args, env=None, timeout: float = 600):
 
 
 def phase_tools(path: str, pt2: str, tmp: str, kind: str) -> None:
-    """``convert``, ``inspect`` and ``doctor`` through the front door."""
+    """``convert``, ``inspect`` and ``doctor`` through the front door, each
+    command a process of its own, the independent ones at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
 
     ckpt, back = os.path.join(tmp, "tools", "run.ckpt"), os.path.join(tmp, "tools", "back.pt")
-    for src, dst, extra in ((path, ckpt, ["--with_ema"]), (ckpt, back, [])):
-        out = _cli(["convert", "--src", src, "--dst", dst] + extra)
-        check(out.returncode == 0, f"convert {src} -> {dst}: {out.stderr[-2000:]}")
-    orig, mid, last = (torch.load(f, map_location="cpu", weights_only=True) for f in (path, ckpt, back))
-    for key in ("model_g", "model_d"):
-        check(all(torch.equal(orig[key][k], last[key][k]) for k in orig[key]),
-              f"convert round trip changed {key}")
-    check(all(torch.equal(mid["ema_g"][k], orig["model_g"][k]) for k in orig["model_g"]),
-          "--with_ema did not seed ema_g with G")
     jaxexp = os.path.join(tmp, "tools", "g.jaxexp")
+    os.makedirs(os.path.dirname(jaxexp), exist_ok=True)
     with open(jaxexp, "wb") as f:
         f.write(b"StableHLO program bytes")
     with open(jaxexp + ".json", "w") as f:
@@ -1509,16 +1551,34 @@ def phase_tools(path: str, pt2: str, tmp: str, kind: str) -> None:
                    "image_size": 64, "channels": 3, "base_width": 64,
                    "platforms": ["cpu", "tpu"], "quant": None}, f)
     no_card = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
-    kinds = []
-    for f, want in ((path, "reference"), (ckpt, "jckx_torch checkpoint"), (pt2, "torch.export"),
-                    (jaxexp, "StableHLO")):
-        out = _cli(["inspect", "--ckpt", f], env=no_card)
-        check(out.returncode == 0, f"inspect {f}: {out.stderr[-2000:]}")
-        info = json.loads(out.stdout)
-        check(want in info["kind"] and info["file_bytes"] == os.path.getsize(f), f"inspect {info}")
-        check("params_g" not in info or info["params_g"] == 3_576_704, f"inspect {info}")
-        kinds.append(info["kind"])
-    out = _cli(["doctor"], timeout=600)
+    targets = [(path, "reference"), (ckpt, "jckx_torch checkpoint"), (pt2, "torch.export"),
+               (jaxexp, "StableHLO")]
+    with ThreadPoolExecutor(len(targets) + 1) as pool:
+        doctor = pool.submit(_cli, ["doctor"], None, 600)
+        inspected = {f: pool.submit(_cli, ["inspect", "--ckpt", f], no_card)
+                     for f, _ in targets if f != ckpt}
+        for src, dst, extra in ((path, ckpt, ["--with_ema"]), (ckpt, back, [])):
+            out = _cli(["convert", "--src", src, "--dst", dst] + extra)
+            check(out.returncode == 0, f"convert {src} -> {dst}: {out.stderr[-2000:]}")
+            if dst == ckpt:
+                inspected[ckpt] = pool.submit(_cli, ["inspect", "--ckpt", ckpt], no_card)
+        orig, mid, last = (torch.load(f, map_location="cpu", weights_only=True)
+                           for f in (path, ckpt, back))
+        for key in ("model_g", "model_d"):
+            check(all(torch.equal(orig[key][k], last[key][k]) for k in orig[key]),
+                  f"convert round trip changed {key}")
+        check(all(torch.equal(mid["ema_g"][k], orig["model_g"][k]) for k in orig["model_g"]),
+              "--with_ema did not seed ema_g with G")
+        kinds = []
+        for f, want in targets:
+            out = inspected[f].result()
+            check(out.returncode == 0, f"inspect {f}: {out.stderr[-2000:]}")
+            info = json.loads(out.stdout)
+            check(want in info["kind"] and info["file_bytes"] == os.path.getsize(f),
+                  f"inspect {info}")
+            check("params_g" not in info or info["params_g"] == 3_576_704, f"inspect {info}")
+            kinds.append(info["kind"])
+        out = doctor.result()
     report = json.loads(out.stdout) if out.stdout.strip().startswith("{") else {}
     check(out.returncode == 0 and report.get("ok") and report["backend"]["device_kind"] == kind
           and report["kernel"]["ok"], f"doctor exited {out.returncode}: {out.stdout[-2000:]}")
@@ -2020,7 +2080,8 @@ def phase_finetune(ctr, tmp: str, card: str) -> int:
     return launches + ev_launches
 
 
-SUPERSTEP_STEPS = 8   # phase_superstep: steps held bit for bit, and timed per turn
+SUPERSTEP_STEPS = 8   # phase_superstep: steps held bit for bit
+SUPERSTEP_TIMED = 4   # GAN steps timed and profiled per turn (cut from 8 for the script's time)
 SUPERSTEP_MODES = [("DCGAN", "DCGAN", ()), ("CGAN", "CGAN", ()),
                    ("FusedProp", "DCGAN", ("--fused_prop", "1")),
                    ("--remat both", "DCGAN", ("--remat", "both")),
@@ -2134,8 +2195,9 @@ def _turns(run_eager, run_graph, steps: int, what: str, card: str):
 
 
 def _replayed_launches(replay, card: str, tries: int = 3) -> dict:
-    """The fused kernel's launches in one ``replay()`` of a graph, as the
-    profiler sees its ``bn_act`` kernels and as ``LAUNCHES`` counts them.
+    """The fused kernel's launches in one ``replay()`` of a graph (a
+    superstep's or a graphed program's), as the profiler sees its ``bn_act``
+    kernels and as ``LAUNCHES`` counts them.
     The profiler may drop a record (CUPTI lost ~0.5 % of one 16.5 k-event
     window on an H100), never add one: a window that sees more fails, and
     one that sees fewer is taken again, up to ``tries`` windows."""
@@ -2154,12 +2216,12 @@ def _replayed_launches(replay, card: str, tries: int = 3) -> dict:
         device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         seen = sum("bn_act" in e.name for e in device)
         print(f"one replay, window {attempt}: the profiler saw {seen} bn_act kernels among "
-              f"{len(device)} device events; the superstep added {added} launches   [{card}]")
+              f"{len(device)} device events; the replay added {added} launches   [{card}]")
         check(seen <= added, f"the profiler saw {seen} bn_act kernels in one replay, more than "
-                             f"the {added} the superstep counted")
+                             f"the {added} the replay counted")
         if seen == added:
             return {"seen": seen, "added": added, "windows": attempt}
-    fail(f"the profiler saw fewer bn_act kernels than the superstep's {added} in {tries} windows")
+    fail(f"the profiler saw fewer bn_act kernels than the replay's {added} in {tries} windows")
 
 
 def phase_superstep(tmp: str, dev, card: str) -> int:
@@ -2177,9 +2239,9 @@ def phase_superstep(tmp: str, dev, card: str) -> int:
       same weights, rows and draws: loss, accuracy, weights and running
       statistics bit for bit; 94 launches counted per step either way;
     - recaptured under the default algorithms, eager and graph in turns on
-      one state (DCGAN, CGAN, the fine-tune): host ms per step, device busy
-      ms and share, device events and idle gaps per step; the capture's
-      seconds and the graph pool's MB; in one fine-tune replay the
+      one state (DCGAN, CGAN, the fine-tune; 4 steps a turn): host ms per
+      step, device busy ms and share, device events and idle gaps per
+      step; the capture's seconds and the graph pool's MB; in one fine-tune replay the
       profiler's ``bn_act`` kernels equal the launches the superstep
       counted (``_replayed_launches``).
 
@@ -2237,14 +2299,16 @@ def phase_superstep(tmp: str, dev, card: str) -> int:
         print(f"{name}: capture {ss.capture_s:.3f} s, graph pool {ss.pool_bytes / 1e6:.1f} MB"
               f"   [{card}]")
 
-        def as_eager(tr=tr, ss=ss):
+        def as_eager(tr, ss, batches):
             tr.superstep = None
             try:
-                return tr._launch(rows)
+                return tr._launch(batches)
             finally:
                 tr.superstep = ss
 
-        res = _turns(as_eager, lambda tr=tr: tr._launch(rows), n,
+        k = SUPERSTEP_TIMED
+        res = _turns(lambda tr=tr, ss=ss: as_eager(tr, ss, rows[:k]),
+                     lambda tr=tr: tr._launch(rows[:k]), k,
                      f"{name} train (bs{TRAIN_BATCH}, bf16)", card)
         numbers["gan"][name] = {"capture_s": ss.capture_s, "pool_mb": ss.pool_bytes / 1e6, **res}
     del timed, tr, ss
@@ -2323,12 +2387,293 @@ def phase_superstep(tmp: str, dev, card: str) -> int:
     return launches
 
 
+INFER_REQUEST = 8 * BATCH   # phase_inference_graph: a request of 4096 (the served-img/s protocol's)
+FEATURE_TIMED = 10_000      # fakes whose InceptionV3 features are timed, eager against graph
+
+
+@contextlib.contextmanager
+def _renders_without_sync():
+    """Each batch's render inside ``sample()`` (not its drain, which copies
+    to the host) under ``set_sync_debug_mode("error")``."""
+    import jckx_torch.export as texport
+    import jckx_torch.serve as tserve
+
+    real = tserve.pipelined_sample
+
+    def guarded(n, bs, render):
+        def render_no_sync(made):
+            with _no_host_sync():
+                return render(made)
+
+        return real(n, bs, render_no_sync)
+
+    tserve.pipelined_sample = texport.pipelined_sample = guarded
+    try:
+        yield
+    finally:
+        tserve.pipelined_sample = texport.pipelined_sample = real
+
+
+def _serve_turns(obj, what: str, card: str) -> dict:
+    """A service or artifact captured again under the default algorithms,
+    then eager and graph in turns (eager, graph, graph, eager): per turn a
+    warm request, 5 requests of 4096 (median img/s and host ms per batch on
+    the host clock) and one profiled request (busy share, device events per
+    request and per batch, idle gaps over 10 us, the copies' share of the
+    device time). → {"eager": [...], "graph": [...]}."""
+    n = INFER_REQUEST
+    per = math.ceil(n / obj.batch_size)
+    obj.program.invalidate()
+    obj.sample(n, seed=0)  # eager first batch, the capture, replays
+    out = {"eager": [], "graph": []}
+    for turn in ("eager", "graph", "graph", "eager"):
+        with eager_route(obj) if turn == "eager" else contextlib.nullcontext():
+            obj.sample(n, seed=0)
+            walls = []
+            for i in range(5):
+                t0 = time.perf_counter()
+                obj.sample(n, seed=1 + i)
+                walls.append(time.perf_counter() - t0)
+            prof = profile_window(lambda: obj.sample(n, seed=99),
+                                  f"{what}, a request of {n}, {turn}", card,
+                                  top_n=0 if out[turn] else 8)
+        check(bool(prof), f"{what}: the profiler saw no device activity in the {turn} request")
+        wall = statistics.median(walls)
+        out[turn].append({
+            "img_per_s": n / wall, "host_ms_per_batch": 1e3 * wall / per,
+            "busy_share": prof["busy_ms"] / prof["window_ms"],
+            "busy_ms_per_batch": prof["busy_ms"] / per,
+            "events_per_request": prof["events"], "events_per_batch": prof["events"] / per,
+            "gaps_over_10us": prof["gaps_over_10us"], "gap_ms_over_10us": prof["gap_ms_over_10us"],
+            "copy_share": prof["by_kind"].get("copy / cast", 0.0) / sum(prof["by_kind"].values())})
+    for turn, recs in out.items():
+        print(f"{what} at batch {obj.batch_size}, {turn}: " + "; ".join(
+            f"{r['img_per_s']:.1f} img/s, host {r['host_ms_per_batch']:.3f} ms per batch, card "
+            f"busy {100 * r['busy_share']:.1f} % ({r['busy_ms_per_batch']:.3f} ms per batch), "
+            f"{r['events_per_request']} device events per request ({r['events_per_batch']:.1f} "
+            f"per batch), {r['gaps_over_10us']} idle gaps over 10 us ({r['gap_ms_over_10us']:.3f} "
+            f"ms), copies {100 * r['copy_share']:.1f} % of the device time" for r in recs)
+            + f"   [{card}]")
+    return out
+
+
+def phase_inference_graph(tmp: str, dev, card: str, tr, ctr) -> int:
+    """jckx's jitted inference programs as CUDA graphs
+    (``utils/graphs.GraphedProgram``) at the reference geometry, serving at
+    bs512 bf16, ``.pt2`` artifacts at jckx's batch of 64:
+
+    - bit identity, graph against the eager route of the same object (its
+      program set to None) from the same seed, cuDNN deterministic: a
+      request of 4096 through the float, sub-pixel, int8, truncated (0.7)
+      and CGAN samplers (``--labels`` and random classes) and a DCGAN and a
+      CGAN ``.pt2``, one replay per batch after the capture, with every
+      render (not the drains) under ``set_sync_debug_mode("error")``; an
+      HTTP ``/generate`` of 4096 against ``sample()``; the two trainers'
+      eval renders (``tr``: DCGAN, ``ctr``: CGAN); ``evaluate`` on the CGAN
+      run's ``latest.ckpt``: its renders, features and FID / IS /
+      intra-FID; the real features of 10,000 fakes (the metrics engine's
+      device path);
+    - the fused kernel's launches counted per replay against the
+      profiler's ``bn_act`` kernels in one replay (float and int8);
+    - under the default algorithms, eager and graph in turns: the float
+      and int8 samplers and a ``.pt2`` at batch 512 (``_serve_turns``), and
+      ``extract_features`` s over 10,000 rows; capture s and pool MB of
+      every graph.
+
+    → the kernel launches of the phase."""
+    import numpy as np
+    import torch
+
+    from jckx_torch import evaluate as tevaluate
+    from jckx_torch.export import ArtifactService, export_generator
+    from jckx_torch.kernels import fused_bn_act as fba
+    from jckx_torch.logging.main_logger import MainLogger
+    from jckx_torch.metrics import metrics as tmetrics
+    from jckx_torch.serve import GeneratorService
+    from jckx_torch.utils.graphs import CudaGraph
+
+    t_phase = time.perf_counter()
+    start = fba.LAUNCHES
+    path, cpath = (os.path.join(tmp, f"graph_{m}.pt") for m in ("dcgan", "cgan"))
+    write_reference_checkpoint(path)
+    write_reference_checkpoint(cpath, conditional=True)
+    numbers = {"card": card, "batch": BATCH, "request": INFER_REQUEST, "turns": {}, "graphs": {}}
+
+    def graph_numbers(name, prog):
+        """Its last capture's seconds and its graphs' pool, as they stand."""
+        numbers["graphs"][name] = {"capture_s": prog.capture_s, "pool_mb": prog.pool_bytes / 1e6,
+                                   "keys": len(prog.keys)}
+
+    with _deterministic_cudnn():
+        svc, csvc = GeneratorService(path), GeneratorService(cpath)
+        int8 = GeneratorService(path, quant="int8")
+        arts = {}
+        for what, src in (("DCGAN", path), ("CGAN", cpath)):
+            dst = os.path.join(tmp, f"graph_{what.lower()}.pt2")
+            export_generator(src, dst)  # the defaults: cuda, batch 64, bf16
+            arts[what] = ArtifactService(dst)
+        routes = [("float", svc, None), ("sub-pixel", GeneratorService(path, subpixel=True), None),
+                  ("int8", int8, None),
+                  ("truncation 0.7", GeneratorService(path, truncation=0.7), None),
+                  ("CGAN --labels", csvc, SERVE_LABELS), ("CGAN random classes", csvc, None),
+                  ("DCGAN .pt2", arts["DCGAN"], None), ("CGAN .pt2", arts["CGAN"], SERVE_LABELS)]
+        for name, obj, labels in routes:
+            prog = obj.program
+            check(prog is not None and prog.graph_cls is CudaGraph,
+                  f"{name}: the service on the card has no CUDA graph")
+            if prog.captures == 0:
+                obj.sample(obj.batch_size, labels=labels, seed=0)  # eager, then the capture
+            replays, batches = prog.replays, math.ceil(INFER_REQUEST / obj.batch_size)
+            with _renders_without_sync():
+                got = obj.sample(INFER_REQUEST, labels=labels, seed=3)
+                with eager_route(obj):
+                    want = obj.sample(INFER_REQUEST, labels=labels, seed=3)
+            check(prog.captures == 1 and prog.replays - replays == batches,
+                  f"{name}: {prog.captures} captures, {prog.replays - replays} replays for "
+                  f"{batches} batches")
+            check(got.tobytes() == want.tobytes(),
+                  f"{name}: a request of {INFER_REQUEST} through the graph differs from the eager "
+                  f"route")
+            distinct = {got[i:i + obj.batch_size].tobytes()
+                        for i in range(0, INFER_REQUEST, obj.batch_size)}
+            check(len(distinct) == batches, f"{name}: a request repeats a batch")
+            graph_numbers(f"{name} (batch {obj.batch_size})", prog)
+            print(f"{name}: a request of {INFER_REQUEST} in {batches} replays (no host "
+                  f"synchronisation in a render) equals the eager route byte for byte   [{card}]")
+        d = Daemon(svc)
+        try:
+            with _renders_without_sync():
+                code, _, body = d("/generate", {"n": INFER_REQUEST, "seed": 9, "format": "npy"})
+        finally:
+            d.close()
+        with eager_route(svc):
+            want = svc.sample(INFER_REQUEST, seed=9)
+        check(code == 200 and _npy(body).tobytes() == want.tobytes(),
+              "HTTP /generate through the graph differs from the eager route's sample()")
+        print(f"HTTP /generate of {INFER_REQUEST} (npy) through the graph equals the eager "
+              f"route's sample() byte for byte   [{card}]")
+
+        for model, t in (("DCGAN", tr), ("CGAN", ctr)):
+            t.eval_program.invalidate()  # captured again under deterministic cuDNN
+            t.sample_eval()
+            with _no_host_sync():
+                got = t.sample_eval()
+            with eager_route(t, "eval_program"):
+                want = t.sample_eval()
+            prog = t.eval_program
+            check(torch.equal(got, want), f"{model} trainer: replayed eval renders differ from eager")
+            graph_numbers(f"{model} eval sampler ({min(t.eval_z.shape[0], CGAN_CHUNK)} rows)", prog)
+            print(f"{model} trainer: the eval renders of {t.eval_z.shape[0]} rows, replayed "
+                  f"({prog.captures} capture, {prog.replays} replays), equal the eager route bit "
+                  f"for bit   [{card}]")
+
+        argv = ["--ckpt", os.path.join(ctr.save_path, "latest.ckpt"), "--dataset", "synthetic"
+                ] + _run_dir_args(tmp, "CGAN")[:4]
+        seen = {"fake": [], "feats": [], "program": [], "engine": []}
+        real = (tevaluate.sample_eval_images, tmetrics.Metrics.extract_features,
+                tevaluate.eval_program, tevaluate.graph_for, tmetrics.graph_for)
+
+        def spy_sample(*a, **k):
+            seen["fake"].append(real[0](*a, **k))
+            return seen["fake"][-1]
+
+        def spy_extract(self, images):
+            seen["engine"].append(self.program)
+            seen["feats"].append(real[1](self, images))
+            return seen["feats"][-1]
+
+        def spy_program(*a):
+            seen["program"].append(real[2](*a))
+            return seen["program"][-1]
+
+        tevaluate.sample_eval_images, tmetrics.Metrics.extract_features = spy_sample, spy_extract
+        tevaluate.eval_program = spy_program
+        try:
+            scored = [tevaluate.evaluate(tevaluate.get_args(argv))]
+            MainLogger.reset()
+            tevaluate.graph_for = tmetrics.graph_for = lambda *a, **k: (None, "the eager route")
+            scored.append(tevaluate.evaluate(tevaluate.get_args(argv)))
+            MainLogger.reset()
+        finally:
+            (tevaluate.sample_eval_images, tmetrics.Metrics.extract_features,
+             tevaluate.eval_program, tevaluate.graph_for, tmetrics.graph_for) = real
+        check(seen["program"][0] is not None and seen["engine"][0] is not None
+              and seen["program"][1] is None and seen["engine"][1] is None,
+              "evaluate: the graph route has no programs or the eager route has some")
+        check(torch.equal(*seen["fake"]) and np.array_equal(*seen["feats"]),
+              "evaluate: replayed renders or features differ from the eager route")
+        check(scored[0] == scored[1], f"evaluate: {scored[0]} through the graphs, {scored[1]} eager")
+        graph_numbers("evaluate sampler (500 rows)", seen["program"][0])
+        graph_numbers(f"evaluate features (batch {ctr.cfg.eval_batch_size})", seen["engine"][0])
+        print(f"evaluate on the CGAN run's latest.ckpt: renders (2 forwards of 500), features and "
+              f"{ {k: scored[0][k] for k in ('fid', 'is', 'intra_fid')} } equal the eager route's "
+              f"exactly   [{card}]")
+
+        m = tr.metric  # the DCGAN run's engine: batch 256, bf16
+        fakes = (torch.rand((FEATURE_TIMED, tr.geo.image_size, tr.geo.image_size, 3), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(6)) * 2 - 1
+                 ).to(torch.bfloat16)
+        m.program.invalidate()
+        got = m.extract_features(fakes)
+        with eager_route(m):
+            want = m.extract_features(fakes)
+        check(np.array_equal(got, want), "the features of 10,000 rows through the graph differ "
+                                         "from the eager route")
+        real_u8 = tr.data_pre.metric_source[0]  # the host path: slabs of the 32² real set
+        got = m._extract_u8(real_u8)  # a second key, in the program's one pool
+        with eager_route(m):
+            want = m._extract_u8(real_u8)
+        check(np.array_equal(got, want) and len(m.program.keys) == 2,
+              "the real set's features through the graph differ from the eager route")
+        print(f"the InceptionV3 features of {FEATURE_TIMED} fakes at batch {m.batch_size} and of "
+              f"the {len(real_u8)} real rows (the slab path, a second graph in the program's "
+              f"pool; {m.program.replays} replays) equal the eager route's bit for bit   [{card}]")
+
+    z = torch.randn(BATCH, svc.geo.z_dim, generator=torch.Generator(device=dev).manual_seed(8),
+                    device=dev)
+    for name, obj in (("float", svc), ("int8", int8)):
+        counted = _replayed_launches(lambda obj=obj: obj.render(z), card)
+        check(counted["added"] == svc.geo.n_up,
+              f"{name}: one replay counted {counted['added']} launches, want {svc.geo.n_up}")
+        numbers[f"bn_act_in_one_replay_{name}"] = counted
+
+    art512 = os.path.join(tmp, "graph_dcgan_512.pt2")
+    export_generator(path, art512, batch_size=BATCH)
+    art512 = ArtifactService(art512)
+    for name, obj in (("float", svc), ("int8", int8), (".pt2", art512)):
+        numbers["turns"][name] = _serve_turns(obj, f"{name} serving", card)
+        graph_numbers(f"{name} (batch {obj.batch_size}, default algorithms)", obj.program)
+    m.program.invalidate()
+    m.extract_features(fakes[:m.batch_size])  # the capture under the default algorithms
+    secs = {"eager": [], "graph": []}
+    for turn in ("eager", "graph", "graph", "eager"):
+        with eager_route(m) if turn == "eager" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            m.extract_features(fakes)
+            secs[turn].append(time.perf_counter() - t0)
+    graph_numbers(f"InceptionV3 features (batch {m.batch_size}, default algorithms)", m.program)
+    numbers["features_s"] = secs
+    print(f"extract_features of {FEATURE_TIMED} rows at batch {m.batch_size}, bf16, in turns: "
+          f"eager {secs['eager']} s, graph {secs['graph']} s   [{card}]")
+    for name, g in numbers["graphs"].items():
+        print(f"  graph {name}: last capture {g['capture_s']:.3f} s, pool {g['pool_mb']:.1f} MB "
+              f"over {g['keys']} key(s)   [{card}]")
+    launches = fba.LAUNCHES - start
+    numbers["launches"] = launches
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print("inference_graph_numbers " + json.dumps(numbers))
+    del svc, csvc, int8, arts, routes, art512, fakes
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_fused_prop_train(tmp: str, card: str) -> int:
     """DCGAN with ``--fused_prop 1`` through the entry point at full width,
     as ``phase_train`` (32 steps, evals after 8, 16, 32: 4 launches each,
     none from the steps); then its step and the faithful step on the same
     state, in turns (faithful, FusedProp, FusedProp, faithful): device ms
-    and device events per step (profiler busy time of 8 steps / 8) and the
+    and device events per step (profiler busy time of 4 steps / 4) and the
     host ms, beside the card's name and power limit. → the run's kernel
     launches."""
     import copy
@@ -2339,6 +2684,7 @@ def phase_fused_prop_train(tmp: str, card: str) -> int:
     from jckx_torch.train.steps import make_dcgan_train_step
 
     tr, steps, _, launches = phase_train(tmp, "DCGAN", ("--fused_prop", "1"), "smoke_fused_prop")
+    n = 4  # steps timed and profiled per turn (cut from 8 for the script's time)
     check(tr.cfg.fused_prop == 1, "the trainer did not take --fused_prop 1")
     rates = [r["images_per_sec"] for r in steps[1:]]
     print(f"DCGAN FusedProp train img/s at batch {TRAIN_BATCH}, bf16, host clock: median "
@@ -2348,7 +2694,7 @@ def phase_fused_prop_train(tmp: str, card: str) -> int:
     faithful.fused_prop = 0
     fns = {"faithful": make_dcgan_train_step(faithful, tr.geo), "FusedProp": tr.step_fn}
     real = decode_batch(tr.images_dev[:TRAIN_BATCH], tr.cfg.image_size, tr.cd)
-    n, seen = 8, {name: [] for name in fns}
+    seen = {name: [] for name in fns}
     for name in ("faithful", "FusedProp", "FusedProp", "faithful"):
         fn = fns[name]
         for _ in range(2):
@@ -2529,19 +2875,22 @@ def phase_profile_dir(tmp: str, card: str) -> int:
            "the kernel (bn_act_*)": any("bn_act_vec" in n or "bn_act_scalar" in n for n in names),
            "aten::cudnn_convolution": "aten::cudnn_convolution" in names}
     check(all(has.values()), f"the trace lacks {[k for k, v in has.items() if not v]}")
-    # steps 2-4 are replays of the step's graph: their kernels, correlated
-    # with the host's graph launches, are in the trace
+    # steps 2-4 are replays of the step's graph, and the eval's real features
+    # after their first batch replays of the metrics engine's: their kernels,
+    # correlated with the host's graph launches, are in the trace
     replays = {e["args"]["correlation"] for e in events if "cudaGraphLaunch" in e.get("name", "")
                and "correlation" in e.get("args", {})}
     kernels = [e for e in events if e.get("cat") == "kernel"
                and e.get("args", {}).get("correlation") in replays]
-    check(len(replays) == 3 and len(kernels) >= 3 * 100,
+    want = 3 + tr.metric.program.replays
+    check(len(replays) == want and len(kernels) >= 3 * 100,
           f"--profile_dir: {len(replays)} graph launches, {len(kernels)} kernels of theirs in the "
-          f"trace; want 3 replayed steps' kernels")
+          f"trace; want {want} replays (3 steps') and the steps' kernels")
     print(f"--profile_dir: {wall:.1f} s run of 4 steps + 1 eval wrote {os.path.basename(traces[0])} "
           f"({os.path.getsize(traces[0]) / 2**20:.1f} MiB, {len(events)} events) naming "
-          f"{', '.join(has)}, and {len(kernels)} device kernels of the {len(replays)} replayed "
-          f"steps' graph launches; {launches} kernel launches   [{card}]")
+          f"{', '.join(has)}, and {len(kernels)} device kernels of its {len(replays)} graph "
+          f"launches (3 replayed steps, {want - 3} feature batches); {launches} kernel launches"
+          f"   [{card}]")
     return launches
 
 
@@ -4136,6 +4485,16 @@ def keep_latest_of_step(step: int, dst: str):
         BestMetricCheckpointer.save_latest = real
 
 
+_LAP = [time.perf_counter()]
+
+
+def lap(what: str) -> None:
+    """Print the seconds since the previous lap (the script's time by phase)."""
+    now = time.perf_counter()
+    print(f"time: {what} {now - _LAP[0]:.1f} s", flush=True)
+    _LAP[0] = now
+
+
 def main() -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "jckx_torch")):
@@ -4150,6 +4509,7 @@ def main() -> None:
     torch.cuda.set_device(dev)
 
     kind, card = phase_environment()
+    lap("start")
     phase_build()
     max_err = phase_kernel_vs_plain(dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -4165,6 +4525,7 @@ def main() -> None:
         _, export_launches = phase_export(path, cgan_path, svc, tmp, dev, card)
         phase_tools(path, os.path.join(tmp, "dcgan_bf16.pt2"), tmp, kind)
         mesh_serve_launches = phase_mesh_serve(path, svc, dev, card)
+    lap("build, serving, HTTP, export, tools, mesh serving")
     phase_serve_vs_plain(svc, dev)
     phase_serve_vs_plain(csvc, dev)
     t = phase_timing(svc, dev, card)
@@ -4178,6 +4539,7 @@ def main() -> None:
     phase_sanitize(dev)
     phase_bn_relu_train(dev, card)
     phase_finetune_vs_cpu(dev)
+    lap("timings, card-vs-CPU steps, remat, sanitize, bn_relu_train")
     with tempfile.TemporaryDirectory() as tmp:
         step8 = os.path.join(tmp, "dcgan_step8.ckpt")
         with keep_latest_of_step(8, step8):
@@ -4194,16 +4556,23 @@ def main() -> None:
         phase_train_timing(ctr, csteps, tmp, card)
         panel_launches = phase_panel(tmp, card)
         finetune_launches = phase_finetune(ctr, tmp, card)
+        lap("training, evaluate, panel, fine-tune")
+        inference_launches = phase_inference_graph(tmp, dev, card, tr, ctr)
+        lap("phase_inference_graph")
         # the children below share the card: free the trainers' graphs first
         del tr, ctr
         gc.collect()
         torch.cuda.empty_cache()
         plane_launches = phase_data_planes_alone(tmp, card)
+        lap("phase_data_planes")
         mesh_launches = phase_mesh(tmp, dev, card)
         model_launches, mesh_model = phase_mesh_model(tmp, card)
         mesh_launches += model_launches
+        lap("phase_mesh, phase_mesh_model")
         superstep_launches = phase_superstep(tmp, dev, card)
+        lap("phase_superstep")
     phase_plan(dev, card, train_t, mesh_model)
+    lap("phase_plan")
     print(json.dumps({"kernels": [{
         "name": "fused_bn_act", "route": "cuda",
         "source": "jckx_torch/kernels/csrc/fused_bn_act.cu",
@@ -4211,7 +4580,8 @@ def main() -> None:
         "launches": (launches + train_launches + cgan_launches + ctrain_launches + eval_launches
                      + mode_launches + http_launches + watch_launches + export_launches
                      + panel_launches + finetune_launches + fused_launches + plane_launches
-                     + mesh_serve_launches + mesh_launches + superstep_launches),
+                     + mesh_serve_launches + mesh_launches + superstep_launches
+                     + inference_launches),
         "max_abs_err": max_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],

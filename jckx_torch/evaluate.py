@@ -12,7 +12,11 @@ eval inputs of ``--seed`` (``train/gan_trainer.py``'s
 class-major grid of 10 per class in chunks of 500 for CGAN (under
 batch-stat BN the batching is part of the function), the EMA generator
 when the file holds one, and one backbone pass for IS, FID and
-intra-FID. On the card G's forwards run through the fused BN kernel.
+intra-FID. On the card G's forwards run through the fused BN kernel, each
+a replay of one CUDA graph per forward shape, as the trainer's eval
+sampler (``gan_trainer.eval_program``; jckx jits its sampler,
+``jckx/evaluate.py:203-211``), and the metrics engine's InceptionV3
+forwards replay too (``metrics.Metrics``). Over a mesh both stay eager.
 
 It reads the port's ``.pt`` and ``latest.ckpt`` files, the reference's
 ``.pt`` and jckx's ``.ckpt`` through ``checkpoint.load_generator``, the
@@ -57,8 +61,9 @@ from jckx_torch.checkpoint.checkpoint import GEOMETRY_FIELDS, load_generator
 from jckx_torch.configs import Config
 from jckx_torch.ops.quant import make_sampler
 from jckx_torch.parallel.mesh import process_mesh
-from jckx_torch.train.gan_trainer import fixed_eval_inputs, sample_eval_images
+from jckx_torch.train.gan_trainer import eval_program, fixed_eval_inputs, sample_eval_images
 from jckx_torch.utils.device import resolve_device
+from jckx_torch.utils.graphs import graph_for
 
 
 def get_args(argv=None):
@@ -147,10 +152,13 @@ def evaluate(args, metrics=None) -> dict:
     z, onehot = fixed_eval_inputs(cfg.seed, geo, conditional, ncls, n, device, truncation=trunc)
     params, apply = make_sampler(G, quant=args.quant or None, compute_dtype=cd,
                                  seed=args.calib_seed)
+
     # G's call signature over the sampler: (z, cd) for DCGAN, (z, one-hot, cd) for CGAN
-    fake = sample_eval_images(
-        lambda zz, *rest, mesh=None: apply(params, zz, rest[0] if conditional else None, mesh),
-        z, onehot, cd, mesh)
+    def sampler(zz, *rest, mesh=None):
+        return apply(params, zz, rest[0] if conditional else None, mesh)
+
+    graph, _ = graph_for(device, mesh=mesh)
+    fake = sample_eval_images(sampler, z, onehot, cd, mesh, eval_program(sampler, cd, device, graph))
     feats = metrics.extract_features(fake)
     result = {"step": step, "n": n,
               **({"quant": "int8"} if args.quant == "int8" else {}),

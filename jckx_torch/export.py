@@ -43,6 +43,14 @@ they run on (``torch.export.passes.move_to_device_pass``).
 ``sample``), backed by the program and its sidecar alone, with jckx's
 seeding (``:218-255``).
 
+On the card the program's call is one replay of a CUDA graph per batch
+(``utils/graphs.GraphedProgram``; jckx calls its artifact's compiled
+program, ``:143``, ``:186``): the int32 seed and labels are made on the
+host, in pinned memory, and copied into the graph's static inputs without
+a synchronisation. ``load_exported``'s ``sample`` replays the same way.
+Both stay eager on the CPU; ``ArtifactService.program = None`` forces the
+eager route.
+
 CLI:
     python -m jckx_torch export --ckpt save/dcgan/<ts>/latest.ckpt --dst gen.pt2
     python -m jckx_torch export --ckpt ref.pt --dst gen.pt2 --batch_size 64 --quant int8
@@ -64,6 +72,7 @@ from jckx_torch.models.dcgan import GANGeometry
 from jckx_torch.serve import (GeneratorService, pipelined_sample, tanh_to_u8,
                               validate_sample_args)
 from jckx_torch.utils.device import resolve_device
+from jckx_torch.utils.graphs import GraphedProgram, graph_for
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 LOWERABLE = ("cuda", "cpu")  # the --platforms entries a .pt2 can be exported for
@@ -148,11 +157,30 @@ def read_sidecar(path: str) -> dict:
 
 
 def _load_program(path: str, device: torch.device):
-    """→ (the program as a callable module on ``device``, its input count)."""
+    """→ (the program as a callable module on ``device``, its input count,
+    its ``GraphedProgram`` on the card or None)."""
     from torch.export.passes import move_to_device_pass
 
     program = move_to_device_pass(torch.export.load(path), str(device))
-    return program.module(), len(program.graph_signature.user_inputs)
+    call = program.module()
+    graph, _ = graph_for(device)
+    return (call, len(program.graph_signature.user_inputs),
+            GraphedProgram(call, device, graph) if graph else None)
+
+
+def _host_int32(values, device: torch.device) -> torch.Tensor:
+    """A program input as an int32 host tensor, pinned when it goes to the
+    card (so that its copy does not synchronise the host)."""
+    t = torch.as_tensor(np.asarray(values, np.int32))
+    return t.pin_memory() if device.type == "cuda" else t
+
+
+def _run(call, graphed: Optional[GraphedProgram], device: torch.device, args) -> torch.Tensor:
+    """One call of the program on host ``args``: a graph replay, or eager."""
+    with torch.inference_mode():
+        if graphed is not None:
+            return graphed(*args)
+        return call(*(a.to(device, non_blocking=True) for a in args))
 
 
 def load_exported(path: str, device=None):
@@ -160,20 +188,19 @@ def load_exported(path: str, device=None):
     the card) from an exported program. Inputs are converted to the int32
     shapes the program takes."""
     dev = resolve_device(device)
-    call, n_in = _load_program(path, dev)
+    call, n_in, graphed = _load_program(path, dev)
 
     def sample(seed: int, labels=None) -> torch.Tensor:
-        args = [torch.as_tensor(seed, dtype=torch.int32, device=dev)]
+        args = [_host_int32(seed, dev)]
         if n_in == 2:
             if labels is None:
                 raise ValueError("this artifact was exported from a conditional (CGAN) "
                                  "checkpoint — pass labels (one int per image)")
-            args.append(torch.as_tensor(np.asarray(labels), dtype=torch.int32, device=dev))
+            args.append(_host_int32(labels, dev))
         elif labels is not None:
             raise ValueError("this artifact was exported from an unconditional (DCGAN) "
                              "checkpoint — it takes no labels")
-        with torch.inference_mode():
-            return call(*args)
+        return _run(call, graphed, dev, args)
 
     return sample
 
@@ -193,7 +220,7 @@ class ArtifactService:
     def __init__(self, artifact_path: str, seed: int = 0, device=None):
         side = read_sidecar(artifact_path)
         self.device = resolve_device(device)
-        self._call, n_in = _load_program(artifact_path, self.device)
+        self._call, n_in, self.program = _load_program(artifact_path, self.device)
         self.conditional = n_in == 2
         self.batch_size = int(side["batch_size"])
         if self.batch_size < 1:
@@ -235,16 +262,14 @@ class ArtifactService:
 
         def render(made: int):
             batch_i = made // bs
-            args = [torch.tensor((base + batch_i) % (2**31 - 1), dtype=torch.int32,
-                                 device=self.device)]
+            args = [_host_int32((base + batch_i) % (2**31 - 1), self.device)]
             if self.conditional:
                 if labels is not None:
-                    lab = labels[(made + np.arange(bs)) % len(labels)].astype(np.int32)
+                    lab = labels[(made + np.arange(bs)) % len(labels)]
                 else:
                     lab = self.batch_labels(base, batch_i)
-                args.append(torch.from_numpy(lab).to(self.device))
-            with torch.inference_mode():
-                return self._call(*args)
+                args.append(_host_int32(lab, self.device))
+            return _run(self._call, self.program, self.device, args)
 
         return pipelined_sample(n, bs, render)
 

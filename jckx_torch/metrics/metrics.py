@@ -39,10 +39,18 @@ cache, ``extract_features``, ``inception_score``, ``fid``, ``intra_fid``).
   is per-sample (running-statistic BN), so the split changes nothing but
   rounding. The ranks agree on whether the real-feature cache exists, and
   rank 0 alone writes it.
+- On the card each batch's forward (resize, normalization, InceptionV3) is
+  one replay of a CUDA graph (``program``, ``utils/graphs.GraphedProgram``;
+  jckx jits its feature pipelines, ``jckx/metrics/metrics.py:125-126``,
+  ``:504-510``): the last batch is padded to full size, so one graph
+  serves a whole extraction, a device set and the host set's slabs alike
+  (the slab copies stay outside it). Eager on the CPU, on a mesh and under
+  ``--sanitize``; ``program = None`` forces the eager route.
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import os
 from typing import Optional
@@ -57,10 +65,22 @@ from jckx_torch.metrics import extra, inception_v3
 from jckx_torch.metrics.fid import (frechet_distance, inception_score_from_probs, intra_fid_sum,
                                     mean_and_cov)
 from jckx_torch.utils.device import resolve_device
+from jckx_torch.utils.graphs import GraphedProgram, graph_for
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 INTRA_FID_DIVISOR = 100.0  # the reference's, for its 20 superclasses (metrics.py:141)
+
+
+def inception_logits(backbone, mean: torch.Tensor, std: torch.Tensor, compute_dtype,
+                     fast_stem: bool, x01: torch.Tensor) -> torch.Tensor:
+    """[0, 1] NHWC in the compute dtype → logits (N, K), f32: bilinear to
+    299, ImageNet normalization (``mean`` / ``std`` device tensors), the
+    backbone."""
+    x = resize_bilinear(x01, 299)
+    if x.shape[-1] == 1:  # grayscale → 3 channels
+        x = x.repeat(1, 1, 1, 3)
+    return backbone((x - mean.to(x.dtype)) / std.to(x.dtype), compute_dtype, fast_stem=fast_stem)
 
 
 def _content_sig(sd: dict) -> str:
@@ -93,6 +113,13 @@ class Metrics:
         else:
             backbone = self._load_backbone(config)
         self.backbone = backbone.to(self.device).eval()
+        # made once: a host→device copy per batch would stop a capture
+        mean, std = (torch.tensor(v, dtype=compute_dtype, device=self.device)
+                     for v in (IMAGENET_MEAN, IMAGENET_STD))
+        self._logits = functools.partial(inception_logits, self.backbone, mean, std,
+                                         compute_dtype, self.fast_stem)
+        graph, _ = graph_for(self.device, bool(getattr(config, "sanitize", False)), mesh)
+        self.program = GraphedProgram(self._logits, self.device, graph) if graph else None
 
         real_u8, real_labels = metric_source
         # superclass index maps (reference metrics.py:56-68); the fakes are
@@ -182,13 +209,11 @@ class Metrics:
     # ------------------------------------------------------------ features
 
     def _features01(self, x01: torch.Tensor) -> torch.Tensor:
-        """[0, 1] NHWC in the compute dtype → logits (N, K), f32."""
-        x = resize_bilinear(x01, 299)
-        if x.shape[-1] == 1:  # grayscale → 3 channels
-            x = x.repeat(1, 1, 1, 3)
-        mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
-        std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
-        return self.backbone((x - mean) / std, self.compute_dtype, fast_stem=self.fast_stem)
+        """[0, 1] NHWC in the compute dtype → logits (N, K), f32: a graph
+        replay on the card (``inception_logits``)."""
+        if self.program is not None:
+            return self.program(x01)
+        return self._logits(x01)
 
     # host sets are uploaded in slabs of at most this many bytes (jckx's
     # metrics.py:376-378): one copy each, a bounded share of the card

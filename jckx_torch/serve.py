@@ -24,6 +24,19 @@ part of the function. A CGAN request with ``labels`` gives row ``i`` the
 class ``labels[i % len(labels)]`` (``jckx/serve.py:383-387``); without
 them each batch draws random classes after its z (``:292-293``).
 
+On the card each batch's render is one replay of a CUDA graph
+(``utils/graphs.GraphedProgram``, as jckx jits ``render_rand`` /
+``render_labeled``, ``jckx/serve.py:343-352``): G's forward with its four
+kernel launches and ``tanh_to_u8``, captured after the service's first
+batch renders eagerly. The draws (z, and CGAN's random classes) stay
+outside the graph, eager, from the request's generator in the same order:
+a capture would freeze the generator's offset, and with the draws outside
+the graph reads the same z and labels as the eager route, so its images
+are the same bits. Each replay returns a copy of the graph's output, so
+the window of undrained batches never aliases a later replay. The render
+stays eager on the CPU and over a local mesh (``graph_for``);
+``program = None`` forces the eager route.
+
 ``interpolate`` renders a latent walk between the z of two seeds (slerp or
 lerp, ``interpolation_latents``) as one batch. ``make_http_server`` is the
 stdlib HTTP daemon (``GET /healthz``, ``GET /metrics``, ``POST /generate``,
@@ -56,6 +69,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import functools
 import hashlib
 import io
 import json
@@ -73,6 +87,7 @@ from jckx_torch.logging.artifacts import encode_png, make_grid, save_image_grid
 from jckx_torch.ops.quant import make_sampler
 from jckx_torch.parallel.mesh import DATA_AXIS, make_mesh, parse_mesh_shape
 from jckx_torch.utils.device import resolve_device
+from jckx_torch.utils.graphs import GraphedProgram, graph_for
 
 # undrained batches a request may hold on the device (6 MiB each at 64², bs512)
 WINDOW = 8
@@ -125,6 +140,12 @@ def pipelined_sample(n: int, bs: int, render) -> np.ndarray:
     while inflight:
         drain_one()
     return np.concatenate(out)
+
+
+def render_u8(apply, params, z: torch.Tensor, onehot: Optional[torch.Tensor]) -> torch.Tensor:
+    """One forward of a sampler (``make_sampler``'s ``apply`` on its
+    params) → uint8 images: the work of one served batch."""
+    return tanh_to_u8(apply(params, z, onehot))
 
 
 def _request_seed(seed: int, count: int) -> int:
@@ -222,6 +243,11 @@ class GeneratorService:
             if dev not in self._replicas:
                 self._replicas[dev] = (copy.deepcopy(self.params).to(dev) if quant is None else
                                        {k: v.to(dev) for k, v in self.params.items()})
+        # one batch's render as a graph (the program holds the sampler, not
+        # the service: a dropped service frees its graphs' pools at once)
+        graph, _ = graph_for(self.device, mesh=mesh)
+        self.program = (GraphedProgram(functools.partial(render_u8, self.sampler_apply, self.params),
+                                       self.device, graph) if graph else None)
 
     def draw_z(self, gen: torch.Generator, shape) -> torch.Tensor:
         """z of the service's law from ``gen``, on the service's device."""
@@ -235,13 +261,15 @@ class GeneratorService:
                        sharded: bool = True) -> torch.Tensor:
         """One forward of the service's sampler on ``z`` (B, z_dim) and, for
         CGAN, float class weights ``onehot`` (B, K) → uint8 (B, S, S, C) on
-        the service's device; over the mesh (unless ``sharded`` is false)
-        each device renders its rows."""
+        the service's device: a replay of ``program`` on the card; over the
+        mesh (unless ``sharded`` is false) each device renders its rows."""
         with torch.inference_mode():
             z = z.to(self.device)
             onehot = None if onehot is None else onehot.to(self.device)
             if self.mesh is None or not sharded:
-                return tanh_to_u8(self.sampler_apply(self.params, z, onehot))
+                if self.program is not None:
+                    return self.program(z, onehot)
+                return render_u8(self.sampler_apply, self.params, z, onehot)
             mesh = self.mesh
 
             def shard(i: int, dev: torch.device) -> torch.Tensor:
@@ -308,7 +336,10 @@ class GeneratorService:
         ONE batch (under batch-stat BN the batch is part of the function),
         so a row is a function of (seeds, labels, steps, kind) only. A CGAN
         checkpoint needs ``label_a`` (``label_b`` defaults to it); differing
-        labels lerp the class one-hot alongside the latent."""
+        labels lerp the class one-hot alongside the latent. The render is
+        eager, also on the card: jckx jits it per ``steps``, but a walk is
+        a one-shot of at most 4096 rows, and a graph captured for it would
+        cost more than it saves."""
         if not 2 <= steps <= 4096:
             raise ValueError(f"steps {steps} must be in [2, 4096]")
         if kind not in ("slerp", "lerp"):
@@ -329,7 +360,8 @@ class GeneratorService:
         elif label_a is not None or label_b is not None:
             raise ValueError("labels given but the checkpoint is unconditional")
         z = interpolation_latents(self.endpoint_z(seed_a), self.endpoint_z(seed_b), t, kind)
-        return self.render_latents(z, onehot, sharded=False).cpu().numpy()
+        with torch.inference_mode():
+            return render_u8(self.sampler_apply, self.params, z, onehot).cpu().numpy()
 
 
 # ----------------------------------------------------------------- HTTP mode
@@ -351,9 +383,12 @@ def make_http_server(svc, host: str = "0.0.0.0", port: int = 8000):
     500. A POST is counted before its reply goes out (jckx counts it after),
     so a client that has its reply finds it in ``/metrics``. Requests run on
     handler threads, but sampling is serialized under one lock (one device
-    pipeline). Returns the not yet running
+    pipeline, one set of graphs). Returns the not yet running
     ``ThreadingHTTPServer``, which carries ``swap_service(new_svc)``: a hot
-    swap under the sampling lock; the counters persist across swaps."""
+    swap under the sampling lock; the counters persist across swaps. A
+    swapped-in service captures its own graphs on its first request; the
+    old service's graphs go with it once its last request is done, so two
+    graph pools coexist only across a swap."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     lock = threading.Lock()

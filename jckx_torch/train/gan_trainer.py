@@ -44,8 +44,10 @@ end, and the checks and logs of jckx run there:
   renders its ``sample_count`` z in one batch; CGAN renders 10 z per
   class, class-major, in chunks of 500 (``:913-923``): under batch-stat
   BN the chunking is part of the function, so 2 forwards at K = 100.
-  Then FID / IS (and CGAN's intra-FID), best-metric checkpoints and
-  grids, and ``latest.ckpt``;
+  On the card each forward is a replay of one CUDA graph per forward
+  shape (``eval_program``; eager where the step is), rebuilt after a
+  restore. Then FID / IS (and CGAN's intra-FID), best-metric checkpoints
+  and grids, and ``latest.ckpt``;
 - ``--resume`` restores ``latest.ckpt`` and fast-forwards the shuffle
   stream; the step's draws derive from (seed, step), so the resumed run
   continues as the uninterrupted one would. A ``latest.ckpt`` written by
@@ -109,8 +111,9 @@ from jckx_torch.parallel import tp
 from jckx_torch.train.state import create_dcgan_state, geometry, schedule_lr
 from jckx_torch.train.steps import (METRIC_NAMES, StepDraws, compute_dtype, derive_seed,
                                     make_cgan_train_step, make_draws, make_dcgan_train_step)
-from jckx_torch.train.superstep import Superstep, graph_for
+from jckx_torch.train.superstep import Superstep
 from jckx_torch.utils.device import resolve_device
+from jckx_torch.utils.graphs import GraphedProgram, graph_for
 
 EVAL_CHUNK = 500  # CGAN eval rows per G forward (jckx gan_trainer.py:919)
 
@@ -136,13 +139,30 @@ def fixed_eval_inputs(seed: int, geo: GANGeometry, conditional: bool, num_classe
     return z, one_hot(labels, num_classes)
 
 
+def eval_program(G, cd, device: torch.device, graph: Optional[type]) -> Optional[GraphedProgram]:
+    """G's eval forward (``G(z, cd)``, or ``G(z, onehot, cd)`` for CGAN) as
+    a graphed program, one graph per forward shape (jckx jits its eval
+    sampler, ``jckx/train/gan_trainer.py:337``, ``jckx/evaluate.py:
+    203-211``); None where ``graph`` is (``graph_for``: the CPU, a mesh,
+    ``--sanitize``). The program holds this G: whatever rebinds its tensors
+    needs a new program."""
+    if graph is None:
+        return None
+    return GraphedProgram(lambda zz, oh: G(zz, cd) if oh is None else G(zz, oh, cd), device,
+                          graph)
+
+
 def sample_eval_images(G, z: torch.Tensor, onehot: Optional[torch.Tensor], cd,
-                       mesh=None) -> torch.Tensor:
+                       mesh=None, program: Optional[GraphedProgram] = None) -> torch.Tensor:
     """G on the eval inputs with no grad (on the card, through the fused BN
-    kernel): one forward for DCGAN, chunks of ``EVAL_CHUNK`` for CGAN. Over
-    ``mesh`` each rank renders its rows of every forward with the global
-    statistics, and the rows are gathered in order."""
+    kernel): one forward for DCGAN, chunks of ``EVAL_CHUNK`` for CGAN (a
+    shorter last chunk is another shape). ``program`` (``eval_program`` of
+    this G) replays each forward as a graph. Over ``mesh`` each rank
+    renders its rows of every forward with the global statistics, and the
+    rows are gathered in order."""
     def forward(zz, oh):
+        if program is not None:
+            return program(zz, oh)
         if mesh is None:
             return G(zz, cd) if oh is None else G(zz, oh, cd)
         zz, oh = mesh.rows(zz), None if oh is None else mesh.rows(oh)
@@ -240,9 +260,11 @@ class _BaseGANTrainer:
         # graph's memory at once, not at the next cyclic collection
         body = weakref.WeakMethod(self._graph_body)
         self.superstep = Superstep(lambda x: body()(x), self.device, graph) if graph else None
+        self._eval_graph = graph
+        self.eval_program = self._eval_program()
         self.logger.debug("train step: " + (
-            "one CUDA graph, captured after the run's first (eager) step and replayed"
-            if graph else f"eager, {why_eager}"))
+            "one CUDA graph, captured after the run's first (eager) step and replayed; the eval "
+            "sampler one graph per forward shape" if graph else f"eager, {why_eager}"))
         if cfg.init_from_torch:
             self._restore(cfg.init_from_torch)
             self.logger.info(f"warm-started from torch checkpoint {cfg.init_from_torch} "
@@ -275,6 +297,8 @@ class _BaseGANTrainer:
         self._resumed_losses = [tuple(p) for p in extra.get("losses", [])]
         if self.superstep is not None:  # the optimizers' state and the EMA are new tensors
             self.superstep.invalidate()
+        if self.eval_program is not None:  # a program for the restored EMA (or G)
+            self.eval_program = self._eval_program()
         if "jckx_rng" in extra:
             self.logger.warning(
                 f"{path} was written by jckx: its weights, Adam state and step carry over; "
@@ -519,15 +543,27 @@ class _BaseGANTrainer:
 
     # ---------------------------------------------------------------- eval
 
+    def _eval_G(self):
+        return self.state.ema_g if self.state.ema_g is not None else self.state.G
+
+    def _eval_program(self) -> Optional[GraphedProgram]:
+        """The eval sampler's program for the current EMA (or G): Adam and
+        the EMA update their tensors in place, so it stays valid across
+        training; a restore, which binds new ones, builds another."""
+        return eval_program(self._eval_G(), self.cd, self.device, self._eval_graph)
+
     def sample_eval(self) -> torch.Tensor:
         """The fixed eval inputs through the EMA generator when on, else G
-        (``sample_eval_images``). Under TP its shards are all-gathered once
-        first, as jckx's ``_eval_params_g`` reshards to replicated (``:450-
-        461``); the render then runs over the data axis."""
-        G = self.state.ema_g if self.state.ema_g is not None else self.state.G
+        (``sample_eval_images``), each forward a replay of ``eval_program``
+        on the card (``eval_program = None`` forces the eager route). Under
+        TP its shards are all-gathered once first, as jckx's
+        ``_eval_params_g`` reshards to replicated (``:450-461``); the render
+        then runs over the data axis."""
+        G = self._eval_G()
         if getattr(G, "tp_dims", None) is not None:
             G = tp.gathered(G, self.mesh)
-        return sample_eval_images(G, self.eval_z, self.eval_onehot, self.cd, self.mesh)
+        return sample_eval_images(G, self.eval_z, self.eval_onehot, self.cd, self.mesh,
+                                  self.eval_program)
 
     def _extra_metrics(self, feats) -> dict:
         """KID and precision / recall / density / coverage from the eval's

@@ -40,95 +40,24 @@ back what it counted (it launches nothing) and every replay adds the
 warm step's count.
 
 A failed capture or replay raises; nothing falls back to eager steps.
-``graph_for`` says where the graph runs: on a CUDA device, and not under
-``--sanitize`` (anomaly detection checks each backward function as it
-runs, eagerly by nature, as ``jax_debug_nans`` de-optimizes jckx's
-programs) nor on a mesh (gloo's collectives run on the host and cannot be
-captured). ``EagerGraph`` is the CPU's stand-in for a graph: its capture
-keeps the callable and runs nothing, its replay runs it again on the
-static inputs, so the host logic runs in the CPU tests.
+The graph classes live in ``utils/graphs.py`` with the inference
+programs' ``GraphedProgram``: ``graph_for`` says where the graph runs (on
+a CUDA device, not under ``--sanitize`` nor on a mesh), and
+``EagerGraph`` is the CPU's stand-in for a graph: its capture keeps the
+callable and runs nothing, its replay runs it again on the static inputs,
+so the host logic runs in the CPU tests.
 """
 
 from __future__ import annotations
 
-import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional
 
 import torch
 
-from jckx_torch.kernels import fused_bn_act
+from jckx_torch.utils.graphs import (CudaGraph, EagerGraph, graph_for,  # noqa: F401 (re-exported)
+                                     replay, warm_and_capture)
 
 Inputs = Dict[str, torch.Tensor]
-
-
-class CudaGraph:
-    """One step captured as a ``torch.cuda.CUDAGraph`` on a side stream of
-    ``device``, in the graph's own memory pool."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.stream = torch.cuda.Stream(device)
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.pool_bytes = 0  # device memory the capture reserved
-
-    def warm(self, fn: Callable[[], torch.Tensor]) -> torch.Tensor:
-        """``fn()`` eagerly on the capture's stream, ordered after and
-        before the current stream's work."""
-        current = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
-            out = fn()
-        current.wait_stream(self.stream)
-        out.record_stream(current)
-        return out
-
-    def capture(self, fn: Callable[[], object]) -> None:
-        # other threads (the streaming plane's uploader) may use the card
-        # meanwhile: only this thread is held to capture-safe calls
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()
-        before = torch.cuda.memory_reserved(self.device)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self.stream, capture_error_mode="thread_local"):
-            fn()
-        self.pool_bytes = torch.cuda.memory_reserved(self.device) - before
-        self.graph = graph
-
-    def replay(self) -> None:
-        self.graph.replay()
-
-
-class EagerGraph:
-    """The CPU's stand-in for ``CudaGraph``: the capture keeps ``fn`` and
-    runs nothing; a replay runs it again."""
-
-    pool_bytes = 0
-
-    def __init__(self, device: torch.device):
-        self.fn: Optional[Callable[[], object]] = None
-
-    def warm(self, fn: Callable[[], torch.Tensor]) -> torch.Tensor:
-        return fn()
-
-    def capture(self, fn: Callable[[], object]) -> None:
-        self.fn = fn
-
-    def replay(self) -> None:
-        self.fn()
-
-
-def graph_for(device: torch.device, sanitize: bool = False,
-              mesh=None) -> Tuple[Optional[type], str]:
-    """→ (the graph class a step on ``device`` runs as, ``""``), or (None,
-    why the step stays eager there)."""
-    if mesh is not None:
-        return None, ("on a mesh, whose collectives cannot be captured (gloo runs on the host; "
-                      "NCCL runs as a world of one on one card)")
-    if sanitize:
-        return None, "under --sanitize, whose anomaly detection checks each backward eagerly"
-    if device.type != "cuda":
-        return None, f"on {device}: CUDA graphs need the card"
-    return CudaGraph, ""
 
 
 class Superstep:
@@ -140,9 +69,8 @@ class Superstep:
         self.body = body
         self.device = device
         self.graph_cls = graph
-        self.graph = None
+        self.cap = None  # the capture (utils/graphs.Captured)
         self.inputs: Optional[Inputs] = None
-        self.output: Optional[torch.Tensor] = None
         self.launches = 0     # fused-kernel launches in one step: added per replay
         self.captures = 0     # captures so far (one more after each invalidate)
         self.capture_s = 0.0  # host seconds of the last capture
@@ -150,16 +78,16 @@ class Superstep:
 
     @property
     def captured(self) -> bool:
-        return self.graph is not None
+        return self.cap is not None
 
     @property
     def pool_bytes(self) -> int:
         """Device memory the last capture reserved for the graph's pool."""
-        return self.graph.pool_bytes if self.graph is not None else 0
+        return self.cap.graph.pool_bytes if self.cap is not None else 0
 
     def invalidate(self) -> None:
         """Drop the graph: the next step is eager and recaptures."""
-        self.graph = self.inputs = self.output = None
+        self.cap = self.inputs = None
 
     def replay(self, k: int, feed: Callable[[int], Inputs],
                warm: Optional[Callable[[Inputs], torch.Tensor]] = None) -> torch.Tensor:
@@ -169,33 +97,20 @@ class Superstep:
         out = None
         for j in range(k):
             x = feed(j)
-            if self.graph is None:
-                y = self._warm_and_capture(x, warm or self.body)
+            if self.cap is None:
+                inputs = self.inputs = {name: t.clone() for name, t in x.items()}
+                y, self.cap = warm_and_capture(self.graph_cls, self.device,
+                                               lambda: (warm or self.body)(x),
+                                               lambda: self.body(inputs))
+                self.launches, self.capture_s = self.cap.launches, self.cap.seconds
+                self.captures += 1
             else:
                 for name, t in x.items():
                     self.inputs[name].copy_(t)
-                before = fused_bn_act.LAUNCHES
-                self.graph.replay()
-                fused_bn_act.add_launches(before + self.launches - fused_bn_act.LAUNCHES)
+                replay(self.cap)
                 self.replays += 1
-                y = self.output
+                y = self.cap.output
             if out is None:
                 out = torch.empty((k, *y.shape), dtype=y.dtype, device=y.device)
             out[j].copy_(y)
         return out
-
-    def _warm_and_capture(self, x: Inputs, warm: Callable[[Inputs], torch.Tensor]) -> torch.Tensor:
-        graph = self.graph_cls(self.device)
-        before = fused_bn_act.LAUNCHES
-        y = graph.warm(lambda: warm(x))
-        self.launches = fused_bn_act.LAUNCHES - before
-        self.inputs = {name: t.clone() for name, t in x.items()}
-        self.output = torch.empty_like(y)
-        before = fused_bn_act.LAUNCHES
-        t0 = time.perf_counter()
-        graph.capture(lambda: self.output.copy_(self.body(self.inputs)))
-        self.capture_s = time.perf_counter() - t0
-        fused_bn_act.add_launches(before - fused_bn_act.LAUNCHES)
-        self.graph = graph
-        self.captures += 1
-        return y

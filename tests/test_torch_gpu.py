@@ -182,7 +182,6 @@ def test_eval_sampling_launches_four_per_g_forward(tmp_path):
     uint8 match the plain route within 1 LSB, >= 99.9 % exactly."""
     import numpy as np
 
-    import jckx_torch.models.dcgan as tdcgan
     from jckx_torch.configs import Config
     from jckx_torch.serve import tanh_to_u8
     from jckx_torch.train.gan_trainer import DCGANTrainer
@@ -212,11 +211,7 @@ def test_eval_sampling_launches_four_per_g_forward(tmp_path):
     assert fba.LAUNCHES == before + 4
     assert fake.shape == (64, 64, 64, 3) and fake.dtype == torch.bfloat16
     assert torch.isfinite(fake.float()).all()
-    tdcgan.bn_act = fba.bn_act_plain
-    try:
-        ref = tr.sample_eval()
-    finally:
-        tdcgan.bn_act = fba.bn_act
+    ref = _with_bn(fba.bn_act_plain, tr.sample_eval)
     diff = (tanh_to_u8(fake).int() - tanh_to_u8(ref).int()).abs()
     assert diff.max().item() <= 1 and (diff == 0).float().mean().item() >= 0.999
 
@@ -240,7 +235,6 @@ def test_cgan_served_images_match_the_plain_route(tmp_path):
     and equal to the plain route whose multiply-add is rounded once, as the
     kernel's FMA rounds it (the share of exactly equal pixels against the
     twice-rounded route depends on the weights: ROADMAP C)."""
-    import jckx_torch.models.dcgan as tdcgan
     from jckx_torch.models.cgan import CDiscriminator, CGenerator
     from jckx_torch.serve import GeneratorService, _request_seed
 
@@ -261,13 +255,8 @@ def test_cgan_served_images_match_the_plain_route(tmp_path):
     lab = torch.tensor([[3, 17, 42][i % 3] for i in range(64)], device=dev)
     got = svc.render(z, lab)
     assert (got.cpu().numpy() == imgs[:64]).all()
-    refs = []
-    for bn in (fba.bn_act_plain, fba.bn_act_one_rounding):
-        tdcgan.bn_act = bn
-        try:
-            refs.append(svc.render(z, lab))
-        finally:
-            tdcgan.bn_act = fba.bn_act
+    refs = [_with_bn(bn, lambda: svc.render(z, lab))
+            for bn in (fba.bn_act_plain, fba.bn_act_one_rounding)]
     assert (got.int() - refs[0].int()).abs().max().item() <= 1
     assert torch.equal(got, refs[1])
 
@@ -275,15 +264,20 @@ def test_cgan_served_images_match_the_plain_route(tmp_path):
 
 def _with_bn(bn, render):
     """``render()`` with every BN layer of G's float and int8 forwards
-    routed through ``bn``."""
+    routed through ``bn``, and every graphed program (``utils/graphs.py``)
+    run eagerly meanwhile: a replay would not see the swap."""
     import jckx_torch.models.dcgan as tdcgan
     import jckx_torch.ops.quant as tquant
+    from jckx_torch.utils.graphs import GraphedProgram
 
+    call = GraphedProgram.__call__
     tdcgan.bn_act = tquant.bn_act = bn
+    GraphedProgram.__call__ = lambda self, *args: self.fn(*args)
     try:
         return render()
     finally:
         tdcgan.bn_act = tquant.bn_act = fba.bn_act
+        GraphedProgram.__call__ = call
 
 
 @pytest.mark.parametrize("in_dim", [100, 200])
@@ -908,3 +902,135 @@ def test_profiler_counts_the_replayed_kernel_launches():
         if seen[-1] == 94:
             break
     assert max(seen) <= 94 and seen[-1] == 94, seen
+
+
+# ---------------------------------------------- inference programs as graphs
+
+@pytest.fixture
+def renders_without_sync(monkeypatch):
+    """Each batch's render of ``sample()`` (not its drain, which copies to
+    the host) runs under ``set_sync_debug_mode("error")``."""
+    import jckx_torch.export as texport
+    import jckx_torch.serve as tserve
+
+    real = tserve.pipelined_sample
+
+    def guarded(n, bs, render):
+        def render_no_sync(made):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return render(made)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        return real(n, bs, render_no_sync)
+
+    monkeypatch.setattr(tserve, "pipelined_sample", guarded)
+    monkeypatch.setattr(texport, "pipelined_sample", guarded)
+
+
+@pytest.mark.parametrize("kind", ["dcgan", "cgan", "cgan_random", "pt2_dcgan", "pt2_cgan"])
+def test_served_requests_replay_one_graph_per_batch(tmp_path, deterministic_cudnn,
+                                                    renders_without_sync, kind):
+    """A bs64 bf16 service at 64² (width 8), or its ``.pt2``: the first
+    request renders eagerly and captures; a request of 4.5 batches is one
+    replay per batch with no host synchronisation in a render, 4 launches
+    counted per batch, and its bytes equal the same object's eager route
+    (its program set to None)."""
+    import numpy as np
+
+    from jckx_torch.export import ArtifactService, export_generator
+    from jckx_torch.serve import GeneratorService
+    from jckx_torch.utils.graphs import CudaGraph
+
+    _card()
+    conditional = "cgan" in kind
+    path = _gan_ckpt(str(tmp_path / "g.pt"), conditional)
+    if kind.startswith("pt2"):
+        export_generator(path, str(tmp_path / "g.pt2"), batch_size=64)
+        svc = ArtifactService(str(tmp_path / "g.pt2"))
+    else:
+        svc = GeneratorService(path, batch_size=64)
+    labels = [3, 17, 42] if conditional and kind != "cgan_random" else None
+    assert svc.program.graph_cls is CudaGraph
+    svc.sample(64, labels=labels, seed=1)  # eager, then the capture
+    before = fba.LAUNCHES
+    got = svc.sample(288, labels=labels, seed=2)
+    assert fba.LAUNCHES - before == 4 * 5
+    assert (svc.program.captures, svc.program.replays) == (1, 5) and svc.program.pool_bytes > 0
+    program, svc.program = svc.program, None
+    try:
+        want = svc.sample(288, labels=labels, seed=2)
+    finally:
+        svc.program = program
+    assert got.shape == (288, 64, 64, 3) and np.array_equal(got, want)
+    assert len({got[i:i + 64].tobytes() for i in range(0, 256, 64)}) == 4
+
+
+@pytest.mark.parametrize("sampler", [{}, {"quant": "int8"}, {"subpixel": True},
+                                     {"truncation": 0.7}])
+def test_a_capture_makes_no_host_synchronisation(tmp_path, sampler):
+    """The first render (the eager call and the capture) and a replay, both
+    under ``set_sync_debug_mode("error")``: nothing in the float, int8,
+    sub-pixel or truncated sampler's body reads the card from the host."""
+    from jckx_torch.serve import GeneratorService
+
+    dev = _card()
+    svc = GeneratorService(_gan_ckpt(str(tmp_path / "g.pt"), False), batch_size=64, **sampler)
+    z = torch.randn(64, 100, generator=torch.Generator(device=dev).manual_seed(4), device=dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = svc.render(z)
+        b = svc.render(z)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (svc.program.captures, svc.program.replays) == (1, 1)
+    assert torch.equal(a, b)
+
+
+def test_a_program_replays_its_keys_in_any_order(tmp_path, deterministic_cudnn):
+    """Two input shapes of one program, captured into its one shared pool,
+    replayed in either order: each render equals the eager route's."""
+    from jckx_torch.serve import GeneratorService
+
+    dev = _card()
+    svc = GeneratorService(_gan_ckpt(str(tmp_path / "g.pt"), False), batch_size=64)
+    g = torch.Generator(device=dev).manual_seed(6)
+    zs = [torch.randn(n, 100, generator=g, device=dev) for n in (64, 24)]
+    for z in zs + zs[::-1]:
+        svc.render(z)
+    got = [svc.render(z) for z in zs[::-1] + zs]
+    assert (svc.program.captures, svc.program.replays) == (2, 6)
+    program, svc.program = svc.program, None
+    try:
+        want = [svc.render(z) for z in zs[::-1] + zs]
+    finally:
+        svc.program = program
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_profiler_counts_a_served_replay(tmp_path):
+    """In one replay of a served batch's graph the profiler sees the fused
+    kernel as often as the program added to ``LAUNCHES``: 4 (a window that
+    falls short, a record CUPTI dropped, is taken again, up to three)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from jckx_torch.serve import GeneratorService
+
+    dev = _card()
+    svc = GeneratorService(_gan_ckpt(str(tmp_path / "g.pt"), False), batch_size=64)
+    z = torch.randn(64, 100, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    svc.render(z)  # eager, then the capture
+    seen = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        before = fba.LAUNCHES
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            svc.render(z)
+            torch.cuda.synchronize()
+        assert fba.LAUNCHES - before == 4
+        seen.append(sum(e.device_type == torch.autograd.DeviceType.CUDA and "bn_act" in e.name
+                        for e in prof.events()))
+        if seen[-1] == 4:
+            break
+    assert max(seen) <= 4 and seen[-1] == 4, seen

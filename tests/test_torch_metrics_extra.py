@@ -9,6 +9,13 @@
   a spread of near-equal estimates, within 1e-5 of the mean's magnitude.
 - The engine: ``Metrics.kid`` / ``prdc`` on its real features, the real
   k-NN radii swept once per k, and the ``-s2d`` real-feature cache key.
+  Its backbone is seeded (torch seeds its default generator from the OS,
+  so an unseeded ``nn.Linear`` gave each process other features). KID's
+  mean within 1e-5 of jckx's; its std of four subset values, a difference
+  of near-equal f32 sums, within ``4 * KID_STD_FLOOR`` of jckx's and of
+  the float64 value: a one-ulp perturbation of the f32 features moves
+  either package's std by up to ``KID_STD_FLOOR`` of itself (the largest
+  move over 230 seeded backbones; the packages were up to 4.1e-5 apart).
 - The s2d stem: ``Conv2d_1a_3x3`` in its space-to-depth form against the
   strided convolution and against jckx's ``_bconv_1a_s2d`` (f32, 1e-5 of
   the largest magnitude), and the whole ``fast_stem`` forward against
@@ -32,6 +39,7 @@ from jckx_torch.metrics.metrics import Metrics
 from torch_threads import one_torch_thread  # noqa: F401
 
 K = 10
+KID_STD_FLOOR = 1.63e-5  # see the module docstring
 
 
 def _features(seed=0, n_real=300, n_fake=200, d=10):
@@ -49,6 +57,21 @@ def jckx_perms(n_real, n_fake, subsets, seed):
         out.append((torch.from_numpy(np.array(jax.random.permutation(kr, n_real))),
                     torch.from_numpy(np.array(jax.random.permutation(kf, n_fake)))))
     return out
+
+
+def kid_f64(real, fake, perms, m, degree=3, coef0=1.0):
+    """KID's (mean, std) over the subsets of ``perms`` in float64 numpy."""
+    real, fake = np.asarray(real, np.float64), np.asarray(fake, np.float64)
+    g = 1.0 / real.shape[1]
+    vals = []
+    for pr, pf in perms:
+        x, y = real[np.asarray(pr)[:m]], fake[np.asarray(pf)[:m]]
+        kxx, kyy = (g * x @ x.T + coef0) ** degree, (g * y @ y.T + coef0) ** degree
+        kxy = (g * x @ y.T + coef0) ** degree
+        off = 1.0 / (m * (m - 1.0))
+        vals.append((kxx.sum() - np.trace(kxx)) * off + (kyy.sum() - np.trace(kyy)) * off
+                    - 2.0 * kxy.mean())
+    return float(np.mean(vals)), float(np.std(vals))
 
 
 @pytest.mark.parametrize("subset_size", [50, 150, 1000])
@@ -88,9 +111,11 @@ def test_prdc_matches_jckx_and_is_chunk_invariant(k):
 class _Pool(torch.nn.Module):
     """InceptionV3's interface on a seeded linear map of a 4×4 pool."""
 
-    def __init__(self):
+    def __init__(self, seed=0):
         super().__init__()
-        self.fc = torch.nn.Linear(48, K)
+        with torch.random.fork_rng():
+            torch.manual_seed(seed)
+            self.fc = torch.nn.Linear(48, K)
         self.stems = []
 
     def forward(self, x, compute_dtype=torch.float32, fast_stem=False):
@@ -111,10 +136,15 @@ def test_engine_kid_prdc_and_s2d_cache_key(tmp_path):
     assert net.stems == [False, True] and sorted(f.endswith("-s2d.npz")
                                                  for f in os.listdir(tmp_path)) == [False, True]
     fake = rng.randn(30, K).astype(np.float32)
+    perms = jckx_perms(40, 30, 4, 0)
     ref = jextra.kid(m.real_features, fake, subsets=4, subset_size=20, seed=0)
-    np.testing.assert_allclose(
-        m.kid(features=fake, subsets=4, subset_size=20, perms=jckx_perms(40, 30, 4, 0)), ref,
-        rtol=1e-5)
+    got = m.kid(features=fake, subsets=4, subset_size=20, perms=perms)
+    f64 = kid_f64(m.real_features, fake, perms, 20)
+    for mean, std in (got, ref):
+        np.testing.assert_allclose(mean, f64[0], rtol=1e-5)
+        np.testing.assert_allclose(std, f64[1], rtol=4 * KID_STD_FLOOR)
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-5)
+    np.testing.assert_allclose(got[1], ref[1], rtol=4 * KID_STD_FLOOR)
     got = m.prdc(features=fake)
     want = jextra.manifold_metrics(m.real_features, fake)
     assert got == pytest.approx(want, rel=1e-5)
