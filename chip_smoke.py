@@ -168,7 +168,7 @@ Run from the root of a checkout, on a machine with a CUDA card and
 30. the mesh's data axis (``phase_mesh_serve``, ``phase_mesh``):
     ``GeneratorService`` over a local mesh ``[cuda:0, cuda:0]`` at bs512
     bf16 within 1 LSB of the unsharded service (≥ 99 % exact), 4 launches
-    per device per batch; at full width, 8 steps and one eval each, f32, in
+    per device per batch; at full width, 4 steps and one eval each, f32, in
     child processes (``--child``): DCGAN on a NCCL world of one
     (``--mesh_shape 1 --multihost``, ``env://``) bit-identical to the plain
     run; DCGAN and CGAN on two gloo ranks of this card against the plain
@@ -177,7 +177,7 @@ Run from the root of a checkout, on a machine with a CUDA card and
     pair (the first within 10 % in delta norm of one rank's); then the bf16
     step timed on the NCCL world of one (in turns against no mesh) and on
     the gloo pair, with the collectives per step by kind and their share;
-31. the mesh's model axis (``phase_mesh_model``): at full width, 8 f32
+31. the mesh's model axis (``phase_mesh_model``): at full width, 4 f32
     steps and one eval each, gloo pairs of child processes on this card as
     (1, 2) data x model meshes: DCGAN under ``tp``, ``spatial`` and
     ``spatial --spatial_replicate_grads 0``, CGAN under ``tp``, each first
@@ -210,15 +210,15 @@ Run from the root of a checkout, on a machine with a CUDA card and
     at 299²: one eager step, the capture and a launch of K = 8 replays
     equal 9 eager steps bit for bit, 94 launches counted per step either
     way. Then, recaptured under the default algorithms, eager and graph in
-    turns of 4 steps on one state for DCGAN, CGAN and the fine-tune: host
+    turns of 4 steps on one state for DCGAN and CGAN, 2 for the fine-tune: host
     ms per step, device busy ms and share, device events per step, the
     capture's seconds and the graph pool's MB; in one fine-tune replay the
     profiler's ``bn_act`` kernels equal the 94 launches the superstep
     counted (a window that falls short, a record CUPTI dropped, is taken
     again, up to 3).
     Every other phase that trains through the trainer or the fine-tune's
-    ``train()`` on one card, without a mesh or ``--sanitize``, runs its
-    steps through the superstep too;
+    ``train()`` on one card, without ``--sanitize`` or a gloo mesh, runs
+    its steps through the superstep too;
 34. jckx's inference programs as CUDA graphs (``phase_inference_graph``,
     ``utils/graphs.GraphedProgram``): with cuDNN deterministic, a request
     of 4096 through the float, sub-pixel, int8, truncated (0.7) and CGAN
@@ -237,7 +237,24 @@ Run from the root of a checkout, on a machine with a CUDA card and
     Every other phase that serves, renders an eval or extracts features on
     one card, without a mesh, replays these graphs too; its comparisons
     with the plain routes call the programs eagerly (``with_bn_act``);
-35. prints a ``{"kernels": [...]}`` line, then, last, the
+35. jckx's compiled programs over a NCCL process mesh
+    (``phase_mesh_graph``, each world in a child holding a NCCL world of
+    one; the plain world's beside ``phase_mesh``'s runs): on the plain
+    world and on a forced-live one (``_forced_live_mesh``: every axis
+    live, its sums issued as NCCL ``PREMUL_SUM`` by 1.0, one kernel each),
+    with cuDNN deterministic, 8 steps of DCGAN and CGAN through the
+    superstep (7 replays under ``set_sync_debug_mode("error")``) and a
+    K = 8 fine-tune launch equal their eager steps bit for bit, and
+    ``mesh.stats`` counts each replay's collectives as the eager step's;
+    DCGAN's graphed eval renders and their InceptionV3 features over the
+    mesh equal the eager ones; in one replay of a step and of an eval
+    render the profiler's NCCL kernels equal the all-reduces counted
+    (forced live) and its ``bn_act`` kernels the launches counted; then,
+    forced live and alone, under the default algorithms, eager and graph
+    in turns (DCGAN 4 steps, the fine-tune 2): host ms, busy share, idle
+    gaps, capture s, pool MB. ``phase_mesh``'s NCCL world of one trains
+    through the superstep's graph too;
+36. prints a ``{"kernels": [...]}`` line, then, last, the
     ``{"ok": true, "device": {...}}`` line.
 
 Any failed phase exits nonzero before the last line is printed. Without a
@@ -2088,10 +2105,11 @@ SUPERSTEP_MODES = [("DCGAN", "DCGAN", ()), ("CGAN", "CGAN", ()),
                    ("cosine", "DCGAN", ("--lr_schedule", "cosine"))]
 
 
-def _step_trainer(tmp: str, model: str, flags: tuple, run: str):
+def _step_trainer(tmp: str, model: str, flags: tuple, run: str, mesh=None):
     """A trainer at the reference geometry (bs128, bf16, lr 2e-4, EMA
-    0.999) over the 4,096 synthetic rows, built as ``train.main.run``
-    builds it but with no evals: the phase drives its launches."""
+    0.999) over the 4,096 synthetic rows (over ``mesh`` if given), built as
+    ``train.main.run`` builds it but with no evals: the phase drives its
+    launches."""
     import torch
 
     from jckx_torch.configs import get_arg_parse
@@ -2112,10 +2130,10 @@ def _step_trainer(tmp: str, model: str, flags: tuple, run: str):
         data = CGANDataPreprocessor(cfg)
         cfg.num_classes = data.num_classes
         tr = CGANTrainer(cfg, CGenerator(geo, cfg.num_classes, gen=gen),
-                         CDiscriminator(geo, cfg.num_classes, gen=gen), data)
+                         CDiscriminator(geo, cfg.num_classes, gen=gen), data, mesh=mesh)
     else:
         tr = DCGANTrainer(cfg, Generator(geo, gen=gen), Discriminator(geo, gen=gen),
-                          DCGANDataPreprocessor(cfg))
+                          DCGANDataPreprocessor(cfg), mesh=mesh)
     MainLogger.reset()
     return tr
 
@@ -2239,7 +2257,7 @@ def phase_superstep(tmp: str, dev, card: str) -> int:
       same weights, rows and draws: loss, accuracy, weights and running
       statistics bit for bit; 94 launches counted per step either way;
     - recaptured under the default algorithms, eager and graph in turns on
-      one state (DCGAN, CGAN, the fine-tune; 4 steps a turn): host ms per
+      one state (DCGAN, CGAN: 4 steps a turn; the fine-tune: 2): host ms per
       step, device busy ms and share, device events and idle gaps per
       step; the capture's seconds and the graph pool's MB; in one fine-tune replay the
       profiler's ``bn_act`` kernels equal the launches the superstep
@@ -2369,7 +2387,7 @@ def phase_superstep(tmp: str, dev, card: str) -> int:
     torch.cuda.synchronize()
     print(f"fine-tune: capture {ss.capture_s:.3f} s, graph pool {ss.pool_bytes / 1e6:.1f} MB"
           f"   [{card}]")
-    k = 4
+    k = 2  # cut from 4 for the script's time
     res = _turns(lambda: [step(data, labels, order[i], draw_step(gen, FT_BATCH, dev))
                           for i in range(k)],
                  lambda: ss.replay(k, feed(gen, 0)), k,
@@ -3335,10 +3353,11 @@ def phase_data_planes(tmp: str, dev, card: str) -> int:
 
 # ------------------------------------------------------------------ the mesh
 
-MESH_STEPS = 8                          # phase_mesh: steps of each run (one launch, one eval)
+MESH_STEPS = 4                          # phase_mesh: steps of each run (one launch, one eval;
+                                        # cut from 8 for the script's time)
 MESH_ROWS = TRAIN_BATCH * MESH_STEPS    # its synthetic rows: one epoch of MESH_STEPS steps
-MESH_TIMED = 6                          # bf16 steps timed per turn
-MESH_WARM = 2                           # phase_mesh_model: untimed bf16 steps first (8 in all)
+MESH_TIMED = 3                          # bf16 steps timed per turn (cut from 6 for the script's time)
+MESH_WARM = 1                           # phase_mesh_model: untimed bf16 steps first (cut from 2)
 # phase_mesh_model's first-step rule: G's f32 gradient at full width is so
 # ill-conditioned that nudging the weights by 1e-6 relative moves it 1.9 %
 # in L2 and flips 20 masked Adam deltas (10 in each of two leaves), and a
@@ -3514,7 +3533,9 @@ def child_train(spec: dict) -> None:
     fba.LAUNCHES = 0
     tr = tmain.run(get_arg_parse(spec["argv"]))
     rank = dist.get_rank() if dist.is_initialized() else 0
-    rec = {"launches": fba.LAUNCHES, "step": tr.state.step, "evals": tr.evals}
+    rec = {"launches": fba.LAUNCHES, "step": tr.state.step, "evals": tr.evals,
+           "superstep": None if tr.superstep is None else (tr.superstep.captures,
+                                                           tr.superstep.replays)}
     last = _snapshot(tr.state)
     if spec.get("renders"):
         rec["renders_equal_once"] = _renders_equal_once(tr)
@@ -3817,9 +3838,356 @@ def phase_data_planes_alone(tmp: str, card: str) -> int:
         return json.load(f)["launches"]
 
 
+MESH_GRAPH_WORLDS = ("world of one", "forced-live world of one")
+ONE_RANK_REDUCE = "oneRankReduce"  # NCCL's kernel of a one-rank reduction with a scale
+
+
+def _forced_live_mesh(dev):
+    """A ``ProcessMesh`` over this process's NCCL world of one whose every
+    axis is live, so the step issues its real collectives (the port skips
+    an axis of size 1). They are sums over one rank, so the results stay
+    bit-exact. NCCL runs an in-place sum over one rank as no device work at
+    all, so the sums go as ``PREMUL_SUM`` by 1.0, which NCCL runs over one
+    rank as one ``oneRankReduce`` kernel per call (x · 1.0 = x exactly):
+    each captured collective is then a graph node that the profiler
+    counts."""
+    import torch.distributed as dist
+
+    from jckx_torch.parallel.mesh import ProcessMesh
+
+    premul_one = dist._make_nccl_premul_sum(1.0)
+
+    class ForcedLiveMesh(ProcessMesh):
+        def _live(self, axis: str) -> bool:
+            return self.distributed
+
+        def _sum(self, t, axis: str) -> None:
+            dist.all_reduce(t, op=premul_one, group=self._groups[axis])
+
+    return ForcedLiveMesh((1,), ("data",), dev)
+
+
+def _stats_since(stats, snap) -> dict:
+    """{kind: (calls, bytes, replayed calls)} counted since ``snap``."""
+    return {k: (stats.calls[k] - snap["calls"][k], stats.bytes[k] - snap["bytes"][k],
+                stats.replayed[k] - snap["replayed"][k]) for k in stats.KINDS}
+
+
+def _check_replayed(one: dict, got: dict, k: int, what: str) -> None:
+    """``got`` (``_stats_since`` over k replays) holds k times ``one`` (an
+    eager step's), every call marked as replayed."""
+    want = {kind: (k * c, k * b, k * c) for kind, (c, b, _) in one.items()}
+    check(got == want, f"{what}: mesh.stats over {k} replays {got}, want {want}")
+
+
+def _replayed_collectives(replay, mesh, card: str, tries: int = 3) -> dict:
+    """The all-reduces of one ``replay()`` of a graph over the forced-live
+    mesh, as the profiler sees NCCL's ``oneRankReduce`` kernels and as
+    ``mesh.stats`` counts them (``_replayed_launches``' rule for a dropped
+    record)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, tries + 1):
+        torch.cuda.synchronize()
+        snap = mesh.stats.snapshot()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            replay()
+            torch.cuda.synchronize()
+        counted = _stats_since(mesh.stats, snap)["all_reduce"]
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen = sum(ONE_RANK_REDUCE in e.name for e in device)
+        print(f"one replay, window {attempt}: the profiler saw {seen} NCCL {ONE_RANK_REDUCE} "
+              f"kernels among {len(device)} device events; mesh.stats counted {counted[0]} "
+              f"all-reduces for it, {counted[2]} of them replayed   [{card}]")
+        check(counted[0] == counted[2] > 0, f"the replay's all-reduces were not counted as "
+                                            f"replayed: {counted}")
+        check(seen <= counted[0], f"the profiler saw {seen} NCCL kernels in one replay, more "
+                                  f"than the {counted[0]} collectives counted")
+        if seen == counted[0]:
+            return {"seen": seen, "counted": counted[0], "windows": attempt}
+    fail(f"the profiler saw fewer NCCL kernels than the replay's {counted[0]} collectives in "
+         f"{tries} windows")
+
+
+def _mesh_graph_gan(tmp: str, mesh, world: str, dev, card: str) -> dict:
+    """DCGAN and CGAN over ``mesh``, bs128 bf16, 8 steps through the
+    superstep (1 eager and captured, 7 replays under
+    ``set_sync_debug_mode("error")``) against 8 eager steps of a twin, bit
+    for bit (cuDNN deterministic), ``mesh.stats`` over the replays 7 times
+    an eager step's; then DCGAN's eval renders (graph and eager) and their
+    InceptionV3 features over the mesh, bit for bit, with one eval replay's
+    ``bn_act`` kernels (and, forced live, NCCL kernels) in the profiler.
+    → the DCGAN trainer for the turns, and the numbers."""
+    import numpy as np
+    import torch
+
+    from jckx_torch.metrics import inception_v3 as tiv
+    from jckx_torch.metrics.metrics import Metrics
+    from jckx_torch.train.superstep import CudaGraph
+
+    live = world != MESH_GRAPH_WORLDS[0]
+    n = SUPERSTEP_STEPS
+    perm = torch.randperm(4096, generator=torch.Generator().manual_seed(5))
+    rows = [{"idx": r} for r in perm[:n * TRAIN_BATCH].view(n, TRAIN_BATCH).to(dev).unbind()]
+    numbers, keep = {}, None
+    for model in ("DCGAN", "CGAN"):
+        eager = _step_trainer(tmp, model, (), "mesh_graph_eager", mesh)
+        graphed = _step_trainer(tmp, model, (), "mesh_graph_graph", mesh)
+        check(graphed.superstep is not None and graphed.superstep.graph_cls is CudaGraph
+              and graphed.eval_program is not None,
+              f"{model} over the NCCL {world}: the trainer on the card has no CUDA graph")
+        eager.superstep = None
+        with _deterministic_cudnn():
+            snap = mesh.stats.snapshot()
+            want = eager._launch(rows)
+            torch.cuda.synchronize()
+            per_step = {k: (c // n, b // n, r) for k, (c, b, r) in
+                        _stats_since(mesh.stats, snap).items()}
+            got = [graphed._launch(rows[:1])]
+            snap = mesh.stats.snapshot()
+            with _no_host_sync():
+                got.append(graphed._launch(rows[1:]))
+            torch.cuda.synchronize()
+            replayed = _stats_since(mesh.stats, snap)
+        ss = graphed.superstep
+        check((ss.captures, ss.replays, ss.launches) == (1, n - 1, 0),
+              f"{model} over the NCCL {world}: {ss.captures} captures, {ss.replays} replays")
+        check(torch.equal(torch.cat(got), want),
+              f"{model} over the NCCL {world}: replayed telemetry differs from eager")
+        a, b = _trainer_tensors(graphed), _trainer_tensors(eager)
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        check(a.keys() == b.keys() and not differ,
+              f"{model} over the NCCL {world}: replayed steps differ from eager in {differ[:5]}")
+        calls = per_step["all_reduce"][0]
+        check((calls > 0) == live, f"{model} over the NCCL {world}: {calls} all-reduces a step")
+        _check_replayed(per_step, replayed, n - 1, f"{model} over the NCCL {world}")
+        print(f"{model} over the NCCL {world} ({TRAIN_BATCH} rows, bf16): {n} steps through "
+              f"the superstep (1 eager, then captured, {n - 1} replayed with no host "
+              f"synchronisation) equal {n} eager steps bit for bit (telemetry and "
+              f"{sum(v.numel() for v in a.values()):,} values of G, D, the EMA and Adam); "
+              f"{calls} all-reduces a step ({per_step['all_reduce'][1]:,} bytes), counted "
+              f"{n - 1} times over as replayed   [{card}]")
+        numbers[model] = {"all_reduce_per_step": per_step["all_reduce"][:2],
+                          "capture_s": ss.capture_s, "pool_mb": ss.pool_bytes / 1e6}
+        if model == "DCGAN":
+            keep = graphed
+        del eager, graphed, a, b
+        gc.collect()
+
+    tr = keep
+    if live:
+        numbers["nccl_kernels_in_one_step_replay"] = _replayed_collectives(
+            lambda: tr._launch(rows[:1]), mesh, card)
+    g = torch.Generator().manual_seed(23)
+    real = torch.randint(0, 256, (EVAL_BATCH, 32, 32, 3), generator=g, dtype=torch.uint8).numpy()
+    engine = Metrics((real, np.arange(EVAL_BATCH) % 100), None,
+                     backbone=tiv.init(0, num_classes=100), batch_size=EVAL_BATCH,
+                     compute_dtype=torch.bfloat16, cache_dir=os.path.join(tmp, "mesh_graph_cache"),
+                     num_classes=100, device=dev, mesh=mesh)
+    check(engine.program is not None, f"the metrics engine over the NCCL {world} has no graph")
+    with _deterministic_cudnn():
+        with programs_eager():
+            want = tr.sample_eval()
+            want_f = engine.extract_features(want)
+        got = [tr.sample_eval()]  # the eval program's capture
+        with _no_host_sync():
+            got.append(tr.sample_eval())
+        got_f = engine.extract_features(got[1])
+        torch.cuda.synchronize()
+    check(all(torch.equal(x, want) for x in got) and np.array_equal(got_f, want_f),
+          f"the graphed eval renders or features over the NCCL {world} differ from eager")
+    z = tr.eval_z
+    counted = _replayed_launches(lambda: tr.eval_program(z, None), card)
+    check(counted["added"] == 4, f"one eval replay counted {counted['added']} launches")
+    numbers["bn_act_in_one_eval_replay"] = counted
+    if live:
+        numbers["nccl_kernels_in_one_eval_replay"] = _replayed_collectives(
+            lambda: tr.eval_program(z, None), mesh, card)
+    numbers["eval_pool_mb"] = tr.eval_program.pool_bytes / 1e6
+    numbers["features_pool_mb"] = engine.program.pool_bytes / 1e6
+    print(f"DCGAN's eval over the NCCL {world}: {EVAL_BATCH} renders through the graph (the "
+          f"rows, sync-BN through the kernel and the gather inside it) and their InceptionV3 "
+          f"features through the engine's graph equal the eager ones bit for bit; "
+          f"{counted['seen']} bn_act kernels in one replay as counted   [{card}]")
+    del engine
+    return tr, numbers
+
+
+def _mesh_graph_finetune(mesh, world: str, dev, card: str, turns: bool) -> dict:
+    """The fine-tune at 299², bs128, bf16 over ``mesh``: 1 eager step and a
+    launch of K = 8 replays against 9 eager steps bit for bit (cuDNN
+    deterministic), 94 launches a step either way, ``mesh.stats`` over the
+    replays 8 times an eager step's; with ``turns``, recaptured under the
+    default algorithms and timed against eager in turns. → numbers."""
+    import numpy as np
+    import torch
+
+    from jckx_torch.kernels import fused_bn_act as fba
+    from jckx_torch.metrics import inception_v3 as tiv
+    from jckx_torch.metrics.inception_train import (draw_step, make_optimizer, make_superstep,
+                                                    make_train_step, step_inputs)
+    from jckx_torch.train.superstep import CudaGraph
+
+    g = torch.Generator().manual_seed(21)
+    data = torch.randint(0, 256, (2560, 32, 32, 3), generator=g, dtype=torch.uint8).to(dev)
+    labels = torch.randint(0, 100, (2560,), generator=g).to(dev)
+    order = torch.randperm(2560, generator=g)[:9 * FT_BATCH].view(9, FT_BATCH).to(dev)
+
+    def fresh():
+        net = tiv.init(0, num_classes=100).to(dev)
+        return net, make_train_step(net, make_optimizer(net, 0.1), torch.bfloat16, FT_SIZE, mesh)
+
+    def feed(gen, first):
+        return lambda j: step_inputs(order[(first + j) % 9], draw_step(gen, FT_BATCH, dev))
+
+    with _deterministic_cudnn():
+        net_e, step_e = fresh()
+        gen = torch.Generator(device=dev).manual_seed(7)
+        snap, before = mesh.stats.snapshot(), fba.LAUNCHES
+        want = torch.stack([torch.stack(step_e(data, labels, order[i],
+                                               draw_step(gen, FT_BATCH, dev))) for i in range(9)])
+        torch.cuda.synchronize()
+        eager_launches = fba.LAUNCHES - before
+        per_step = {k: (c // 9, b // 9, r) for k, (c, b, r) in
+                    _stats_since(mesh.stats, snap).items()}
+        want_w = tiv.to_jckx_flat(net_e)
+        del net_e, step_e
+        gc.collect()
+        net, step = fresh()
+        ss = make_superstep(step, data, labels, CudaGraph, mesh)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        before = fba.LAUNCHES
+        got = [ss.replay(1, feed(gen, 0))]
+        snap = mesh.stats.snapshot()
+        with _no_host_sync():
+            got.append(ss.replay(8, feed(gen, 1)))
+        torch.cuda.synchronize()
+        replayed = _stats_since(mesh.stats, snap)
+        graph_launches = fba.LAUNCHES - before
+    check(eager_launches == graph_launches == 9 * FT_CONVS and ss.launches == FT_CONVS,
+          f"fine-tune over the NCCL {world}: launches eager {eager_launches}, graph "
+          f"{graph_launches}; want {9 * FT_CONVS}")
+    check(torch.equal(torch.cat(got), want),
+          f"fine-tune over the NCCL {world}: replayed loss / accuracy differ from eager")
+    got_w = tiv.to_jckx_flat(net)
+    differ = [k for k in want_w if not np.array_equal(want_w[k], got_w[k])]
+    check(not differ, f"fine-tune over the NCCL {world}: the K = 8 launch differs in {differ[:5]}")
+    _check_replayed(per_step, replayed, 8, f"fine-tune over the NCCL {world}")
+    calls = per_step["all_reduce"][0]
+    print(f"fine-tune over the NCCL {world} ({FT_SIZE}², bs{FT_BATCH}, bf16): 1 eager step + "
+          f"a launch of K = 8 replays equal 9 eager steps bit for bit; {FT_CONVS} kernel "
+          f"launches a step either way; {calls} all-reduces a step, counted 8 times over as "
+          f"replayed   [{card}]")
+    numbers = {"all_reduce_per_step": per_step["all_reduce"][:2], "launches": 18 * FT_CONVS}
+    if turns:
+        ss.invalidate()
+        gen = torch.Generator(device=dev).manual_seed(8)
+        before = fba.LAUNCHES
+        ss.replay(1, feed(gen, 0))  # eager, then captured under the default algorithms
+        torch.cuda.synchronize()
+        numbers.update(capture_s=ss.capture_s, pool_mb=ss.pool_bytes / 1e6)
+        print(f"fine-tune over the NCCL {world}: capture {ss.capture_s:.3f} s, graph pool "
+              f"{ss.pool_bytes / 1e6:.1f} MB   [{card}]")
+        k = 2  # cut from 4 for the script's time
+        numbers["turns"] = _turns(
+            lambda: [step(data, labels, order[i], draw_step(gen, FT_BATCH, dev)) for i in range(k)],
+            lambda: ss.replay(k, feed(gen, 0)), k,
+            f"fine-tune over the NCCL {world} ({FT_SIZE}², bs{FT_BATCH}, bf16)", card)
+        numbers["launches"] += fba.LAUNCHES - before
+    del ss, step, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def child_mesh_graph(spec: dict) -> None:
+    """``phase_mesh_graph``'s work in a NCCL world of one (``_start_child``'s
+    ``env://`` group, brought up by the port's ``init_multihost``), on
+    ``spec["world"]``: the plain world's mesh or the forced-live one
+    (``_forced_live_mesh``), through ``_mesh_graph_gan`` and
+    ``_mesh_graph_finetune``; with ``spec["turns"]``, the DCGAN step and the
+    fine-tune timed in turns (eager, graph, graph, eager) after a recapture
+    under the default algorithms. Writes the numbers and its kernel
+    launches to ``spec["out"]``."""
+    import torch
+    import torch.distributed as dist
+
+    from jckx_torch.kernels import fused_bn_act as fba
+    from jckx_torch.parallel import make_mesh
+
+    dev = _child_init("nccl")
+    torch.use_deterministic_algorithms(False)  # cuDNN deterministic for the checks only
+    card, tmp, world, turns = spec["card"], spec["tmp"], spec["world"], spec["turns"]
+    fba.LAUNCHES = 0
+    t0 = time.perf_counter()
+    mesh = _forced_live_mesh(dev) if world != MESH_GRAPH_WORLDS[0] else make_mesh((1,), device=dev)
+    tr, numbers = _mesh_graph_gan(tmp, mesh, world, dev, card)
+    if turns:
+        ss = tr.superstep
+        ss.invalidate()
+        perm = torch.randperm(4096, generator=torch.Generator().manual_seed(6))
+        k = SUPERSTEP_TIMED
+        rows = [{"idx": r} for r in perm[:k * TRAIN_BATCH].view(k, TRAIN_BATCH).to(dev).unbind()]
+        tr._launch(rows[:1])  # eager, then captured under the default algorithms
+        torch.cuda.synchronize()
+        numbers["DCGAN"].update(capture_s=ss.capture_s, pool_mb=ss.pool_bytes / 1e6)
+        print(f"DCGAN over the NCCL {world}: capture {ss.capture_s:.3f} s, graph pool "
+              f"{ss.pool_bytes / 1e6:.1f} MB   [{card}]")
+
+        def as_eager(batches):
+            tr.superstep = None
+            try:
+                return tr._launch(batches)
+            finally:
+                tr.superstep = ss
+
+        numbers["DCGAN"]["turns"] = _turns(lambda: as_eager(rows), lambda: tr._launch(rows), k,
+                                           f"DCGAN over the NCCL {world} (bs{TRAIN_BATCH}, bf16)",
+                                           card)
+        del ss, as_eager
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    numbers["finetune"] = _mesh_graph_finetune(mesh, world, dev, card, turns)
+    numbers["world_s"] = time.perf_counter() - t0
+    with open(spec["out"], "w") as f:
+        json.dump({"card": card, world: numbers, "launches": fba.LAUNCHES}, f)
+    dist.destroy_process_group()
+
+
+def start_mesh_graph(tmp: str, card: str, world: str, turns: bool) -> tuple:
+    """``child_mesh_graph`` on ``world`` started: → ([the process], its
+    output file)."""
+    out = os.path.join(tmp, f"mesh_graph_{world.replace(' ', '_')}.json")
+    spec = {"tmp": tmp, "card": card, "world": world, "turns": turns, "out": out}
+    return [_start_child("mesh_graph", spec, 0, 1, _free_port())], out
+
+
+def phase_mesh_graph(tmp: str, card: str, plain_out: str) -> int:
+    """The compiled programs over a NCCL process mesh (``utils/graphs.py``,
+    ``graph_for`` over a ``ProcessMesh``) at full width, each world in a
+    child process holding a NCCL world of one (``child_mesh_graph``): the
+    plain world (no collective runs on an axis of one), whose bits
+    ``phase_mesh`` ran beside its own runs (``plain_out``), and here, alone,
+    the forced-live world, whose every step issues its collectives, with
+    its turns. → the kernel launches of both."""
+    procs, out = start_mesh_graph(tmp, card, MESH_GRAPH_WORLDS[1], turns=True)
+    (stdout,) = _join(procs, "phase_mesh_graph", timeout=600)
+    print(stdout, end="")
+    rec = {}
+    for path in (plain_out, out):
+        with open(path) as f:
+            one = json.load(f)
+        rec.update({k: v for k, v in one.items() if k != "launches"},
+                   launches=rec.get("launches", 0) + one["launches"])
+    print("mesh_graph_numbers " + json.dumps(rec))
+    return rec["launches"]
+
+
 CHILDREN = {"train": child_train, "time": child_time, "finetune": child_finetune,
             "time_model": child_time_model, "first_step": child_first_step,
-            "planes": child_planes}
+            "planes": child_planes, "mesh_graph": child_mesh_graph}
 
 
 def _mesh_argv(tmp: str, model: str, run: str, extra=()) -> list:
@@ -3913,7 +4281,7 @@ def phase_mesh_serve(path: str, svc, dev, card: str) -> int:
     return launches
 
 
-def phase_mesh(tmp: str, dev, card: str) -> int:
+def phase_mesh(tmp: str, dev, card: str, also: dict = None) -> int:
     """The data axis of the mesh at full width (64², base width 64, global
     batch 128, ``MESH_STEPS`` steps and one eval of each run, f32, TF32
     off), in child processes (``--child``), most at once:
@@ -3938,7 +4306,9 @@ def phase_mesh(tmp: str, dev, card: str) -> int:
 
     then, alone, the bf16 step timed: the NCCL world of one in turns
     against no mesh, and the gloo pair; collectives per step by kind and
-    their share of the step. → the kernel launches of the mesh runs."""
+    their share of the step. ``also`` (name → started processes, no
+    timing among them: ``phase_mesh_graph``'s plain world) runs beside the
+    runs; its output is printed. → the kernel launches of the mesh runs."""
     import numpy as np
     import torch
 
@@ -3970,6 +4340,8 @@ def phase_mesh(tmp: str, dev, card: str) -> int:
     ft_floor = _ft_step_run(dev, perturb=1e-7)
     for name, ps in procs.items():
         _join(ps, f"phase_mesh {name}")
+    for name, ps in (also or {}).items():
+        print("".join(_join(ps, name)), end="")
     load = lambda name, r=0: torch.load(os.path.join(out, f"{name}.rank{r}.pt"),  # noqa: E731
                                         weights_only=False)
     runs = {name: [load(name, r) for r in range(len(ps))] for name, ps in procs.items()}
@@ -3983,8 +4355,13 @@ def phase_mesh(tmp: str, dev, card: str) -> int:
                                                 f"plain run after {MESH_STEPS} steps")
     check(nccl["step"] == plain["step"] == MESH_STEPS and nccl["launches"] == 4,
           f"NCCL world of one: step {nccl['step']}, {nccl['launches']} launches (want 4)")
+    graphed = (1, MESH_STEPS - 1)
+    check(tuple(nccl["superstep"] or ()) == tuple(plain["superstep"] or ()) == graphed,
+          f"NCCL world of one: superstep {nccl['superstep']}, plain run {plain['superstep']}; "
+          f"want {graphed} (captures, replays)")
     n_params = sum(v.numel() for net in ("G", "D") for v in plain[net].values())
-    print(f"NCCL world of one (--mesh_shape 1 --multihost, env://) against the plain run: "
+    print(f"NCCL world of one (--mesh_shape 1 --multihost, env://) against the plain run, both "
+          f"through the superstep's CUDA graph (1 capture, {MESH_STEPS - 1} replays each): "
           f"{n_params:,} parameter values bit-identical after {MESH_STEPS} steps (DCGAN 64², "
           f"width 64, bs{TRAIN_BATCH}, f32, deterministic algorithms); 4 kernel launches at its "
           f"eval   [{card}]")
@@ -4116,9 +4493,11 @@ def phase_mesh_model(tmp: str, card: str) -> int:
     - the TP run's ``latest.ckpt`` (full tensors) served by
       ``GeneratorService`` (4 launches for a batch of 64);
 
-    then the bf16 step of a TP pair and of a spatial pair (2 warm + 6
+    then the bf16 step of a TP pair and of a spatial pair (1 warm + 3
     timed steps): ms per rank, the collectives per step by kind and their
-    host share. → the kernel launches of the runs' evals and the serve."""
+    host share. The first-step control (``_start_first_step``), which
+    times nothing, runs beside the runs. → the kernel launches of the
+    runs' evals and the serve."""
     import torch
 
     from jckx_torch.kernels import fused_bn_act as fba
@@ -4133,6 +4512,8 @@ def phase_mesh_model(tmp: str, card: str) -> int:
             "spatial_rg0": ("DCGAN", ["--model_axis_mode", "spatial",
                                       "--spatial_replicate_grads", "0"]),
             "tp_cgan": ("CGAN", ["--model_axis_mode", "tp"])}
+    # the first-step control (below) checks no time: it runs beside the runs
+    control = _start_first_step(out)
     procs = {name: _start_group("train", {
         "backend": "gloo", "renders": True, "out": os.path.join(out, name),
         "argv": _mesh_argv(tmp, model, name, pair + flags)}, 2)
@@ -4143,11 +4524,13 @@ def phase_mesh_model(tmp: str, card: str) -> int:
         "argv": _mesh_argv(tmp, "DCGAN", "floor", ["--device", "cuda"])})]
     for name, ps in procs.items():
         _join(ps, f"phase_mesh_model {name}")
+    runs_s = time.perf_counter() - t_phase
+    _join(control, "phase_mesh_model first-step control", timeout=600)
+    gaps_s = time.perf_counter() - t_phase - runs_s
     load = lambda name, r=0: torch.load(os.path.join(out, f"{name}.rank{r}.pt"),  # noqa: E731
                                         weights_only=False)
     res = {name: [load(name, r) for r in range(2)] for name in runs}
     plain = {"DCGAN": load("plain"), "CGAN": load("plain_cgan")}
-    runs_s = time.perf_counter() - t_phase
     floor = load("floor")["first"]
     print(f"noise floor: the plain DCGAN run from weights nudged by {MODEL_FLOOR:g} relative "
           f"against the plain run, step 1: telemetry max |diff| "
@@ -4246,17 +4629,16 @@ def phase_mesh_model(tmp: str, card: str) -> int:
     # the spatial pair's first step against the plain step, on the card (f32,
     # f64) and on the CPU (f32): which fields differ, and whether without
     # cuDNN or in f64
-    t0 = time.perf_counter()
     numbers["first_step_gaps"] = gaps = _first_step_gaps(out)
     for where, by_field in gaps.items():
         print(f"first DCGAN step (64², width 64, bs{TRAIN_BATCH}, the same weights, batch and "
               f"draws) of a spatial (1, 2) gloo pair against the plain step on the {where}: "
               f"|diff| by field {_fields_text(by_field)}   [{card}]")
-    gaps_s = time.perf_counter() - t0
     numbers["gaps_s"] = gaps_s
     print("mesh_model_numbers " + json.dumps(numbers))
     print(f"phase_mesh_model: {time.perf_counter() - t_phase:.1f} s ({runs_s:.1f} s the runs at "
-          f"once, {timing_s:.1f} s the timing, {gaps_s:.1f} s the first-step control); "
+          f"once, {timing_s:.1f} s the timing, {gaps_s:.1f} s more for the first-step control "
+          f"beside them); "
           f"{launches} kernel launches")
     return launches, numbers
 
@@ -4269,19 +4651,24 @@ FIRST_STEP_RUNS = {"card": ("cuda", False), "card, computed in f64": ("cuda", Tr
                    "CPU": ("cpu", False)}  # name: (device, f64)
 
 
-def _first_step_gaps(out: str) -> dict:
+def _start_first_step(out: str) -> list:
     """``child_first_step`` on the card in f32 and in f64 and on the CPU in
-    f32, each alone and as a spatial gloo pair, all at once. → {run name
-    (``FIRST_STEP_RUNS``): {field: |pair - plain|}} of the first step's
-    telemetry."""
-    import torch
-
+    f32, each alone and as a spatial gloo pair, all at once. → the
+    processes."""
     procs = []
     for i, (where, f64) in enumerate(FIRST_STEP_RUNS.values()):
         spec = {"device": where, "f64": f64, "out": os.path.join(out, f"first_{i}")}
         procs += [_start_child("first_step", {**spec, "mode": ""})]
         procs += _start_group("first_step", {**spec, "mode": "spatial"}, 2)
-    _join(procs, "phase_mesh_model first-step control", timeout=600)
+    return procs
+
+
+def _first_step_gaps(out: str) -> dict:
+    """After ``_start_first_step``'s processes: {run name
+    (``FIRST_STEP_RUNS``): {field: |pair - plain|}} of the first step's
+    telemetry."""
+    import torch
+
     gaps = {}
     for i, name in enumerate(FIRST_STEP_RUNS):
         load = lambda mode: torch.load(  # noqa: E731
@@ -4565,10 +4952,14 @@ def main() -> None:
         torch.cuda.empty_cache()
         plane_launches = phase_data_planes_alone(tmp, card)
         lap("phase_data_planes")
-        mesh_launches = phase_mesh(tmp, dev, card)
+        # phase_mesh_graph's plain world checks bits beside phase_mesh's runs
+        plain_graph, plain_out = start_mesh_graph(tmp, card, MESH_GRAPH_WORLDS[0], turns=False)
+        mesh_launches = phase_mesh(tmp, dev, card, also={"phase_mesh_graph, plain": plain_graph})
         model_launches, mesh_model = phase_mesh_model(tmp, card)
         mesh_launches += model_launches
         lap("phase_mesh, phase_mesh_model")
+        mesh_launches += phase_mesh_graph(tmp, card, plain_out)
+        lap("phase_mesh_graph")
         superstep_launches = phase_superstep(tmp, dev, card)
         lap("phase_superstep")
     phase_plan(dev, card, train_t, mesh_model)

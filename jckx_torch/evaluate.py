@@ -16,7 +16,9 @@ intra-FID. On the card G's forwards run through the fused BN kernel, each
 a replay of one CUDA graph per forward shape, as the trainer's eval
 sampler (``gan_trainer.eval_program``; jckx jits its sampler,
 ``jckx/evaluate.py:203-211``), and the metrics engine's InceptionV3
-forwards replay too (``metrics.Metrics``). Over a mesh both stay eager.
+forwards replay too (``metrics.Metrics``). Over a NCCL mesh (``--mesh_shape
+N``) the sampler's graph holds the rank's rows, G's sync-BN and the ordered
+gather; over gloo both stay eager. The log names the route.
 
 It reads the port's ``.pt`` and ``latest.ckpt`` files, the reference's
 ``.pt`` and jckx's ``.ckpt`` through ``checkpoint.load_generator``, the
@@ -59,6 +61,7 @@ import torch
 
 from jckx_torch.checkpoint.checkpoint import GEOMETRY_FIELDS, load_generator
 from jckx_torch.configs import Config
+from jckx_torch.logging.main_logger import MainLogger
 from jckx_torch.ops.quant import make_sampler
 from jckx_torch.parallel.mesh import process_mesh
 from jckx_torch.train.gan_trainer import eval_program, fixed_eval_inputs, sample_eval_images
@@ -157,8 +160,13 @@ def evaluate(args, metrics=None) -> dict:
     def sampler(zz, *rest, mesh=None):
         return apply(params, zz, rest[0] if conditional else None, mesh)
 
-    graph, _ = graph_for(device, mesh=mesh)
-    fake = sample_eval_images(sampler, z, onehot, cd, mesh, eval_program(sampler, cd, device, graph))
+    graph, why_eager = graph_for(device, mesh=mesh)
+    MainLogger(cfg).debug("eval sampler: " + (
+        "one CUDA graph per G forward shape" + (", the mesh's collectives inside it"
+                                                if mesh is not None else "")
+        if graph else f"eager, {why_eager}"))
+    fake = sample_eval_images(sampler, z, onehot, cd, mesh,
+                              eval_program(sampler, cd, device, graph, mesh))
     feats = metrics.extract_features(fake)
     result = {"step": step, "n": n,
               **({"quant": "int8"} if args.quant == "int8" else {}),

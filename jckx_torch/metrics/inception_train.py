@@ -27,8 +27,10 @@ indices copied in). Launches go as jckx's (``:496-530``): ``--scan_steps
 K`` replays K steps per launch and reads their loss once, at its end, to
 log its mean (jckx's ``make_superstep``, ``:107-130``); ``0`` replays one
 step per launch. Either way the host reads the epoch's loss and accuracy
-once, at its end. Over a mesh the steps stay eager (gloo's collectives
-cannot be captured), and so do they on the CPU. The eval forward folds the
+once, at its end. Over a NCCL mesh the graph holds the step's collectives
+(``bn_relu_train``'s all-reduces, the gradient average, the loss and
+accuracy means); over gloo, whose collectives run on the host, and on the
+CPU the steps stay eager, and the log says why. The eval forward folds the
 running statistics into plain BN, as jckx's, and launches no kernel.
 
 Random draws (crop boxes, flips, dropout masks) come from one
@@ -162,14 +164,15 @@ def step_inputs(idx: torch.Tensor, draws: StepDraws) -> dict:
 
 
 def make_superstep(step: Callable, data_u8: torch.Tensor, labels_all: torch.Tensor,
-                   graph) -> Superstep:
-    """``make_train_step``'s step as a ``Superstep`` on the resident set:
-    its inputs ``step_inputs``', its output (loss, acc)."""
+                   graph, mesh=None) -> Superstep:
+    """``make_train_step``'s step (over ``mesh``) as a ``Superstep`` on the
+    resident set: its inputs ``step_inputs``' (the global batch's), its
+    output (loss, acc)."""
     def body(x: dict) -> torch.Tensor:
         draws = StepDraws(CropDraws(*(x[k] for k in CropDraws._fields)), x["keep"])
         return torch.stack(step(data_u8, labels_all, x["idx"], draws))
 
-    return Superstep(body, data_u8.device, graph)
+    return Superstep(body, data_u8.device, graph, mesh)
 
 
 def make_eval_fn(net: inception_v3.InceptionV3, compute_dtype=torch.bfloat16,
@@ -378,9 +381,11 @@ def train(args) -> FinetuneRun:
     if mesh is not None:
         resume = mesh.agree(resume, f"--resume: {state_path} exists")
     graph, why_eager = graph_for(device, mesh=mesh)
-    superstep = make_superstep(step, data_dev, labels_dev, graph) if graph else None
-    logger.debug("train step: " + ("one CUDA graph, captured after the run's first (eager) step "
-                                   "and replayed" if graph else f"eager, {why_eager}"))
+    superstep = make_superstep(step, data_dev, labels_dev, graph, mesh) if graph else None
+    logger.debug("train step: " + (
+        "one CUDA graph, captured after the run's first (eager) step and replayed"
+        + ("; the mesh's collectives inside it" if mesh is not None else "")
+        if graph else f"eager, {why_eager}"))
     if resume:
         epoch, best_acc, best_loss, patience = load_train_state(state_path, net, opt, gen)
         if superstep is not None:  # the momentum buffers are new tensors

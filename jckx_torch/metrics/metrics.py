@@ -44,8 +44,10 @@ cache, ``extract_features``, ``inception_score``, ``fid``, ``intra_fid``).
   jckx jits its feature pipelines, ``jckx/metrics/metrics.py:125-126``,
   ``:504-510``): the last batch is padded to full size, so one graph
   serves a whole extraction, a device set and the host set's slabs alike
-  (the slab copies stay outside it). Eager on the CPU, on a mesh and under
-  ``--sanitize``; ``program = None`` forces the eager route.
+  (the slab copies stay outside it). Over a NCCL mesh each rank replays
+  its rows' forward (the gather of the features stays outside the graph).
+  Eager on the CPU, over gloo and under ``--sanitize`` (the log says
+  why); ``program = None`` forces the eager route.
 """
 
 from __future__ import annotations
@@ -118,8 +120,10 @@ class Metrics:
                      for v in (IMAGENET_MEAN, IMAGENET_STD))
         self._logits = functools.partial(inception_logits, self.backbone, mean, std,
                                          compute_dtype, self.fast_stem)
-        graph, _ = graph_for(self.device, bool(getattr(config, "sanitize", False)), mesh)
-        self.program = GraphedProgram(self._logits, self.device, graph) if graph else None
+        graph, why_eager = graph_for(self.device, bool(getattr(config, "sanitize", False)), mesh)
+        self.program = GraphedProgram(self._logits, self.device, graph, mesh) if graph else None
+        self._logger.debug("metrics forward: " + ("one CUDA graph per batch shape" if graph
+                                                  else f"eager, {why_eager}"))
 
         real_u8, real_labels = metric_source
         # superclass index maps (reference metrics.py:56-68); the fakes are

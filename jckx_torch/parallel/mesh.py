@@ -50,7 +50,21 @@ The collectives take the axis they run over: ``"data"``, ``"model"`` or
 - ``all_gather_rows(t)``: the data axis's rows concatenated in order;
 - ``average_grads(params, sharded)`` (process mesh): the gradients of the
   global mean loss, through one flat buffer per kind (below);
-- ``any(flag)`` / ``agree`` / ``broadcast_object`` over the world.
+- ``any(flag)`` / ``agree`` / ``broadcast_object`` over the world. These
+  read the host, so they stay outside every CUDA graph, at launch
+  boundaries.
+
+Captured collectives. A NCCL process mesh, or one with no process group,
+is ``capturable``: its collectives can be recorded into a CUDA graph with
+the work around them (``utils/graphs.py``), as jckx's compiled programs
+hold theirs. gloo runs on the host and a ``LocalMesh`` meets at a host
+barrier, so neither is; nor is a model axis > 1 on NCCL, whose halos and
+channel gathers have not run between two cards (``eager_reason``). A
+replay runs no Python, so ``stats`` cannot count its calls as they run:
+the graph's eager warm call counts them (host seconds included), the
+capture takes back what its own Python counted, and each replay adds the
+warm call's calls and bytes (by kind and wire dtype) and counts them as
+``replayed``, with no host seconds.
 
 Gradients over a model axis. Each rank's autograd takes the exact adjoint
 of every collective, so a rank's ``backward`` gives the gradient, for its
@@ -313,7 +327,9 @@ class _HaloAdjoint(torch.autograd.Function):
 class CollectiveStats:
     """Calls, bytes and host seconds of the mesh's collectives, by kind, and
     the calls and bytes of each kind by the dtype that went over the wire
-    (``by_dtype[kind][dtype] = [calls, bytes]``; ``utils/comm.py`` reads it)."""
+    (``by_dtype[kind][dtype] = [calls, bytes]``; ``utils/comm.py`` reads it).
+    ``replayed[kind]`` of the calls ran inside CUDA graph replays, which
+    have no host seconds of their own (module docstring)."""
 
     KINDS = ("all_reduce", "all_gather", "reduce_scatter", "halo_send_recv")
 
@@ -324,19 +340,51 @@ class CollectiveStats:
         self.calls = {k: 0 for k in self.KINDS}
         self.bytes = {k: 0 for k in self.KINDS}
         self.seconds = {k: 0.0 for k in self.KINDS}
+        self.replayed = {k: 0 for k in self.KINDS}
         self.by_dtype: Dict[str, Dict[torch.dtype, List[int]]] = {k: {} for k in self.KINDS}
 
-    def add(self, kind: str, nbytes: int, seconds: float, dtype: torch.dtype) -> None:
-        self.calls[kind] += 1
+    def add(self, kind: str, nbytes: int, seconds: float, dtype: torch.dtype,
+            calls: int = 1) -> None:
+        self.calls[kind] += calls
         self.bytes[kind] += int(nbytes)
         self.seconds[kind] += seconds
         entry = self.by_dtype[kind].setdefault(dtype, [0, 0])
-        entry[0] += 1
+        entry[0] += calls
         entry[1] += int(nbytes)
 
+    def snapshot(self) -> dict:
+        """A copy of every count, for ``since`` and ``restore``."""
+        return {"calls": dict(self.calls), "bytes": dict(self.bytes),
+                "seconds": dict(self.seconds), "replayed": dict(self.replayed),
+                "by_dtype": {k: {dt: list(v) for dt, v in m.items()}
+                             for k, m in self.by_dtype.items()}}
+
+    def since(self, snap: dict) -> tuple:
+        """The calls counted since ``snap``: ``((kind, dtype, calls, bytes), ...)``."""
+        out = []
+        for kind, m in self.by_dtype.items():
+            for dt, (calls, nbytes) in m.items():
+                c0, b0 = snap["by_dtype"][kind].get(dt, (0, 0))
+                if calls != c0:
+                    out.append((kind, dt, calls - c0, nbytes - b0))
+        return tuple(out)
+
+    def restore(self, snap: dict) -> None:
+        """Every count back to ``snap``'s."""
+        self.calls, self.bytes = dict(snap["calls"]), dict(snap["bytes"])
+        self.seconds, self.replayed = dict(snap["seconds"]), dict(snap["replayed"])
+        self.by_dtype = {k: {dt: list(v) for dt, v in m.items()}
+                         for k, m in snap["by_dtype"].items()}
+
+    def add_replayed(self, collectives: tuple) -> None:
+        """One replay of a graph whose call made ``collectives`` (``since``'s form)."""
+        for kind, dt, calls, nbytes in collectives:
+            self.add(kind, nbytes, 0.0, dt, calls)
+            self.replayed[kind] += calls
+
     def as_dict(self) -> dict:
-        return {k: {"calls": self.calls[k], "bytes": self.bytes[k],
-                    "host_s": self.seconds[k]} for k in self.KINDS}
+        return {k: {"calls": self.calls[k], "bytes": self.bytes[k], "host_s": self.seconds[k],
+                    "replayed_calls": self.replayed[k]} for k in self.KINDS}
 
 
 class Mesh:
@@ -401,9 +449,10 @@ class ProcessMesh(Mesh):
         self.device = torch.device("cpu" if device is None else device)
         self.stats = CollectiveStats()
         self.global_rank = dist.get_rank() if self.distributed else 0
+        self.backend = dist.get_backend() if self.distributed else None
         d, m = self.size, self.model_size
         self._groups: Dict[str, object] = {WORLD: None, DATA_AXIS: None, MODEL_AXIS: None}
-        self._staged = self.distributed and dist.get_backend() in _STAGED
+        self._staged = self.backend in _STAGED
         if self.distributed and m > 1:
             for i in range(d):
                 g = dist.new_group(list(range(i * m, (i + 1) * m)))
@@ -428,8 +477,28 @@ class ProcessMesh(Mesh):
         """World rank 0: the one rank that writes files."""
         return self.global_rank == 0
 
+    @property
+    def capturable(self) -> bool:
+        """NCCL's collectives (or none at all) can be captured; gloo's run
+        on the host."""
+        return self.backend in (None, "nccl")
+
+    def eager_reason(self) -> str:
+        """Why work over this mesh cannot be one CUDA graph; "" where it can."""
+        if not self.capturable:
+            return f"its {self.backend} collectives run on the host"
+        if self.model_size > 1:
+            return (f"its model axis of {self.model_size} (halo exchanges and channel gathers "
+                    f"over NCCL wait for a machine with two or more cards)")
+        return ""
+
     def _live(self, axis: str) -> bool:
         return self.distributed and self.axis_size(axis) > 1
+
+    def _sum(self, t: torch.Tensor, axis: str) -> None:
+        """The sum of ``t`` over ``axis``, in place: the one call through
+        which every sum goes over the wire."""
+        dist.all_reduce(t, group=self._groups[axis])
 
     def _timed(self, kind: str, wire: torch.Tensor, nbytes: int, fn: Callable):
         """``fn()``, counted as one ``kind`` call of ``nbytes`` in ``wire``'s dtype."""
@@ -451,7 +520,7 @@ class ProcessMesh(Mesh):
         out = self._wire(t.detach()).clone(memory_format=torch.contiguous_format)
         if self._live(axis):
             self._timed("all_reduce", out, out.numel() * out.element_size(),
-                        lambda: dist.all_reduce(out, group=self._groups[axis]))
+                        lambda: self._sum(out, axis))
         return out.to(t.dtype)
 
     def _all_gather(self, t: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
@@ -476,7 +545,7 @@ class ProcessMesh(Mesh):
             # a 16-bit float is summed in f32 and rounded once
             host = full.to("cpu", torch.promote_types(full.dtype, torch.float32), copy=True)
             self._timed("reduce_scatter", host, host.numel() * host.element_size(),
-                        lambda: dist.all_reduce(host, group=self._groups[axis]))
+                        lambda: self._sum(host, axis))
             out = host.chunk(n, dim)[idx].to(t.device, t.dtype)
         else:
             chunks = [c.contiguous() for c in full.chunk(n, dim)]
@@ -664,6 +733,10 @@ class LocalMesh(Mesh):
                          errors[0])
             raise first
         return results
+
+    def eager_reason(self) -> str:
+        """Why serving over this mesh stays eager (``ProcessMesh.eager_reason``)."""
+        return "a local mesh renders from one thread per device and meets at a host barrier"
 
     def _exchange(self, t: torch.Tensor) -> List[torch.Tensor]:
         """Every member's ``t``, in member order, readable on this member's

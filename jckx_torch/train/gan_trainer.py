@@ -10,8 +10,11 @@ the run's first step, and the first after a restore, is the eager step,
 then the step is captured, and a launch of k steps is k replays. The
 resident plane's indices and the streamed slab's rows are copied into the
 graph's inputs, with the draws of (seed, step) and a cosine schedule's lr
-made on the host before each replay. The step stays eager on the CPU,
-under ``--sanitize`` and on a mesh (the log says which). Steps go in
+made on the host before each replay. Over a NCCL process mesh whose model
+axis is 1 the step's collectives are nodes of the graph, and the feed
+draws the global batch and keeps this rank's rows, as the eager step does.
+The step stays eager on the CPU, under ``--sanitize``, over gloo and with a
+model axis (the log says which). Steps go in
 launches of ``K = min(log_every, eval_every, steps_per_epoch)``
 (``:516-517``), the six scalars of a launch come to the host once, at its
 end, and the checks and logs of jckx run there:
@@ -45,8 +48,9 @@ end, and the checks and logs of jckx run there:
   class, class-major, in chunks of 500 (``:913-923``): under batch-stat
   BN the chunking is part of the function, so 2 forwards at K = 100.
   On the card each forward is a replay of one CUDA graph per forward
-  shape (``eval_program``; eager where the step is), rebuilt after a
-  restore. Then FID / IS (and CGAN's intra-FID), best-metric checkpoints
+  shape (``eval_program``; eager where the step is; over a mesh the graph
+  holds the rank's rows, G's sync-BN and the ordered gather), rebuilt
+  after a restore. Then FID / IS (and CGAN's intra-FID), best-metric checkpoints
   and grids, and ``latest.ckpt``;
 - ``--resume`` restores ``latest.ckpt`` and fast-forwards the shuffle
   stream; the step's draws derive from (seed, step), so the resumed run
@@ -110,7 +114,7 @@ from jckx_torch.models.dcgan import GANGeometry
 from jckx_torch.parallel import tp
 from jckx_torch.train.state import create_dcgan_state, geometry, schedule_lr
 from jckx_torch.train.steps import (METRIC_NAMES, StepDraws, compute_dtype, derive_seed,
-                                    make_cgan_train_step, make_draws, make_dcgan_train_step)
+                                    make_cgan_train_step, make_dcgan_train_step, rank_draws)
 from jckx_torch.train.superstep import Superstep
 from jckx_torch.utils.device import resolve_device
 from jckx_torch.utils.graphs import GraphedProgram, graph_for
@@ -139,17 +143,32 @@ def fixed_eval_inputs(seed: int, geo: GANGeometry, conditional: bool, num_classe
     return z, one_hot(labels, num_classes)
 
 
-def eval_program(G, cd, device: torch.device, graph: Optional[type]) -> Optional[GraphedProgram]:
-    """G's eval forward (``G(z, cd)``, or ``G(z, onehot, cd)`` for CGAN) as
-    a graphed program, one graph per forward shape (jckx jits its eval
-    sampler, ``jckx/train/gan_trainer.py:337``, ``jckx/evaluate.py:
-    203-211``); None where ``graph`` is (``graph_for``: the CPU, a mesh,
-    ``--sanitize``). The program holds this G: whatever rebinds its tensors
-    needs a new program."""
+def _forward(G, cd, mesh=None):
+    """One eval forward of G on a forward's inputs (``G(z, cd)``, or ``G(z,
+    onehot, cd)`` for CGAN). Over ``mesh`` each rank renders its rows with
+    the global statistics, and the rows are gathered in order."""
+    def forward(zz, oh):
+        if mesh is None:
+            return G(zz, cd) if oh is None else G(zz, oh, cd)
+        zz, oh = mesh.rows(zz), None if oh is None else mesh.rows(oh)
+        out = G(zz, cd, mesh=mesh) if oh is None else G(zz, oh, cd, mesh=mesh)
+        return mesh.all_gather_rows(out)
+
+    return forward
+
+
+def eval_program(G, cd, device: torch.device, graph: Optional[type],
+                 mesh=None) -> Optional[GraphedProgram]:
+    """G's eval forward (``_forward``) as a graphed program, one graph per
+    forward shape (jckx jits its eval sampler, ``jckx/train/gan_trainer.py:
+    337``, ``jckx/evaluate.py:203-211``); over ``mesh`` the graph holds
+    the rank's rows, the statistics' all-reduces and the gather. None where
+    ``graph`` is (``graph_for``: the CPU, a mesh that stays eager,
+    ``--sanitize``). The program holds this G: whatever rebinds its
+    tensors needs a new program."""
     if graph is None:
         return None
-    return GraphedProgram(lambda zz, oh: G(zz, cd) if oh is None else G(zz, oh, cd), device,
-                          graph)
+    return GraphedProgram(_forward(G, cd, mesh), device, graph, mesh)
 
 
 def sample_eval_images(G, z: torch.Tensor, onehot: Optional[torch.Tensor], cd,
@@ -157,17 +176,10 @@ def sample_eval_images(G, z: torch.Tensor, onehot: Optional[torch.Tensor], cd,
     """G on the eval inputs with no grad (on the card, through the fused BN
     kernel): one forward for DCGAN, chunks of ``EVAL_CHUNK`` for CGAN (a
     shorter last chunk is another shape). ``program`` (``eval_program`` of
-    this G) replays each forward as a graph. Over ``mesh`` each rank
-    renders its rows of every forward with the global statistics, and the
-    rows are gathered in order."""
-    def forward(zz, oh):
-        if program is not None:
-            return program(zz, oh)
-        if mesh is None:
-            return G(zz, cd) if oh is None else G(zz, oh, cd)
-        zz, oh = mesh.rows(zz), None if oh is None else mesh.rows(oh)
-        out = G(zz, cd, mesh=mesh) if oh is None else G(zz, oh, cd, mesh=mesh)
-        return mesh.all_gather_rows(out)
+    this G over this mesh) replays each forward as a graph. Over ``mesh``
+    each rank renders its rows of every forward with the global
+    statistics, and the rows are gathered in order."""
+    forward = program if program is not None else _forward(G, cd, mesh)
 
     with torch.no_grad():
         if onehot is None:
@@ -259,12 +271,15 @@ class _BaseGANTrainer:
         # the body holds the trainer weakly: a dropped trainer frees its
         # graph's memory at once, not at the next cyclic collection
         body = weakref.WeakMethod(self._graph_body)
-        self.superstep = Superstep(lambda x: body()(x), self.device, graph) if graph else None
+        self.superstep = (Superstep(lambda x: body()(x), self.device, graph, mesh) if graph
+                          else None)
         self._eval_graph = graph
         self.eval_program = self._eval_program()
         self.logger.debug("train step: " + (
             "one CUDA graph, captured after the run's first (eager) step and replayed; the eval "
-            "sampler one graph per forward shape" if graph else f"eager, {why_eager}"))
+            "sampler one graph per forward shape"
+            + ("; the mesh's collectives inside them" if mesh is not None else "")
+            if graph else f"eager, {why_eager}"))
         if cfg.init_from_torch:
             self._restore(cfg.init_from_torch)
             self.logger.info(f"warm-started from torch checkpoint {cfg.init_from_torch} "
@@ -503,8 +518,8 @@ class _BaseGANTrainer:
             # the host's part of step s0 + j: its lr and draws, which a capture would freeze
             self.state.step = s0 + j
             schedule_lr(self.cfg, self.state)
-            draws = make_draws(self.state.seed, self.state.step, self.local_bs, self.geo,
-                               self.device, self.conditional)
+            draws = rank_draws(self.state.seed, self.state.step, self.local_bs, self.geo,
+                               self.device, self.mesh, self.conditional)
             return {**batches[j], **{k: v for k, v in vars(draws).items() if v is not None}}
 
         rows = self.superstep.replay(len(batches), feed, warm=eager)
@@ -550,7 +565,7 @@ class _BaseGANTrainer:
         """The eval sampler's program for the current EMA (or G): Adam and
         the EMA update their tensors in place, so it stays valid across
         training; a restore, which binds new ones, builds another."""
-        return eval_program(self._eval_G(), self.cd, self.device, self._eval_graph)
+        return eval_program(self._eval_G(), self.cd, self.device, self._eval_graph, self.mesh)
 
     def sample_eval(self) -> torch.Tensor:
         """The fixed eval inputs through the EMA generator when on, else G

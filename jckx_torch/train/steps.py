@@ -317,12 +317,13 @@ def _remat_flags(cfg: Config):
     return cfg.remat in ("g", "both"), cfg.remat in ("d", "both")
 
 
-def _rank_draws(state: GANTrainState, real: torch.Tensor, geo: GANGeometry, mesh,
-                conditional: bool) -> StepDraws:
-    """The global batch's draws of (seed, step), this rank's rows."""
-    n = real.shape[0] * (mesh.size if mesh is not None else 1)
-    return shard_draws(make_draws(state.seed, state.step, n, geo, real.device, conditional),
-                       mesh)
+def rank_draws(seed: int, step: int, local_n: int, geo: GANGeometry, device: torch.device,
+               mesh, conditional: bool) -> StepDraws:
+    """The draws of (seed, step) for the global batch of which this rank
+    holds ``local_n`` rows, this rank's rows of them (every route's rule:
+    the eager step's, the superstep's feed's, jckx's)."""
+    n = local_n * (mesh.size if mesh is not None else 1)
+    return shard_draws(make_draws(seed, step, n, geo, device, conditional), mesh)
 
 
 def _localize(layout, real: torch.Tensor, draws: StepDraws):
@@ -356,7 +357,8 @@ def make_dcgan_train_step(cfg: Config, geo: GANGeometry, mesh=None) -> Callable:
     def step(state: GANTrainState, real: torch.Tensor,
              draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
         if draws is None:
-            draws = _rank_draws(state, real, geo, mesh, conditional=False)
+            draws = rank_draws(state.seed, state.step, real.shape[0], geo, real.device, mesh,
+                               conditional=False)
         return _advance(cfg, state, lambda: body(state, real, draws))
 
     step.body = body
@@ -383,7 +385,8 @@ def make_cgan_train_step(cfg: Config, geo: GANGeometry, mesh=None) -> Callable:
     def step(state: GANTrainState, real: torch.Tensor, onehot: torch.Tensor,
              draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
         if draws is None:
-            draws = _rank_draws(state, real, geo, mesh, conditional=True)
+            draws = rank_draws(state.seed, state.step, real.shape[0], geo, real.device, mesh,
+                               conditional=True)
         return _advance(cfg, state, lambda: body(state, real, onehot, draws))
 
     step.body = body

@@ -34,15 +34,22 @@ A ``Superstep`` holds:
   recaptures.
 
 The kernel wrapper counts its launches in Python
-(``kernels/fused_bn_act.LAUNCHES``), which a replay does not run. The warm
-step runs the body's Python, so its count is the graph's: a capture takes
-back what it counted (it launches nothing) and every replay adds the
-warm step's count.
+(``kernels/fused_bn_act.LAUNCHES``), and a process mesh its collectives
+(``mesh.stats``), neither of which a replay runs. The warm step runs the
+body's Python, so its counts are the graph's: a capture takes back what it
+counted (it launches nothing) and every replay adds the warm step's
+counts, the collectives marked as replayed.
+
+Over a NCCL process mesh (model axis 1) the step's collectives, sync-BN's
+all-reduces, the flat gradient average and the telemetry mean, are nodes of
+the graph; every rank warms, captures and replays at the same step, and a
+restore invalidates every rank's graph at the same step.
 
 A failed capture or replay raises; nothing falls back to eager steps.
 The graph classes live in ``utils/graphs.py`` with the inference
 programs' ``GraphedProgram``: ``graph_for`` says where the graph runs (on
-a CUDA device, not under ``--sanitize`` nor on a mesh), and
+a CUDA device, not under ``--sanitize``, with no mesh or a NCCL one whose
+model axis is 1), and
 ``EagerGraph`` is the CPU's stand-in for a graph: its capture keeps the
 callable and runs nothing, its replay runs it again on the static inputs,
 so the host logic runs in the CPU tests.
@@ -62,13 +69,15 @@ Inputs = Dict[str, torch.Tensor]
 
 class Superstep:
     """See the module docstring. ``graph`` is ``CudaGraph`` on the card
-    (``graph_for``), ``EagerGraph`` for the CPU tests."""
+    (``graph_for``), ``EagerGraph`` for the CPU tests; ``mesh`` is the one
+    the step's collectives run over."""
 
     def __init__(self, body: Callable[[Inputs], torch.Tensor], device: torch.device,
-                 graph: type = CudaGraph):
+                 graph: type = CudaGraph, mesh=None):
         self.body = body
         self.device = device
         self.graph_cls = graph
+        self.mesh = mesh
         self.cap = None  # the capture (utils/graphs.Captured)
         self.inputs: Optional[Inputs] = None
         self.launches = 0     # fused-kernel launches in one step: added per replay
@@ -101,7 +110,7 @@ class Superstep:
                 inputs = self.inputs = {name: t.clone() for name, t in x.items()}
                 y, self.cap = warm_and_capture(self.graph_cls, self.device,
                                                lambda: (warm or self.body)(x),
-                                               lambda: self.body(inputs))
+                                               lambda: self.body(inputs), mesh=self.mesh)
                 self.launches, self.capture_s = self.cap.launches, self.cap.seconds
                 self.captures += 1
             else:

@@ -12,12 +12,16 @@ so a call is one graph launch with no Python op-by-op dispatch.
 - ``EagerGraph``: the CPU's stand-in. Its capture keeps the callable and
   runs nothing, its replay runs it again, so the host logic around a graph
   runs in the CPU tests.
-- ``graph_for``: where a graph runs. On a CUDA device, and not under
+- ``graph_for``: where a graph runs. On a CUDA device, not under
   ``--sanitize`` (anomaly detection checks each backward function as it
   runs, eagerly by nature, as ``jax_debug_nans`` de-optimizes jckx's
-  programs) nor on a mesh (gloo's collectives run on the host, and a local
-  mesh renders from one thread per device). Elsewhere the work stays eager,
-  and the caller says why.
+  programs), and with no mesh or a mesh whose collectives can be captured:
+  a NCCL process mesh with a model axis of 1, any size of data axis
+  (``parallel/mesh.py``). Its all-reduces and gathers are then nodes of
+  the graph, as jckx's ``jax.jit`` programs hold their collectives. gloo's
+  collectives run on the host, a local mesh renders from one thread per
+  device, and a model axis over NCCL has not run between two cards: there
+  the work stays eager, and the caller says why.
 - ``GraphedProgram``: an inference program as ``jax.jit`` runs one. It is
   keyed by its inputs' shapes and dtypes. The first call at a key runs the
   program eagerly on the capture's stream; that call is also the call's
@@ -31,10 +35,15 @@ so a call is one graph launch with no Python op-by-op dispatch.
   hold it across replays.
 
 The kernel wrapper counts its launches in Python
-(``kernels/fused_bn_act.LAUNCHES``), which a replay does not run. The warm
-call runs the program's Python, so its count is the graph's: a capture
-takes back what it counted (it launches nothing) and every replay adds the
-warm call's count.
+(``kernels/fused_bn_act.LAUNCHES``), and the mesh its collectives
+(``ProcessMesh.stats``), neither of which a replay runs. The warm call runs
+the program's Python, so its counts are the graph's: a capture takes back
+what it counted (it launches nothing) and every replay adds the warm
+call's counts, its collectives marked as replayed.
+
+Over a mesh every rank warms, captures and replays at the same call, so
+the ranks' collective sequences stay one; the mesh's host-side agreement
+(``any``, ``agree``) runs between replays, never inside one.
 
 A failed capture or replay raises; nothing falls back to eager calls.
 """
@@ -116,12 +125,13 @@ class EagerGraph:
 
 def graph_for(device: torch.device, sanitize: bool = False,
               mesh=None) -> Tuple[Optional[type], str]:
-    """→ (the graph class work on ``device`` runs as, ``""``), or (None, why
-    the work stays eager there)."""
+    """→ (the graph class work on ``device`` (over ``mesh``) runs as,
+    ``""``), or (None, why the work stays eager there)."""
     if mesh is not None:
-        return None, ("on a mesh, whose collectives cannot be captured (gloo runs on the host; "
-                      "NCCL runs as a world of one on one card; a local mesh renders from one "
-                      "thread per device)")
+        why = mesh.eager_reason() if hasattr(mesh, "eager_reason") else (
+            "its collectives cannot be captured")
+        if why:
+            return None, f"on a mesh that stays eager: {why}"
     if sanitize:
         return None, "under --sanitize, whose anomaly detection checks each backward eagerly"
     if device.type != "cuda":
@@ -134,47 +144,66 @@ class Captured(NamedTuple):
     output: torch.Tensor  # the static output each replay overwrites
     launches: int         # fused-kernel launches in one call: added per replay
     seconds: float        # host seconds of the capture
+    stats: object = None  # the mesh's CollectiveStats, or None
+    collectives: tuple = ()  # the collectives of one call (stats.since's form): added per replay
 
 
 def warm_and_capture(graph_cls: type, device: torch.device, warm: Callable[[], torch.Tensor],
-                     body: Callable[[], torch.Tensor], pool=None) -> Tuple[torch.Tensor, Captured]:
+                     body: Callable[[], torch.Tensor], pool=None,
+                     mesh=None) -> Tuple[torch.Tensor, Captured]:
     """``warm()`` eagerly on a new graph's stream, then ``body()`` (the same
     work on the static inputs) captured, into ``pool`` if given, writing
     one static output (allocated outside the pool) shaped as warm's
-    answer. → (warm's answer, the capture)."""
+    answer. ``mesh`` is the one the work's collectives run over: its
+    ``stats`` keep the warm call's counts and not the capture's. → (warm's
+    answer, the capture)."""
+    stats = getattr(mesh, "stats", None)
     graph = graph_cls(device)
     before = fused_bn_act.LAUNCHES
+    counted = stats.snapshot() if stats is not None else None
     y = graph.warm(warm)
     launches = fused_bn_act.LAUNCHES - before
+    collectives = stats.since(counted) if stats is not None else ()
     output = torch.empty_like(y)
     before = fused_bn_act.LAUNCHES
+    counted = stats.snapshot() if stats is not None else None
     t0 = time.perf_counter()
     graph.capture(lambda: output.copy_(body()), pool)
     seconds = time.perf_counter() - t0
     fused_bn_act.add_launches(before - fused_bn_act.LAUNCHES)
-    return y, Captured(graph, output, launches, seconds)
+    if stats is not None:
+        stats.restore(counted)
+    return y, Captured(graph, output, launches, seconds, stats, collectives)
 
 
 def replay(cap: Captured) -> None:
-    """One replay of ``cap``, its kernel launches counted."""
+    """One replay of ``cap``, its kernel launches and collectives counted
+    as its warm call's."""
     before = fused_bn_act.LAUNCHES
+    counted = cap.stats.snapshot() if cap.stats is not None else None
     cap.graph.replay()
     fused_bn_act.add_launches(before + cap.launches - fused_bn_act.LAUNCHES)
+    if cap.stats is not None:
+        cap.stats.restore(counted)
+        cap.stats.add_replayed(cap.collectives)
 
 
 class GraphedProgram:
     """``fn(*tensors) -> tensor`` captured once per input key and replayed
     (see the module docstring). ``graph_cls`` is ``CudaGraph`` on the card
-    (``graph_for``), ``EagerGraph`` for the CPU tests. Inputs may lie on the
+    (``graph_for``), ``EagerGraph`` for the CPU tests; ``mesh`` is the one
+    ``fn``'s collectives run over (their counts follow the replays). Inputs may lie on the
     host (a pinned tensor is copied without a synchronisation) or on the
     device. The keys' graphs share one memory pool: they replay one at a
     time on the caller's stream, and each keeps its inputs and output
     outside the pool, so one graph's temporaries may reuse another's."""
 
-    def __init__(self, fn: Callable[..., torch.Tensor], device, graph_cls: type = CudaGraph):
+    def __init__(self, fn: Callable[..., torch.Tensor], device, graph_cls: type = CudaGraph,
+                 mesh=None):
         self.fn = fn
         self.device = torch.device(device)
         self.graph_cls = graph_cls
+        self.mesh = mesh  # the one ``fn``'s collectives run over, or None
         self._captures: Dict[tuple, Tuple[Tuple[Optional[torch.Tensor], ...], Captured]] = {}
         self.captures = 0     # captures so far (one more per new key, and after invalidate)
         self.replays = 0
@@ -201,7 +230,7 @@ class GraphedProgram:
                            for a in args)
             pool = next(iter(self._captures.values()))[1].graph.pool() if self._captures else None
             y, cap = warm_and_capture(self.graph_cls, self.device, lambda: self.fn(*inputs),
-                                      lambda: self.fn(*inputs), pool)
+                                      lambda: self.fn(*inputs), pool, self.mesh)
             self._captures[key] = inputs, cap
             self.captures += 1
             self.capture_s = cap.seconds

@@ -12,8 +12,10 @@ test instead of hanging it.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
+import shutil
 import time
 
 import numpy as np
@@ -212,6 +214,185 @@ def train_rank(rank: int, world: int, store: str, argv: list, out: str) -> None:
     _group(rank, world, store)
     tmain.run(get_arg_parse([a.replace("{rank}", str(rank)) for a in argv]), metrics=RenderStub())
     _finish(out, rank, {})
+
+
+# ----------------------------------------------- compiled programs on a mesh
+
+@contextlib.contextmanager
+def _graphs_as_on_the_card(*modules):
+    """Inside: each of ``modules`` builds its graphs as the card would over
+    a capturable mesh, with the CPU's stand-in graph (this process's gloo
+    mesh is not one: its collectives run on the host)."""
+    from jckx_torch.utils.graphs import EagerGraph
+
+    own = [m.graph_for for m in modules]
+    for m in modules:
+        m.graph_for = lambda *a, **k: (EagerGraph, "")
+    try:
+        yield
+    finally:
+        for m, f in zip(modules, own):
+            m.graph_for = f
+
+
+def _gan_trainer(case: dict, mesh, root: str):
+    """A trainer of ``case`` (its config, weights and uint8 set, an EMA of
+    0.9) over ``mesh``, with ``RenderStub`` for the metrics engine."""
+    from types import SimpleNamespace
+
+    from jckx_torch.configs import Config
+    from jckx_torch.logging.main_logger import MainLogger
+    from jckx_torch.train import gan_trainer
+
+    cfg = Config()
+    for k, v in {**case["cfg"], "device": "cpu", "log_file": 0, "eval_every": 0, "ema_decay": 0.9,
+                 "sample_count": case["sample_count"], "save_root": root,
+                 "save_path": root}.items():
+        setattr(cfg, k, v)
+    _, G, D = _nets(case)
+    data = SimpleNamespace(images_u8=case["images_u8"], labels_np=case["labels"],
+                           num_classes=case["k"], metric_source=None,
+                           idx_to_labels={i: str(i) for i in range(case["k"])})
+    MainLogger.reset()
+    cls = gan_trainer.CGANTrainer if case["conditional"] else gan_trainer.DCGANTrainer
+    return cls(cfg, G, D, data, metrics=RenderStub(), mesh=mesh)
+
+
+def _gan_record(tr) -> dict:
+    s = tr.state
+    out = {f"{m}/{k}": v.detach().clone() for m, net in (("G", s.G), ("D", s.D), ("EMA", s.ema_g))
+           for k, v in net.state_dict().items()}
+    for name, opt in (("opt_g", s.opt_g), ("opt_d", s.opt_d)):
+        for i, st in opt.state_dict()["state"].items():
+            out.update({f"{name}/{i}/{k}": torch.as_tensor(v).clone() for k, v in st.items()})
+    return out
+
+
+def _stats_delta(stats, snap) -> dict:
+    """Calls, bytes, replayed calls and host seconds by kind since ``snap``."""
+    return {k: (stats.calls[k] - snap["calls"][k], stats.bytes[k] - snap["bytes"][k],
+                stats.replayed[k] - snap["replayed"][k], stats.seconds[k] - snap["seconds"][k])
+            for k in stats.KINDS}
+
+
+LAUNCH_SIZES = (1, 1, 2)  # a GAN case's steps by launch: the warm step, then replays
+
+
+def _gan_launches(case: dict, mesh, root: str, graphed: bool) -> dict:
+    """Four steps of ``case``'s trainer over ``mesh`` in launches of
+    ``LAUNCH_SIZES`` (through the superstep when ``graphed``: the first
+    step eager and captured, then replays), and two eval renders: → the
+    telemetry, G, D and their gradients after each launch, the final
+    state, the renders, and ``mesh.stats`` by launch and over the renders."""
+    from jckx_torch.train import gan_trainer
+
+    with _graphs_as_on_the_card(gan_trainer) if graphed else contextlib.nullcontext():
+        tr = _gan_trainer(case, mesh, root)
+    assert (tr.superstep is not None) == graphed and (tr.eval_program is not None) == graphed
+    batches = [{"idx": torch.from_numpy(rows)} for rows in case["order"][:, mesh.rank]]
+    rec = {"stats": [], "nets": [], "grads": []}
+    rows, done = [], 0
+    for k in LAUNCH_SIZES:
+        snap = mesh.stats.snapshot()
+        rows.append(tr._launch(batches[done:done + k]))
+        done += k
+        rec["stats"].append(_stats_delta(mesh.stats, snap))
+        rec["nets"].append({net: {k: v.detach().clone()
+                                  for k, v in getattr(tr.state, net).state_dict().items()}
+                            for net in ("G", "D")})
+        rec["grads"].append({net: {k: p.grad.clone()
+                                   for k, p in getattr(tr.state, net).named_parameters()}
+                             for net in ("G", "D")})
+    rec["telemetry"] = torch.cat(rows)
+    rec["state"], rec["step"] = _gan_record(tr), tr.state.step
+    if graphed:
+        rec["superstep"] = (tr.superstep.captures, tr.superstep.replays)
+    snap = mesh.stats.snapshot()
+    rec["renders"] = [tr.sample_eval(), tr.sample_eval()]
+    rec["eval_stats"] = _stats_delta(mesh.stats, snap)
+    if graphed:
+        rec["eval_program"] = (tr.eval_program.captures, tr.eval_program.replays)
+    return rec
+
+
+def _injected_draws(table: dict):
+    """``steps.make_draws`` returning the first ``n`` rows of ``table``'s
+    global draws at the steps it holds (jckx's), the port's elsewhere."""
+    from jckx_torch.train import steps
+
+    own = steps.make_draws
+
+    def make_draws(seed, step, n, geo, device, conditional=False):
+        if step not in table:
+            return own(seed, step, n, geo, device, conditional)
+        return steps.StepDraws(**{k: None if v is None else torch.from_numpy(v[:n]).to(device)
+                                  for k, v in table[step].items()})
+
+    return make_draws
+
+
+def mesh_graph_rank(rank: int, world: int, store: str, inputs: str, out: str) -> None:
+    """Over the gloo pair: each GAN case's trainer eagerly and through the
+    superstep's host logic (``_gan_launches``), with jckx's draws injected
+    at the steps the case holds; then ``finetune_graph_runs``."""
+    from jckx_torch.train import steps
+
+    mesh = _group(rank, world, store)
+    data = torch.load(inputs, weights_only=False)
+    own = steps.make_draws
+    record = {}
+    for name, case in data["cases"].items():
+        steps.make_draws = _injected_draws(case["draws"])
+        try:
+            record[name] = {route: _gan_launches(case, mesh, os.path.join(out, f"{name}-{route}-{rank}"),
+                                                 route == "graph")
+                            for route in ("eager", "graph")}
+        finally:
+            steps.make_draws = own
+    record["finetune"] = finetune_graph_runs(data["finetune_argv"], out, rank, mesh)
+    _finish(out, rank, record)
+
+
+def finetune_graph_runs(argv: list, out: str, rank: int, mesh) -> dict:
+    """The fine-tune over the mesh, eagerly and through its superstep's
+    host logic, the kernel wrapper counting as on the card (one launch per
+    normalize pass): → each route's final weights, epochs, launches and
+    ``mesh.stats`` of its run."""
+    from jckx_torch.kernels import fused_bn_act as fba
+    from jckx_torch.logging.main_logger import MainLogger
+    from jckx_torch.metrics import inception_train
+    from jckx_torch.ops import norm
+
+    plain = norm.normalize_act_op
+
+    def counting(*args):
+        fba.add_launches(1)
+        return plain(*args)
+
+    norm.normalize_act_op = counting
+    own_mesh = inception_train.process_mesh
+    inception_train.process_mesh = lambda *a, **k: mesh  # its collectives counted in mesh.stats
+    rec = {}
+    try:
+        for route in ("eager", "graph"):
+            MainLogger.reset()
+            fba.LAUNCHES, snap = 0, mesh.stats.snapshot()
+            save_dir = os.path.join(out, f"ft-{route}-{rank}")
+            with (_graphs_as_on_the_card(inception_train) if route == "graph"
+                  else contextlib.nullcontext()):
+                run = inception_train.train(inception_train.get_args(
+                    argv + ["--save_dir", save_dir]))
+            shutil.rmtree(save_dir, ignore_errors=True)  # rank 0's .npz files: ~90 MB each
+            rec[route] = {"params": {k: v.detach().clone() for k, v in run.net.state_dict().items()},
+                          "epochs": run.epochs, "launches": fba.LAUNCHES,
+                          "stats": _stats_delta(mesh.stats, snap),
+                          "superstep": None if run.superstep is None else (
+                              run.superstep.captures, run.superstep.replays, run.superstep.launches)}
+    finally:
+        norm.normalize_act_op = plain
+        inception_train.process_mesh = own_mesh
+        MainLogger.reset()
+    return rec
 
 
 if __name__ == "__main__":

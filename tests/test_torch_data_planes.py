@@ -31,6 +31,7 @@ from jckx_torch.data import pipeline as tpipe
 from jckx_torch.logging.main_logger import MainLogger
 from jckx_torch.metrics.metrics import Metrics
 from torch_threads import one_torch_thread  # noqa: F401
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 
 @pytest.fixture(params=["native", "numpy"])

@@ -33,6 +33,7 @@ from jckx_torch.logging.main_logger import MainLogger
 from jckx_torch.metrics import inception_train, inception_v3
 from _torch_dp_child import eval_features, features_rank, finetune_rank, spawn
 from torch_threads import one_torch_thread  # noqa: F401
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 
 def test_eval_protocol_over_two_ranks_matches_one(tmp_path):

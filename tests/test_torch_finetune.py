@@ -32,6 +32,7 @@ from jckx_torch.metrics import inception_v3 as tiv
 from jckx_torch.metrics.inception_train import get_args, train
 from jckx_torch.metrics.metrics import Metrics as TMetrics
 from torch_threads import one_torch_thread  # noqa: F401
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

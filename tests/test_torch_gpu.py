@@ -737,9 +737,9 @@ class _TinyData:
         self.metric_source = (self.images_u8, self.labels_np)
 
 
-def _tiny_trainer(tmp_path, name, conditional=False, **over):
+def _tiny_trainer(tmp_path, name, conditional=False, mesh=None, **over):
     """The tiny trainer (16², width 8, batch 8, f32, EMA 0.5, no evals) on
-    the card from seed-0 weights."""
+    the card from seed-0 weights, over ``mesh`` if given."""
     from jckx_torch.configs import Config
     from jckx_torch.models.cgan import CDiscriminator, CGenerator
     from jckx_torch.train.gan_trainer import CGANTrainer, DCGANTrainer
@@ -754,8 +754,9 @@ def _tiny_trainer(tmp_path, name, conditional=False, **over):
     gen = torch.Generator().manual_seed(0)
     if conditional:
         return CGANTrainer(cfg, CGenerator(geo, 10, gen=gen), CDiscriminator(geo, 10, gen=gen),
-                           _TinyData())
-    return DCGANTrainer(cfg, Generator(geo, gen=gen), Discriminator(geo, gen=gen), _TinyData())
+                           _TinyData(), mesh=mesh)
+    return DCGANTrainer(cfg, Generator(geo, gen=gen), Discriminator(geo, gen=gen), _TinyData(),
+                        mesh=mesh)
 
 
 def _trainer_state(tr):
@@ -902,6 +903,81 @@ def test_profiler_counts_the_replayed_kernel_launches():
         if seen[-1] == 94:
             break
     assert max(seen) <= 94 and seen[-1] == 94, seen
+
+
+def _forced_live_step_child(rank, store, root):
+    """A NCCL world of one whose mesh has every axis live (the port skips
+    an axis of size 1), its sums issued as ``PREMUL_SUM`` by 1.0 (x · 1.0 =
+    x; NCCL runs an in-place sum over one rank as no device work, a scaled
+    one as a kernel): the tiny DCGAN trainer's superstep over it (the first
+    step eager, then captured, 7 replays under ``set_sync_debug_mode
+    ("error")``) against 8 eager steps over it, bit for bit, and
+    ``mesh.stats`` holding 7 times the eager step's collectives as replayed."""
+    import pathlib
+
+    import torch.distributed as dist
+
+    from jckx_torch.parallel.mesh import ProcessMesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    premul_one = dist._make_nccl_premul_sum(1.0)
+
+    class ForcedLiveMesh(ProcessMesh):
+        def _live(self, axis):
+            return self.distributed
+
+        def _sum(self, t, axis):
+            dist.all_reduce(t, op=premul_one, group=self._groups[axis])
+
+    try:
+        mesh = ForcedLiveMesh((1,), ("data",), dev)
+        root = pathlib.Path(root)
+        perm = torch.randperm(48, generator=torch.Generator().manual_seed(1)).to(dev)
+        rows = [{"idx": perm[(8 * j) % 48:(8 * j) % 48 + 8]} for j in range(8)]
+        warm = _tiny_trainer(root, "warm", mesh=mesh)
+        warm.superstep = None
+        warm._launch(rows[:2])
+        eager = _tiny_trainer(root, "eager", mesh=mesh)
+        graphed = _tiny_trainer(root, "graphed", mesh=mesh)
+        assert graphed.superstep is not None and eager.superstep is not None
+        eager.superstep = None
+        snap = mesh.stats.snapshot()
+        want = eager._launch(rows)
+        one_step = {k: (mesh.stats.calls[k] - snap["calls"][k]) // 8 for k in mesh.stats.KINDS}
+        got = [graphed._launch(rows[:1])]
+        snap = mesh.stats.snapshot()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got.append(graphed._launch(rows[1:]))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert one_step["all_reduce"] > 0
+        for k, calls in one_step.items():
+            assert mesh.stats.calls[k] - snap["calls"][k] == 7 * calls, k
+            assert mesh.stats.replayed[k] - snap["replayed"][k] == 7 * calls, k
+        assert (graphed.superstep.captures, graphed.superstep.replays) == (1, 7)
+        assert torch.equal(torch.cat(got), want)
+        a, b = _trainer_state(graphed), _trainer_state(eager)
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(torch.as_tensor(a[k]), torch.as_tensor(b[k])), k
+    finally:
+        dist.destroy_process_group()
+
+
+def test_forced_live_nccl_step_replays_as_eager(tmp_path):
+    """``_forced_live_step_child`` in a child process (its NCCL group and
+    its graphs die with it); its checks raise there and fail here."""
+    import torch.multiprocessing as mp
+
+    _card()
+    mp.spawn(_forced_live_step_child, args=(str(tmp_path / "store"), str(tmp_path)), nprocs=1)
 
 
 # ---------------------------------------------- inference programs as graphs

@@ -31,6 +31,7 @@ from jckx_torch.metrics import fid as tfid
 from jckx_torch.metrics import inception_v3 as tiv
 from jckx_torch.metrics.metrics import Metrics
 from torch_threads import one_torch_thread  # noqa: F401
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 K = 10
 

@@ -36,6 +36,7 @@ from jckx_torch.train import gan_trainer
 from jckx_torch.train import main as tmain
 from jckx_torch.train.superstep import EagerGraph, Superstep, graph_for
 from torch_threads import one_torch_thread  # noqa: F401
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 _TIMING = ("images_per_sec", "step_ms")
 

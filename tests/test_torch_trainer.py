@@ -33,10 +33,19 @@ from jckx_torch.train import main as tmain
 from jckx_torch.train.gan_trainer import DCGANTrainer
 from jckx_torch.train.state import geometry
 from torch_threads import one_torch_thread  # noqa: F401
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 TINY = dict(dataset="synthetic", batch_size=16, epoch=2, image_size=16, base_width=8,
             num_classes=10, compute_dtype="float32", max_learning_rate=2e-4,
             log_every=3, eval_every=5, log_file=1)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_logger():
+    """Each test's runs log into its own ``tmp_path``, which goes after it."""
+    MainLogger.reset()
+    yield
+    MainLogger.reset()
 
 
 class StubMetrics:
