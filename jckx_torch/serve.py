@@ -86,6 +86,7 @@ from jckx_torch.data.pipeline import one_hot
 from jckx_torch.logging.artifacts import encode_png, make_grid, save_image_grid
 from jckx_torch.ops.quant import make_sampler
 from jckx_torch.parallel.mesh import DATA_AXIS, make_mesh, parse_mesh_shape
+from jckx_torch.utils import spans
 from jckx_torch.utils.device import resolve_device
 from jckx_torch.utils.graphs import GraphedProgram, graph_for
 
@@ -124,22 +125,30 @@ def pipelined_sample(n: int, bs: int, render) -> np.ndarray:
     """Render ``ceil(n / bs)`` full batches (``render(made)`` → a device
     batch, ``made`` the rows of the request before it), trim the last, and
     copy the uint8 payloads to the host in order, holding at most
-    ``WINDOW`` undrained batches on the device."""
+    ``WINDOW`` undrained batches on the device. Under a profiler the request
+    is the span ``serve.sample``, its batches' ``serve.render`` (the host's
+    part: draws, input copies, the replay's enqueue) and ``serve.drain``
+    (the wait for that batch and its copy to the host), and the reply's
+    ``serve.assemble``."""
     out, made = [], 0
     inflight = []  # (device_imgs, take)
 
     def drain_one():
         imgs, take = inflight.pop(0)
-        out.append(imgs[:take].cpu().numpy())
+        with spans.span("serve.drain", 1):
+            out.append(imgs[:take].cpu().numpy())
 
-    while made < n:
-        inflight.append((render(made), min(bs, n - made)))
-        made += inflight[-1][1]
-        if len(inflight) >= WINDOW:
+    with spans.span("serve.sample", n):
+        while made < n:
+            with spans.span("serve.render", 1):
+                inflight.append((render(made), min(bs, n - made)))
+            made += inflight[-1][1]
+            if len(inflight) >= WINDOW:
+                drain_one()
+        while inflight:
             drain_one()
-    while inflight:
-        drain_one()
-    return np.concatenate(out)
+        with spans.span("serve.assemble", n):
+            return np.concatenate(out)
 
 
 def render_u8(apply, params, z: torch.Tensor, onehot: Optional[torch.Tensor]) -> torch.Tensor:
@@ -373,7 +382,11 @@ def make_http_server(svc, host: str = "0.0.0.0", port: int = 8000):
     - ``GET /healthz`` → JSON {status, step, conditional, num_classes,
       image_size, channels, batch_size, truncation};
     - ``GET /metrics`` → Prometheus text (requests, images, errors,
-      latency sum, checkpoint step, serving batch size);
+      latency sum, checkpoint step, serving batch size, and the latency's
+      parts: ``jckx_generate_lock_wait_seconds_sum``, the wait for the
+      sampling lock, ``jckx_generate_sample_seconds_sum``, the sampling
+      under it, and ``jckx_generate_encode_seconds_sum``, the reply's
+      ``.npy`` or PNG, summed over ``/generate`` and ``/interpolate``);
     - ``POST /generate`` {"n" ≤ 4096, "labels"?, "seed"?, "format": "png" |
       "npy"} → a PNG grid or an ``.npy`` uint8 (n, S, S, C);
     - ``POST /interpolate`` {"seed_a", "seed_b", "steps" in [2, 64]?,
@@ -398,7 +411,8 @@ def make_http_server(svc, host: str = "0.0.0.0", port: int = 8000):
         return current["svc"]
 
     stats_lock = threading.Lock()
-    stats = {"requests": 0, "images": 0, "errors": 0, "latency_sum": 0.0}
+    stats = {"requests": 0, "images": 0, "errors": 0, "latency_sum": 0.0,
+             "lock_wait_sum": 0.0, "sample_sum": 0.0, "encode_sum": 0.0}
 
     def _count(images: int = 0, error: bool = False, seconds: float = 0.0, requests: int = 1):
         with stats_lock:
@@ -406,6 +420,22 @@ def make_http_server(svc, host: str = "0.0.0.0", port: int = 8000):
             stats["images"] += images
             stats["errors"] += int(error)
             stats["latency_sum"] += seconds
+
+    def _add(key: str, seconds: float):
+        with stats_lock:
+            stats[key] += seconds
+
+    def _locked(call):
+        """``call()`` under the sampling lock, the wait and the call timed."""
+        t0 = time.perf_counter()
+        lock.acquire()
+        t1 = time.perf_counter()
+        _add("lock_wait_sum", t1 - t0)
+        try:
+            return call()
+        finally:
+            lock.release()
+            _add("sample_sum", time.perf_counter() - t1)
 
     def _is_int(v):  # JSON true / false are ints to isinstance
         return isinstance(v, int) and not isinstance(v, bool)
@@ -416,11 +446,15 @@ def make_http_server(svc, host: str = "0.0.0.0", port: int = 8000):
 
     def _images(imgs: np.ndarray, fmt: str, ncol: int):
         """Rendered uint8 images as a reply: an ``.npy`` or a PNG grid."""
+        t0 = time.perf_counter()
         if fmt == "npy":
             buf = io.BytesIO()
             np.save(buf, imgs)
-            return 200, "application/octet-stream", buf.getvalue()
-        return 200, "image/png", encode_png(make_grid(imgs, ncol=ncol))
+            reply = 200, "application/octet-stream", buf.getvalue()
+        else:
+            reply = 200, "image/png", encode_png(make_grid(imgs, ncol=ncol))
+        _add("encode_sum", time.perf_counter() - t0)
+        return reply
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *a):  # quiet: the CLI owns stdout
@@ -443,6 +477,10 @@ def make_http_server(svc, host: str = "0.0.0.0", port: int = 8000):
                     ("jckx_generate_images_total", "counter", snap["images"]),
                     ("jckx_generate_errors_total", "counter", snap["errors"]),
                     ("jckx_generate_seconds_sum", "counter", round(snap["latency_sum"], 6)),
+                    ("jckx_generate_lock_wait_seconds_sum", "counter",
+                     round(snap["lock_wait_sum"], 6)),
+                    ("jckx_generate_sample_seconds_sum", "counter", round(snap["sample_sum"], 6)),
+                    ("jckx_generate_encode_seconds_sum", "counter", round(snap["encode_sum"], 6)),
                     ("jckx_checkpoint_step", "gauge", s.step),
                     ("jckx_serving_batch_size", "gauge", s.batch_size),
                 ))
@@ -521,9 +559,8 @@ def make_http_server(svc, host: str = "0.0.0.0", port: int = 8000):
                     labs[field] = req[field]
             try:
                 try:
-                    with lock:
-                        imgs = s.interpolate(req["seed_a"], req["seed_b"], steps=steps,
-                                             kind=kind, **labs)
+                    imgs = _locked(lambda: s.interpolate(req["seed_a"], req["seed_b"],
+                                                         steps=steps, kind=kind, **labs))
                 except ValueError as e:  # the service's validation → a clear 400
                     return None, _error(400, str(e))
                 return steps, _images(imgs, fmt, ncol=steps)
@@ -556,8 +593,7 @@ def make_http_server(svc, host: str = "0.0.0.0", port: int = 8000):
                     return None, _error(400, "'seed' must be an int")
                 seed = req["seed"]
             try:  # a failed render comes back as a JSON 500, not a dropped connection
-                with lock:
-                    imgs = s.sample(n, labels=labels, seed=seed)
+                imgs = _locked(lambda: s.sample(n, labels=labels, seed=seed))
                 return n, _images(imgs, fmt, ncol=max(1, int(np.ceil(np.sqrt(n)))))
             except Exception as e:  # noqa: BLE001 — boundary: report, don't die
                 return None, _error(500, f"generation failed: {type(e).__name__}: {e}")

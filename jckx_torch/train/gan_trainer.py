@@ -116,6 +116,7 @@ from jckx_torch.train.state import create_dcgan_state, geometry, schedule_lr
 from jckx_torch.train.steps import (METRIC_NAMES, StepDraws, compute_dtype, derive_seed,
                                     make_cgan_train_step, make_dcgan_train_step, rank_draws)
 from jckx_torch.train.superstep import Superstep
+from jckx_torch.utils import spans
 from jckx_torch.utils.device import resolve_device
 from jckx_torch.utils.graphs import GraphedProgram, graph_for
 
@@ -360,7 +361,7 @@ class _BaseGANTrainer:
             save_image_grid(os.path.join(self.save_path, "real_image.png"),
                             self.data_pre.images_u8[:64], ncol=8, padding=5)
 
-        start = time.time()
+        start = time.perf_counter()
         self.logger.debug("train start")
         it = self.state.step
         self.logger.scalars({"event": "session_start", "step": it})
@@ -409,9 +410,10 @@ class _BaseGANTrainer:
                 upload_next = _submit(done) if self._streaming and done < spe else None
                 while done < spe:
                     k = min(K, spe - done)
-                    t_launch = time.time()
+                    t_launch = time.perf_counter()
                     if self._streaming:
-                        slab, upload_next = upload_next.result(), None
+                        with spans.span("train.upload_wait", k):
+                            slab, upload_next = upload_next.result(), None
                         if done + k < spe:
                             upload_next = _submit(done + k)
                         u8, labels = slabs.use(slab)
@@ -424,9 +426,10 @@ class _BaseGANTrainer:
                         batches = [{"idx": idx[j]} for j in range(k)]
                     vals = self._launch(batches)
                     del batches  # this slab's memory goes back once its steps have run
-                    vals = vals.cpu().numpy()  # (k, 6): the launch's one sync
+                    with spans.span("train.telemetry_read", k):
+                        vals = vals.cpu().numpy()  # (k, 6): the launch's one sync
                     ms_np = {n: vals[:, i] for i, n in enumerate(METRIC_NAMES)}
-                    launch_dt = time.time() - t_launch
+                    launch_dt = time.perf_counter() - t_launch
                     if cfg.nan_guard:
                         bad = [n for n, v in ms_np.items() if not np.isfinite(v).all()]
                         if bad:
@@ -491,7 +494,7 @@ class _BaseGANTrainer:
                 self._stream.close()
             if not rolled_back:  # a second train() continues this history
                 self._resumed_losses = list(zip(losses_d, losses_g))
-        self.logger.debug(f"train finish\ttime: {time_to_str(time.time() - start)}\t"
+        self.logger.debug(f"train finish\ttime: {time_to_str(time.perf_counter() - start)}\t"
                           f"fused BN kernel launches in this process: {fused_bn_act.LAUNCHES}")
         if self.lead:
             save_loss_curve(os.path.join(self.save_path, "loss.png"), losses_d, losses_g)
@@ -505,24 +508,29 @@ class _BaseGANTrainer:
         ...}`` streamed) → the (k, 6) telemetry on the device. Through the
         superstep when there is one, else one eager ``_train_step`` each;
         the superstep's eager step before a capture is ``_train_step`` too
-        (its own draws and lr are the feed's, made again)."""
+        (its own draws and lr are the feed's, made again). Under a profiler
+        the launch is the span ``train.launch`` (up to its last step's
+        enqueue), each step's host part ``train.feed``."""
         def eager(x):
             m = self._train_step(*self._batch(x))
             return torch.stack([m[n] for n in METRIC_NAMES])
 
         if self.superstep is None:
-            return torch.stack([eager(x) for x in batches])
+            with spans.span("train.launch", len(batches)):
+                return torch.stack([eager(x) for x in batches])
         s0 = self.state.step
 
         def feed(j: int) -> dict:
             # the host's part of step s0 + j: its lr and draws, which a capture would freeze
-            self.state.step = s0 + j
-            schedule_lr(self.cfg, self.state)
-            draws = rank_draws(self.state.seed, self.state.step, self.local_bs, self.geo,
-                               self.device, self.mesh, self.conditional)
-            return {**batches[j], **{k: v for k, v in vars(draws).items() if v is not None}}
+            with spans.span("train.feed", 1):
+                self.state.step = s0 + j
+                schedule_lr(self.cfg, self.state)
+                draws = rank_draws(self.state.seed, self.state.step, self.local_bs, self.geo,
+                                   self.device, self.mesh, self.conditional)
+                return {**batches[j], **{k: v for k, v in vars(draws).items() if v is not None}}
 
-        rows = self.superstep.replay(len(batches), feed, warm=eager)
+        with spans.span("train.launch", len(batches)):
+            rows = self.superstep.replay(len(batches), feed, warm=eager)
         self.state.step = s0 + len(batches)
         return rows
 

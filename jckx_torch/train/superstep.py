@@ -28,7 +28,8 @@ A ``Superstep`` holds:
   the step (the lr of a cosine schedule, the draws, which a capture would
   freeze) and returns its inputs, which are copied into the static inputs
   before the replay; the outputs are stacked into a ``(k, n)`` device
-  buffer that the caller reads once;
+  buffer that the caller reads once. Under a profiler each replayed step's
+  input copies and graph launch are the span ``superstep.replay``;
 - ``invalidate()``: after anything rebinds a tensor the graph reads (a
   checkpoint's optimizer state loaded, a rollback), the next step
   recaptures.
@@ -61,6 +62,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from jckx_torch.utils import spans
 from jckx_torch.utils.graphs import (CudaGraph, EagerGraph, graph_for,  # noqa: F401 (re-exported)
                                      replay, warm_and_capture)
 
@@ -114,10 +116,11 @@ class Superstep:
                 self.launches, self.capture_s = self.cap.launches, self.cap.seconds
                 self.captures += 1
             else:
-                for name, t in x.items():
-                    self.inputs[name].copy_(t)
-                replay(self.cap)
-                self.replays += 1
+                with spans.span("superstep.replay", 1):
+                    for name, t in x.items():
+                        self.inputs[name].copy_(t)
+                    replay(self.cap)
+                    self.replays += 1
                 y = self.cap.output
             if out is None:
                 out = torch.empty((k, *y.shape), dtype=y.dtype, device=y.device)

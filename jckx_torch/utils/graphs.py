@@ -56,6 +56,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from jckx_torch.kernels import fused_bn_act
+from jckx_torch.utils import spans
 
 
 class CudaGraph:
@@ -155,25 +156,27 @@ def warm_and_capture(graph_cls: type, device: torch.device, warm: Callable[[], t
     work on the static inputs) captured, into ``pool`` if given, writing
     one static output (allocated outside the pool) shaped as warm's
     answer. ``mesh`` is the one the work's collectives run over: its
-    ``stats`` keep the warm call's counts and not the capture's. → (warm's
-    answer, the capture)."""
-    stats = getattr(mesh, "stats", None)
-    graph = graph_cls(device)
-    before = fused_bn_act.LAUNCHES
-    counted = stats.snapshot() if stats is not None else None
-    y = graph.warm(warm)
-    launches = fused_bn_act.LAUNCHES - before
-    collectives = stats.since(counted) if stats is not None else ()
-    output = torch.empty_like(y)
-    before = fused_bn_act.LAUNCHES
-    counted = stats.snapshot() if stats is not None else None
-    t0 = time.perf_counter()
-    graph.capture(lambda: output.copy_(body()), pool)
-    seconds = time.perf_counter() - t0
-    fused_bn_act.add_launches(before - fused_bn_act.LAUNCHES)
-    if stats is not None:
-        stats.restore(counted)
-    return y, Captured(graph, output, launches, seconds, stats, collectives)
+    ``stats`` keep the warm call's counts and not the capture's. Under a
+    profiler the two are the span ``graph.capture``. → (warm's answer, the
+    capture)."""
+    with spans.span("graph.capture", 1):
+        stats = getattr(mesh, "stats", None)
+        graph = graph_cls(device)
+        before = fused_bn_act.LAUNCHES
+        counted = stats.snapshot() if stats is not None else None
+        y = graph.warm(warm)
+        launches = fused_bn_act.LAUNCHES - before
+        collectives = stats.since(counted) if stats is not None else ()
+        output = torch.empty_like(y)
+        before = fused_bn_act.LAUNCHES
+        counted = stats.snapshot() if stats is not None else None
+        t0 = time.perf_counter()
+        graph.capture(lambda: output.copy_(body()), pool)
+        seconds = time.perf_counter() - t0
+        fused_bn_act.add_launches(before - fused_bn_act.LAUNCHES)
+        if stats is not None:
+            stats.restore(counted)
+        return y, Captured(graph, output, launches, seconds, stats, collectives)
 
 
 def replay(cap: Captured) -> None:

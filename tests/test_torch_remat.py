@@ -132,6 +132,8 @@ def test_profile_dir_writes_a_chrome_trace(tmp_path):
     with open(trace) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert "aten::convolution" in names and "jckx_torch::normalize_act" in names
+    # the program's own spans, on the trace's timeline
+    assert {"jckx_torch.train.launch", "jckx_torch.train.telemetry_read"} <= names
     # a resume does not inherit the trace dir: it is the host's, not the run's
     resumed = get_arg_parse(["--resume", "-pm", "r", "--save_root", str(tmp_path)])
     assert resumed.profile_dir == "" and resumed.sanitize

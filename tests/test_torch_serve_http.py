@@ -38,6 +38,9 @@ from jckx_torch import serve as tserve
 from test_torch_serve import GEO, _ckpt, _port_checkpoint, _u8_close
 
 TIMEOUT = 60
+# the port's /metrics counters that jckx's daemon has not: the latency's parts
+LATENCY_PARTS = ("jckx_generate_lock_wait_seconds_sum", "jckx_generate_sample_seconds_sum",
+                 "jckx_generate_encode_seconds_sum")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -161,7 +164,7 @@ def test_http_contract_matches_jckx(pair):
     th = json.loads(td.request("/healthz")[2])
     assert th == jh  # same step, geometry, batch and truncation from the same file
     jm, tm = jd.metrics(), td.metrics()
-    assert set(tm) == set(jm)
+    assert set(tm) == set(jm) | set(LATENCY_PARTS)  # the port splits the latency too
     for k in ("jckx_generate_requests_total", "jckx_generate_images_total",
               "jckx_generate_errors_total", "jckx_checkpoint_step", "jckx_serving_batch_size"):
         assert tm[k] == jm[k], k
@@ -310,6 +313,34 @@ def test_http_render_failure_is_a_json_500(tmp_path):
             code, ctype, reply = d.request(p, body)
             assert code == 500 and "card fell over" in json.loads(reply)["error"]
         assert d.metrics(wait=0)["jckx_generate_errors_total"] == "2"
+    finally:
+        d.close()
+
+
+class _SlowService:
+    """A service whose every sample takes 0.3 s."""
+
+    step, batch_size, conditional, num_classes = 0, 4, False, 0
+
+    def sample(self, n, labels=None, seed=None):
+        time.sleep(0.3)
+        return np.zeros((n, 16, 16, 3), np.uint8)
+
+
+def test_http_metrics_split_the_latency_and_show_the_lock_wait():
+    """The latency's parts in /metrics: present and 0 at start; two
+    concurrent /generate against a 0.3 s sample, so one waits for the lock."""
+    d = Daemon(tserve.make_http_server, _SlowService())
+    try:
+        m = d.metrics(wait=0)
+        assert [m[k] for k in LATENCY_PARTS] == ["0.0"] * 3
+        with ThreadPoolExecutor(2) as ex:
+            futs = [ex.submit(d.request, "/generate", {"n": 2, "format": "npy"}) for _ in range(2)]
+            assert [f.result()[0] for f in futs] == [200, 200]
+        m = d.metrics(wait=0)
+        wait, sample, encode = (float(m[k]) for k in LATENCY_PARTS)
+        assert wait >= 0.15 and sample >= 0.6 and encode >= 0
+        assert float(m["jckx_generate_seconds_sum"]) >= wait + sample
     finally:
         d.close()
 
