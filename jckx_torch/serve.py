@@ -18,7 +18,10 @@ samplers and f32 for the int8 one (``ops/quant.py``).
 Each request draws z on the device from a ``torch.Generator`` seeded by
 (seed, request counter) — N(0, 1), or N(0, 1) truncated to [-t, t] with
 ``truncation`` — renders, converts tanh output to uint8 on the device, and
-copies only the uint8 payload to the host. Every batch renders the full
+copies only the uint8 payload to the host, each batch straight into its
+rows of the request's one reply (``pipelined_sample``: on the card a
+page-locked reply of up to ``PINNED_REPLY_BYTES``, filled on the device's
+copy stream under the later renders). Every batch renders the full
 batch size and is trimmed afterwards: under batch-statistic BN the batch is
 part of the function. A CGAN request with ``labels`` gives row ``i`` the
 class ``labels[i % len(labels)]`` (``jckx/serve.py:383-387``); without
@@ -68,6 +71,7 @@ Refused by name: jckx's StableHLO ``.jaxexp`` artifacts, which need JAX
 from __future__ import annotations
 
 import argparse
+import collections
 import copy
 import functools
 import hashlib
@@ -92,6 +96,12 @@ from jckx_torch.utils.graphs import GraphedProgram, graph_for
 
 # undrained batches a request may hold on the device (6 MiB each at 64², bs512)
 WINDOW = 8
+# the largest reply kept in page-locked memory: the daemon's cap, 4096
+# images at 64² RGB, is 48 MiB
+PINNED_REPLY_BYTES = 64 << 20
+# requests by their reply's memory (the daemon samples from handler threads)
+REPLIES = {"pinned": 0, "pageable": 0}
+_REPLIES_LOCK = threading.Lock()
 JAXEXP_REFUSAL = ("a jckx .jaxexp artifact is a StableHLO program and needs JAX: serve it with "
                   "`python -m jckx.serve`, or export the checkpoint with `python -m jckx_torch "
                   "export` and serve the .pt2")
@@ -122,33 +132,81 @@ def tanh_to_u8(imgs: torch.Tensor) -> torch.Tensor:
 
 
 def pipelined_sample(n: int, bs: int, render) -> np.ndarray:
-    """Render ``ceil(n / bs)`` full batches (``render(made)`` → a device
-    batch, ``made`` the rows of the request before it), trim the last, and
-    copy the uint8 payloads to the host in order, holding at most
-    ``WINDOW`` undrained batches on the device. Under a profiler the request
-    is the span ``serve.sample``, its batches' ``serve.render`` (the host's
-    part: draws, input copies, the replay's enqueue) and ``serve.drain``
-    (the wait for that batch and its copy to the host), and the reply's
-    ``serve.assemble``."""
-    out, made = [], 0
-    inflight = []  # (device_imgs, take)
+    """Render ``ceil(n / bs)`` full batches (``render(made)`` → a uint8
+    batch (bs, S, S, C), ``made`` the rows of the request before it), trim
+    the last, and land each batch's rows in order in one reply (n, S, S, C),
+    allocated once, on the first batch. → ``reply.numpy()``, which keeps the
+    reply's memory alive while the caller holds it.
 
-    def drain_one():
-        imgs, take = inflight.pop(0)
-        with spans.span("serve.drain", 1):
-            out.append(imgs[:take].cpu().numpy())
+    Where the batches are CUDA tensors and the reply is at most
+    ``PINNED_REPLY_BYTES``, the reply is page-locked memory from torch's
+    caching host allocator, and each batch's copy is issued right after its
+    render, asynchronously on the device's copy stream, so copy k runs
+    under render k + 1; an event a batch says when its rows have landed.
+    The block goes back to torch's host cache when the caller drops the
+    array, so a caller that keeps many replies holds that much locked host
+    memory. A larger reply (the CLI's big ``-n``), or one of CPU batches,
+    is pageable, and each batch is copied into its rows synchronously, one
+    ``WINDOW`` of batches behind the renders. Either way at most ``WINDOW``
+    batches wait on the device for their copy: the host waits for the
+    oldest before it renders another. ``REPLIES`` counts the requests by
+    their reply's memory.
+
+    Under a profiler the request is the span ``serve.sample``, its batches'
+    ``serve.render`` (the host's part: draws, input copies, the replay's
+    enqueue) and ``serve.drain`` (issuing the batch's copy, and any wait
+    the window forces), and ``serve.assemble`` (the wait until the reply is
+    whole)."""
+    reply, made = None, 0
+    pending = collections.deque()  # per batch not landed: the call that lands it
 
     with spans.span("serve.sample", n):
         while made < n:
             with spans.span("serve.render", 1):
-                inflight.append((render(made), min(bs, n - made)))
-            made += inflight[-1][1]
-            if len(inflight) >= WINDOW:
-                drain_one()
-        while inflight:
-            drain_one()
+                imgs = render(made)
+            take = min(bs, n - made)
+            with spans.span("serve.drain", 1):
+                if reply is None:
+                    reply, pinned = _new_reply(n, imgs)
+                rows = reply[made:made + take]
+                if pinned:
+                    stream = _copy_stream(imgs.device)
+                    stream.wait_stream(torch.cuda.current_stream(imgs.device))
+                    with torch.cuda.stream(stream):
+                        rows.copy_(imgs[:take], non_blocking=True)
+                    imgs.record_stream(stream)  # its memory waits for the copy
+                    pending.append(stream.record_event().synchronize)
+                else:
+                    pending.append(functools.partial(rows.copy_, imgs[:take]))
+                made += take
+                if len(pending) == WINDOW and made < n:  # the window is full; a render follows
+                    pending.popleft()()
         with spans.span("serve.assemble", n):
-            return np.concatenate(out)
+            while pending:
+                pending.popleft()()
+    return reply.numpy()
+
+
+def _new_reply(n: int, imgs: torch.Tensor):
+    """The empty reply of an ``n``-row request whose first batch is
+    ``imgs``, counted in ``REPLIES``. → (the reply, whether it is
+    page-locked: where the batch is on the card and the reply fits
+    ``PINNED_REPLY_BYTES``)."""
+    shape = (n, *imgs.shape[1:])
+    nbytes = n * imgs[0].numel() * imgs.element_size()
+    pinned = imgs.is_cuda and nbytes <= PINNED_REPLY_BYTES
+    with _REPLIES_LOCK:
+        REPLIES["pinned" if pinned else "pageable"] += 1
+    return torch.empty(shape, dtype=imgs.dtype, pin_memory=pinned), pinned
+
+
+@functools.lru_cache(maxsize=None)
+def _copy_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream a CUDA ``device``'s replies are copied on, one for every
+    service on it: each copy first waits for the requesting thread's stream
+    and records its own event, so concurrent requests (a hot swap's old and
+    new service) stay correct and only queue their copies."""
+    return torch.cuda.Stream(device)
 
 
 def render_u8(apply, params, z: torch.Tensor, onehot: Optional[torch.Tensor]) -> torch.Tensor:
@@ -301,7 +359,10 @@ class GeneratorService:
         """→ uint8 images (n, S, S, C). ``seed`` makes the request
         deterministic; without it each request draws fresh noise. ``labels``
         (CGAN only) cycle over the request's rows; without them each batch
-        draws random classes."""
+        draws random classes. On the card a reply of up to 64 MiB
+        (``PINNED_REPLY_BYTES``) is page-locked memory from torch's host
+        cache, returned to it when the caller drops the array: a caller
+        that keeps many replies holds that much locked host memory."""
         labels = validate_sample_args(n, labels, self.conditional)
         if labels is not None:
             labels = np.asarray(labels, np.int64)

@@ -1043,6 +1043,54 @@ def test_served_requests_replay_one_graph_per_batch(tmp_path, deterministic_cudn
     assert len({got[i:i + 64].tobytes() for i in range(0, 256, 64)}) == 4
 
 
+def test_a_reply_is_page_locked_up_to_its_limit(tmp_path, deterministic_cudnn, monkeypatch):
+    """A bs512 bf16 CGAN service at 64² (width 8): requests of 4096 (48
+    MiB) and 5000 images (59 MiB, more batches than ``WINDOW``) land in
+    page-locked replies, one of 5600 (66 MiB) in a pageable one, each
+    counted once in ``REPLIES``; every reply equals the same request's
+    eager renders copied batch by batch and concatenated (the route before
+    the copy stream), and each held reply is unchanged after the later
+    requests."""
+    import numpy as np
+
+    import jckx_torch.serve as tserve
+
+    _card()
+    svc = tserve.GeneratorService(_gan_ckpt(str(tmp_path / "g.pt"), True), batch_size=512)
+    labels = [3, 17, 42]
+    svc.sample(512, labels=labels, seed=0)  # eager, then the capture
+    real, batches = tserve.pipelined_sample, []
+
+    def concatenated(n, bs, render):
+        def kept(made):
+            imgs = render(made)
+            batches.append(imgs[:min(bs, n - made)].cpu().numpy())
+            return imgs
+
+        real(n, bs, kept)
+        return np.concatenate(batches)
+
+    replies = []
+    for n, memory in ((4096, "pinned"), (5000, "pinned"), (5600, "pageable")):
+        before = dict(tserve.REPLIES)
+        got = svc.sample(n, labels=labels, seed=n)
+        assert {k: tserve.REPLIES[k] - before[k] for k in before} == {
+            "pinned": int(memory == "pinned"), "pageable": int(memory == "pageable")}
+        assert torch.from_numpy(got).is_pinned() == (memory == "pinned")
+        assert got.shape == (n, 64, 64, 3) and got.dtype == np.uint8 and got.flags.c_contiguous
+        program, svc.program = svc.program, None
+        batches.clear()
+        monkeypatch.setattr(tserve, "pipelined_sample", concatenated)
+        try:
+            want = svc.sample(n, labels=labels, seed=n)
+        finally:
+            svc.program = program
+            monkeypatch.setattr(tserve, "pipelined_sample", real)
+        assert np.array_equal(got, want)
+        replies.append((got, want))
+    assert all(np.array_equal(got, want) for got, want in replies)
+
+
 @pytest.mark.parametrize("sampler", [{}, {"quant": "int8"}, {"subpixel": True},
                                      {"truncation": 0.7}])
 def test_a_capture_makes_no_host_synchronisation(tmp_path, sampler):

@@ -68,6 +68,46 @@ def test_sample_pads_to_batch_and_is_deterministic(tmp_path):
     assert not np.array_equal(svc.sample(8), svc.sample(8))
 
 
+@pytest.mark.parametrize("n", [5, 20, tserve.WINDOW * 8 + 1])
+def test_reply_equals_the_concatenated_batches(tmp_path, monkeypatch, n):
+    """A request shorter than a batch, one that trims its last batch, and
+    one of ``WINDOW`` batches and a row (the window's wait): the reply is
+    the request's renders trimmed and concatenated batch by batch, in the
+    same shape, dtype and C order, and is counted once as pageable."""
+    _, path = _ckpt(tmp_path)
+    svc = _svc(path, compute_dtype=torch.float32)
+    real, batches = tserve.pipelined_sample, []
+
+    def recording(n, bs, render):
+        def kept(made):
+            imgs = render(made)
+            batches.append(imgs[:min(bs, n - made)].numpy().copy())
+            return imgs
+
+        return real(n, bs, kept)
+
+    monkeypatch.setattr(tserve, "pipelined_sample", recording)
+    before = dict(tserve.REPLIES)
+    got = svc.sample(n, seed=4)
+    want = np.concatenate(batches)
+    assert len(batches) == -(-n // 8)
+    assert got.shape == want.shape == (n, 16, 16, 3) and got.dtype == want.dtype == np.uint8
+    assert got.flags.c_contiguous and np.array_equal(got, want)
+    assert tserve.REPLIES == {"pinned": before["pinned"], "pageable": before["pageable"] + 1}
+
+
+def test_a_reply_is_unchanged_by_later_requests(tmp_path):
+    """Two held replies stay as they were through a second and a third request."""
+    _, path = _ckpt(tmp_path)
+    svc = _svc(path, compute_dtype=torch.float32)
+    a = svc.sample(20, seed=1)
+    a0 = a.copy()
+    b = svc.sample(20, seed=2)
+    b0 = b.copy()
+    svc.sample(20, seed=3)
+    assert np.array_equal(a, a0) and np.array_equal(b, b0) and not np.array_equal(a, b)
+
+
 def test_sample_rejects_bad_requests(tmp_path):
     _, path = _ckpt(tmp_path)
     svc = _svc(path)
