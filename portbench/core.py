@@ -10,8 +10,11 @@ list holds the cell, or that have none: the end-to-end ones from the
 traffic's outcome (``setup_s`` from the harness), and in a traced run the
 per-layer ones, each read by ``layer_metrics/<metric>.py``'s ``read(rec)``
 from the traced window. A reader that finds nothing returns None, and the
-metric is left out of the line. Adding a cell, a configuration, a traffic
-mix or a per-layer metric adds files; no file here changes.
+metric is left out of the line. A configuration names its family's plain
+reference, ``reference/<name>.py`` (``param_shapes(cfg)``). Traffic kinds,
+readers and references are looked for under ``root`` first, then here.
+Adding a cell, a configuration, a family, a traffic mix or a per-layer
+metric adds files; no file here changes.
 """
 
 from __future__ import annotations
@@ -60,14 +63,30 @@ def load_module(path: Path, name: str):
     return mod
 
 
-def traffic(kind: str):
-    return load_module(ROOT / "traffic" / f"{kind}.py", f"portbench_traffic_{kind}")
+def _source(root: Path, folder: str, name: str) -> Path:
+    """``<root>/<folder>/<name>.py``, else this folder's."""
+    path = root / folder / f"{name}.py"
+    return path if path.is_file() else ROOT / folder / f"{name}.py"
 
 
-def reader(metric: str) -> Callable:
-    mod = load_module(ROOT / "layer_metrics" / f"{metric}.py",
+def traffic(kind: str, root: Path = ROOT):
+    return load_module(_source(root, "traffic", kind), f"portbench_traffic_{kind}")
+
+
+def reader(metric: str, root: Path = ROOT) -> Callable:
+    mod = load_module(_source(root, "layer_metrics", metric),
                       "portbench_metric_" + metric.replace(".", "_"))
     return mod.read
+
+
+def reference(cfg: dict, root: Path = ROOT):
+    """The configuration's plain reference module, ``reference/<its
+    "reference">.py``; this folder's is the package's own module."""
+    name = cfg["reference"]
+    path = _source(root, "reference", name)
+    if path.parent == ROOT / "reference":
+        return importlib.import_module(f"portbench.reference.{name}")
+    return load_module(path, f"portbench_reference_{name}")
 
 
 def sub_seed(seed: int, tag: str) -> int:
@@ -103,7 +122,7 @@ class Context:
                  t0: float, root: Path = ROOT):
         import torch
 
-        self.name, self.seed, self.trace, self.t0 = name, seed, trace, t0
+        self.name, self.seed, self.trace, self.t0, self.root = name, seed, trace, t0, root
         self.workload, self.config = load_cell(name, root)
         self.seconds = min(seconds, self.workload["trace_seconds"]) if trace else seconds
         self.device = torch.device(device)
@@ -171,7 +190,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device, t0: floa
     ctx = Context(name, seed, seconds, trace, device, t0, root)
     ctx.setup_parts["start_s"] = time.perf_counter() - t0  # torch and CUDA up
     try:
-        out: Outcome = traffic(ctx.workload["traffic"]).run(ctx)
+        out: Outcome = traffic(ctx.workload["traffic"], root).run(ctx)
     finally:
         ctx.close()
     passed = (out.answered and out.failed == 0
@@ -185,7 +204,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device, t0: floa
         rec = SimpleNamespace(trace=tr, counts=out.counts, facts=out.facts,
                               workload=ctx.workload, config=ctx.config)
         for m in cell_metrics(spec, "per_layer", name):
-            value = reader(m["name"])(rec)
+            value = reader(m["name"], root)(rec)
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     dev = {**device_info(ctx.device), "memory_peak_bytes": out.memory_peak}

@@ -22,32 +22,6 @@ def meta_params(shapes: dict) -> dict:
     return {k: torch.empty(tuple(s), device=META) for k, s in shapes.items()}
 
 
-def param_shapes(cfg: dict) -> dict:
-    """{name: shape} of G and of D at the configuration's widths."""
-    widths = gan.stage_widths(cfg)
-    k = cfg.get("num_classes", 0) if cfg["conditional"] else 0
-    g, prev = {}, cfg["z_dim"] + k
-    for i, w in enumerate(widths):
-        g[f"conv{i + 1}.weight"] = (prev, w, 4, 4)
-        g[f"norm{i + 1}.weight"] = g[f"norm{i + 1}.bias"] = (w,)
-        prev = w
-    g[f"conv{len(widths) + 1}.weight"] = (prev, cfg["channels"], 4, 4)
-    d, prev = {}, cfg["channels"]
-    if k:
-        d["label_embedding.weight"], d["label_embedding.bias"] = (2 * k, k), (2 * k,)
-    for i, w in enumerate(reversed(widths)):
-        d[f"conv{i + 1}.weight"] = (w, prev, 4, 4)
-        d[f"norm{i + 1}.weight"] = d[f"norm{i + 1}.bias"] = (w,)
-        prev = w
-    if k:
-        flat = (cfg["image_size"] // 2 ** len(widths)) ** 2 * prev
-        d["linear1.weight"], d["linear1.bias"] = (256, flat + 2 * k), (256,)
-        d["linear2.weight"], d["linear2.bias"] = (1, 256), (1,)
-    else:
-        d[f"conv{len(widths) + 1}.weight"] = (1, prev, 4, 4)
-    return {"g": g, "d": d}
-
-
 def _meta_draws(cfg: dict, n: int) -> dict:
     s, c = cfg["image_size"], cfg["channels"]
     draws = {"real_noise": torch.empty((n, s, s, c), device=META),
@@ -69,7 +43,7 @@ def step_flops(cfg: dict, batch: int) -> int:
     passes and their backward, the penalty's double backward, G's pass
     through D and its backward (the optimizers' elementwise work is not
     counted, as no FLOP counter counts it)."""
-    shapes = param_shapes(cfg)
+    shapes = gan.param_shapes(cfg)
     g = {k: v.requires_grad_(True) for k, v in meta_params(shapes["g"]).items()}
     d = {k: v.requires_grad_(True) for k, v in meta_params(shapes["d"]).items()}
     s, c = cfg["image_size"], cfg["channels"]
@@ -85,7 +59,7 @@ def step_flops(cfg: dict, batch: int) -> int:
 
 def forward_flops(cfg: dict, batch: int) -> int:
     """Operations of one generator forward of ``batch`` images."""
-    g = meta_params(param_shapes(cfg)["g"])
+    g = meta_params(gan.param_shapes(cfg)["g"])
     with FlopCounterMode(display=False) as counter:
         gan.generator(g, cfg, torch.empty((batch, cfg["z_dim"]), device=META),
                       _onehot(cfg, batch))

@@ -53,6 +53,33 @@ def stage_widths(cfg: dict) -> list:
     return [cfg["base_width"] * 2 ** (n_up - 1 - i) for i in range(n_up)]
 
 
+def param_shapes(cfg: dict) -> dict:
+    """{net: {name: shape}} of G ("g") and D ("d") at the configuration's
+    widths: the family's parameters, which its ``params`` count."""
+    widths = stage_widths(cfg)
+    k = cfg.get("num_classes", 0) if cfg["conditional"] else 0
+    g, prev = {}, cfg["z_dim"] + k
+    for i, w in enumerate(widths):
+        g[f"conv{i + 1}.weight"] = (prev, w, 4, 4)
+        g[f"norm{i + 1}.weight"] = g[f"norm{i + 1}.bias"] = (w,)
+        prev = w
+    g[f"conv{len(widths) + 1}.weight"] = (prev, cfg["channels"], 4, 4)
+    d, prev = {}, cfg["channels"]
+    if k:
+        d["label_embedding.weight"], d["label_embedding.bias"] = (2 * k, k), (2 * k,)
+    for i, w in enumerate(reversed(widths)):
+        d[f"conv{i + 1}.weight"] = (w, prev, 4, 4)
+        d[f"norm{i + 1}.weight"] = d[f"norm{i + 1}.bias"] = (w,)
+        prev = w
+    if k:
+        flat = (cfg["image_size"] // 2 ** len(widths)) ** 2 * prev
+        d["linear1.weight"], d["linear1.bias"] = (256, flat + 2 * k), (256,)
+        d["linear2.weight"], d["linear2.bias"] = (1, 256), (1,)
+    else:
+        d[f"conv{len(widths) + 1}.weight"] = (1, prev, 4, 4)
+    return {"g": g, "d": d}
+
+
 def _round(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``x`` rounded to ``dtype`` under one per-tensor scale, back in x's dtype."""
     scale = x.abs().amax().clamp_min(1e-30) / FP8_MAX[dtype]

@@ -48,9 +48,9 @@ def service(ctx):
     svc = GeneratorService(path, batch_size=cfg["serve"]["batch_size"],
                            compute_dtype=DTYPES[cfg["compute_dtype"]], device=ctx.device)
     counts = sum(p.numel() for p in svc.G.parameters())
-    if counts != cfg["params_g"]:
+    if counts != cfg["params"]["g"]:
         raise SystemExit(f"portbench: G holds {counts} parameters, the configuration "
-                         f"{cfg['params_g']}")
+                         f"{cfg['params']['g']}")
     return svc, path
 
 

@@ -12,37 +12,46 @@ import pytest
 import torch
 
 from portbench import core
-from portbench.reference import cost
 
-def _tiny_config(cfg: dict, dtype: str) -> dict:
-    cfg = {**cfg, "image_size": 16, "base_width": 8, "z_dim": 8, "num_classes": 10,
-           "compute_dtype": dtype}
-    cfg["train"] = {**cfg["train"], "batch_size": 16, "log_every": 4}
-    cfg["serve"] = {**cfg["serve"], "batch_size": 16}
-    shapes = cost.param_shapes(cfg)
-    cfg["params_g"] = sum(math.prod(s) for s in shapes["g"].values())
-    cfg["params_d"] = sum(math.prod(s) for s in shapes["d"].values())
+
+def _merged(base: dict, over: dict) -> dict:
+    """``base`` with ``over``'s values, nested groups merged key by key."""
+    out = dict(base)
+    for k, v in over.items():
+        out[k] = _merged(out[k], v) if isinstance(v, dict) and isinstance(out.get(k), dict) else v
+    return out
+
+
+def _tiny_config(cfg: dict, dtype: str, source: Path) -> dict:
+    """The configuration with its own ``tiny`` overrides and, where it
+    states a compute dtype, ``dtype``; its ``params`` counted anew by its
+    family's reference."""
+    cfg = _merged(cfg, cfg.pop("tiny", {}))
+    if "compute_dtype" in cfg:
+        cfg["compute_dtype"] = dtype
+    shapes = core.reference(cfg, source).param_shapes(cfg)
+    cfg["params"] = {net: sum(math.prod(s) for s in named.values())
+                     for net, named in shapes.items()}
     return cfg
 
 
-def _tiny_workload(wl: dict) -> dict:
-    wl = dict(wl, trace_seconds=1)
-    if "data" in wl:
-        wl["data"] = {"rows": 256, "size": 8, "channels": 3, "classes": 10}
-    if "request_images" in wl:
-        wl["request_images"] = 64
-    return wl
-
-
-def make_tiny_root(root: Path, dtype: str = "bfloat16") -> Path:
-    (root / "configs").mkdir(parents=True)
-    (root / "workloads").mkdir()
-    for path in (core.ROOT / "configs").glob("*.json"):
+def make_tiny_root(root: Path, dtype: str = "bfloat16", source: Path = core.ROOT) -> Path:
+    """Every configuration and cell of ``source`` cut by its own ``tiny``
+    block, under ``root``. A family's own code (its reference, traffic
+    kind, readers) outside the harness's folder is copied beside them."""
+    for folder in ("configs", "workloads"):
+        (root / folder).mkdir(parents=True)
+    for path in (source / "configs").glob("*.json"):
         (root / "configs" / path.name).write_text(
-            json.dumps(_tiny_config(core.load_json(path), dtype)))
-    for path in (core.ROOT / "workloads").glob("*.json"):
-        (root / "workloads" / path.name).write_text(
-            json.dumps(_tiny_workload(core.load_json(path))))
+            json.dumps(_tiny_config(core.load_json(path), dtype, source)))
+    for path in (source / "workloads").glob("*.json"):
+        wl = core.load_json(path)
+        (root / "workloads" / path.name).write_text(json.dumps(_merged(wl, wl.pop("tiny", {}))))
+    if source != core.ROOT:
+        for folder in ("reference", "traffic", "layer_metrics"):
+            for path in (source / folder).glob("*.py"):
+                (root / folder).mkdir(exist_ok=True)
+                shutil.copy(path, root / folder / path.name)
     return root
 
 

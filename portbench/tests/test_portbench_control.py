@@ -18,11 +18,11 @@ SPEC = core.load_json(core.ROOT.parent / "BENCHMARK.json")
 
 def _cases():
     """(cell, precision, fault, from_step): the control in every step, and
-    for training cells the control and the half batch in the replayed steps
-    alone."""
+    for cells whose traffic kind has replayed steps (its ``REPLAYED_STEPS``)
+    the control and the half batch in the replayed steps alone."""
     for w in SPEC["workloads"]:
         yield w["name"], "fp8", "", 0
-        if w["traffic"] == "train":
+        if core.traffic(w["traffic"]).REPLAYED_STEPS:
             yield w["name"], "fp8", "", 1
             yield w["name"], "f32", "half", 1
 

@@ -1,19 +1,20 @@
 """BENCHMARK.json against the files it names, every configuration, cell,
-traffic kind and metric reader loading, and a new cell added as a file
-alone."""
+traffic kind and metric reader loading, a new cell added as a file alone,
+and a new family (``toy_family/``) added as files alone."""
 
 import json
 import math
 import re
 import shutil
+import time
 
 from portbench import core
-from portbench.reference import cost
-from conftest import run_tiny
+from conftest import make_tiny_root, run_tiny
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 SPEC = core.load_json(core.ROOT.parent / "BENCHMARK.json")
+TOY = core.ROOT / "tests" / "toy_family"
 
 
 def test_benchmark_json_follows_its_contract():
@@ -49,15 +50,23 @@ def test_benchmark_json_follows_its_contract():
     assert len(json.dumps(SPEC)) < 64 * 1024
 
 
-def test_every_configuration_cell_and_reader_loads():
-    for path in sorted((core.ROOT / "workloads").glob("*.json")):
-        wl, cfg = core.load_cell(path.stem)
-        mod = core.traffic(wl["traffic"])
+def check_cells(root):
+    """Every cell under ``root`` loads: its traffic kind (``run``,
+    ``readings``, ``REPLAYED_STEPS``), its configuration's ``params`` as its
+    family's reference counts them, its limits."""
+    for path in sorted((root / "workloads").glob("*.json")):
+        wl, cfg = core.load_cell(path.stem, root)
+        mod = core.traffic(wl["traffic"], root)
         assert callable(mod.run) and callable(mod.readings)
-        shapes = cost.param_shapes(cfg)
-        assert sum(math.prod(s) for s in shapes["g"].values()) == cfg["params_g"]
-        assert sum(math.prod(s) for s in shapes["d"].values()) == cfg["params_d"]
+        assert isinstance(mod.REPLAYED_STEPS, bool)
+        shapes = core.reference(cfg, root).param_shapes(cfg)
+        assert {net: sum(math.prod(s) for s in named.values())
+                for net, named in shapes.items()} == cfg["params"], path.stem
         assert wl["limits"], path.stem
+
+
+def test_every_configuration_cell_and_reader_loads():
+    check_cells(core.ROOT)
     for path in sorted((core.ROOT / "layer_metrics").glob("[!_]*.py")):
         assert callable(core.reader(path.stem))
 
@@ -66,8 +75,9 @@ def test_published_parameter_counts():
     counts = {}
     for name in ("dcgan-64", "cgan-64"):
         cfg = core.load_json(core.ROOT / "configs" / f"{name}.json")
-        counts[name] = (cfg["params_g"], cfg["params_d"])
-    assert counts == {"dcgan-64": (3_576_704, 2_765_696), "cgan-64": (4_395_904, 4_926_569)}
+        counts[name] = cfg["params"]
+    assert counts == {"dcgan-64": {"g": 3_576_704, "d": 2_765_696},
+                      "cgan-64": {"g": 4_395_904, "d": 4_926_569}}
 
 
 def test_a_new_cell_is_a_file_only(tiny_root):
@@ -84,12 +94,36 @@ def test_a_new_cell_is_a_file_only(tiny_root):
     for m in spec["end_to_end"] + spec["per_layer"]:
         if "dcgan-64.train" in m.get("workloads", []):
             m["workloads"].append("dcgan-64.train-again")
-    import time
-
     line, _ = core.run_cell("dcgan-64.train-again", 5, 0.3, False, "cpu", time.perf_counter(),
                             spec, tiny_root)
     assert line["correct"] and set(line["metrics"]) == {"train_img_s", "setup_s"}
     assert list(line)[-1] == "checks"
+
+
+def test_a_new_family_is_files_only(scratch):
+    """A family with none of the GAN keys (a two-layer classifier: its
+    configuration, reference, traffic kind and cell) beside the present
+    files: the tiny root builds, the toy's files pass the checks of every
+    configuration, its cell runs correct with its metrics, and the GAN
+    cells in the same root stay correct."""
+    src = scratch / "src"
+    for folder in ("configs", "workloads"):
+        shutil.copytree(core.ROOT / folder, src / folder)
+    shutil.copytree(TOY, src, dirs_exist_ok=True)
+    root = make_tiny_root(scratch / "root", source=src)
+    cfg = core.load_cell("toy-mlp.fit", root)[1]
+    assert not set(cfg) & {"z_dim", "conditional", "base_width", "train", "serve"}
+    check_cells(src)
+    check_cells(root)
+    spec = json.loads(json.dumps(SPEC))
+    for m in spec["end_to_end"]:
+        if m["name"] == "train_img_s":
+            m["workloads"].append("toy-mlp.fit")
+    line, _ = core.run_cell("toy-mlp.fit", 2 ** 31 + 5, 0.3, False, "cpu", time.perf_counter(),
+                            spec, root)
+    assert line["correct"] and set(line["metrics"]) == {"train_img_s", "setup_s"}
+    for w in SPEC["workloads"]:
+        assert run_tiny(root, w["name"])[0]["correct"], w["name"]
 
 
 def test_the_result_line_of_a_cell(tiny_root):

@@ -7,7 +7,7 @@ import pytest
 import torch
 
 from portbench import weights
-from portbench.reference import cost
+from portbench.reference import gan
 from conftest import run_tiny
 
 
@@ -43,7 +43,7 @@ def test_weights_follow_the_init_laws():
     cfg = {"image_size": 64, "base_width": 64, "z_dim": 100, "channels": 3,
            "conditional": True, "num_classes": 100}
     p = weights.make(cfg, 3, torch.device("cpu"))
-    assert {k: tuple(v.shape) for k, v in p["g"].items()} == cost.param_shapes(cfg)["g"]
+    assert {k: tuple(v.shape) for k, v in p["g"].items()} == gan.param_shapes(cfg)["g"]
     conv = torch.cat([v.flatten() for k, v in p["g"].items() if k.startswith("conv")])
     scale = torch.cat([v for k, v in p["d"].items() if k.startswith("norm") and k.endswith("weight")])
     assert abs(conv.std().item() - 0.02) < 1e-3 and abs(conv.mean().item()) < 1e-4

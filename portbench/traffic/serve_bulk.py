@@ -20,6 +20,8 @@ import time
 from portbench import core, judge, serving, weights
 from portbench.reference import cost, gan
 
+REPLAYED_STEPS = False  # no steps: the control is read in every render
+
 
 def readings(ctx, precision: str = "f32", fault: str = "") -> dict:
     """The judge's numbers for the reference at ``precision`` put in the

@@ -78,10 +78,10 @@ def build_trainer(cfg: dict, pcfg, params: dict):
         G, D = Generator(geo), Discriminator(geo)
     G.load_state_dict(weights.state_dict(params["g"]))
     D.load_state_dict(weights.state_dict(params["d"]))
-    counts = tuple(sum(p.numel() for p in net.parameters()) for net in (G, D))
-    if counts != (cfg["params_g"], cfg["params_d"]):
+    counts = {net: sum(p.numel() for p in mod.parameters()) for net, mod in (("g", G), ("d", D))}
+    if counts != cfg["params"]:
         raise SystemExit(f"portbench: G, D hold {counts} parameters, the configuration "
-                         f"{(cfg['params_g'], cfg['params_d'])}")
+                         f"{cfg['params']}")
     return (CGANTrainer if cfg["conditional"] else DCGANTrainer)(pcfg, G, D, data)
 
 
@@ -102,6 +102,7 @@ def program_state(st) -> dict:
     return out
 
 
+REPLAYED_STEPS = True  # the control and the half batch are read in the replayed steps alone too
 TELEMETRY = ("loss_d", "gp", "d_x", "d_gz1", "loss_g")  # a step's readings the judge compares
 CHECK_STEPS = 3
 

@@ -12,7 +12,7 @@ import math
 
 import torch
 
-from portbench.reference.cost import param_shapes
+from portbench.reference.gan import param_shapes
 
 
 def make(cfg: dict, seed: int, device) -> dict:
