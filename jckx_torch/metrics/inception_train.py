@@ -27,7 +27,14 @@ indices copied in). Launches go as jckx's (``:496-530``): ``--scan_steps
 K`` replays K steps per launch and reads their loss once, at its end, to
 log its mean (jckx's ``make_superstep``, ``:107-130``); ``0`` replays one
 step per launch. Either way the host reads the epoch's loss and accuracy
-once, at its end. Over a NCCL mesh the graph holds the step's collectives
+once, at its end. ``prepare`` builds the state (net, SGD, step, resident
+data, generator, superstep) and ``launch`` runs one launch of it; ``train``
+is the epoch loop, evals and files around the two, and the benchmark
+(``portbench/traffic/finetune.py``) calls the same two. Under a profiler a
+launch is the span ``finetune.launch``, each step's host part (its index
+slice and draws) ``train.feed``, as the GAN trainer's, its read
+``finetune.telemetry_read``.
+Over a NCCL mesh the graph holds the step's collectives
 (``bn_relu_train``'s all-reduces, the gradient average, the loss and
 accuracy means); over gloo, whose collectives run on the host, and on the
 CPU the steps stay eager, and the log says why. The eval forward folds the
@@ -81,6 +88,7 @@ from jckx_torch.metrics import inception_v3
 from jckx_torch.metrics.metrics import IMAGENET_MEAN, IMAGENET_STD
 from jckx_torch.parallel.mesh import parse_mesh_shape, process_mesh
 from jckx_torch.train.superstep import Superstep, graph_for
+from jckx_torch.utils import spans
 from jckx_torch.utils.device import multihost_barrier, resolve_device
 
 FEATURES = 2048  # the pooled width that dropout masks
@@ -286,19 +294,23 @@ def load_train_state(path: str, net, opt, generator: torch.Generator):
 
 @dataclass
 class FinetuneRun:
-    """What ``train`` leaves behind: the bests, the trained net and its
-    step (for callers that time it), the resident data, and one record per
-    epoch run (losses, metrics, and the host seconds of its steps, its
-    evals and its ``.npz`` writes)."""
-    best_acc: float
-    best_loss: float
+    """The fine-tune's state on the device (``prepare``) and what ``train``
+    leaves behind: the net, its optimizer and step, the resident data, the
+    draws' generator, the step's graph on the card, the steps of a launch
+    that ends in a read, the bests, and one record per epoch run (losses,
+    metrics, and the host seconds of its steps, its evals and its ``.npz``
+    writes)."""
     net: inception_v3.InceptionV3
+    opt: torch.optim.SGD
     step: Callable
     data: torch.Tensor
     labels: torch.Tensor
     generator: torch.Generator
-    start_epoch: int
+    scan_steps: int = 0  # a launch of this many steps ends in its one host read
     superstep: Optional[Superstep] = None  # the step's graph on the card
+    best_acc: float = 0.0
+    best_loss: float = 1e10
+    start_epoch: int = 0
     epochs: List[dict] = field(default_factory=list)
 
 
@@ -335,6 +347,70 @@ def _load_splits(args, logger):
     return x, y, xt, yt, ncls, synthetic
 
 
+def prepare(args, x: np.ndarray, y: np.ndarray, num_classes: int, device: torch.device,
+            mesh=None, logger=None) -> FinetuneRun:
+    """The fine-tune's state on ``device``: the seeded net
+    (``inception_v3.init(args.seed)``, ``num_classes`` wide), its nesterov
+    SGD and train step (over ``mesh``), the train rows ``x`` (uint8 NHWC)
+    and labels ``y`` resident on the device, the draws' generator seeded
+    with ``args.seed``, and where ``graph_for`` allows it the step's
+    superstep. ``train`` and the benchmark drive it through ``launch``."""
+    net = inception_v3.init(args.seed, num_classes=num_classes).to(device)
+    opt = make_optimizer(net, args.max_learning_rate, args.weight_decay,
+                         nesterov=bool(args.nesterov))
+    step = make_train_step(net, opt, _DTYPES[args.compute_dtype], args.image_size, mesh)
+    data = device_copy(x, device)
+    labels = torch.from_numpy(y.astype(np.int64)).to(device)
+    graph, why_eager = graph_for(device, mesh=mesh)
+    superstep = make_superstep(step, data, labels, graph, mesh) if graph else None
+    if logger is not None:
+        logger.debug("train step: " + (
+            "one CUDA graph, captured after the run's first (eager) step and replayed"
+            + ("; the mesh's collectives inside it" if mesh is not None else "")
+            if graph else f"eager, {why_eager}"))
+    return FinetuneRun(net, opt, step, data, labels,
+                       torch.Generator(device=device).manual_seed(args.seed), args.scan_steps,
+                       superstep)
+
+
+def launch(run: FinetuneRun, order_dev: torch.Tensor, i: int, k: int):
+    """Steps ``i`` … ``i + k − 1`` of the epoch whose batches of row indices
+    are ``order_dev`` (steps, batch) on the device, as one launch: k eager
+    steps, or k replays of the step's graph. Each step's index slice and
+    draws come from ``run.generator`` in step order: step 0's first, the
+    others' all at once after step 0 is queued, so the card works while
+    they are made and none waits behind a queued step. → (rows, read):
+    the steps' loss and accuracy, (k, 2) on the device, and where k is
+    ``run.scan_steps`` their host copy, the launch's one read, which bounds
+    how far the host runs ahead (else None). Under a profiler the launch is
+    the span ``finetune.launch`` (n = k), each step's slice and draws
+    ``train.feed``, the read ``finetune.telemetry_read``."""
+    bs, device = order_dev.shape[1], run.data.device
+
+    def feed(j: int):
+        with spans.span("train.feed", 1):
+            return order_dev[i + j], draw_step(run.generator, bs, device)
+
+    fed = []
+
+    def inputs(j: int):
+        if j == len(fed):  # step 0's alone, then the rest
+            fed.extend(feed(m) for m in range(j, k if j else 1))
+        return fed[j]
+
+    with spans.span("finetune.launch", k):
+        if run.superstep is None:
+            rows = torch.stack([torch.stack(run.step(run.data, run.labels, *inputs(j)))
+                                for j in range(k)])
+        else:
+            rows = run.superstep.replay(k, lambda j: step_inputs(*inputs(j)))
+        read = None
+        if k == run.scan_steps:
+            with spans.span("finetune.telemetry_read", k):
+                read = rows.cpu().numpy()
+    return rows, read
+
+
 def train(args) -> FinetuneRun:
     device = resolve_device(args.device)
     mesh = process_mesh(args.mesh_shape, multihost=bool(args.multihost), device=device,
@@ -350,22 +426,14 @@ def train(args) -> FinetuneRun:
     logger = MainLogger(args)
     if mesh is not None:
         logger.debug(f"fine-tune mesh: {mesh.shape} (data-parallel, sync-BN), rank {mesh.rank}")
-    cd = _DTYPES[args.compute_dtype]
     x, y, xt, yt, ncls, synthetic = _load_splits(args, logger)
-
-    net = inception_v3.init(args.seed, num_classes=ncls).to(device)
-    opt = make_optimizer(net, args.max_learning_rate, args.weight_decay,
-                         nesterov=bool(args.nesterov))
-    step = make_train_step(net, opt, cd, args.image_size, mesh)
-    logits_fn = make_eval_fn(net, cd, args.image_size)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
+    run = prepare(args, x, y, ncls, device, mesh, logger)
+    logits_fn = make_eval_fn(run.net, _DTYPES[args.compute_dtype], args.image_size)
     rng = np.random.RandomState(args.seed)
     steps_per_epoch = len(y) // bs
     if args.max_steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, args.max_steps_per_epoch)
 
-    data_dev = device_copy(x, device)
-    labels_dev = torch.from_numpy(y.astype(np.int64)).to(device)
     yt_eval = yt[: args.eval_samples]
     # one upload for all epochs
     xt_dev = eval_device_set(xt[: args.eval_samples], device=device, mesh=mesh)
@@ -380,47 +448,32 @@ def train(args) -> FinetuneRun:
     resume = bool(args.resume) and os.path.exists(state_path)
     if mesh is not None:
         resume = mesh.agree(resume, f"--resume: {state_path} exists")
-    graph, why_eager = graph_for(device, mesh=mesh)
-    superstep = make_superstep(step, data_dev, labels_dev, graph, mesh) if graph else None
-    logger.debug("train step: " + (
-        "one CUDA graph, captured after the run's first (eager) step and replayed"
-        + ("; the mesh's collectives inside it" if mesh is not None else "")
-        if graph else f"eager, {why_eager}"))
     if resume:
-        epoch, best_acc, best_loss, patience = load_train_state(state_path, net, opt, gen)
-        if superstep is not None:  # the momentum buffers are new tensors
-            superstep.invalidate()
+        epoch, best_acc, best_loss, patience = load_train_state(state_path, run.net, run.opt,
+                                                                run.generator)
+        if run.superstep is not None:  # the momentum buffers are new tensors
+            run.superstep.invalidate()
         start_epoch = epoch + 1
         for _ in range(start_epoch):  # fast-forward the shuffle stream
             rng.permutation(len(y))
         logger.debug(f"resumed at epoch {start_epoch} (best top1 {best_acc:.4f}, "
                      f"best loss {best_loss:.4f})")
-    run = FinetuneRun(best_acc, best_loss, net, step, data_dev, labels_dev, gen, start_epoch,
-                      superstep)
-    launch = max(args.scan_steps, 1)  # steps per launch
+    run.best_acc, run.best_loss, run.start_epoch = best_acc, best_loss, start_epoch
+    per_launch = max(args.scan_steps, 1)
     start = time.time()
     for epoch in range(start_epoch, args.epoch):
         t0 = time.perf_counter()
         order = rng.permutation(len(y))[: steps_per_epoch * bs].reshape(steps_per_epoch, bs)
         order_dev = torch.from_numpy(order).to(device)  # one upload per epoch
-        losses, accs = [], []
-        for i in range(0, steps_per_epoch, launch):
-            k = min(launch, steps_per_epoch - i)
-            if superstep is None:
-                for j in range(i, i + k):
-                    loss, acc = step(data_dev, labels_dev, order_dev[j], draw_step(gen, bs, device))
-                    losses.append(loss)  # device tensors: no host read inside the epoch…
-                    accs.append(acc)
-            else:
-                rows = superstep.replay(k, lambda j: step_inputs(order_dev[i + j],
-                                                                 draw_step(gen, bs, device)))
-                losses += rows[:, 0].unbind()
-                accs += rows[:, 1].unbind()
-            if k == args.scan_steps:
-                # …except at the end of a launch of --scan_steps steps, which
-                # bounds how far the host runs ahead and changes no result
-                group = torch.stack(losses[-k:]).mean().item()
-                logger.debug(f"epoch {epoch} steps {i}-{i + k - 1}: mean loss {group:.4f}")
+        losses, accs = [], []  # device tensors: the host reads them once, after the epoch
+        for i in range(0, steps_per_epoch, per_launch):
+            k = min(per_launch, steps_per_epoch - i)
+            rows, read = launch(run, order_dev, i, k)
+            losses += rows[:, 0].unbind()
+            accs += rows[:, 1].unbind()
+            if read is not None:
+                logger.debug(f"epoch {epoch} steps {i}-{i + k - 1}: mean loss "
+                             f"{float(read[:, 0].mean()):.4f}")
         tr_loss = float(torch.stack(losses).mean()) if losses else float("nan")
         tr_acc = float(torch.stack(accs).mean()) if accs else float("nan")
         train_s = time.perf_counter() - t0
@@ -458,8 +511,9 @@ def train(args) -> FinetuneRun:
         patience = 0 if improved else patience + 1
         if lead:
             for name in written:
-                save_npz(os.path.join(args.save_dir, name), net)
-            save_train_state(state_path, net, opt, gen, epoch, best_acc, best_loss, patience)
+                save_npz(os.path.join(args.save_dir, name), run.net)
+            save_train_state(state_path, run.net, run.opt, run.generator, epoch, best_acc,
+                             best_loss, patience)
         run.epochs.append({"epoch": epoch, "steps": len(losses), "train_loss": tr_loss,
                            "train_acc": tr_acc, **tr_ev, **ev, "train_s": train_s,
                            "eval_s": eval_s, "write_s": time.perf_counter() - t0,

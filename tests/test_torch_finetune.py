@@ -223,3 +223,46 @@ def test_cli_finetune_and_its_refusals(tmp_path, capsys):
     out = subprocess.run([sys.executable, "-m", "jckx_torch.metrics.inception_train", "-h"],
                          cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and "--max_steps_per_epoch" in out.stdout
+
+
+def _array_digest(path) -> str:
+    """sha256 of an ``.npz``'s arrays: each name, dtype, shape and bytes, in
+    name order (the zip's own bytes hold its write time)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    with np.load(path) as z:
+        for k in sorted(z.files):
+            a = np.ascontiguousarray(z[k])
+            h.update(f"{k}|{a.dtype}|{a.shape}".encode())
+            h.update(a.tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("route", ["eager", "graph"])
+def test_train_writes_what_it_wrote_before_launch_was_factored_out(tmp_path, monkeypatch, route):
+    """``train()`` as the epoch loop around ``prepare`` and ``launch``
+    writes, bit for bit, what it wrote when its launch body was inline:
+    the numbers below were pinned from that tree, with this run (two epochs
+    of 3 steps, ``--scan_steps 2``: a launch that ends in its read and one
+    that does not), one torch thread, eager and through ``EagerGraph``."""
+    from jckx_torch.metrics import inception_train
+    from jckx_torch.utils.graphs import EagerGraph
+
+    if route == "graph":
+        monkeypatch.setattr(inception_train, "graph_for", lambda *a, **k: (EagerGraph, ""))
+    save = tmp_path / "bk"
+    run = train(_args(tmp_path, save, "--dataset", "synthetic", "--synthetic_size", "40", "-b",
+                      "8", "-e", "2", "--max_steps_per_epoch", "3", "--eval_samples", "8",
+                      "--scan_steps", "2"))
+    assert (run.superstep is not None) == (route == "graph")
+    side = json.loads((save / "summary.json").read_text())
+    del side["wall_s"]
+    assert side == {"dataset": "synthetic", "synthetic_fallback": True, "epochs_run": 2,
+                    "epoch_budget": 2, "batch_size": 8, "best_top1": 0.125,
+                    "best_loss": 77631.453125}
+    assert [e["train_loss"] for e in run.epochs] == [4.954097747802734, 4.392150402069092]
+    assert _array_digest(save / "last_bset.npz") == (
+        "4fa572dcd9db4efa734d5223159fb01971d3ac060f1b28d905a66960599e9778")
+    assert _array_digest(save / "train_state.npz") == (
+        "dbe0141d45d80314d65f1c70a27b335b3ca201c1a3be678962737934595de7ea")

@@ -3,13 +3,16 @@ a profiler; under ``torch.profiler`` nested records with their parent, root,
 ``n`` and self time, and ``jckx_torch.*`` user annotations in the Chrome
 trace around the aten ops they enclose; a served request and a train launch
 as their layers' spans (the tiny setup of tests/test_step_torch_parity.py:
-16², width 8, batch 8, f32, ``EagerGraph`` in place of a CUDA graph); and
-the benchmark's four readers of them on a synthetic span list.
+16², width 8, batch 8, f32, ``EagerGraph`` in place of a CUDA graph); a
+fine-tune launch (``inception_train.launch``, 75², batch 2, eager); the
+benchmark's four readers of spans on synthetic span lists, and the
+fine-tune cell's two readers of the device trace on synthetic kernels.
 """
 
 import json
 import sys
 import threading
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -18,12 +21,15 @@ from torch.profiler import ProfilerActivity, profile
 
 from jckx_torch import serve as tserve
 from jckx_torch.configs import Config
+from jckx_torch.metrics import inception_train
 from jckx_torch.models.dcgan import Discriminator, GANGeometry, Generator
 from jckx_torch import utils
 from jckx_torch.train import gan_trainer
 from jckx_torch.utils import spans
 from jckx_torch.utils.graphs import EagerGraph
 from portbench import core
+from portbench.layer_metrics._device import PEAK_HBM_BYTES
+from portbench.trace import DeviceEvent, Trace
 from torch_threads import one_torch_thread  # noqa: F401
 
 GEO = GANGeometry(z_dim=16, image_size=16, channels=3, base_width=8)
@@ -222,3 +228,69 @@ def test_the_span_readers_on_synthetic_spans(monkeypatch, metric, want):
     monkeypatch.delattr(utils, "spans")  # a program without the recorder
     monkeypatch.setitem(sys.modules, "jckx_torch.utils.spans", None)
     assert read(None) is None
+
+
+def test_the_feed_reader_takes_a_finetune_launch_s_feeds(monkeypatch):
+    """A fine-tune launch's feeds are ``train.feed`` spans made before its
+    replays: ``train.host_ms_per_step`` reads them, and leaves the replays
+    and the read out."""
+    S, p = spans.Span, spans.PREFIX
+    got = [S(p + "finetune.launch", 0, 30_000_000, 30, 0, 30, 2),
+           S(p + "train.feed", 0, 2_000_000, 31, 30, 30, 1),
+           S(p + "train.feed", 2_000_000, 3_000_000, 32, 30, 30, 1),
+           S(p + "superstep.replay", 3_000_000, 15_000_000, 33, 30, 30, 1),
+           S(p + "superstep.replay", 15_000_000, 20_000_000, 34, 30, 30, 1),
+           S(p + "finetune.telemetry_read", 20_000_000, 30_000_000, 35, 30, 30, 2)]
+    monkeypatch.setattr(spans, "recorded", lambda: got)
+    assert core.reader("train.host_ms_per_step")(None) == pytest.approx(3.0 / 2)
+
+
+def test_a_finetune_launch_is_one_span_over_its_steps():
+    """A launch of K = ``--scan_steps`` steps: one ``finetune.launch`` (n =
+    K) over K ``train.feed`` and the launch's one
+    ``finetune.telemetry_read``; a shorter launch reads nothing; off the
+    profiler, nothing is recorded."""
+    args = inception_train.get_args(["--device", "cpu", "--compute_dtype", "float32",
+                                     "--image_size", "75", "-b", "2", "--scan_steps", "2"])
+    rng = np.random.RandomState(0)
+    run = inception_train.prepare(args, rng.randint(0, 256, (8, 32, 32, 3)).astype(np.uint8),
+                                  np.arange(8, dtype=np.int32) % 4, 4, torch.device("cpu"))
+    assert run.superstep is None and run.scan_steps == 2
+    order = torch.arange(8).reshape(4, 2)
+    (rows, read), got, _ = _profiled(lambda: inception_train.launch(run, order, 0, 2))
+    assert rows.shape == (2, 2) and read.shape == (2, 2)
+    (root,) = _named(got, "finetune.launch")
+    feeds, (tel,) = _named(got, "train.feed"), _named(got, "finetune.telemetry_read")
+    assert root.parent == 0 and root.n == 2 and len(feeds) == 2 and tel.n == 2
+    assert {(s.parent, s.root, s.n) for s in feeds} == {(root.id, root.id, 1)}
+    assert (tel.parent, tel.root) == (root.id, root.id) and len(got) == 4
+    (_, read), got, _ = _profiled(lambda: inception_train.launch(run, order, 2, 1))
+    assert read is None and not _named(got, "finetune.telemetry_read")
+    inception_train.launch(run, order, 3, 1)
+    assert spans.recorded() == []
+
+
+def _kernels(*named):
+    """A 1 ms window holding kernels (name, start µs, length µs) in turn."""
+    return Trace((0.0, 1000.0), [DeviceEvent(n, "kernel", t, t + d) for n, t, d in named],
+                 [("portbench.window", 0.0, 1000.0)])
+
+
+def test_the_finetune_device_readers_on_synthetic_kernels():
+    tr = _kernels(("void bn_act_vec<__nv_bfloat16, 1>", 0.0, 100.0),
+                  ("max_pool_forward_nhwc<c10::BFloat16>", 100.0, 50.0),
+                  ("avg_pool2d_backward_out_cuda_frame_nhwc<c10::BFloat16>", 150.0, 50.0),
+                  ("sm90_xmma_fprop_implicit_gemm", 200.0, 200.0),
+                  ("void bn_act_vec<__nv_bfloat16, 1>", 400.0, 100.0))
+    facts = {"bn_act_bytes_per_step": 4.0e9, "bn_act_layers": 94}
+    rec = SimpleNamespace(trace=tr, facts=facts, counts={"steps": 1})
+    roof, pool = core.reader("finetune.bn_act_roofline"), core.reader("finetune.pool_pct")
+    # two launches of an average 4e9 / 94 bytes at 3.35 TB/s against 200 µs of bn_act
+    assert roof(rec) == pytest.approx(100.0 * 2 * 4.0e9 / 94 / PEAK_HBM_BYTES / 200e-6)
+    assert pool(rec) == pytest.approx(100.0 * 100.0 / 500.0)  # of 500 µs busy
+    plain = _kernels(("sm90_xmma_fprop_implicit_gemm", 0.0, 10.0))
+    for nothing in (SimpleNamespace(trace=None, facts=facts, counts={}),
+                    SimpleNamespace(trace=plain, facts=facts, counts={}),
+                    SimpleNamespace(trace=Trace((0.0, 1.0)), facts=facts, counts={})):
+        assert roof(nothing) is None and pool(nothing) is None
+    assert roof(SimpleNamespace(trace=tr, facts={}, counts={})) is None
