@@ -26,7 +26,11 @@ Run from the root of a checkout, on a machine with a CUDA card and
    H100 SXM's 3.35 TB/s), its plain version and ``F.batch_norm`` + ReLU,
    and the served images per second, beside the card's name and power
    limit, and profiles one served request (the card's busy share and its
-   time by kernel);
+   time by kernel); then the BN statistics' moments kernels
+   (``phase_moments``) at the same four layers: their sums against f64
+   beside the plain route's, the same bits twice, and each layer's time
+   against its bound (the activation read once), the plain route's and
+   one ``torch.sum``'s;
 6. holds one train step at full width (64², z 100, base width 64, batch
    16, f32, TF32 off; DCGAN, then CGAN with K = 100 and its four dropout
    masks) on the card against the same step on the CPU, from the same
@@ -257,6 +261,13 @@ Run from the root of a checkout, on a machine with a CUDA card and
 36. prints a ``{"kernels": [...]}`` line, then, last, the
     ``{"ok": true, "device": {...}}`` line.
 
+Wherever a phase reads the normalize kernel's launches (``LAUNCHES``) it
+reads the BN statistics' moments kernels' too (``MOMENTS_LAUNCHES``,
+``check_moments``): two for each launch of a G or D forward that takes no
+gradient, none in a differentiated step or the fine-tune's steps; children
+record their own. The ``bn_moments`` entry of the kernels line sums these
+paths' counts.
+
 Any failed phase exits nonzero before the last line is printed. Without a
 card, or outside a checkout of the repo, it exits nonzero at once.
 """
@@ -456,6 +467,87 @@ def eager_route(obj, attr: str = "program"):
         setattr(obj, attr, program)
 
 
+# The moments kernels' launches of every path a phase checked
+# (``check_moments``), children's included: the kernels line sums them, so
+# ``phase_moments``' own calls are not among them.
+MOMENTS_ON_PATHS = []
+# The moments kernels' launches inside int8 calibrations since the counters
+# were zeroed (``count_calibrations``).
+CALIBRATION_MOMENTS = [0]
+
+
+def count_calibrations() -> None:
+    """Wrap ``ops/quant.calibrate_generator``, which ``make_sampler`` calls
+    for an int8 sampler: its float forwards take ``bn_act_plain`` under
+    inference mode, so on the card each BN layer of each probe batch
+    launches the moments kernels (2) and no normalize kernel. The wrapper
+    checks that count and keeps it in ``CALIBRATION_MOMENTS``, which
+    ``launch_counts`` takes off."""
+    import jckx_torch.ops.quant as tquant
+    from jckx_torch.kernels import fused_bn_act as fba
+
+    real = tquant.calibrate_generator
+
+    def calibrate_generator(G, probes, *args, **kw):
+        before = (fba.LAUNCHES, fba.MOMENTS_LAUNCHES)
+        out = real(G, probes, *args, **kw)
+        m = fba.MOMENTS_LAUNCHES - before[1]
+        want = 2 * len(probes) * G.geo.n_up if G.conv1.weight.is_cuda else 0
+        check(fba.LAUNCHES == before[0] and m == want,
+              f"an int8 calibration launched {fba.LAUNCHES - before[0]} normalize and {m} "
+              f"moments kernels, want 0 and {want}")
+        CALIBRATION_MOMENTS[0] += m
+        return out
+
+    tquant.calibrate_generator = calibrate_generator
+
+
+def zero_launches() -> None:
+    """Zero both kernel counters: the normalize kernel's (``LAUNCHES``) and
+    the BN statistics' moments kernels' (``MOMENTS_LAUNCHES``)."""
+    from jckx_torch.kernels import fused_bn_act as fba
+
+    fba.LAUNCHES = fba.MOMENTS_LAUNCHES = CALIBRATION_MOMENTS[0] = 0
+
+
+def launch_counts() -> tuple:
+    """(``LAUNCHES``, ``MOMENTS_LAUNCHES`` less the int8 calibrations')
+    now."""
+    from jckx_torch.kernels import fused_bn_act as fba
+
+    return fba.LAUNCHES, fba.MOMENTS_LAUNCHES - CALIBRATION_MOMENTS[0]
+
+
+def check_moments(what: str, launches: int, moments: int = None, per: int = 2) -> int:
+    """A path's moments-kernel launches against its normalize launches,
+    ``per`` each: 2 where every launch was a ``bn_act`` that took no
+    gradient (one ``bn_moments``: the partial sums, then their combine); 0
+    on the fine-tune's ``bn_relu_train``, which takes its sums in
+    ``ops/norm.py``. ``moments`` None reads ``launch_counts()``, zeroed
+    with ``LAUNCHES`` (``zero_launches``). The count joins the kernels
+    line's. → it."""
+    m = launch_counts()[1] if moments is None else moments
+    check(m == per * launches, f"{what}: {m} moments-kernel launches for {launches} normalize "
+                               f"launches, want {per * launches}")
+    MOMENTS_ON_PATHS.append(m)
+    return m
+
+
+@contextlib.contextmanager
+def plain_sums():
+    """While inside, ``_stats`` takes the plain sums (``bn_moments_plain``)
+    wherever it would take the moments kernels: a reference route that
+    shares no code with them."""
+    from jckx_torch.kernels import fused_bn_act as fba
+
+    op = fba.bn_moments_op
+    fba.bn_moments_op = fba.bn_moments_plain
+    try:
+        yield
+    finally:
+        fba.bn_moments_op = op
+
+
 def with_bn_act(bn, render):
     """``render()`` with every generator BN layer, of the float and of the
     int8 forward, routed through ``bn`` (and every graphed program eager)."""
@@ -536,7 +628,7 @@ def phase_serve(path: str, geo):
     svc = GeneratorService(path)  # the defaults: cuda, batch 512, bf16
     check(svc.device.type == "cuda" and svc.batch_size == BATCH, "service defaults")
     shape = (geo.image_size, geo.image_size, geo.channels)
-    fba.LAUNCHES = 0
+    zero_launches()
     a = svc.sample(64, seed=1)       # one padded batch
     b = svc.sample(1000)             # two batches, the second trimmed
     c1 = svc.sample(64, seed=7)
@@ -549,6 +641,7 @@ def phase_serve(path: str, geo):
     check(c1.tobytes() == c2.tobytes(), "the same seed gave different images")
     check(a.tobytes() != c1.tobytes(), "two seeds gave the same images")
     check(launches == 4 * batches, f"{launches} kernel launches for {batches} batches, want {4 * batches}")
+    check_moments("served DCGAN requests", launches)
     print(f"served 64 + 1000 + 64 + 64 images in {batches} batches of {svc.batch_size}: "
           f"{launches} kernel launches")
     return svc, launches
@@ -570,7 +663,7 @@ def phase_serve_cgan(path: str, geo, dev):
     shape = (geo.image_size, geo.image_size, geo.channels)
     requests = [(64, SERVE_LABELS, 1), (1000, SERVE_LABELS, None), (600, None, None),
                 (64, None, 7), (64, None, 7)]
-    fba.LAUNCHES = 0
+    zero_launches()
     out = [svc.sample(n, labels=lab, seed=seed) for n, lab, seed in requests]
     launches = fba.LAUNCHES
     batches = sum(math.ceil(n / svc.batch_size) for n, _, _ in requests)
@@ -581,6 +674,7 @@ def phase_serve_cgan(path: str, geo, dev):
     check(out[0].tobytes() != out[3][:64].tobytes(), "labels changed nothing")
     check(launches == 4 * batches, f"{launches} kernel launches for {batches} CGAN batches, "
                                    f"want {4 * batches}")
+    check_moments("served CGAN requests", launches)
     # the first labelled batch, rendered from its z with the explicit one-hot
     gen = torch.Generator(device=dev).manual_seed(_request_seed(1, 0))
     z = torch.randn((BATCH, geo.z_dim), generator=gen, device=dev)
@@ -598,15 +692,28 @@ def phase_serve_cgan(path: str, geo, dev):
 
 def phase_serve_vs_plain(svc, dev):
     """The service's uint8 output on one z (and, for CGAN, one set of
-    classes) against the plain path on the card."""
+    classes) against the plain path on the card; then against the plain
+    path with the plain sums (``plain_sums``), which shares no code with
+    the moments kernels: within 1 LSB."""
     import torch
+
+    from jckx_torch.kernels import fused_bn_act as fba
 
     g = torch.Generator(device=dev).manual_seed(123)
     z = torch.randn(BATCH, svc.geo.z_dim, generator=g, device=dev)
     args = (z, torch.randint(0, svc.num_classes, (BATCH,), generator=g, device=dev)) \
         if svc.conditional else (z,)
-    check_u8_agree(lambda: svc.render(*args),
-                   "served CGAN uint8 images" if svc.conditional else "served uint8 images")
+    what = "served CGAN uint8 images" if svc.conditional else "served uint8 images"
+    check_u8_agree(lambda: svc.render(*args), what)
+    got = svc.render(*args)
+    with plain_sums():
+        plain = with_bn_act(fba.bn_act_plain, lambda: svc.render(*args))
+    diff = (got.int() - plain.int()).abs()
+    exact = (diff == 0).float().mean().item()
+    print(f"{what} vs the plain route with the plain sums: max diff {diff.max().item()} LSB, "
+          f"{100 * exact:.4f} % exactly equal")
+    check(diff.max().item() <= 1, f"{what} differ from the plain route with the plain sums by "
+                                  f"more than 1 LSB")
 
 
 def phase_timing(svc, dev, card: str):
@@ -688,6 +795,58 @@ def phase_timing(svc, dev, card: str):
           f"bound {out['bound_ms']:.5f} ms, plain {out['plain_ms']:.5f} ms, F.batch_norm + relu "
           f"{out['library_ms']:.5f} ms, addcmul + relu_ {out['addcmul_relu_ms']:.5f} ms   [{card}]")
     out["bound_by"] = "bytes" if all(r["bytes_ms"] >= r["ops_ms"] for r in rows_out) else "operations"
+    return out
+
+
+def phase_moments(dev, card: str) -> dict:
+    """The moments kernels (``fused_bn_act.bn_moments``) at G's four BN
+    layers, batch 512, bf16: the largest error of their sums against f64
+    (each relative to its channel's Σ|x| or Σx²) beside the plain route's,
+    the same bits twice, and per layer the device time beside the bound
+    (the activation read once at 3.35 TB/s), the plain route's time
+    (``bn_moments_plain``) and that of one library reduction over the same
+    bytes, ``torch.sum(x, 0, dtype=float32)``, which takes the sum alone.
+    → the four layers' totals."""
+    import torch
+
+    from jckx_torch.kernels import fused_bn_act as fba
+
+    def rel_err(sums, x):
+        xd = x.double()
+        ref = torch.stack([xd.sum(0), (xd * xd).sum(0)])
+        scale = torch.stack([xd.abs().sum(0), (xd * xd).sum(0)]).clamp_min(1e-300)
+        return ((sums.double() - ref).abs() / scale).max().item()
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    rows_out = []
+    for s, c in G_LAYERS:
+        rows = BATCH * s * s
+        nbytes = rows * c * 2
+        xs = rotation(lambda: (torch.randn(rows, c, generator=g, device=dev) * 2 + 0.5).to(
+            torch.bfloat16), nbytes)
+        got = fba.bn_moments(xs[0])
+        check(torch.equal(got, fba.bn_moments(xs[0])), f"moments at {rows}x{c}: two calls differ")
+        err, err_plain = rel_err(got, xs[0]), rel_err(fba.bn_moments_plain(xs[0]), xs[0])
+        check(err <= 2 * err_plain + 2.0 ** -24,
+              f"moments at {rows}x{c}: error {err} against f64, the plain route's {err_plain}")
+        ms = device_ms(fba.bn_moments, [(x,) for x in xs])
+        plain = device_ms(fba.bn_moments_plain, [(x,) for x in xs])
+        lib = device_ms(lambda x: torch.sum(x, 0, dtype=torch.float32), [(x,) for x in xs])
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        rows_out.append({"layer": f"{s}x{s}x{c}", "rows": rows, "C": c, "ms": ms, "bound_ms": bound,
+                         "plain_ms": plain, "library_ms": lib, "rel_err_f64": err,
+                         "plain_rel_err_f64": err_plain})
+        print(f"  moments {s:>2}x{s:<2}x{c:<3} kernels {ms * 1e3:8.2f} us  bound {bound * 1e3:6.2f} us "
+              f"({100 * bound / ms:5.1f} %)  plain {plain * 1e3:8.2f} us  torch.sum {lib * 1e3:8.2f} us"
+              f"  error vs f64 {err:.3g} (plain {err_plain:.3g})   [{card}]")
+    print("bn_moments_layers " + json.dumps({"card": card, "batch": BATCH, "dtype": "bfloat16",
+                                             "layers": rows_out}))
+    out = {k: sum(r[k] for r in rows_out) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    out["max_rel_err_f64"] = max(r["rel_err_f64"] for r in rows_out)
+    print(f"per G forward at batch {BATCH}, bf16, the four BN layers' moments: kernels "
+          f"{out['ms']:.5f} ms, bound {out['bound_ms']:.5f} ms "
+          f"({100 * out['bound_ms'] / out['ms']:.1f} %), plain {out['plain_ms']:.5f} ms, "
+          f"torch.sum {out['library_ms']:.5f} ms   [{card}]")
     return out
 
 
@@ -775,7 +934,6 @@ def phase_train_vs_cpu(dev, conditional: bool = False, fused_prop: int = 0) -> N
 
     from jckx_torch.configs import Config
     from jckx_torch.data.pipeline import one_hot
-    from jckx_torch.kernels import fused_bn_act as fba
     from jckx_torch.models.cgan import HIDDEN, CDiscriminator, CGenerator
     from jckx_torch.models.dcgan import Discriminator, GANGeometry, Generator
     from jckx_torch.train.state import create_cgan_state, create_dcgan_state
@@ -810,7 +968,7 @@ def phase_train_vs_cpu(dev, conditional: bool = False, fused_prop: int = 0) -> N
             extra = ()
         p0 = {**{"G." + k: v.detach().cpu().clone() for k, v in G.state_dict().items()},
               **{"D." + k: v.detach().cpu().clone() for k, v in D.state_dict().items()}}
-        before = fba.LAUNCHES
+        before = launch_counts()
         t0 = time.perf_counter()
         with _deterministic_cudnn():
             m = step(state, real.to(device), *extra,
@@ -818,7 +976,8 @@ def phase_train_vs_cpu(dev, conditional: bool = False, fused_prop: int = 0) -> N
         if device.type == "cuda":
             torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        check(fba.LAUNCHES == before, f"the differentiated train step on {device} launched the kernel")
+        check(launch_counts() == before,
+              f"the differentiated train step on {device} launched a kernel")
         params = {**{"G." + k: v.detach().cpu() for k, v in G.state_dict().items()},
                   **{"D." + k: v.detach().cpu() for k, v in D.state_dict().items()}}
         grads = {**{"G." + k: q.grad.cpu() for k, q in G.named_parameters()},
@@ -877,7 +1036,7 @@ def phase_train(tmp: str, model: str = "DCGAN", flags: tuple = (), run: str = ""
     where = _run_dir_args(tmp, model, run)
     argv = ["-m", model, "--dataset", "synthetic", "-b", str(TRAIN_BATCH), "-e", "1",
             "-mlr", str(TRAIN_LR), "--log_every", "8", "--eval_every", "16"] + list(flags) + where
-    fba.LAUNCHES = 0
+    zero_launches()
     t0 = time.perf_counter()
     tr = tmain.main(argv)
     torch.cuda.synchronize()
@@ -896,6 +1055,7 @@ def phase_train(tmp: str, model: str = "DCGAN", flags: tuple = (), run: str = ""
     check(launches == per_eval * len(tr.evals),
           f"{launches} kernel launches for {len(tr.evals)} evals; want {per_eval} each "
           f"and none from the 32 train steps")
+    check_moments(f"{model} trainer's evals", launches)
     with open(os.path.join(tr.save_path, "metrics.jsonl")) as f:
         records = [json.loads(line) for line in f]
     steps = [r for r in records if "step_ms" in r]
@@ -925,11 +1085,11 @@ def phase_train(tmp: str, model: str = "DCGAN", flags: tuple = (), run: str = ""
                    f"{model} eval sample of {n_eval} trained images (uint8)")
     check(fba.LAUNCHES == before + per_eval, "the eval sample did not launch the kernel")
 
-    before = fba.LAUNCHES
+    before = launch_counts()
     tr2 = tmain.main(["--resume"] + where)
     MainLogger.reset()
     check(tr2.conditional == conditional and tr2.state.step == 32 and tr2.evals == []
-          and fba.LAUNCHES == before,
+          and launch_counts() == before,
           f"--resume started at step {tr2.state.step} and evaluated {tr2.evals}")
     print(f"{model} --resume on the same run dir: restored step 32, nothing left to train")
     return tr, steps, evals, launches
@@ -949,13 +1109,15 @@ def phase_evaluate(tr, evals, tmp: str) -> int:
     logged = {r["step"]: r for r in evals}
     sub = os.path.join(tr.save_path, "intra_fid")
     (pt,) = [f for f in os.listdir(sub) if f.endswith(".pt")]
-    fba.LAUNCHES = 0
+    zero_launches()
     scored = [evaluate.main(["--ckpt", os.path.join(sub, pt), "--dataset", "synthetic"] + where[:4])]
     launches = [fba.LAUNCHES]
+    check_moments(f"evaluate intra_fid/{pt}", launches[0])
     MainLogger.reset()
-    fba.LAUNCHES = 0
+    zero_launches()
     scored.append(tmain.main(["-t", "1"] + where))
     launches.append(fba.LAUNCHES)
+    check_moments("-t 1 on latest.ckpt", launches[1])
     MainLogger.reset()
     for what, res, n in zip((f"evaluate intra_fid/{pt}", "-t 1 on latest.ckpt"), scored, launches):
         ref = logged.get(res["step"])
@@ -1090,7 +1252,7 @@ def phase_serve_modes(path: str, cgan_path: str, svc, dev):
     requests = [(q, 64, None, 1), (q, 1000, None, None), (cq, 64, SERVE_LABELS, 1),
                 (cq, 600, None, None), (sub, 64, None, 1), (sub, 1000, None, None),
                 (trunc, 64, None, 1), (trunc, 64, None, 1)]
-    fba.LAUNCHES = 0
+    zero_launches()
     out = [s.sample(n, labels=lab, seed=seed) for s, n, lab, seed in requests]
     walks = [trunc.interpolate(3, 5, steps=16), trunc.interpolate(3, 5, steps=16),
              cq.interpolate(3, 5, steps=16, label_a=3, label_b=17)]
@@ -1098,6 +1260,7 @@ def phase_serve_modes(path: str, cgan_path: str, svc, dev):
     batches = sum(math.ceil(n / BATCH) for _, n, _, _ in requests) + len(walks)
     check(launches == 4 * batches, f"{launches} kernel launches for {batches} batches of the "
                                    f"int8, sub-pixel and truncated samplers, want {4 * batches}")
+    check_moments("the int8, sub-pixel and truncated samplers", launches)
     shape = (svc.geo.image_size, svc.geo.image_size, svc.geo.channels)
     for imgs, (_, n, _, _) in zip(out, requests):
         check(imgs.dtype == np.uint8 and imgs.shape == (n, *shape) and imgs.std() > 1.0,
@@ -1237,7 +1400,7 @@ def phase_http(svc, csvc, card: str):
 
     d = Daemon(svc)
     try:
-        fba.LAUNCHES = 0
+        zero_launches()
         code, ctype, body = d("/healthz")
         health = json.loads(body)
         check(code == 200 and health["status"] == "ok" and health["batch_size"] == BATCH
@@ -1286,6 +1449,7 @@ def phase_http(svc, csvc, card: str):
     # the daemon's renders, and the sample() / interpolate() calls they are held against
     batches = 2 * 2 + 1 + 2 * 1 + 3 * 8 + 2 * 2
     check(launches == 4 * batches, f"{launches} kernel launches in the HTTP phase, want {4 * batches}")
+    check_moments("the HTTP phase", launches)
     ms = sorted(walls)[1] * 1e3
     print(f"HTTP daemon on the card: /healthz, /generate npy (== sample()), png ({side}x{side}), "
           f"/interpolate (== interpolate()), /metrics counters, the 400s and a 404, CGAN labels; "
@@ -1309,7 +1473,7 @@ def phase_watch(step8: str, latest: str, tmp: str) -> int:
     os.utime(watched, ns=(8 * 10**9, 8 * 10**9))
     d = Daemon(GeneratorService(watched))
     watcher = CheckpointWatcher(d.srv, watched, lambda: GeneratorService(watched))
-    fba.LAUNCHES = 0
+    zero_launches()
     try:
         check(json.loads(d("/healthz")[2])["step"] == 8, "the watched daemon does not serve step 8")
         check(watcher.poll_once() is False, "a swap without a change")
@@ -1328,6 +1492,7 @@ def phase_watch(step8: str, latest: str, tmp: str) -> int:
     check(_npy(after).tobytes() == fresh.tobytes() and after != before,
           "after the swap /generate differs from a fresh service on the new file")
     check(launches == 4 * 3, f"{launches} kernel launches in the watch phase, want 12")
+    check_moments("the watch phase", launches)
     print(f"--watch: a daemon on the DCGAN run's step-8 checkpoint swapped to its final latest.ckpt "
           f"on one poll: /healthz step 8 -> {step}, /generate equals a fresh service on the new "
           f"file; {launches} kernel launches")
@@ -1355,17 +1520,18 @@ def phase_evaluate_int8(tr, tmp: str) -> int:
         return params, apply
 
     evaluate.make_sampler = spy
-    fba.LAUNCHES = 0
+    zero_launches()
     try:
         res = evaluate.main(["--ckpt", latest, "--dataset", "synthetic", "--quant", "int8",
                              "--calib_seed", "3"] + _run_dir_args(tmp, "CGAN")[:4])
     finally:
         evaluate.make_sampler = real
-    launches = fba.LAUNCHES
+    launches, moments = launch_counts()
     MainLogger.reset()
     served = GeneratorService(latest, quant="int8", seed=3).params
     check(launches == 8 and res["quant"] == "int8" and res["n"] == 10 * CGAN_CLASSES,
           f"evaluate --quant int8: {launches} launches, {res}")
+    check_moments("evaluate --quant int8", launches, moments)
     check(all(math.isfinite(res[k]) for k in ("fid", "is", "intra_fid")), f"{res}")
     (params,) = scored
     check(set(params) == set(served) and all(
@@ -1476,10 +1642,11 @@ def phase_export(path: str, cgan_path: str, svc, tmp: str, dev, card: str):
         ref = GeneratorService(src, batch_size=EXPORT_BATCH, quant=quant)
         exact, worst = [], 0
         for seed in (0, 1, 7):
-            fba.LAUNCHES = 0
+            zero_launches()
             got = art.sample(EXPORT_BATCH, labels=labels if cond else None, seed=seed)
             n = fba.LAUNCHES
             check(n == 4, f"{what}: {n} kernel launches for one batch of the artifact, want 4")
+            check_moments(f"{what} seed {seed}", n)
             launches += n
             z = rng.normal_from_seed(seed, (EXPORT_BATCH, ref.geo.z_dim), device=dev)
             args = (z, lab_dev) if cond else (z,)
@@ -1508,11 +1675,12 @@ def phase_export(path: str, cgan_path: str, svc, tmp: str, dev, card: str):
     try:
         code, _, body = d("/healthz")
         check(code == 200 and json.loads(body)["batch_size"] == EXPORT_BATCH, f"/healthz {code}")
-        fba.LAUNCHES = 0
+        zero_launches()
         code, _, body = d("/generate", {"n": 600, "seed": 5, "format": "npy"})
         n = fba.LAUNCHES
         want = 4 * math.ceil(600 / EXPORT_BATCH)
         check(n == want, f"/generate of 600 over a .pt2: {n} kernel launches, want {want}")
+        check_moments("/generate of 600 over a .pt2", n)
         launches += n
         check(code == 200 and _npy(body).tobytes()
               == arts["dcgan_bf16"].sample(600, seed=5).tobytes(),
@@ -1675,7 +1843,7 @@ def phase_extra_metrics(tr, tmp: str, dev, card: str) -> int:
 
     latest = os.path.join(tr.save_path, "latest.ckpt")
     extra.kid, extra.manifold_metrics = kid_spy, mm_spy
-    fba.LAUNCHES = 0
+    zero_launches()
     try:
         t0 = time.perf_counter()
         res = evaluate.main(["--ckpt", latest, "--dataset", "synthetic", "--kid", "1", "--prdc", "1",
@@ -1688,6 +1856,7 @@ def phase_extra_metrics(tr, tmp: str, dev, card: str) -> int:
     keys = ("kid", "kid_std", "precision", "recall", "density", "coverage")
     check(launches == 8 and all(math.isfinite(res[k]) for k in keys + ("fid", "intra_fid")),
           f"evaluate --kid --prdc --eval_fast_stem: {launches} launches, {res}")
+    check_moments("evaluate --kid --prdc --eval_fast_stem", launches)
     real, fake, kw = seen["kid"]
     m = min(kw["subset_size"], len(real), len(fake))
     perms = extra.kid_permutations(len(real), len(fake), kw["subsets"], kw["seed"])
@@ -1771,10 +1940,13 @@ def phase_panel(tmp: str, card: str) -> int:
                   for r in per.values())
           and {"best_kid", "best_precision", "best_fid"} <= set(verdict["aggregate"]),
           f"panel verdict {verdict}")
-    launches = [int(n) for n in re.findall(r"fused BN kernel launches in this process: (\d+)",
-                                           out.stderr)]
+    counted = re.findall(r"fused BN kernel launches in this process: (\d+), moments "
+                         r"kernels: (\d+)", out.stderr)
+    launches = [int(n) for n, _ in counted]
     check(launches == [4 * 3, 4 * 3], f"the panel's trainers logged {launches} kernel launches, "
                                       f"want 12 each (4 per eval)")
+    for i, (n, m) in enumerate(counted):
+        check_moments(f"the panel's trainer {i}", int(n), int(m))
     agg = verdict["aggregate"]
     print(f"panel of seeds 0, 1 (DCGAN, 64², width 64, bs{TRAIN_BATCH}, 32 steps, 3 evals each, "
           f"KID / PRDC, s2d stem) through python -m jckx_torch panel: {wall:.1f} s, "
@@ -1824,10 +1996,11 @@ def phase_bn_relu_train(dev, card: str) -> dict:
         bias = torch.randn(c, generator=g, device=dev)
         dout = torch.randn(FT_BATCH, c, side, side, generator=g, device=dev).contiguous(
             memory_format=torch.channels_last)
-        before = fba.LAUNCHES
+        before = launch_counts()
         got = _bn_relu_grads(bn_relu_train, x, scale, bias, dout)
         torch.cuda.synchronize()
-        check(fba.LAUNCHES == before + 1, "bn_relu_train did not launch the kernel once")
+        check(launch_counts() == (before[0] + 1, before[1]),
+              "bn_relu_train did not launch the normalize kernel once and the moments kernels never")
         with torch.no_grad():
             once = bn_relu_train_plain(x, scale, bias, one_rounding=True)[0]
         check(torch.equal(got[0], once),
@@ -1902,7 +2075,6 @@ def phase_finetune_vs_cpu(dev) -> None:
 
     import torch.nn.functional as F
 
-    from jckx_torch.kernels import fused_bn_act as fba
     from jckx_torch.metrics import inception_v3 as tiv
     from jckx_torch.metrics.inception_train import draw_step, make_optimizer, make_train_step
 
@@ -1942,7 +2114,7 @@ def phase_finetune_vs_cpu(dev) -> None:
         net = net.to(device)
         step = make_train_step(net, make_optimizer(net, 0.1), torch.float32, FT_SIZE)
         before_flat = tiv.to_jckx_flat(net)
-        before = fba.LAUNCHES
+        before = launch_counts()
         t0 = time.perf_counter()
         loss, acc = step(data.to(device), labels.to(device), idx.to(device),
                          type(draws)(type(draws.crops)(*(t.to(device) for t in draws.crops)),
@@ -1950,8 +2122,9 @@ def phase_finetune_vs_cpu(dev) -> None:
         loss = float(loss)
         dt = time.perf_counter() - t0
         want = FT_CONVS if device.type == "cuda" else 0
-        check(fba.LAUNCHES == before + want,
-              f"the fine-tune step on {device} launched {fba.LAUNCHES - before}, want {want}")
+        check(launch_counts() == (before[0] + want, before[1]),
+              f"the fine-tune step on {device} launched {launch_counts()} from {before}, want "
+              f"{want} normalize launches and no moments kernel")
         out.append((loss, float(acc), before_flat, tiv.to_jckx_flat(net), dt))
     (lc, ac, b0, pc, tc), (_, _, b1, pp, _), (lg, ag, _, pg, tg) = out
     check(math.isfinite(lg) and abs(lg - lc) <= 1e-3, f"fine-tune loss card {lg} vs CPU {lc}")
@@ -1998,7 +2171,7 @@ def phase_finetune(ctr, tmp: str, card: str) -> int:
             "--max_steps_per_epoch", "8", "--image_size", str(FT_SIZE), "--eval_samples", "512",
             "--save_dir", save, "--data_dir", os.path.join(tmp, "data")]
     torch.cuda.reset_peak_memory_stats()
-    fba.LAUNCHES = 0
+    zero_launches()
     t0 = time.perf_counter()
     run = train(get_args(argv))
     torch.cuda.synchronize()
@@ -2011,6 +2184,7 @@ def phase_finetune(ctr, tmp: str, card: str) -> int:
     check(launches == FT_CONVS * steps,
           f"{launches} kernel launches over {steps} fine-tune steps and 2 evals; want "
           f"{FT_CONVS} per step and none from the evals")
+    check_moments("the fine-tune's steps and evals", launches, per=0)
     check(all(math.isfinite(e["train_loss"]) and math.isfinite(e["loss"]) for e in run.epochs),
           f"fine-tune losses not finite: {run.epochs}")
     wrote = {f for e in run.epochs for f in e["written"]}
@@ -2029,14 +2203,14 @@ def phase_finetune(ctr, tmp: str, card: str) -> int:
                       f"{len(e['written'])} files written in {e['write_s']:.3f} s"
                       for e in run.epochs) + f"   [{card}]")
 
-    before = fba.LAUNCHES
+    before = launch_counts()
     again = train(get_args(argv + ["--resume", "1"]))
     MainLogger.reset()
-    check(again.start_epoch == 2 and again.epochs == [] and fba.LAUNCHES == before,
+    check(again.start_epoch == 2 and again.epochs == [] and launch_counts() == before,
           f"--resume 1 started at epoch {again.start_epoch} and ran {again.epochs}")
     print("fine-tune --resume 1 on the same save dir: restored epoch 2, nothing left to train")
 
-    fba.LAUNCHES = 0
+    zero_launches()
     t0 = time.perf_counter()
     res = evaluate.main(["--ckpt", os.path.join(ctr.save_path, "latest.ckpt"), "--dataset",
                          "synthetic", "--metric_backbone", os.path.join(save, "loss_bset.npz")]
@@ -2045,6 +2219,7 @@ def phase_finetune(ctr, tmp: str, card: str) -> int:
     MainLogger.reset()
     check(math.isfinite(res["fid"]) and math.isfinite(res["is"]) and ev_launches == 8,
           f"evaluate over the fine-tuned backbone: {res}, {ev_launches} launches")
+    check_moments("evaluate --metric_backbone", ev_launches)
     print(f"evaluate --metric_backbone finetune/loss_bset.npz on the CGAN run's latest.ckpt: "
           f"{time.perf_counter() - t0:.3f} s, {ev_launches} kernel launches; fid "
           f"{res['fid']:.4f} is {res['is']:.4f} intra_fid {res['intra_fid']:.4f}")
@@ -2212,10 +2387,12 @@ def _turns(run_eager, run_graph, steps: int, what: str, card: str):
     return out
 
 
-def _replayed_launches(replay, card: str, tries: int = 3) -> dict:
+def _replayed_launches(replay, card: str, tries: int = 3, per: int = 2) -> dict:
     """The fused kernel's launches in one ``replay()`` of a graph (a
     superstep's or a graphed program's), as the profiler sees its ``bn_act``
-    kernels and as ``LAUNCHES`` counts them.
+    kernels and as ``LAUNCHES`` counts them, and the moments kernels' as it
+    sees its ``bn_moments`` kernels and ``MOMENTS_LAUNCHES`` counts them
+    (``per`` a normalize launch: ``check_moments``).
     The profiler may drop a record (CUPTI lost ~0.5 % of one 16.5 k-event
     window on an H100), never add one: a window that sees more fails, and
     one that sees fewer is taken again, up to ``tries`` windows."""
@@ -2226,20 +2403,28 @@ def _replayed_launches(replay, card: str, tries: int = 3) -> dict:
 
     for attempt in range(1, tries + 1):
         torch.cuda.synchronize()
-        before = fba.LAUNCHES
+        before = launch_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             replay()
             torch.cuda.synchronize()
-        added = fba.LAUNCHES - before
+        added = fba.LAUNCHES - before[0]
+        added_m = launch_counts()[1] - before[1]
+        check(added_m == per * added, f"one replay counted {added_m} moments-kernel launches for "
+                                      f"{added} normalize launches, want {per * added}")
         device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         seen = sum("bn_act" in e.name for e in device)
-        print(f"one replay, window {attempt}: the profiler saw {seen} bn_act kernels among "
-              f"{len(device)} device events; the replay added {added} launches   [{card}]")
-        check(seen <= added, f"the profiler saw {seen} bn_act kernels in one replay, more than "
-                             f"the {added} the replay counted")
-        if seen == added:
-            return {"seen": seen, "added": added, "windows": attempt}
-    fail(f"the profiler saw fewer bn_act kernels than the replay's {added} in {tries} windows")
+        seen_m = sum("bn_moments" in e.name for e in device)
+        print(f"one replay, window {attempt}: the profiler saw {seen} bn_act and {seen_m} "
+              f"bn_moments kernels among {len(device)} device events; the replay added {added} "
+              f"and {added_m} launches   [{card}]")
+        check(seen <= added and seen_m <= added_m,
+              f"the profiler saw {seen} bn_act and {seen_m} bn_moments kernels in one replay, "
+              f"more than the {added} and {added_m} the replay counted")
+        if (seen, seen_m) == (added, added_m):
+            return {"seen": seen, "added": added, "moments_seen": seen_m,
+                    "moments_added": added_m, "windows": attempt}
+    fail(f"the profiler saw fewer bn_act or bn_moments kernels than the replay's {added} and "
+         f"{added_m} in {tries} windows")
 
 
 def phase_superstep(tmp: str, dev, card: str) -> int:
@@ -2347,6 +2532,7 @@ def phase_superstep(tmp: str, dev, card: str) -> int:
         return lambda j: step_inputs(order[(first + j) % 9], draw_step(gen, FT_BATCH, dev))
 
     launches = 0
+    moments_start = launch_counts()[1]
     with _deterministic_cudnn():
         net_e, step_e = fresh()
         gen = torch.Generator(device=dev).manual_seed(7)
@@ -2392,9 +2578,11 @@ def phase_superstep(tmp: str, dev, card: str) -> int:
                           for i in range(k)],
                  lambda: ss.replay(k, feed(gen, 0)), k,
                  f"fine-tune ({FT_SIZE}², bs{FT_BATCH}, bf16)", card)
-    counted = _replayed_launches(lambda: ss.replay(1, feed(gen, 0)), card)
+    counted = _replayed_launches(lambda: ss.replay(1, feed(gen, 0)), card, per=0)
     check(counted["added"] == FT_CONVS, f"one fine-tune replay counted {counted['added']} launches")
     launches += fba.LAUNCHES - before
+    check_moments("phase_superstep, the fine-tune's steps", launches,
+                  launch_counts()[1] - moments_start, per=0)
     numbers["finetune"] = {"capture_s": ss.capture_s, "pool_mb": ss.pool_bytes / 1e6,
                            "bn_act_in_one_replay": counted, **res}
     numbers["phase_s"] = time.perf_counter() - t_phase
@@ -2511,7 +2699,7 @@ def phase_inference_graph(tmp: str, dev, card: str, tr, ctr) -> int:
     from jckx_torch.utils.graphs import CudaGraph
 
     t_phase = time.perf_counter()
-    start = fba.LAUNCHES
+    start = launch_counts()
     path, cpath = (os.path.join(tmp, f"graph_{m}.pt") for m in ("dcgan", "cgan"))
     write_reference_checkpoint(path)
     write_reference_checkpoint(cpath, conditional=True)
@@ -2676,7 +2864,8 @@ def phase_inference_graph(tmp: str, dev, card: str, tr, ctr) -> int:
     for name, g in numbers["graphs"].items():
         print(f"  graph {name}: last capture {g['capture_s']:.3f} s, pool {g['pool_mb']:.1f} MB "
               f"over {g['keys']} key(s)   [{card}]")
-    launches = fba.LAUNCHES - start
+    launches = fba.LAUNCHES - start[0]
+    check_moments("phase_inference_graph", launches, launch_counts()[1] - start[1])
     numbers["launches"] = launches
     numbers["phase_s"] = time.perf_counter() - t_phase
     print("inference_graph_numbers " + json.dumps(numbers))
@@ -2876,7 +3065,7 @@ def phase_profile_dir(tmp: str, card: str) -> int:
             "--eval_every", "4", "--profile_dir", trace_dir, "--save_root",
             os.path.join(tmp, "save"), "--data_dir", os.path.join(tmp, "data_profile"),
             "-pm", "smoke_profile"]
-    fba.LAUNCHES = 0
+    zero_launches()
     t0 = time.perf_counter()
     tr = tmain.main(argv)
     wall = time.perf_counter() - t0
@@ -2884,6 +3073,7 @@ def phase_profile_dir(tmp: str, card: str) -> int:
     MainLogger.reset()
     check(tr.state.step == 4 and tr.evals == [4] and launches == tr.geo.n_up,
           f"--profile_dir run: step {tr.state.step}, evals {tr.evals}, {launches} launches")
+    check_moments("the --profile_dir run", launches)
     traces = glob.glob(os.path.join(trace_dir, "jckx_torch_*.pt.trace.json"))
     check(len(traces) == 1, f"--profile_dir wrote {traces}")
     with open(traces[0]) as f:
@@ -2951,7 +3141,7 @@ def phase_jckx_ckpt(tmp: str, dev, card: str) -> int:
         path = os.path.join(root, family, "run", "latest.ckpt")
         want = tanh_to_u8(torch.from_numpy(np.load(os.path.join(root, f"{family}_renders.npy"))))
         svc = GeneratorService(path, batch_size=len(z), compute_dtype=torch.float32, device=dev)
-        before = fba.LAUNCHES
+        before = launch_counts()
         served = svc.render(z, labels if cgan else None).cpu()
         lg = load_generator(path)
         params, apply = make_sampler(lg.G.to(dev), compute_dtype=torch.float32)
@@ -2959,8 +3149,9 @@ def phase_jckx_ckpt(tmp: str, dev, card: str) -> int:
         scored = tanh_to_u8(sample_eval_images(
             lambda zz, *rest: apply(params, zz, rest[0] if cgan else None), z, onehot,
             torch.float32)).cpu()
-        n = fba.LAUNCHES - before
+        n = fba.LAUNCHES - before[0]
         check(n == 2 * svc.geo.n_up, f"{family} fixture renders launched the kernel {n} times")
+        check_moments(f"{family} fixture renders", n, launch_counts()[1] - before[1])
         for what, got in (("serve", served), ("evaluate's sampler", scored)):
             diff = (got.int() - want.int()).abs()
             exact = (diff == 0).float().mean().item()
@@ -2969,7 +3160,7 @@ def phase_jckx_ckpt(tmp: str, dev, card: str) -> int:
             print(f"jckx {family} .ckpt (step {svc.step}, EMA {svc.used_ema}) through {what} on "
                   f"the card, f32, batch {len(z)}: max diff {diff.max().item()} LSB from jckx's "
                   f"renders, {100 * exact:.4f} % exactly equal")
-        fba.LAUNCHES = 0
+        zero_launches()
         res = evaluate.main(["--ckpt", path, "--dataset", "cifar10" if cgan else "synthetic",
                              "--synthetic_size", "512", "--data_dir", data, "--save_root",
                              os.path.join(tmp, "save"), "--compute_dtype", "float32"])
@@ -2978,6 +3169,7 @@ def phase_jckx_ckpt(tmp: str, dev, card: str) -> int:
         check(res["step"] == 4 and math.isfinite(res["fid"]) and math.isfinite(res["is"])
               and fba.LAUNCHES == svc.geo.n_up, f"evaluate {family} fixture: {res}, "
               f"{fba.LAUNCHES} launches")
+        check_moments(f"evaluate {family} fixture", fba.LAUNCHES)
         pt = os.path.join(tmp, f"jckx_{family}.pt")
         check(tconvert.main(["--src", path, "--dst", pt]) == 0
               and load_checkpoint(pt)["model_g"].keys() == lg.G.state_dict().keys(),
@@ -2991,7 +3183,7 @@ def phase_jckx_ckpt(tmp: str, dev, card: str) -> int:
 
     save = os.path.join(tmp, "save_jckx")
     shutil.copytree(os.path.join(root, "dcgan"), os.path.join(save, "dcgan"))
-    fba.LAUNCHES = 0
+    zero_launches()
     tr = tmain.main(["--resume", "-pm", "run", "-e", "2", "--save_root", save, "--data_dir", data])
     MainLogger.reset()
     latest = os.path.join(save, "dcgan", "run", "latest.ckpt")
@@ -3000,6 +3192,7 @@ def phase_jckx_ckpt(tmp: str, dev, card: str) -> int:
           and load_checkpoint(latest)["step"] == 8,
           f"--resume of jckx's run dir: step {tr.state.step}, evals {tr.evals}, "
           f"{fba.LAUNCHES} launches")
+    check_moments("train --resume of jckx's DCGAN run dir", fba.LAUNCHES)
     print(f"train --resume of jckx's DCGAN run dir (step 4, {tr.cfg.compute_dtype}): one more eval "
           f"at step 8 ({fba.LAUNCHES} launches), the port's latest.ckpt written at step 8   [{card}]")
     return total + fba.LAUNCHES
@@ -3167,7 +3360,7 @@ def phase_data_planes(tmp: str, dev, card: str) -> int:
           f"backbone init included, {first_s:.3f} s); features equal   [{card}]")
 
     launches = 0
-    fba.LAUNCHES = 0
+    zero_launches()
     try:
         # DCGAN from the same weights: the planes timed in turns, then one more
         # streamed run with its third launch profiled (the profiler slows the host)
@@ -3347,6 +3540,7 @@ def phase_data_planes(tmp: str, dev, card: str) -> int:
     want = 4 * (5 * 2 + 2 + (1 if folder_trained else 0))
     check(launches == want, f"the data-plane phase launched the kernel {launches} times, want "
                             f"{want}: 4 per G forward of its evals")
+    check_moments("the data-plane phase", launches)
     print(f"data-plane phase: {launches} kernel launches (its evals)")
     return launches
 
@@ -3530,10 +3724,11 @@ def child_train(spec: dict) -> None:
             return make_state(cfg, G, D, mesh)
 
         gan_trainer.create_dcgan_state = nudged
-    fba.LAUNCHES = 0
+    zero_launches()
     tr = tmain.run(get_arg_parse(spec["argv"]))
     rank = dist.get_rank() if dist.is_initialized() else 0
-    rec = {"launches": fba.LAUNCHES, "step": tr.state.step, "evals": tr.evals,
+    rec = {"launches": fba.LAUNCHES, "moments": launch_counts()[1], "step": tr.state.step,
+           "evals": tr.evals,
            "superstep": None if tr.superstep is None else (tr.superstep.captures,
                                                            tr.superstep.replays)}
     last = _snapshot(tr.state)
@@ -3692,9 +3887,9 @@ def child_finetune(spec: dict) -> None:
     from jckx_torch.parallel import make_mesh
 
     dev = _child_init("gloo")
-    fba.LAUNCHES = 0
+    zero_launches()
     snaps = _ft_step_run(dev, make_mesh((2,), device=dev))
-    rec = {"launches": fba.LAUNCHES}
+    rec = {"launches": fba.LAUNCHES, "moments": launch_counts()[1]}
     if dist.get_rank() == 0:
         rec["snaps"] = snaps
     torch.save(rec, f"{spec['out']}.rank{dist.get_rank()}.pt")
@@ -3822,9 +4017,11 @@ def child_planes(spec: dict) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    from jckx_torch.kernels import fused_bn_act as fba
+
     launches = phase_data_planes(spec["tmp"], dev, spec["card"])
     with open(spec["out"], "w") as f:
-        json.dump({"launches": launches}, f)
+        json.dump({"launches": launches, "moments": launch_counts()[1]}, f)
 
 
 def phase_data_planes_alone(tmp: str, card: str) -> int:
@@ -3835,7 +4032,9 @@ def phase_data_planes_alone(tmp: str, card: str) -> int:
                       "phase_data_planes", timeout=900)
     print(stdout, end="")
     with open(out) as f:
-        return json.load(f)["launches"]
+        rec = json.load(f)
+    check_moments("phase_data_planes", rec["launches"], rec["moments"])
+    return rec["launches"]
 
 
 MESH_GRAPH_WORLDS = ("world of one", "forced-live world of one")
@@ -4119,7 +4318,7 @@ def child_mesh_graph(spec: dict) -> None:
     dev = _child_init("nccl")
     torch.use_deterministic_algorithms(False)  # cuDNN deterministic for the checks only
     card, tmp, world, turns = spec["card"], spec["tmp"], spec["world"], spec["turns"]
-    fba.LAUNCHES = 0
+    zero_launches()
     t0 = time.perf_counter()
     mesh = _forced_live_mesh(dev) if world != MESH_GRAPH_WORLDS[0] else make_mesh((1,), device=dev)
     tr, numbers = _mesh_graph_gan(tmp, mesh, world, dev, card)
@@ -4152,7 +4351,8 @@ def child_mesh_graph(spec: dict) -> None:
     numbers["finetune"] = _mesh_graph_finetune(mesh, world, dev, card, turns)
     numbers["world_s"] = time.perf_counter() - t0
     with open(spec["out"], "w") as f:
-        json.dump({"card": card, world: numbers, "launches": fba.LAUNCHES}, f)
+        json.dump({"card": card, world: numbers, "launches": fba.LAUNCHES,
+                   "moments": launch_counts()[1]}, f)
     dist.destroy_process_group()
 
 
@@ -4176,10 +4376,13 @@ def phase_mesh_graph(tmp: str, card: str, plain_out: str) -> int:
     (stdout,) = _join(procs, "phase_mesh_graph", timeout=600)
     print(stdout, end="")
     rec = {}
-    for path in (plain_out, out):
+    for world, path in zip(MESH_GRAPH_WORLDS, (plain_out, out)):
         with open(path) as f:
             one = json.load(f)
-        rec.update({k: v for k, v in one.items() if k != "launches"},
+        # the GAN's eval renders take the moments kernels, the fine-tune's steps never
+        gan = one["launches"] - one[world]["finetune"]["launches"]
+        check_moments(f"phase_mesh_graph, {world}", gan, one["moments"])
+        rec.update({k: v for k, v in one.items() if k not in ("launches", "moments")},
                    launches=rec.get("launches", 0) + one["launches"])
     print("mesh_graph_numbers " + json.dumps(rec))
     return rec["launches"]
@@ -4257,11 +4460,12 @@ def phase_mesh_serve(path: str, svc, dev, card: str) -> int:
     check(two.mesh.size == 2 and two.device == dev, "the mesh service's device")
     two.sample(BATCH, seed=0)  # warm
     n = 4 * BATCH
-    fba.LAUNCHES = 0
+    zero_launches()
     got = two.sample(n, seed=5)
     launches = fba.LAUNCHES
     check(launches == 4 * 2 * 4, f"the mesh service launched {launches} kernels for 4 batches, "
                                  f"want 32 (4 per device per batch)")
+    check_moments("the mesh service", launches)
     want = svc.sample(n, seed=5)
     diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
     exact = float((diff == 0).mean())
@@ -4312,7 +4516,6 @@ def phase_mesh(tmp: str, dev, card: str, also: dict = None) -> int:
     import numpy as np
     import torch
 
-    from jckx_torch.kernels import fused_bn_act as fba
 
     t_phase = time.perf_counter()
     out = os.path.join(tmp, "mesh_out")
@@ -4355,6 +4558,7 @@ def phase_mesh(tmp: str, dev, card: str, also: dict = None) -> int:
                                                 f"plain run after {MESH_STEPS} steps")
     check(nccl["step"] == plain["step"] == MESH_STEPS and nccl["launches"] == 4,
           f"NCCL world of one: step {nccl['step']}, {nccl['launches']} launches (want 4)")
+    check_moments("NCCL world of one", nccl["launches"], nccl["moments"])
     graphed = (1, MESH_STEPS - 1)
     check(tuple(nccl["superstep"] or ()) == tuple(plain["superstep"] or ()) == graphed,
           f"NCCL world of one: superstep {nccl['superstep']}, plain run {plain['superstep']}; "
@@ -4375,6 +4579,8 @@ def phase_mesh(tmp: str, dev, card: str, also: dict = None) -> int:
         check(r0["launches"] == r1["launches"] == want and r0["evals"] == [MESH_STEPS],
               f"{model} gloo pair: launches {r0['launches']} / {r1['launches']}, want {want} per "
               f"rank; evals {r0['evals']}")
+        for r, rec in enumerate((r0, r1)):
+            check_moments(f"{model} gloo pair, rank {r}", rec["launches"], rec["moments"])
         launches += r0["launches"] + r1["launches"]
         t1, t1_one = r0["first"]["telemetry"], one["first"]["telemetry"]
         gaps = {k: abs(t1[k] - t1_one[k]) for k in t1_one}
@@ -4404,6 +4610,8 @@ def phase_mesh(tmp: str, dev, card: str, also: dict = None) -> int:
     ft = runs["finetune"]
     check(ft[0]["launches"] == ft[1]["launches"] == 2 * FT_CONVS,
           f"fine-tune pair launches {ft[0]['launches']} / {ft[1]['launches']}, want {2 * FT_CONVS}")
+    for r, rec in enumerate(ft):
+        check_moments(f"fine-tune pair, rank {r}", rec["launches"], rec["moments"], per=0)
     launches += ft[0]["launches"] + ft[1]["launches"]
     snaps = ft[0]["snaps"]
     for s in (1, 2):
@@ -4545,6 +4753,8 @@ def phase_mesh_model(tmp: str, card: str) -> int:
         check(r0["launches"] == r1["launches"] == want and r0["evals"] == [MESH_STEPS],
               f"{name}: launches {r0['launches']} / {r1['launches']}, want {want} per rank; "
               f"evals {r0['evals']}")
+        for r, rec in enumerate((r0, r1)):
+            check_moments(f"{name}, rank {r}", rec["launches"], rec["moments"])
         check(r0["renders_equal_once"][0] and r1["renders_equal_once"][0],
               f"{name}: the eval render differs from the plain route with the kernel's rounding")
         launches += r0["launches"] + r1["launches"]
@@ -4595,9 +4805,10 @@ def phase_mesh_model(tmp: str, card: str) -> int:
     # the TP run's checkpoint, served
     ckpt = os.path.join(tmp, "mesh_save", "tp", "dcgan", "tp", "latest.ckpt")
     svc = GeneratorService(ckpt, batch_size=64, compute_dtype=torch.bfloat16, device="cuda")
-    before = fba.LAUNCHES
+    before = launch_counts()
     images = svc.sample(64, seed=0)
-    served = fba.LAUNCHES - before
+    served = fba.LAUNCHES - before[0]
+    check_moments("the TP checkpoint served", served, launch_counts()[1] - before[1])
     check(images.shape == (64, 64, 64, 3) and svc.step == MESH_STEPS and served == 4,
           f"the TP checkpoint served {images.shape} at step {svc.step} with {served} launches")
     launches += served
@@ -4739,11 +4950,10 @@ def phase_plan(dev, card: str, train_t: dict, mesh_model: dict) -> dict:
     ``phase_train_timing`` (``train_t``), the planned memory beside a real
     one-card step's, and the f32 FLOPs beside jckx's count (within 25 %).
     Launches no kernel: the planned step is differentiated."""
-    from jckx_torch.kernels import fused_bn_act as fba
     from jckx_torch.utils.comm import HLO_OPS  # the mesh's kinds → the report's op names
 
     t0 = time.perf_counter()
-    launches = fba.LAUNCHES
+    launches = launch_counts()
     here = os.path.dirname(os.path.abspath(__file__))
     base = ["-m", "DCGAN", "-b", str(TRAIN_BATCH), "--image_size", "64", "--base_width", "64",
             "--device", "cuda"]
@@ -4806,8 +5016,8 @@ def phase_plan(dev, card: str, train_t: dict, mesh_model: dict) -> dict:
     print(f"the unsharded f32 step: {flops:.4g} FLOP (torch.utils.flop_counter's registry) "
           f"against jckx.plan's {JCKX_PLAN_F32_FLOPS:.4g} (XLA's cost analysis): {ratio:.4f}x; "
           f"bf16 {one['per_chip']['step_flops']:.4g}   [{card}]")
-    check(fba.LAUNCHES == launches, f"the planner launched the kernel "
-                                    f"{fba.LAUNCHES - launches} times in this process")
+    check(launch_counts() == launches, f"the planner launched a kernel in this process: "
+                                       f"{launch_counts()} from {launches}")
     seconds = time.perf_counter() - t0
     numbers = {"card": card, "reports": reports, "real_step_memory": real,
                "floor_shares": shares, "flops_vs_jckx": ratio, "seconds": seconds}
@@ -4894,6 +5104,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    count_calibrations()
 
     kind, card = phase_environment()
     lap("start")
@@ -4916,6 +5127,7 @@ def main() -> None:
     phase_serve_vs_plain(svc, dev)
     phase_serve_vs_plain(csvc, dev)
     t = phase_timing(svc, dev, card)
+    mt = phase_moments(dev, card)
     phase_profile(svc, card)
     phase_modes_timing(svc, modes, dev, card)
     phase_train_vs_cpu(dev)
@@ -4976,6 +5188,14 @@ def main() -> None:
         "max_abs_err": max_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
+    }, {
+        "name": "bn_moments", "route": "cuda",
+        "source": "jckx_torch/kernels/csrc/bn_moments.cu",
+        "replaces": "none: jckx's _stats is XLA (jckx/kernels/fused_bn_act.py:66-71)",
+        "launches": sum(MOMENTS_ON_PATHS),
+        "max_rel_err_f64": mt["max_rel_err_f64"],
+        "ms": mt["ms"], "plain_ms": mt["plain_ms"], "bound_ms": mt["bound_ms"], "bound_by": "bytes",
+        "library_ms": mt["library_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))
@@ -4983,6 +5203,7 @@ def main() -> None:
 
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--child":  # a child of phase_mesh(_model)
+        count_calibrations()
         CHILDREN[sys.argv[2]](json.loads(sys.argv[3]))
     else:
         main()

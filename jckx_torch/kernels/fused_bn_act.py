@@ -9,6 +9,14 @@ bandwidth: at the generator's serving shapes (batch 512, bf16) it must
 move 16.8 / 33.6 / 67.1 / 134.2 MB, 5.0 / 10.0 / 20.0 / 40.1 µs at the
 H100 SXM's 3.35 TB/s (computed from the shapes; the source has the table).
 
+The batch statistics in front of it, the per-channel sum and sum of
+squares, run in a second hand-written kernel on the inference route
+(``csrc/bn_moments.cu``), which replaces no Pallas kernel: jckx takes them
+in XLA (``_stats``, ``:66-71``), as one fused pass, where the plain torch
+composition takes four (an f32 copy, its square, two column sums). It reads
+the activation once: 62.9 M elements, 125.8 MB a bs512 bf16 render, 37.6 µs
+at 3.35 TB/s.
+
 - ``bn_act_plain``: the plain PyTorch composition, counterpart of
   ``_bn_act_xla`` (``:74-85``). The CPU path, and the reference the tests
   and ``chip_smoke.py`` hold the kernel against.
@@ -19,6 +27,13 @@ H100 SXM's 3.35 TB/s (computed from the shapes; the source has the table).
   CPU one. As an operator with a fake (shape-only) implementation it is one
   node of a ``torch.export`` program, so a sealed artifact launches the
   kernel too (``export.py``); a ctypes launch alone cannot be traced.
+- ``bn_moments``: the moments kernels' wrapper, ``(rows, C)`` → the (2, C)
+  f32 sums; ``bn_moments_plain`` its plain version, ``bn_moments_op`` the
+  registered operator ``jckx_torch::bn_moments`` (the kernels on a CUDA
+  tensor, the plain version, bit for bit, on a CPU one), which ``_stats``
+  calls wherever x needs no gradient: in ``bn_act``'s kernel route, and in
+  ``bn_act_plain`` / ``bn_act_one_rounding`` under ``no_grad``, so all
+  three take the same sums.
 - ``bn_act``: routes by grad mode (below).
 
 Activations are either ``(rows, C)`` or NCHW-logical tensors in
@@ -34,9 +49,9 @@ makes the same split by grad mode:
   ``bn_act_plain``, which autograd differentiates to any order (the train
   step);
 - otherwise (``torch.no_grad()``, inference mode, or no input that
-  requires grad): the statistics in plain torch, then ``normalize_act_op``
-  (on the card the kernel; on the CPU its plain version, with the same
-  result as ``bn_act_plain``).
+  requires grad): the statistics through ``bn_moments_op``, then
+  ``normalize_act_op`` (on the card the two kernels; on the CPU their plain
+  versions, with the same result as ``bn_act_plain``).
 
 This is a rule on grad mode, not a fallback on failure: a kernel that
 does not build or launch raises.
@@ -67,17 +82,22 @@ from jckx_torch.kernels import _build
 # Kernel launches since the last reset; chip_smoke.py reads it to show
 # that the serving path and the trainer's eval sampling went through the
 # kernel, and the differentiated train steps did not. A replayed CUDA graph
-# launches its kernels without this wrapper: train/superstep.py adds its
-# step's count per replay (``add_launches``).
+# launches its kernels without this wrapper: utils/graphs.py adds the warm
+# call's counts per replay (``add_launches``). LAUNCHES counts the
+# normalize kernel alone, MOMENTS_LAUNCHES the moments kernels (two
+# launches a ``bn_moments``: the partial sums, then their combine).
 LAUNCHES = 0
+MOMENTS_LAUNCHES = 0
 _LAUNCHES_LOCK = threading.Lock()  # a local mesh launches from one thread per device
 
 
-def add_launches(n: int) -> None:
-    """Add ``n`` to ``LAUNCHES`` (negative: take back what a capture counted)."""
-    global LAUNCHES
+def add_launches(n: int, moments: int = 0) -> None:
+    """Add ``n`` to ``LAUNCHES`` and ``moments`` to ``MOMENTS_LAUNCHES``
+    (negative: take back what a capture counted)."""
+    global LAUNCHES, MOMENTS_LAUNCHES
     with _LAUNCHES_LOCK:
         LAUNCHES += n
+        MOMENTS_LAUNCHES += moments
 
 
 _ACTS = {"none": 0, "relu": 1, "leaky_relu": 2}
@@ -100,13 +120,25 @@ def _unrows(y2d: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return y2d.reshape(n, h, w, c).permute(0, 3, 1, 2)
 
 
+def bn_moments_plain(x2d: torch.Tensor) -> torch.Tensor:
+    """The per-channel sum and sum of squares of ``(rows, C)`` x in f32, as
+    one (2, C) tensor: the moments kernels' plain version, which autograd
+    differentiates."""
+    xf = x2d.float()
+    return torch.stack([xf.sum(0), (xf * xf).sum(0)])
+
+
 def _stats(x2d: torch.Tensor, mesh=None, axis: str = "data"):
     """f32 batch mean and E[x²] − mean², as jckx's ``_stats`` (``:66-71``):
     the per-channel sum and sum of squares as one (2, C) tensor, summed
     over ``mesh``'s ``axis`` when a mesh is given (``"data"``; ``"world"``
-    for a height-sharded activation), over the global row count."""
-    xf = x2d.float()
-    sums = torch.stack([xf.sum(0), (xf * xf).sum(0)])
+    for a height-sharded activation), over the global row count. The sums
+    are ``bn_moments_plain`` where x's gradient is taken (the train step's
+    grad-of-grad), else ``bn_moments_op`` (the kernels on the card)."""
+    if torch.is_grad_enabled() and x2d.requires_grad:
+        sums = bn_moments_plain(x2d)
+    else:
+        sums = bn_moments_op(x2d)
     n = x2d.shape[0]
     if mesh is not None:
         sums = mesh.all_reduce(sums, axis)
@@ -198,6 +230,62 @@ def normalize_act(x2d, inv, shift, act="none", negative_slope=0.2):
         raise RuntimeError(f"jckx_bn_act failed with CUDA error {rc}")
     add_launches(1)
     return y
+
+
+@functools.lru_cache(maxsize=None)
+def _moments_lib():
+    lib = _build.load("bn_moments")
+    lib.jckx_bn_moments.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                                    ctypes.c_int64, ctypes.c_void_p]
+    lib.jckx_bn_moments.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _moments_blocks(index: int) -> int:
+    """The moments grid's most blocks on card ``index``, 2 an SM (one wave),
+    and so the rows of its workspace."""
+    return 2 * torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def bn_moments(x2d: torch.Tensor) -> torch.Tensor:
+    """Launch the moments kernels: ``x2d`` a non-empty contiguous CUDA
+    ``(rows, C)`` tensor in bf16 or f32 → its (2, C) f32 sum and sum of
+    squares, a new tensor. Raises on anything else."""
+    if x2d.dtype not in _DTYPES:
+        raise ValueError(f"bn_moments takes float32 or bfloat16, got {x2d.dtype}")
+    if x2d.dim() != 2 or not x2d.is_contiguous() or x2d.numel() == 0:
+        raise ValueError("bn_moments needs a non-empty contiguous (rows, C) tensor")
+    if x2d.device.type != "cuda":
+        raise ValueError(f"bn_moments launches a CUDA kernel; x is on {x2d.device}")
+    rows, chans = x2d.shape
+    lib = _moments_lib()
+    with torch.cuda.device(x2d.device):
+        blocks = _moments_blocks(x2d.device.index)
+        ws = torch.empty((blocks, 2, chans), dtype=torch.float32, device=x2d.device)
+        out = torch.empty((2, chans), dtype=torch.float32, device=x2d.device)
+        rc = lib.jckx_bn_moments(x2d.data_ptr(), ws.data_ptr(), out.data_ptr(), rows, chans,
+                                 _DTYPES[x2d.dtype], blocks,
+                                 torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"jckx_bn_moments failed with CUDA error {rc}")
+    add_launches(0, 2)
+    return out
+
+
+@torch.library.custom_op("jckx_torch::bn_moments", mutates_args=())
+def bn_moments_op(x2d: torch.Tensor) -> torch.Tensor:
+    """``bn_moments`` on a CUDA tensor, ``bn_moments_plain`` on a CPU one
+    (the kernels have no CPU form)."""
+    if x2d.device.type == "cuda":
+        return bn_moments(x2d)
+    return bn_moments_plain(x2d)
+
+
+@bn_moments_op.register_fake
+def _bn_moments_fake(x2d):
+    return x2d.new_empty((2, x2d.shape[1]), dtype=torch.float32)
 
 
 @torch.library.custom_op("jckx_torch::normalize_act", mutates_args=())

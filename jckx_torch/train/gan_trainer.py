@@ -495,7 +495,8 @@ class _BaseGANTrainer:
             if not rolled_back:  # a second train() continues this history
                 self._resumed_losses = list(zip(losses_d, losses_g))
         self.logger.debug(f"train finish\ttime: {time_to_str(time.perf_counter() - start)}\t"
-                          f"fused BN kernel launches in this process: {fused_bn_act.LAUNCHES}")
+                          f"fused BN kernel launches in this process: {fused_bn_act.LAUNCHES}, "
+                          f"moments kernels: {fused_bn_act.MOMENTS_LAUNCHES}")
         if self.lead:
             save_loss_curve(os.path.join(self.save_path, "loss.png"), losses_d, losses_g)
         return last_metrics

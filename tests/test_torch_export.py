@@ -10,8 +10,9 @@ geometry (16², base width 8, z 16, batch 8, f32).
   draw, so whole requests agree with jckx's service within 1 LSB.
 - The int8 artifact equals the port's int8 sampler bit for bit on the z of
   the seed; the sidecar carries jckx's keys.
-- The program holds one ``jckx_torch::normalize_act`` node per BN layer:
-  on the card it launches the fused kernel, as the service does.
+- The program holds one ``jckx_torch::bn_moments`` and one
+  ``jckx_torch::normalize_act`` node per BN layer: on the card it launches
+  the statistics' and the fused kernels, as the service does.
 - The errors: labels on a DCGAN artifact, none on a CGAN one; the flags
   that a sealed artifact refuses; ``.jaxexp`` refused by name; the
   daemon's ``/interpolate`` a 400; ``--watch`` reloads a replaced ``.pt2``.
@@ -122,6 +123,7 @@ def test_artifact_holds_the_kernel_operator_per_bn_layer(tmp_path, quant):
     program = torch.export.load(dst)
     ops = [n.target for n in program.graph.nodes if n.op == "call_function"]
     assert ops.count(torch.ops.jckx_torch.normalize_act.default) == GEO.n_up
+    assert ops.count(torch.ops.jckx_torch.bn_moments.default) == GEO.n_up
 
 
 def test_serving_a_pt2_and_its_refusals(artifacts, tmp_path, capsys):

@@ -124,6 +124,93 @@ def test_bn_act_exports_as_the_registered_operator():
     assert torch.equal(program.module()(*args), tfba.bn_act_plain(*args, act="relu"))
 
 
+def _sums_as_before(x2d):
+    """The statistics' sums as ``_stats`` took them before the moments
+    kernel: an f32 copy, its square, two column sums, stacked."""
+    xf = x2d.float()
+    return torch.stack([xf.sum(0), (xf * xf).sum(0)])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(300, 24), (8 * 7 * 7, 100), (16 * 4 * 4, 128)])
+def test_moments_operator_on_cpu_is_the_plain_sums(shape, dtype):
+    """``jckx_torch::bn_moments`` on a CPU tensor is the plain composition,
+    bit for bit, and launches nothing."""
+    x, _, _ = _inputs(shape, seed=7)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    before = (tfba.LAUNCHES, tfba.MOMENTS_LAUNCHES)
+    got = torch.ops.jckx_torch.bn_moments(tx)
+    assert (tfba.LAUNCHES, tfba.MOMENTS_LAUNCHES) == before
+    assert got.dtype == torch.float32 and got.shape == (2, shape[1])
+    assert torch.equal(got, _sums_as_before(tx))
+    assert torch.equal(tfba.bn_moments_plain(tx), _sums_as_before(tx))
+
+
+def test_bn_act_exports_the_moments_and_normalize_operators():
+    """``torch.export`` of ``bn_act`` records exactly one
+    ``jckx_torch::bn_moments`` and one ``jckx_torch::normalize_act`` node
+    (by their fake implementations), so a sealed program on the card
+    launches both kernels; here it equals ``bn_act_plain``."""
+
+    class Layer(torch.nn.Module):
+        def forward(self, x, scale, bias):
+            return tfba.bn_act(x, scale, bias, act="leaky_relu")
+
+    x, s, b = _inputs((4, 6, 6, 24), seed=8)
+    args = (_to_port(x).to(torch.bfloat16).contiguous(memory_format=torch.channels_last),
+            torch.from_numpy(s), torch.from_numpy(b))
+    with torch.no_grad():
+        program = torch.export.export(Layer(), args, strict=False)
+    ops = [n.target for n in program.graph.nodes if n.op == "call_function"]
+    assert ops.count(torch.ops.jckx_torch.bn_moments.default) == 1
+    assert ops.count(torch.ops.jckx_torch.normalize_act.default) == 1
+    assert torch.equal(program.module()(*args), tfba.bn_act_plain(*args, act="leaky_relu"))
+
+
+def test_statistics_stay_differentiable_where_x_needs_a_gradient(monkeypatch):
+    """With grad on and x requiring it, ``_stats`` takes the plain sums
+    (never the operator), and the gradients of ``bn_act_plain`` to second
+    order are those of the composition as it was before the kernel."""
+    x, s, b = _inputs((2, 5, 5, 12), seed=9)
+    w = torch.from_numpy(np.random.RandomState(10).randn(2, 12, 5, 5).astype(np.float32))
+
+    def grads(stats_sums):
+        monkeypatch.setattr(tfba, "bn_moments_plain", stats_sums)
+        xs, ss, bs = (t.clone().requires_grad_()
+                      for t in (_to_port(x).contiguous(), torch.from_numpy(s),
+                                torch.from_numpy(b)))
+        out = tfba.bn_act_plain(xs, ss, bs, act="leaky_relu")
+        (gx,) = torch.autograd.grad((out * w).sum(), xs, create_graph=True)
+        gx.square().sum().backward()
+        assert bs.grad is None  # the penalty's term does not reach the bias
+        return xs.grad, ss.grad
+
+    def refused(x2d):
+        raise AssertionError("bn_moments_op on an input that needs its gradient")
+
+    monkeypatch.setattr(tfba, "bn_moments_op", refused)
+    got = grads(tfba.bn_moments_plain)
+    want = grads(_sums_as_before)
+    for a, c in zip(got, want):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("x, match", [
+    (torch.zeros(64, 8, dtype=torch.float16), "float32 or bfloat16"),
+    (torch.zeros(64, 8, dtype=torch.float64), "float32 or bfloat16"),
+    (torch.zeros(8, 64).t(), "contiguous"),
+    (torch.zeros(0, 8), "non-empty"),
+    (torch.zeros(4, 8, 8), "rows, C"),
+    (torch.zeros(64, 8), "CUDA"),
+    (torch.zeros(64, 8, dtype=torch.bfloat16), "CUDA"),
+])
+def test_moments_wrapper_refuses_what_the_kernel_does_not_take(x, match):
+    before = tfba.MOMENTS_LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        tfba.bn_moments(x)
+    assert tfba.MOMENTS_LAUNCHES == before
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     x, s, b = _inputs((64, 8), seed=3)
     with pytest.raises(ValueError, match="CUDA"):
@@ -137,3 +224,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build(["fused_bn_act"])
     assert "fused_bn_act" in _build.sources()
+
+
+def test_build_lists_the_moments_source():
+    assert "bn_moments" in _build.sources()
+    assert _build.library_path("bn_moments") != _build.library_path("fused_bn_act")

@@ -13,6 +13,9 @@ and add); bf16 within one bf16 ulp of the larger magnitude. The int8
 convolution's ``torch._int_mm`` route: int32 bit-identical to the exact f64
 route. Whole renders (float, sub-pixel, int8): bit-identical to the plain
 route whose multiply-add is rounded once, within 1 LSB of ``bn_act_plain``.
+The BN statistics' moments kernels: within twice the plain route's error
+against f64 sums of the same x (plus one f32 epsilon of the magnitude), the
+same bits on every call.
 """
 
 import pytest
@@ -91,6 +94,90 @@ def test_misaligned_rows_take_the_element_path(dtype):
     y = fba.normalize_act(xm, inv, shift, "leaky_relu", 0.2)
     torch.cuda.synchronize()
     _assert_close(y, fba.normalize_act_plain(xm, inv, shift, "leaky_relu", 0.2))
+
+
+# the moments kernels (csrc/bn_moments.cu): G's four BN layers at the bs512
+# bf16 serving shapes, the int8 sampler's f32 at the CGAN eval chunk's
+# largest layer, C of 24 and 100 (the vector path, and bf16's element path)
+MOMENTS_SHAPES = [(512 * 4 * 4, 512, "bfloat16"), (512 * 8 * 8, 256, "bfloat16"),
+                  (512 * 16 * 16, 128, "bfloat16"), (512 * 32 * 32, 64, "bfloat16"),
+                  (500 * 32 * 32, 64, "float32"), (4096, 24, "bfloat16"), (4096, 24, "float32"),
+                  (50000, 100, "bfloat16"), (50000, 100, "float32")]
+
+
+def _moments_error(sums, x):
+    """The largest error of (2, C) f32 sums against f64 sums of the same x,
+    each relative to its channel's Σ|x| or Σx² (so every channel counts)."""
+    xd = x.double()
+    ref = torch.stack([xd.sum(0), (xd * xd).sum(0)])
+    scale = torch.stack([xd.abs().sum(0), (xd * xd).sum(0)]).clamp_min(1e-300)
+    return ((sums.double() - ref).abs() / scale).max().item()
+
+
+def _check_moments(x):
+    """The kernels' sums within twice the plain route's error against f64
+    (both are f32 sums of the same values in other orders; the kernel's
+    sums are shorter runs combined in a tree, so they should not be worse;
+    one f32 epsilon of the magnitude beside it, for a shape where the plain
+    sum happens to round to the exact value), and the same bits twice."""
+    before = fba.MOMENTS_LAUNCHES
+    got = fba.bn_moments(x)
+    again = fba.bn_moments(x)
+    plain = fba.bn_moments_plain(x)
+    torch.cuda.synchronize()
+    assert fba.MOMENTS_LAUNCHES == before + 4
+    assert got.dtype == torch.float32 and got.shape == (2, x.shape[1])
+    assert torch.equal(got, again)
+    err, err_plain = _moments_error(got, x), _moments_error(plain, x)
+    assert err <= 2 * err_plain + 2.0 ** -24, (err, err_plain)
+    return err, err_plain
+
+
+@pytest.mark.parametrize("rows,chans,dtype", MOMENTS_SHAPES)
+def test_moments_kernel_against_f64(rows, chans, dtype):
+    dev = _card()
+    x, _, _ = _inputs(rows, chans, dev, seed=rows % 97)
+    _check_moments(x.to(getattr(torch, dtype)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moments_of_misaligned_rows_take_the_element_path(dtype):
+    dev = _card()
+    x, _, _ = _inputs(4096, 64, dev, seed=2)
+    flat = torch.zeros(x.numel() + 1, device=dev, dtype=getattr(torch, dtype))
+    xm = flat[1:].view(4096, 64)  # contiguous, but not 16-byte aligned
+    xm.copy_(x)
+    _check_moments(xm)
+
+
+def test_moments_wrapper_refuses_on_the_card():
+    dev = _card()
+    for x in (torch.zeros(64, 8, device=dev, dtype=torch.float16),
+              torch.zeros(64, 8, device=dev, dtype=torch.float64),
+              torch.zeros(8, 64, device=dev).t(), torch.zeros(0, 8, device=dev),
+              torch.zeros(2, 8, 8, device=dev)):
+        with pytest.raises(ValueError):
+            fba.bn_moments(x)
+
+
+def test_bn_act_launches_the_moments_kernels_where_no_gradient_is_taken():
+    """One ``bn_act`` without grad: one normalize launch (``LAUNCHES``) and
+    two moments launches (``MOMENTS_LAUNCHES``), each counted once (the
+    profiler's counts of both are held in a served replay, below). With x
+    requiring grad under grad mode, neither kernel."""
+    dev = _card()
+    x = torch.randn(64, 128, 16, 16, device=dev).to(torch.bfloat16,
+                                                    memory_format=torch.channels_last)
+    scale, bias = torch.rand(128, device=dev) + 0.5, torch.randn(128, device=dev)
+    before = (fba.LAUNCHES, fba.MOMENTS_LAUNCHES)
+    with torch.no_grad():
+        fba.bn_act(x, scale, bias, act="relu")
+    assert (fba.LAUNCHES, fba.MOMENTS_LAUNCHES) == (before[0] + 1, before[1] + 2)
+    xs = x.clone().requires_grad_()
+    before = (fba.LAUNCHES, fba.MOMENTS_LAUNCHES)
+    fba.bn_act(xs, scale, bias, act="relu").float().sum().backward()
+    fba.bn_act_plain(xs, scale, bias, act="relu")
+    assert (fba.LAUNCHES, fba.MOMENTS_LAUNCHES) == before and xs.grad is not None
 
 
 def test_bn_act_launches_once_and_refuses_grad():
@@ -228,13 +315,17 @@ def test_generator_on_card_matches_cpu():
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-4)
 
 
-def test_cgan_served_images_match_the_plain_route(tmp_path):
+def test_cgan_served_images_match_the_plain_route(tmp_path, monkeypatch):
     """A CGAN checkpoint at 64² (width 8, K = 100) served on the card with
     labels: 4 launches per batch; a labelled request equals the render of
     its z with the labels' one-hots; uint8 within 1 LSB of the plain route,
     and equal to the plain route whose multiply-add is rounded once, as the
     kernel's FMA rounds it (the share of exactly equal pixels against the
-    twice-rounded route depends on the weights: ROADMAP C)."""
+    twice-rounded route depends on the weights: ROADMAP C). Under
+    ``no_grad`` on the card both references take their sums from the
+    moments kernels, as the served route does; so the render is also held
+    within 1 LSB of the plain route with the plain sums
+    (``bn_moments_plain``), which shares no code with the kernels."""
     from jckx_torch.models.cgan import CDiscriminator, CGenerator
     from jckx_torch.serve import GeneratorService, _request_seed
 
@@ -259,6 +350,11 @@ def test_cgan_served_images_match_the_plain_route(tmp_path):
             for bn in (fba.bn_act_plain, fba.bn_act_one_rounding)]
     assert (got.int() - refs[0].int()).abs().max().item() <= 1
     assert torch.equal(got, refs[1])
+    monkeypatch.setattr(fba, "bn_moments_op", fba.bn_moments_plain)
+    before = fba.MOMENTS_LAUNCHES
+    apart = _with_bn(fba.bn_act_plain, lambda: svc.render(z, lab))
+    assert fba.MOMENTS_LAUNCHES == before
+    assert (got.int() - apart.int()).abs().max().item() <= 1
 
 
 
@@ -1135,8 +1231,10 @@ def test_a_program_replays_its_keys_in_any_order(tmp_path, deterministic_cudnn):
 
 def test_profiler_counts_a_served_replay(tmp_path):
     """In one replay of a served batch's graph the profiler sees the fused
-    kernel as often as the program added to ``LAUNCHES``: 4 (a window that
-    falls short, a record CUPTI dropped, is taken again, up to three)."""
+    kernel as often as the program added to ``LAUNCHES``: 4, and the
+    moments kernels as often as it added to ``MOMENTS_LAUNCHES``: 8 (a
+    window that falls short, a record CUPTI dropped, is taken again, up to
+    three)."""
     from torch.profiler import ProfilerActivity, profile
 
     from jckx_torch.serve import GeneratorService
@@ -1148,13 +1246,14 @@ def test_profiler_counts_a_served_replay(tmp_path):
     seen = []
     for _ in range(3):
         torch.cuda.synchronize()
-        before = fba.LAUNCHES
+        before, moments = fba.LAUNCHES, fba.MOMENTS_LAUNCHES
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             svc.render(z)
             torch.cuda.synchronize()
-        assert fba.LAUNCHES - before == 4
-        seen.append(sum(e.device_type == torch.autograd.DeviceType.CUDA and "bn_act" in e.name
-                        for e in prof.events()))
-        if seen[-1] == 4:
+        assert fba.LAUNCHES - before == 4 and fba.MOMENTS_LAUNCHES - moments == 8
+        kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen.append((sum("bn_act" in k for k in kernels), sum("bn_moments" in k for k in kernels)))
+        if seen[-1] == (4, 8):
             break
-    assert max(seen) <= 4 and seen[-1] == 4, seen
+    assert max(a for a, _ in seen) <= 4 and max(b for _, b in seen) <= 8, seen
+    assert seen[-1] == (4, 8), seen

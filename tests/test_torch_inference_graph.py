@@ -117,6 +117,25 @@ def test_graphed_program_captures_per_key_and_replays(monkeypatch):
     assert fba.LAUNCHES == 2 * 8  # eight calls, each counted once
 
 
+def test_graphed_program_counts_both_kernels_per_replay(monkeypatch):
+    """A program that launches the normalize kernel once and the moments
+    kernels twice: each replay adds its warm call's counts to ``LAUNCHES``
+    and ``MOMENTS_LAUNCHES`` apart; the capture adds none."""
+    monkeypatch.setattr(fba, "LAUNCHES", 0)
+    monkeypatch.setattr(fba, "MOMENTS_LAUNCHES", 0)
+
+    def fn(x):
+        fba.add_launches(1, 2)
+        return x + 1
+
+    p = GraphedProgram(fn, "cpu", EagerGraph)
+    p(torch.zeros(3))
+    assert (fba.LAUNCHES, fba.MOMENTS_LAUNCHES) == (1, 2)
+    for _ in range(3):
+        p(torch.ones(3))
+    assert (p.captures, p.replays, fba.LAUNCHES, fba.MOMENTS_LAUNCHES) == (1, 3, 4, 8)
+
+
 def test_graph_for_routes_and_the_superstep_shares_them():
     cuda = torch.device("cuda", 0)
     assert graph_for(cuda) == (CudaGraph, "")
