@@ -1,264 +1,109 @@
-"""Smoke test of the PyTorch/CUDA port (``jckx_torch``) on one NVIDIA card.
+"""Card checks of the PyTorch/CUDA port (``jckx_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with a CUDA card and
-``nvcc``. It imports nothing of JAX or of the JAX package, and:
+``nvcc``. It imports nothing of JAX or of the JAX package. It holds what
+neither of the other two harnesses holds: it drives the port's entry
+points and commands end to end on the card, and it times the hand-written
+kernels alone. The kernels, steps and graphs against their plain versions
+are ``python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py``;
+rates, traces and the per-layer metrics are the benchmark's
+(``python3 portbench/run.py --workload <cell> --seed <n> --seconds <s>
+--trace 1``). In order, it:
 
-1. prints the card's name and power limit (``nvidia-smi``);
-2. builds every CUDA kernel of the port from the checkout's sources;
-3. holds each kernel against its plain PyTorch version on the card
-   (relu / leaky_relu(0.2) / none, bf16 and f32, the four generator
-   shapes at serving's batch 512, at the DCGAN trainer's eval batch of 64
-   and at the CGAN trainer's eval chunk of 500, and two ragged shapes):
-   f32 within 1e-5 (an FMA against a separate multiply and add), bf16
-   within one bf16 ulp plus that 1e-5;
-4. serves requests through ``GeneratorService`` at the reference's full
-   width (DCGAN 64², z 100, base width 64; then CGAN with K = 100, with
-   and without ``labels``; weights drawn from a seed and saved in the
-   reference ``.pt`` format), at batch 512 in bf16, with the launch
-   counter reset just before and read just after each: it must read 4
-   launches per rendered batch, and a labelled CGAN batch must equal its
-   z rendered with the explicit one-hot. The served uint8 images for one
-   z must be within 1 LSB of the plain route on the card, and equal to
-   the plain route whose multiply-add is rounded once, as the kernel's;
-5. times each generator layer's kernel against its bound (bytes over the
-   H100 SXM's 3.35 TB/s), its plain version and ``F.batch_norm`` + ReLU,
-   and the served images per second, beside the card's name and power
-   limit, and profiles one served request (the card's busy share and its
-   time by kernel); then the BN statistics' moments kernels
-   (``phase_moments``) at the same four layers: their sums against f64
-   beside the plain route's, the same bits twice, and each layer's time
-   against its bound (the activation read once), the plain route's and
-   one ``torch.sum``'s;
-6. holds one train step at full width (64², z 100, base width 64, batch
-   16, f32, TF32 off; DCGAN, then CGAN with K = 100 and its four dropout
-   masks) on the card against the same step on the CPU, from the same
-   weights and the same draws (cuDNN deterministic): the six telemetry
-   scalars within 3e-3, and Adam's deltas where the CPU's gradient clears 1 % of its leaf's
-   maximum within 5 % of lr (tests/test_step_torch_parity.py:22-35) on
-   all but 0.1 % of those elements; the differentiated step launches no
-   kernel;
-7. trains DCGAN, then CGAN, through the entry point
-   (``jckx_torch.train.main``) at the reference geometry on 4096
-   synthetic rows, bs128, bf16, lr 2e-4, one epoch of 32 steps with evals
-   after steps 8, 16 and 32 (FID / IS, and CGAN's intra-FID, over the
-   seeded InceptionV3; grids, checkpoints), with the launch counter reset
-   just before and read just after: exactly 4 launches per eval for
-   DCGAN (one G forward of 64), 8 for CGAN (1000 rows in chunks of 500),
-   and none from the 32 steps. Losses and metrics must be finite and the
-   artifacts written; the trained generator's eval sample, converted to
-   uint8, is held against the plain routes as in 4; a second run with
-   ``--resume`` must start at step 32 and train nothing;
-8. scores the CGAN run's ``intra_fid/`` best checkpoint with
-   ``jckx_torch.evaluate`` and its ``latest.ckpt`` with ``-t 1``: 8
-   launches each, and the FID, IS and intra-FID the run logged at those
-   steps within 1 % relative;
-9. times training of each family beside the card's name and power limit:
-   img/s on the host clock, one eval (the real features apart from the
-   fake side), and a profiled window of 4 steps (busy share, top 10
-   kernels; its device busy time / 4 is the step's time on the card);
-10. holds the int8 convolution's card route (im2col + ``torch._int_mm``)
-    against the exact f64 route on random int8 at batch 512 on every G
-    layer (in_dim 100 and 200): bit-identical int32;
-11. serves through the int8 sampler (DCGAN, and CGAN with labels), the
-    sub-pixel one and the truncated one (t 0.7), and interpolates (16
-    frames; int8 CGAN with a class morph): 4 launches per batch; renders
-    bit-identical to the once-rounded plain route and within 1 LSB of
-    ``bn_act_plain`` (the int8 path through the kernel's f32 variant);
-    truncated z within [-t, t]; a strip byte-identical across calls and
-    equal to the render of its latents; the f32 sub-pixel sampler within
-    1 LSB of the default on the same z (the bf16 difference printed);
-12. runs the HTTP daemon in this process on 127.0.0.1:0 (``/healthz``,
-    ``/generate`` npy equal to ``sample()``, png by signature and IHDR size,
-    ``/interpolate``, ``/metrics`` counters, the 400s and a 404, CGAN
-    labels) and times one ``/generate`` of 4096 images end to end;
-13. ``--watch``: a daemon on a copy of the DCGAN run's step-8 checkpoint,
-    replaced atomically by the run's final ``latest.ckpt``; one poll moves
-    ``/healthz`` to step 32, and ``/generate`` equals a fresh service;
-14. ``evaluate --quant int8`` on the CGAN run: 8 launches, and the int8
-    params it scores equal the served ones for the same calibration seed;
-15. times served img/s by sampler (float, sub-pixel, int8), the int8
-    convolution per G layer against bf16 cuDNN, and the f32 kernel per BN
-    layer against its bound, beside the card's name and power limit;
-16. exports sealed ``torch.export`` artifacts on the card (DCGAN bf16 at
-    jckx's export batch of 64, CGAN with labels, DCGAN int8), loads each in
-    a fresh ``ArtifactService``: 4 kernel launches per batch (the program's
-    ``jckx_torch::normalize_act`` nodes), renders bit-identical to the
-    service's on the same z (``rng.normal_from_seed``) and within 1 LSB of
-    the plain route (int8: 4 LSB, 97.5 % exactly equal at batch 64, its
-    flipped int8 activations printed per layer); one ``/generate`` through
-    the daemon over a ``.pt2``, 4 launches per batch; export s, load s and
-    the artifact's served img/s at batch 512 beside the float sampler's;
-17. the tools through ``python -m jckx_torch``: ``convert`` .pt → checkpoint
-    → .pt with equal tensors, ``inspect`` of every kind in a process that
-    sees no card (``CUDA_VISIBLE_DEVICES=""``), ``doctor`` exiting 0 with
-    the card's name and the kernel check;
-18. ``evaluate --kid 1 --prdc 1 --eval_fast_stem 1`` on the CGAN run: 8
-    launches; KID and precision / recall / density / coverage held against
-    a float64 numpy computation on the same features and permutations, and
-    PRDC again on the card on a pair whose manifolds overlap (half of the
-    real features against the other half's first 1024 mixed with 1000
-    fakes), where float64 puts precision, recall and coverage strictly
-    between 0 and 1 and density above 0; the
-    space-to-depth stem's features against the plain stem's (f32); times;
-19. ``python -m jckx_torch panel --seeds 0,1 -m DCGAN --extra_metrics 1
-    --eval_fast_stem 1`` at full width: one verdict with both seeds and
-    ``best_kid`` / ``best_precision``; each child trainer logs its kernel
-    launches (12: 4 per eval), which the script reads from its log;
-20. holds ``ops/norm.bn_relu_train`` (the kernel's forward, the
-    hand-written backward) against its plain version on the card, bf16, at
-    the fine-tune's two largest stem maps and a Mixed_7c map (bs128, 299²):
-    1 launch each, ``out`` bit-identical to the once-rounded plain route,
-    statistics within 1e-5, dx / dgamma / dbeta within the tolerances
-    ``phase_bn_relu_train`` states; times the kernel at the largest map
-    against its bound, its plain version and ``F.batch_norm`` + ReLU;
-21. holds one fine-tune step at 299², batch 8, f32, TF32 off on the card
-    against the CPU (same weights, indices, crops, dropout mask): loss
-    within 1e-3, SGD deltas within 10 % in norm per leaf (the fc's within
-    1e-2 of its largest element), running statistics within 1e-3; 94
-    launches;
-22. fine-tunes InceptionV3 through ``python -m jckx_torch finetune``'s
-    ``train()`` at 299², bs128, bf16, 2 epochs of 8 steps on 2560
-    synthetic rows: 94 launches per step, none from the evals; finite
-    losses; ``loss_bset`` / ``last_bset`` / ``train_state.npz`` and
-    ``summary.json`` (``acc_bset.npz`` where top-1 rose above 0);
-    ``--resume 1`` starts at epoch 2 and trains nothing; ``evaluate
-    --metric_backbone loss_bset.npz`` on the CGAN run (8 launches, finite
-    FID / IS); img/s, the step's device ms (profiler busy time / 4), busy
-    share, top 10 kernels, FLOPs per step (``torch.utils.flop_counter``)
-    and their share of the 989 TFLOP/s bf16 peak, eval and write seconds;
-23. holds one full-width FusedProp step (``--fused_prop 1``; DCGAN, then
-    CGAN with K = 100) on the card against the CPU with the tolerances of
-    6, and ``d_gz2 == d_gz1`` on both;
-24. ``--remat none|g|d|both``: one DCGAN step at bs128, bf16 from the same
-    weights and draws under each mode: its parameters against ``none``'s
-    (the masked-delta test of 6; max |diff| printed), the peak device
-    memory of a step, and its device ms (profiler busy time / 4);
-25. ``--sanitize``: a clean full-width step under anomaly detection equals
-    the plain step bit for bit (cuDNN deterministic for the phase); a NaN
-    in the real batch raises naming the backward function;
-26. trains DCGAN with ``--fused_prop 1`` as in 7 (12 launches from the
-    evals, none from the steps) and times its step against the faithful
-    step on the same state, in turns of 4 steps: device ms and device
-    events per step (profiler), host ms, img/s;
-27. a short ``--profile_dir`` run (4 steps + 1 eval): one Chrome trace
-    naming ``jckx_torch::normalize_act``, the kernel and
-    ``aten::cudnn_convolution``;
-28. the committed jckx ``.ckpt`` fixture (``tests/data/jckx_ckpt``, DCGAN
-    with EMA and CGAN, 16²): served and rendered by ``evaluate``'s route
-    through the kernel within 1 LSB of jckx's renders, ``evaluate`` end to
-    end, ``convert`` to ``.pt`` and ``inspect``, and ``train --resume`` of
-    jckx's run dir (one more eval, the port's ``latest.ckpt`` at step 8);
-29. the data planes (``phase_data_planes``, in a child process of its own:
-    ``child_planes`` says why): the native I/O library
-    builds and loads (no numpy fallback on the card); a CIFAR-100 pickle of
-    50,000 seeded rows is parsed and written to jckx's cache, then mapped
-    (both times printed; equal arrays); real features of 10,000 mapped rows
-    through the metrics engine's slab path (8 MB slabs, 4 of them) equal
-    the per-batch path's (both timed); DCGAN trains 32 steps (K = 8) on
-    4,096 mapped rows with ``--data_placement hbm`` and ``stream -w 4`` in
-    turns (hbm, stream, stream, hbm), from the same weights with
-    deterministic algorithms: parameters bit-identical, each plane's median
-    img/s and host ms per step; a fifth, streamed run has one launch
-    profiled (busy share, the slab's host→device copy ms and stream, which
-    must run no kernel, and whether it overlapped compute); CGAN with
-    ``--data_placement auto --hbm_data_budget 100000000`` streams the whole
-    153.6 MB set, is cut by SIGTERM after 8 steps (``latest.ckpt``, the
-    uploader stopped) and evaluated once; ``--dataset folder`` over 64 PNGs
-    written by the port's own PNG writer trains 4 steps where PIL imports,
-    and otherwise must refuse naming PIL; 4 launches per G forward of the
-    phase's evals;
-30. the mesh's data axis (``phase_mesh_serve``, ``phase_mesh``):
-    ``GeneratorService`` over a local mesh ``[cuda:0, cuda:0]`` at bs512
-    bf16 within 1 LSB of the unsharded service (≥ 99 % exact), 4 launches
-    per device per batch; at full width, 4 steps and one eval each, f32, in
-    child processes (``--child``): DCGAN on a NCCL world of one
-    (``--mesh_shape 1 --multihost``, ``env://``) bit-identical to the plain
-    run; DCGAN and CGAN on two gloo ranks of this card against the plain
-    runs (telemetry within 3e-3, the masked deltas of 6), the kernel on
-    each rank's rows at the eval; two fine-tune steps at 299² on the gloo
-    pair (the first within 10 % in delta norm of one rank's); then the bf16
-    step timed on the NCCL world of one (in turns against no mesh) and on
-    the gloo pair, with the collectives per step by kind and their share;
-31. the mesh's model axis (``phase_mesh_model``): at full width, 4 f32
-    steps and one eval each, gloo pairs of child processes on this card as
-    (1, 2) data x model meshes: DCGAN under ``tp``, ``spatial`` and
-    ``spatial --spatial_replicate_grads 0``, CGAN under ``tp``, each first
-    step against ``phase_mesh``'s plain run (telemetry within 3e-3, masked
-    Adam deltas on all but 0.1 % of each net's, every leaf's gradient
-    within 5 % in L2), ``0`` against ``1`` within 1e-6, every eval render
-    through the kernel bit-identical to the once-rounded route, the TP
-    checkpoint served; then the bf16 step of a TP pair and a spatial pair
-    timed, with the collectives per step by kind and their host share; the
-    first step's telemetry gap printed by field, and the spatial pair's
-    first step against the plain step from the same weights and batch on
-    the card (f32, and computed in f64) and on the CPU (f32: gloo, no
-    cuDNN), by field;
-32. the capacity planner (``phase_plan``): ``python -m jckx_torch plan
-    --device cuda`` at the reference geometry in bf16 on an (8,) data mesh,
-    (1, 2) ``tp`` (``--tp_min_dim 128``) and ``spatial`` meshes and one
-    rank (bf16 and f32): every report's memory read on the card and
-    fitting; TP's and spatial's collectives per kind equal to the gloo
-    pairs' counts of 31, their bytes too once gloo's widening of 16-bit
-    floats to f32 is undone; the floors beside the step's device ms of 9,
-    the planned peak memory beside a real one-card step's, and the f32
-    step's FLOPs beside jckx's XLA count (within 25 %);
-33. the superstep (``phase_superstep``): the train step as one CUDA graph
-    at full width, bs128, bf16. For DCGAN, CGAN, FusedProp, ``--remat
-    both`` and cosine, 8 steps of a trainer through its superstep (the
-    first eager, then the capture, 7 replays under
-    ``torch.cuda.set_sync_debug_mode("error")``) equal 8 eager steps of a
-    twin from the same seed bit for bit (telemetry, G, D, the EMA, Adam's
-    moments and counts; cuDNN deterministic for the check); the fine-tune
-    at 299²: one eager step, the capture and a launch of K = 8 replays
-    equal 9 eager steps bit for bit, 94 launches counted per step either
-    way. Then, recaptured under the default algorithms, eager and graph in
-    turns of 4 steps on one state for DCGAN and CGAN, 2 for the fine-tune: host
-    ms per step, device busy ms and share, device events per step, the
-    capture's seconds and the graph pool's MB; in one fine-tune replay the
-    profiler's ``bn_act`` kernels equal the 94 launches the superstep
-    counted (a window that falls short, a record CUPTI dropped, is taken
-    again, up to 3).
-    Every other phase that trains through the trainer or the fine-tune's
-    ``train()`` on one card, without ``--sanitize`` or a gloo mesh, runs
-    its steps through the superstep too;
-34. jckx's inference programs as CUDA graphs (``phase_inference_graph``,
-    ``utils/graphs.GraphedProgram``): with cuDNN deterministic, a request
-    of 4096 through the float, sub-pixel, int8, truncated (0.7) and CGAN
-    samplers (labels, random classes) at bs512 bf16 and a DCGAN and a CGAN
-    ``.pt2`` at batch 64 is one replay per batch after the capture, with
-    no host synchronisation in a render, and equals the same object's
-    eager route byte for byte; so do an HTTP ``/generate`` of 4096, the
-    two trainers' eval renders, ``evaluate``'s renders, features and FID /
-    IS / intra-FID on the CGAN run, and the features of 10,000 fakes; one
-    replay's ``bn_act`` kernels in the profiler equal the launches it
-    counted (float, int8); then, under the default algorithms, eager and
-    graph in turns for the float and int8 samplers and a ``.pt2`` at batch
-    512 (img/s, host ms per batch, busy share, device events per batch and
-    per request, idle gaps, the copies' share) and for ``extract_features``
-    of 10,000 rows (s), with each graph's capture s and pool MB.
-    Every other phase that serves, renders an eval or extracts features on
-    one card, without a mesh, replays these graphs too; its comparisons
-    with the plain routes call the programs eagerly (``with_bn_act``);
-35. jckx's compiled programs over a NCCL process mesh
-    (``phase_mesh_graph``, each world in a child holding a NCCL world of
-    one; the plain world's beside ``phase_mesh``'s runs): on the plain
-    world and on a forced-live one (``_forced_live_mesh``: every axis
-    live, its sums issued as NCCL ``PREMUL_SUM`` by 1.0, one kernel each),
-    with cuDNN deterministic, 8 steps of DCGAN and CGAN through the
-    superstep (7 replays under ``set_sync_debug_mode("error")``) and a
-    K = 8 fine-tune launch equal their eager steps bit for bit, and
-    ``mesh.stats`` counts each replay's collectives as the eager step's;
-    DCGAN's graphed eval renders and their InceptionV3 features over the
-    mesh equal the eager ones; in one replay of a step and of an eval
-    render the profiler's NCCL kernels equal the all-reduces counted
-    (forced live) and its ``bn_act`` kernels the launches counted; then,
-    forced live and alone, under the default algorithms, eager and graph
-    in turns (DCGAN 4 steps, the fine-tune 2): host ms, busy share, idle
-    gaps, capture s, pool MB. ``phase_mesh``'s NCCL world of one trains
-    through the superstep's graph too;
-36. prints a ``{"kernels": [...]}`` line, then, last, the
+1. prints the card's name and power limit (``nvidia-smi``), and builds
+   every CUDA kernel of the port from the checkout's sources (ptxas's
+   registers and spills printed);
+2. serves through ``GeneratorService`` at the reference's full width
+   (DCGAN 64², z 100, base width 64; CGAN with K = 100, with and without
+   ``labels``; weights drawn from a seed and saved in the reference
+   ``.pt`` format), bs512 bf16: 4 kernel launches per rendered batch, a
+   labelled CGAN batch equal to its z rendered with the explicit one-hot;
+   the int8 (DCGAN, CGAN with labels), sub-pixel and truncated (t 0.7)
+   samplers and interpolation (16 frames; an int8 CGAN class morph):
+   renders bit-identical to the plain route rounded once and within 1 LSB
+   of ``bn_act_plain`` (int8: 4 LSB on all but 1 % of the pixels, its
+   flipped int8 activations printed per layer), truncated z within [-t,
+   t], strips byte-identical across calls and equal to the render of their
+   latents, the f32 sub-pixel sampler within 1 LSB of the default;
+3. runs the HTTP daemon in this process on 127.0.0.1:0 (``/healthz``,
+   ``/generate`` npy equal to ``sample()``, png by signature and size,
+   ``/interpolate``, ``/metrics`` counters, the 400s and a 404, a request
+   of 4096, CGAN labels);
+4. exports ``torch.export`` artifacts on the card (DCGAN bf16 at jckx's
+   batch of 64, CGAN with labels, DCGAN int8) and serves each from a fresh
+   ``ArtifactService``: 4 launches per batch, bit-identical to the
+   service on ``rng.normal_from_seed``'s z, within 1 LSB of the plain
+   route (int8: 4 LSB, 97.5 % exact at batch 64); one ``/generate`` over
+   a ``.pt2``;
+5. the tools through ``python -m jckx_torch``: ``convert`` .pt →
+   checkpoint → .pt with equal tensors, ``inspect`` of every kind with no
+   card visible, ``doctor`` exiting 0;
+6. serves over a local mesh ``[cuda:0, cuda:0]`` within 1 LSB of the
+   unsharded service (≥ 99 % exact), 4 launches per device per batch; the
+   served renders on one z against the plain route and against the plain
+   route with the plain sums (``plain_sums``): within 1 LSB;
+7. times the kernels alone, beside the card's name and power limit:
+   ``phase_timing`` (the normalize kernel per G BN layer at bs512 bf16
+   against its bound at 3.35 TB/s, its plain version, the wrapper, the
+   library's ``F.batch_norm`` + ReLU), ``phase_moments`` (the BN
+   statistics' kernels at the same layers: their sums against f64 beside
+   the plain route's, the same bits twice, each layer's time against its
+   bound, the plain route and one ``torch.sum``); ``phase_timing`` also
+   times the fine-tune's largest BN map and holds the kernel within one
+   bf16 ulp of its plain version at each shape it times;
+   ``phase_bn_relu_train``: the fine-tune's BN + ReLU (forward and
+   backward) against its plain version at three of its maps, bf16;
+8. one full-width train step (DCGAN and CGAN with K = 100, faithful and
+   FusedProp, f32) on the card against the CPU: telemetry, the masked
+   Adam deltas, no launch; ``--remat none|g|d|both`` on a full-width DCGAN
+   step: the parameters
+   against ``none``'s and the peak device memory; ``--sanitize``: a clean
+   step equals the plain one bit for bit, a NaN raises naming the backward
+   function; one fine-tune step at 299², batch 8, f32 on the card against
+   the CPU (loss, SGD deltas, running statistics, 94 launches);
+9. trains DCGAN, DCGAN with ``--fused_prop 1`` and CGAN through
+   ``jckx_torch.train.main`` (4096 synthetic rows, bs128, bf16, 32 steps,
+   evals after 8, 16 and 32; checkpoints and grids): 4 launches per DCGAN
+   eval, 8 per CGAN eval, none from the steps; the eval sample against the
+   plain routes as in 2; ``--resume`` trains nothing; a ``--watch`` daemon
+   swaps the DCGAN run's step-8 checkpoint for its last on one poll; a
+   ``--profile_dir`` run writes a Chrome trace naming the kernel and its
+   graph replays; the jckx ``.ckpt`` fixture (tests/data/jckx_ckpt)
+   through ``evaluate``, ``convert``, ``inspect`` and ``train --resume``;
+10. scores the CGAN run with ``evaluate`` and ``-t 1`` (the logged FID / IS
+    / intra-FID within 1 %), ``evaluate --quant int8`` (the params served
+    with the same calibration seed) and ``evaluate --kid 1 --prdc 1
+    --eval_fast_stem 1`` (KID and PRDC against float64, also on an
+    overlapping pair; the s2d stem against the plain one); a two-seed
+    ``panel``; fine-tunes InceptionV3 through ``finetune``'s ``train()``
+    (299², bs128, bf16, 2 epochs of 8 steps: 94 launches a step, the
+    ``.npz`` files, ``--resume 1``) and scores the CGAN run over it;
+11. holds the trainers' graphed eval renders, ``evaluate``'s renders,
+    features and scores, and the features of 10,000 fakes and of the real
+    set against their eager routes, bit for bit
+    (``phase_inference_graph``);
+12. the data planes, in a child process: the native I/O library loads; a
+    50,000-row CIFAR-100 pickle parsed, cached and mapped; the metrics
+    engine's slab path against its per-batch path; CGAN streamed under
+    ``auto`` and cut by SIGTERM; the folder plane;
+13. the mesh in child processes sharing the card (``phase_mesh``,
+    ``phase_mesh_graph``, ``phase_mesh_model``): a NCCL world of one
+    bit-identical to the plain run; gloo pairs of DCGAN and CGAN against the
+    plain run on their first step; a two-rank fine-tune against one rank;
+    the superstep, the eval program and the fine-tune's launch over a NCCL
+    world of one, plain and forced live, bit for bit against eager with
+    ``mesh.stats`` counting each replay's collectives; the model axis (tp,
+    spatial, ``--spatial_replicate_grads 0``) against the plain run, its
+    eval renders through the kernel, the TP checkpoint served;
+14. the capacity planner (``phase_plan``): ``python -m jckx_torch plan
+    --device cuda`` on five meshes, every report's memory read on the card
+    and fitting, the TP and spatial reports' collectives against a gloo
+    pair's, the planned temporaries against a real step's, the f32 FLOPs
+    against jckx's count;
+15. prints a ``{"kernels": [...]}`` line (each kernel's launches on the
+    paths above, its error, its times per G forward), then, last, the
     ``{"ok": true, "device": {...}}`` line.
 
 Wherever a phase reads the normalize kernel's launches (``LAUNCHES``) it
@@ -266,9 +111,12 @@ reads the BN statistics' moments kernels' too (``MOMENTS_LAUNCHES``,
 ``check_moments``): two for each launch of a G or D forward that takes no
 gradient, none in a differentiated step or the fine-tune's steps; children
 record their own. The ``bn_moments`` entry of the kernels line sums these
-paths' counts.
+paths' counts. Every train run and served batch on one card without a
+gloo mesh goes through its CUDA graph; comparisons with the plain routes
+call the programs eagerly (``with_bn_act``). ``time:`` lines give the
+script's own seconds by group of phases.
 
-Any failed phase exits nonzero before the last line is printed. Without a
+Any failed check exits nonzero before the last line is printed. Without a
 card, or outside a checkout of the repo, it exits nonzero at once.
 """
 
@@ -290,7 +138,6 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM data sheet, f32 outside the tensor cores
 BATCH = 512
 G_LAYERS = [(4, 512), (8, 256), (16, 128), (32, 64)]  # (spatial, channels) of G's BN layers
-RAGGED = [(1000, 3), (8 * 7 * 7, 100)]                 # (rows, C)
 SLEEP_CYCLES = 20_000_000   # ~10 ms: the host enqueues a timed loop while the card waits
 TRAIN_BATCH, TRAIN_LR = 128, 2e-4  # jckx's batch; the lr bench.py:63 trains at
 EVAL_BATCH = 64             # the trainer's sample_count: G's batch at every eval
@@ -305,22 +152,12 @@ INT8_EXACT_BS64 = 0.975
 SERVE_LABELS = [3, 17, 42]
 FT_BATCH, FT_SIZE = 128, 299  # the notebook's fine-tune batch and input side
 FT_CONVS = 94                 # InceptionV3's BasicConv2d layers: one kernel launch each per step
-BF16_FLOPS_PER_S = 989e12     # H100 SXM data sheet, dense bf16
-# bn_relu_train's inputs at bs128, 299²: the two largest stem maps, and Mixed_7c's widest
-FT_BN_SHAPES = [(64, 147), (32, 149), (448, 8)]  # (C, side)
+# (C, side) at bs128, 299²: the fine-tune's two largest BN maps (stem) and a
+# Mixed_7c map; the first is timed
+FT_BN_SHAPES = [(64, 147), (32, 149), (448, 8)]
 DATA_ROWS = 50_000             # CIFAR-100's train split, planted as its pickle
-PLANE_ROWS = 4096              # the rows the two DCGAN planes train on: 32 steps at bs128
-FEATURE_ROWS = 10_000          # real features through the slab path and the per-batch path
+FEATURE_ROWS = 10_000          # rows whose InceptionV3 features are held path against path
 FEATURE_SLAB_BYTES = 8 << 20   # 10,000 rows of 32² (30.7 MB) in 4 slabs of 10 batches
-# device kernels by kind, for the profiles: the first kind whose words a name holds
-KERNEL_KINDS = [("fused bn_act", ("bn_act",)),
-                ("pooling", ("pool",)),
-                ("int8 GEMM (_int_mm)", ("gemm_s8", "s8s8", "imma")),
-                ("convolution (cuDNN)", ("xmma", "cutlass", "cudnn", "conv", "dgrad", "wgrad",
-                                         "implicit_gemm", "nhwc", "nchw")),
-                ("copy / cast", ("copy", "Memcpy", "Memset")),
-                ("reduction", ("reduce_kernel",)),
-                ("elementwise", ("elementwise", "foreach", "multi_tensor"))]
 
 
 def fail(msg: str) -> None:
@@ -331,18 +168,6 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
-
-
-def bf16_ulp_ok(a, b) -> bool:
-    """Every element of a and b within one bf16 ulp of the larger magnitude,
-    plus the f32 tolerance 1e-5: near zero, where x*inv and shift cancel,
-    the FMA and the separate multiply and add may round to either side."""
-    import torch
-
-    a, b = a.float(), b.float()
-    m = torch.maximum(a.abs(), b.abs())
-    ulp = torch.where(m > 0, torch.exp2(torch.floor(torch.log2(m)) - 7), torch.zeros_like(m))
-    return bool(((a - b).abs() <= ulp + 1e-5).all())
 
 
 def device_ms(fn, inputs, iters: int = 20) -> float:
@@ -400,45 +225,6 @@ def phase_build():
     return paths
 
 
-def phase_kernel_vs_plain(dev) -> float:
-    """Kernel against its plain version on the same inputs. → max |err|."""
-    import torch
-
-    from jckx_torch.kernels import fused_bn_act as fba
-
-    g = torch.Generator(device=dev).manual_seed(0)
-    shapes = [(n * s * s, c) for n in (BATCH, EVAL_BATCH, CGAN_CHUNK) for s, c in G_LAYERS] + RAGGED
-    worst = 0.0
-    for rows, chans in shapes:
-        x32 = torch.randn(rows, chans, generator=g, device=dev) * 2 + 0.5
-        inv = torch.rand(chans, generator=g, device=dev) + 0.5
-        shift = torch.randn(chans, generator=g, device=dev)
-        for dtype in (torch.float32, torch.bfloat16):
-            x = x32.to(dtype)
-            for act in ("relu", "leaky_relu", "none"):
-                y = fba.normalize_act(x, inv, shift, act, 0.2)
-                ref = fba.normalize_act_plain(x, inv, shift, act, 0.2)
-                torch.cuda.synchronize()
-                check(y.dtype == dtype and y.shape == x.shape, f"kernel output {y.dtype} {y.shape}")
-                err = (y.float() - ref.float()).abs().max().item()
-                worst = max(worst, err)
-                ok = err <= 1e-5 if dtype == torch.float32 else bf16_ulp_ok(y, ref)
-                check(ok, f"kernel vs plain: rows={rows} C={chans} {dtype} {act}: max |err| {err}")
-    # the whole wrapper (statistics + kernel) on the generator's NCHW channels_last tensors
-    for n in (BATCH, EVAL_BATCH, CGAN_CHUNK):
-        for s, c in G_LAYERS:
-            x = torch.randn(n, c, s, s, generator=g, device=dev).to(
-                torch.bfloat16, memory_format=torch.channels_last)
-            scale = torch.rand(c, generator=g, device=dev) + 0.5
-            bias = torch.randn(c, generator=g, device=dev)
-            y = fba.bn_act(x, scale, bias, act="relu")
-            ref = fba.bn_act_plain(x, scale, bias, act="relu")
-            torch.cuda.synchronize()
-            check(y.is_contiguous(memory_format=torch.channels_last), "bn_act output not channels_last")
-            check(bf16_ulp_ok(y, ref), f"bn_act vs bn_act_plain at {n}x{s}x{s}x{c}")
-    print(f"kernel vs plain: {len(shapes) * 6 + 3 * len(G_LAYERS)} comparisons passed, "
-          f"max |err| {worst} (f32 <= 1e-5, bf16 <= 1 ulp + 1e-5)")
-    return worst
 
 
 @contextlib.contextmanager
@@ -716,85 +502,72 @@ def phase_serve_vs_plain(svc, dev):
                                   f"more than 1 LSB")
 
 
-def phase_timing(svc, dev, card: str):
-    """Per-layer kernel / plain / library times and served img/s. → kernel totals."""
+def phase_timing(dev, card: str) -> dict:
+    """Per G BN layer at batch 512, bf16, and at the fine-tune's largest
+    BN map (bs128, 299²): the kernel's device time against its bound, its
+    plain version, the wrapper (statistics + kernel), ``F.batch_norm`` +
+    ReLU and the same function in two library calls; the kernel within one
+    bf16 ulp (+ 1e-5) of its plain version on the first timed input of
+    each. → G's four layers' totals and the largest |kernel - plain|."""
     import torch
     import torch.nn.functional as F
 
     from jckx_torch.kernels import fused_bn_act as fba
 
     g = torch.Generator(device=dev).manual_seed(1)
-    rows_out = []
-    for s, c in G_LAYERS:
-        rows = BATCH * s * s
+    c_ft, side_ft = FT_BN_SHAPES[0]
+    shapes = [(BATCH, s, c, 1e-5) for s, c in G_LAYERS] + [(FT_BATCH, side_ft, c_ft, 1e-3)]
+    rows_out, worst = [], 0.0
+    for b, s, c, eps in shapes:
+        rows = b * s * s
         nbytes = rows * c * 2
-        xs = rotation(lambda: torch.randn(BATCH, c, s, s, generator=g, device=dev).to(
+        xs = rotation(lambda: torch.randn(b, c, s, s, generator=g, device=dev).to(
             torch.bfloat16, memory_format=torch.channels_last), nbytes)
         scale = torch.rand(c, generator=g, device=dev) + 0.5
         bias = torch.randn(c, generator=g, device=dev)
         inv = torch.rand(c, generator=g, device=dev) + 0.5
         shift = torch.randn(c, generator=g, device=dev)
         x2ds = [(fba._rows(x), inv, shift) for x in xs]
+        y = fba.normalize_act(*x2ds[0], "relu").float()
+        ref = fba.normalize_act_plain(*x2ds[0], "relu").float()
+        m = torch.maximum(y.abs(), ref.abs())
+        ulp = torch.where(m > 0, torch.exp2(torch.floor(torch.log2(m)) - 7), torch.zeros_like(m))
+        check(bool(((y - ref).abs() <= ulp + 1e-5).all()),
+              f"the kernel at {b}x{s}x{s}x{c} bf16 differs from its plain version by more than "
+              f"one bf16 ulp + 1e-5")
+        worst = max(worst, (y - ref).abs().max().item())
+        del y, ref, m, ulp
         ms = device_ms(lambda x, i, t: fba.normalize_act(x, i, t, "relu"), x2ds)
         plain = device_ms(lambda x, i, t: fba.normalize_act_plain(x, i, t, "relu"), x2ds)
-        full = device_ms(lambda x: fba.bn_act(x, scale, bias, act="relu"), [(x,) for x in xs])
+        full = device_ms(lambda x: fba.bn_act(x, scale, bias, act="relu", eps=eps),
+                         [(x,) for x in xs])
         lib = device_ms(lambda x: F.relu_(F.batch_norm(x, None, None, scale, bias, training=True,
-                                                        eps=1e-5)), [(x,) for x in xs])
+                                                        eps=eps)), [(x,) for x in xs])
         lib2 = device_ms(_addcmul_relu, x2ds)
         moved = 2 * nbytes + 2 * c * 4           # x read, y written, inv + shift read
         bytes_ms = moved / HBM_BYTES_PER_S * 1e3
         ops_ms = 3 * rows * c / F32_FLOPS_PER_S * 1e3  # FMA + activation, f32
         bound = max(bytes_ms, ops_ms)
-        rows_out.append({"layer": f"{s}x{s}x{c}", "rows": rows, "C": c, "ms": ms, "bound_ms": bound,
-                         "bytes_ms": bytes_ms, "ops_ms": ops_ms, "plain_ms": plain,
-                         "bn_act_ms": full, "library_ms": lib, "addcmul_relu_ms": lib2})
-        print(f"  layer {s:>2}x{s:<2}x{c:<3} kernel {ms * 1e3:8.2f} us  bound {bound * 1e3:6.2f} us "
-              f"({100 * bound / ms:5.1f} %)  plain {plain * 1e3:8.2f} us  bn_act (stats + kernel) "
-              f"{full * 1e3:8.2f} us  F.batch_norm + relu {lib * 1e3:8.2f} us  the same function "
-              f"in two library calls (addcmul, relu_) {lib2 * 1e3:8.2f} us   [{card}]")
-    print("bn_act_layers " + json.dumps({"card": card, "batch": BATCH, "dtype": "bfloat16",
-                                         "layers": rows_out}))
-
-    z = torch.randn(BATCH, svc.geo.z_dim, generator=g, device=dev)
-    render_ms = device_ms(lambda zz: svc.render(zz), [(z,)], iters=10)
-    bn_share = sum(r["bn_act_ms"] for r in rows_out) / render_ms
-    print(f"one render at batch {BATCH}, bf16: {render_ms:.3f} ms on the card, of which bn_act "
-          f"{100 * bn_share:.1f} % (its statistics {100 * (bn_share - sum(r['ms'] for r in rows_out) / render_ms):.1f} %)"
-          f"   [{card}]")
-    # served throughput on the host clock: 8 batches a request, 5 requests
-    n = 8 * BATCH
-    svc.sample(BATCH, seed=0)  # warm
-    walls = []
-    for i in range(5):
-        t0 = time.perf_counter()
-        svc.sample(n, seed=1 + i)
-        walls.append(time.perf_counter() - t0)
-    rates = sorted(n / w for w in walls)
-    print(f"serving at batch {BATCH}, bf16: median {rates[2]:.1f} img/s over 5 requests of {n} images "
-          f"(min {rates[0]:.1f}, max {rates[-1]:.1f}; {sorted(walls)[2] * 1e3 / 8:.3f} ms per batch "
-          f"on the host clock)   [{card}]")
-    # where the host's time per batch goes
-    u8 = svc.render(z)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(8):
-        svc.render(z)
-    enqueue = (time.perf_counter() - t0) / 8
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(8):
-        u8.cpu()
-    copy = (time.perf_counter() - t0) / 8
-    print(f"host per batch: render enqueued in {enqueue * 1e3:.3f} ms, uint8 payload "
-          f"({u8.numel() / 2**20:.1f} MiB) copied to fresh pageable memory in {copy * 1e3:.3f} ms"
-          f"   [{card}]")
-    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    out = {k: sum(r[k] for r in rows_out)
+        rows_out.append({"layer": f"{s}x{s}x{c}", "batch": b, "rows": rows, "C": c, "ms": ms,
+                         "bound_ms": bound, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                         "plain_ms": plain, "bn_act_ms": full, "library_ms": lib,
+                         "addcmul_relu_ms": lib2})
+        print(f"  layer {s:>3}x{s:<3}x{c:<3} bs{b:<3} kernel {ms * 1e3:8.2f} us  bound "
+              f"{bound * 1e3:6.2f} us ({100 * bound / ms:5.1f} %)  plain {plain * 1e3:8.2f} us  "
+              f"bn_act (stats + kernel) {full * 1e3:8.2f} us  F.batch_norm + relu "
+              f"{lib * 1e3:8.2f} us  the same function in two library calls (addcmul, relu_) "
+              f"{lib2 * 1e3:8.2f} us   [{card}]")
+        del xs, x2ds
+    print("bn_act_layers " + json.dumps({"card": card, "dtype": "bfloat16", "layers": rows_out}))
+    g_rows = rows_out[:len(G_LAYERS)]  # the fine-tune's map is no G layer
+    out = {k: sum(r[k] for r in g_rows)
            for k in ("ms", "plain_ms", "bound_ms", "library_ms", "addcmul_relu_ms")}
     print(f"per G forward at batch {BATCH}, bf16, the four BN layers: kernel {out['ms']:.5f} ms, "
           f"bound {out['bound_ms']:.5f} ms, plain {out['plain_ms']:.5f} ms, F.batch_norm + relu "
-          f"{out['library_ms']:.5f} ms, addcmul + relu_ {out['addcmul_relu_ms']:.5f} ms   [{card}]")
-    out["bound_by"] = "bytes" if all(r["bytes_ms"] >= r["ops_ms"] for r in rows_out) else "operations"
+          f"{out['library_ms']:.5f} ms, addcmul + relu_ {out['addcmul_relu_ms']:.5f} ms; "
+          f"max |kernel - plain| {worst} over these layers and the fine-tune's map   [{card}]")
+    out["bound_by"] = "bytes" if all(r["bytes_ms"] >= r["ops_ms"] for r in g_rows) else "operations"
+    out["max_abs_err"] = worst
     return out
 
 
@@ -858,69 +631,6 @@ def _addcmul_relu(x2d, inv, shift):
     return torch.addcmul(shift, x2d, inv, out=torch.empty_like(x2d)).relu_()
 
 
-def profile_window(run, what: str, card: str, top_n: int = 10) -> dict:
-    """``run()`` under ``torch.profiler``: the card's busy share of the
-    window and its time by kernel (the ``top_n`` largest), printed.
-    Informational: prints "not measured" where the profiler sees no device
-    activity. → the numbers."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    events = prof.events()
-    # device events, without the profiler's user annotations on the device
-    # timeline ("Optimizer.step#Adam.step"), which span idle time too
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and "#" not in e.name]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    if not spans:
-        print(f"profiled {what}: the profiler saw no device activity; busy share not measured"
-              f"   [{card}]")
-        return {}
-    window = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
-    busy, (lo, hi) = 0.0, spans[0]
-    idle = []  # the card's idle gaps between device events, in us
-    for s, e in spans[1:]:  # union of the device intervals
-        if s > hi:
-            busy, lo = busy + hi - lo, s
-            idle.append(s - hi)
-        hi = max(hi, e)
-    busy += hi - lo
-    long_gaps = [g for g in idle if g > 10.0]
-    by_name, by_kind = {}, {}
-    for e in kernels:
-        dt = e.time_range.end - e.time_range.start
-        t, k = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + dt, k + 1)
-        kind = next((kind for kind, keys in KERNEL_KINDS if any(w in e.name for w in keys)), "other")
-        by_kind[kind] = by_kind.get(kind, 0.0) + dt
-    total = sum(t for t, _ in by_name.values())
-    print(f"profiled {what}: window {window / 1e3:.3f} ms, card busy {busy / 1e3:.3f} ms "
-          f"({100 * busy / window:.1f} %, idle {100 - 100 * busy / window:.1f} %), "
-          f"{len(kernels)} device events; {len(long_gaps)} idle gaps over 10 us between them, "
-          f"{sum(long_gaps) / 1e3:.3f} ms in all   [{card}]")
-    print("  by kind: " + ", ".join(f"{kind} {100 * t / total:.1f} %"
-                                    for kind, t in sorted(by_kind.items(), key=lambda kv: -kv[1])))
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
-    for name, (t, k) in top:
-        print(f"  {t / 1e3:8.3f} ms {100 * t / total:5.1f} %  x{k:<4} {name[:90]}")
-    return {"window_ms": window / 1e3, "busy_ms": busy / 1e3, "events": len(kernels),
-            "gaps_over_10us": len(long_gaps), "gap_ms_over_10us": sum(long_gaps) / 1e3,
-            "calls": {name: k for name, (_, k) in by_name.items()},
-            "by_kind": {kind: t / 1e3 for kind, t in by_kind.items()},
-            "top": [(name[:90], t / 1e3, k) for name, (t, k) in top]}
-
-
-def phase_profile(svc, card: str) -> None:
-    """One served request of 8 batches under ``torch.profiler``."""
-    svc.sample(BATCH, seed=0)  # warm
-    profile_window(lambda: svc.sample(8 * BATCH, seed=99),
-                   f"request of {8 * BATCH} images at batch {BATCH}, bf16", card)
-
-
 def phase_train_vs_cpu(dev, conditional: bool = False, fused_prop: int = 0) -> None:
     """One full-width train step (DCGAN, or CGAN with K = 100; the faithful
     step, or FusedProp with ``fused_prop``) on the card against the CPU,
@@ -929,7 +639,10 @@ def phase_train_vs_cpu(dev, conditional: bool = False, fused_prop: int = 0) -> N
     algorithms sum in an order that changes from run to run, and one
     masked element of CGAN's ``G.norm1.weight`` (499 masked, so none may
     flip) changed sign in 2 of 7 such runs on an H100, in none of 3 with
-    deterministic algorithms."""
+    deterministic algorithms. The GPU tests hold this step at 16², width 8,
+    with no masked delta off; at full width on their draws two of CGAN's
+    498 masked ``G.norm1.bias`` deltas differ by rounding on an H100, so the
+    full-width step stays here, on its own draws and under its 0.1 % rule."""
     import torch
 
     from jckx_torch.configs import Config
@@ -969,21 +682,17 @@ def phase_train_vs_cpu(dev, conditional: bool = False, fused_prop: int = 0) -> N
         p0 = {**{"G." + k: v.detach().cpu().clone() for k, v in G.state_dict().items()},
               **{"D." + k: v.detach().cpu().clone() for k, v in D.state_dict().items()}}
         before = launch_counts()
-        t0 = time.perf_counter()
         with _deterministic_cudnn():
             m = step(state, real.to(device), *extra,
                      StepDraws(**{k: v.to(device) for k, v in draws.items()}))
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
         check(launch_counts() == before,
               f"the differentiated train step on {device} launched a kernel")
         params = {**{"G." + k: v.detach().cpu() for k, v in G.state_dict().items()},
                   **{"D." + k: v.detach().cpu() for k, v in D.state_dict().items()}}
         grads = {**{"G." + k: q.grad.cpu() for k, q in G.named_parameters()},
                  **{"D." + k: q.grad.cpu() for k, q in D.named_parameters()}}
-        out.append(({k: float(v) for k, v in m.items()}, params, grads, dt))
-    (mc, pc, gc, dtc), (mg, pg, _, dtg) = out
+        out.append(({k: float(v) for k, v in m.items()}, params, grads))
+    (mc, pc, gc), (mg, pg, _) = out
     worst = max(abs(mc[k] - mg[k]) for k in METRIC_NAMES)
     for k in METRIC_NAMES:
         check(math.isfinite(mg[k]) and abs(mc[k] - mg[k]) <= 3e-3 + 3e-3 * abs(mc[k]),
@@ -1013,7 +722,7 @@ def phase_train_vs_cpu(dev, conditional: bool = False, fused_prop: int = 0) -> N
           f"width 64, batch {n}, f32, TF32 off): telemetry max "
           f"|diff| {worst:.3g} (<= 3e-3); Adam deltas within {0.05 * TRAIN_LR:g} on "
           f"{covered - flipped} of {covered} masked elements ({100 * covered / total:.1f} % of the "
-          f"parameters); 0 kernel launches; first step {dtc:.2f} s on the CPU, {dtg:.2f} s on the card"
+          f"parameters); 0 kernel launches"
           + ("; d_gz2 == d_gz1 on both" if fused_prop else ""))
 
 
@@ -1024,8 +733,8 @@ def _run_dir_args(tmp: str, model: str, run: str = "") -> list:
 
 def phase_train(tmp: str, model: str = "DCGAN", flags: tuple = (), run: str = ""):
     """The main training path through the entry point, for ``model``, with
-    the train flags ``flags`` in run dir ``run``. → (trainer, its launch
-    records, its eval records, kernel launches during the run)."""
+    the train flags ``flags`` in run dir ``run``. → (trainer, its eval
+    records, kernel launches during the run)."""
     import torch
 
     from jckx_torch.kernels import fused_bn_act as fba
@@ -1037,10 +746,8 @@ def phase_train(tmp: str, model: str = "DCGAN", flags: tuple = (), run: str = ""
     argv = ["-m", model, "--dataset", "synthetic", "-b", str(TRAIN_BATCH), "-e", "1",
             "-mlr", str(TRAIN_LR), "--log_every", "8", "--eval_every", "16"] + list(flags) + where
     zero_launches()
-    t0 = time.perf_counter()
     tr = tmain.main(argv)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     launches = fba.LAUNCHES
     MainLogger.reset()
     conditional = model == "CGAN"
@@ -1058,7 +765,6 @@ def phase_train(tmp: str, model: str = "DCGAN", flags: tuple = (), run: str = ""
     check_moments(f"{model} trainer's evals", launches)
     with open(os.path.join(tr.save_path, "metrics.jsonl")) as f:
         records = [json.loads(line) for line in f]
-    steps = [r for r in records if "step_ms" in r]
     evals = [r for r in records if "fid" in r]
     metrics = ("fid", "is", "intra_fid") if conditional else ("fid", "is")
     losses = [v for pair in tr._resumed_losses for v in pair]
@@ -1072,9 +778,8 @@ def phase_train(tmp: str, model: str = "DCGAN", flags: tuple = (), run: str = ""
         check(any(f.endswith(".pt") for f in names) and any(f.endswith("_fake_image.png") for f in names),
               f"{typ}/ lacks a checkpoint or a grid")
     print(f"{model}{' ' + ' '.join(flags) if flags else ''}: trained 32 steps at batch "
-          f"{TRAIN_BATCH}, bf16, through jckx_torch.train.main in "
-          f"{wall:.1f} s (data, backbone, real features and 3 evals included): evals after "
-          f"{tr.evals}, {launches} kernel launches = {per_eval} per eval ({forwards} G forward(s) "
+          f"{TRAIN_BATCH}, bf16, through jckx_torch.train.main: evals after {tr.evals}, "
+          f"{launches} kernel launches = {per_eval} per eval ({forwards} G forward(s) "
           f"of {min(n_eval, CGAN_CHUNK) if conditional else n_eval} rows), 0 from the steps; last "
           f"losses D {tr._resumed_losses[-1][0]:.4f} G {tr._resumed_losses[-1][1]:.4f}; "
           + ", ".join(" ".join(f"{k} {r[k]:.4f}" for k in metrics) + f" @ {r['step']}" for r in evals))
@@ -1092,7 +797,7 @@ def phase_train(tmp: str, model: str = "DCGAN", flags: tuple = (), run: str = ""
           and launch_counts() == before,
           f"--resume started at step {tr2.state.step} and evaluated {tr2.evals}")
     print(f"{model} --resume on the same run dir: restored step 32, nothing left to train")
-    return tr, steps, evals, launches
+    return tr, evals, launches
 
 
 def phase_evaluate(tr, evals, tmp: str) -> int:
@@ -1130,113 +835,16 @@ def phase_evaluate(tr, evals, tmp: str) -> int:
     return sum(launches)
 
 
-def phase_train_timing(tr, steps, tmp: str, card: str) -> dict:
-    """Training numbers beside the card's name and power limit."""
-    import torch
-
-    from jckx_torch.data.pipeline import decode_batch, one_hot
-    from jckx_torch.logging.main_logger import MainLogger
-    from jckx_torch.metrics.metrics import Metrics
-
-    model = "CGAN" if tr.conditional else "DCGAN"
-    rates = [r["images_per_sec"] for r in steps[1:]]
-    step_ms = [r["step_ms"] for r in steps[1:]]
-    print(f"{model} train img/s at batch {TRAIN_BATCH}, bf16, host clock: median "
-          f"{statistics.median(rates):.1f} over the {len(rates)} launches after the first (min "
-          f"{min(rates):.1f}, max {max(rates):.1f}); {statistics.median(step_ms):.3f} ms per step"
-          f"   [{card}]")
-    real = decode_batch(tr.images_dev[:TRAIN_BATCH], tr.cfg.image_size, tr.cd)
-    extra = (one_hot(tr.labels_dev[:TRAIN_BATCH], tr.num_classes),) if tr.conditional else ()
-    n = 8
-    for _ in range(3):
-        tr.step_fn(tr.state, real, *extra)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        tr.step_fn(tr.state, real, *extra)
-    torch.cuda.synchronize()
-    host_ms = 1e3 * (time.perf_counter() - t0) / n
-
-    t0 = time.perf_counter()
-    Metrics(tr.data_pre.metric_source, tr.cfg, backbone=tr.metric.backbone,
-            batch_size=tr.cfg.eval_batch_size, compute_dtype=tr.cd,
-            cache_dir=os.path.join(tmp, f"fresh_cache_{model}"), num_classes=tr.num_classes,
-            device=tr.device)
-    real_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    fake = tr.sample_eval()
-    feats = tr.metric.extract_features(fake)
-    tr.metric.inception_score(logits=feats)
-    tr.metric.fid(features=feats)
-    if tr.conditional:
-        tr.metric.intra_fid(features=feats)
-    fake_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    tr._evaluate(tr.state.step, [], [])
-    eval_s = time.perf_counter() - t0
-    print(f"{model} eval: real features of {tr.n_data} images {real_s:.3f} s (once per run, then "
-          f"cached); {fake.shape[0]} fakes sampled + features + IS + FID"
-          f"{' + intra-FID' if tr.conditional else ''} {fake_s:.3f} s; one whole trainer eval with "
-          f"its checkpoints and grids {eval_s:.3f} s   [{card}]")
-
-    k = 4  # steps profiled (cut from 8 for the script's time)
-    prof = profile_window(lambda: [tr.step_fn(tr.state, real, *extra) for _ in range(k)],
-                          f"{k} {model} train steps at batch {TRAIN_BATCH}, bf16", card)
-    # the card's busy time, not CUDA events: the host cannot enqueue the
-    # steps ahead of the card, so events around them time the host
-    card_ms = prof["busy_ms"] / k if prof else None
-    print(f"one {model} train step at batch {TRAIN_BATCH}, bf16: "
-          + (f"{card_ms:.3f} ms" if prof else "not measured")
-          + f" on the card (profiler busy time / {k}), {host_ms:.3f} ms on the host clock   [{card}]")
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"peak device memory {peak:.2f} GiB")
-    MainLogger.reset()  # the fresh engine above bound the logger to this run's dir
-    out = {"model": model, "card": card, "batch": TRAIN_BATCH, "dtype": "bfloat16",
-           "img_per_s_host_median": statistics.median(rates), "step_ms_card": card_ms,
-           "step_ms_host": host_ms, "eval_fakes": fake.shape[0],
-           "real_features_s": real_s, "fake_side_s": fake_s, "eval_s": eval_s,
-           "profile": prof, "peak_gib": peak}
-    print("train_numbers " + json.dumps(out))
-    return out
 
 
-def int8_layers(in_dim: int) -> list:
-    """G's ConvTranspose layers at 64², base width 64: (Cin, Cout, input
-    side, stride, padding)."""
-    return [(in_dim, 512, 1, 1, 0), (512, 256, 4, 2, 1), (256, 128, 8, 2, 1),
-            (128, 64, 16, 2, 1), (64, 3, 32, 2, 1)]
 
 
-def phase_int8_exact(dev) -> None:
-    """The int8 convolution's card route (im2col + ``torch._int_mm``)
-    against the exact f64 route on the card, on random int8 at the serving
-    shapes (batch 512) of every G layer, DCGAN's and CGAN's: bit-identical
-    int32."""
-    import torch
-
-    from jckx_torch.ops import quant as tquant
-
-    g = torch.Generator(device=dev).manual_seed(8)
-    n = 0
-    for in_dim in (100, 200):
-        for cin, cout, hw, stride, pad in int8_layers(in_dim):
-            x = torch.randint(-127, 128, (BATCH, cin, hw, hw), generator=g, device=dev,
-                              dtype=torch.int8).contiguous(memory_format=torch.channels_last)
-            w = torch.randint(-127, 128, (cin, cout, 4, 4), generator=g, device=dev, dtype=torch.int8)
-            got = tquant.conv_transpose2d_int8(x, w, stride, pad)
-            want = tquant.conv_transpose2d_int8_exact(x, w, stride, pad)
-            torch.cuda.synchronize()
-            check(got.dtype == torch.int32 and got.shape == want.shape and torch.equal(got, want),
-                  f"int8 route vs exact: {cin}->{cout} at {hw}x{hw} differs")
-            n += 1
-    print(f"int8 ConvTranspose, _int_mm route vs exact f64 route at batch {BATCH}: {n} layers "
-          f"(in_dim 100 and 200) bit-identical int32")
 
 
-def phase_serve_modes(path: str, cgan_path: str, svc, dev):
+def phase_serve_modes(path: str, cgan_path: str, svc, dev) -> int:
     """int8 (DCGAN and CGAN with labels), sub-pixel and truncated serving,
     and interpolation, with the launch counter reset just before the
-    requests and read just after. → (services by mode, launches)."""
+    requests and read just after. → kernel launches."""
     import numpy as np
     import torch
 
@@ -1310,15 +918,13 @@ def phase_serve_modes(path: str, cgan_path: str, svc, dev):
           f"{100 * (diff == 0).float().mean().item():.4f} % exactly equal")
     check(diff.max().item() <= 1, "f32 sub-pixel sampler differs from the default by more than 1 LSB "
                                   "(tests/test_serve.py:67-78)")
-    return {"int8": q, "int8_cgan": cq, "subpixel": sub}, launches
+    return launches
 
 
 def count_int8_flips(render) -> list:
     """Per quantized layer of ``render()``'s int8 forward, the int8
     activations that differ between the kernel route and ``bn_act_plain``
     (``(flipped, total)``)."""
-    import torch
-
     from jckx_torch.kernels import fused_bn_act as fba
     from jckx_torch.ops import quant as tquant
 
@@ -1392,8 +998,8 @@ def _npy(body: bytes):
     return np.load(io.BytesIO(body))
 
 
-def phase_http(svc, csvc, card: str):
-    """The HTTP daemon on the card, in this process. → (launches, numbers)."""
+def phase_http(svc, csvc) -> int:
+    """The HTTP daemon on the card, in this process. → kernel launches."""
     import struct
 
     from jckx_torch.kernels import fused_bn_act as fba
@@ -1425,13 +1031,9 @@ def phase_http(svc, csvc, card: str):
                 "jckx_generate_errors_total": len(bad), "jckx_serving_batch_size": BATCH,
                 "jckx_checkpoint_step": svc.step}
         check(all(m[k] == v for k, v in want.items()), f"/metrics {m} want {want}")
-        # one large request end to end, on the host clock (npy body, 48 MiB)
-        walls = []
-        for i in range(3):
-            t0 = time.perf_counter()
-            code, _, body = d("/generate", {"n": 4096, "seed": 100 + i, "format": "npy"})
-            walls.append(time.perf_counter() - t0)
-            check(code == 200 and _npy(body).shape[0] == 4096, "/generate of 4096")
+        # a request at the daemon's cap (npy body, 48 MiB)
+        code, _, body = d("/generate", {"n": 4096, "seed": 100, "format": "npy"})
+        check(code == 200 and _npy(body).shape[0] == 4096, "/generate of 4096")
     finally:
         d.close()
     c = Daemon(csvc)
@@ -1447,15 +1049,13 @@ def phase_http(svc, csvc, card: str):
         c.close()
     launches = fba.LAUNCHES
     # the daemon's renders, and the sample() / interpolate() calls they are held against
-    batches = 2 * 2 + 1 + 2 * 1 + 3 * 8 + 2 * 2
+    batches = 2 * 2 + 1 + 2 * 1 + 8 + 2 * 2
     check(launches == 4 * batches, f"{launches} kernel launches in the HTTP phase, want {4 * batches}")
     check_moments("the HTTP phase", launches)
-    ms = sorted(walls)[1] * 1e3
     print(f"HTTP daemon on the card: /healthz, /generate npy (== sample()), png ({side}x{side}), "
-          f"/interpolate (== interpolate()), /metrics counters, the 400s and a 404, CGAN labels; "
-          f"{launches} kernel launches. /generate of 4096 images (npy, end to end): median "
-          f"{ms:.1f} ms over 3, {4096 / ms * 1e3:.1f} img/s   [{card}]")
-    return launches, {"generate_4096_ms": ms, "generate_4096_ms_all": walls}
+          f"/interpolate (== interpolate()), /metrics counters, the 400s and a 404, a request of "
+          f"4096, CGAN labels; {launches} kernel launches")
+    return launches
 
 
 def phase_watch(step8: str, latest: str, tmp: str) -> int:
@@ -1506,7 +1106,6 @@ def phase_evaluate_int8(tr, tmp: str) -> int:
     import torch
 
     from jckx_torch import evaluate
-    from jckx_torch.kernels import fused_bn_act as fba
     from jckx_torch.logging.main_logger import MainLogger
     from jckx_torch.serve import GeneratorService
 
@@ -1544,78 +1143,16 @@ def phase_evaluate_int8(tr, tmp: str) -> int:
     return launches
 
 
-def served_rate(svc) -> float:
-    """Median img/s of 5 requests of 8 batches, on the host clock."""
-    n = 8 * BATCH
-    svc.sample(BATCH, seed=0)  # warm
-    walls = []
-    for i in range(5):
-        t0 = time.perf_counter()
-        svc.sample(n, seed=1 + i)
-        walls.append(time.perf_counter() - t0)
-    return sorted(n / w for w in walls)[2]
 
 
-def phase_modes_timing(svc, modes, dev, card: str) -> dict:
-    """Served img/s by sampler; per G layer the int8 route's convolution
-    against the bf16 cuDNN one; the f32 kernel per BN layer against its
-    bound."""
-    import torch
-
-    from jckx_torch.kernels import fused_bn_act as fba
-    from jckx_torch.ops import quant as tquant
-    from jckx_torch.ops.conv import conv_transpose2d
-
-    rates = {"float": served_rate(svc), "subpixel": served_rate(modes["subpixel"]),
-             "int8": served_rate(modes["int8"]), "float_again": served_rate(svc)}
-    print("served img/s at batch 512, median of 5 requests of 4096 (host clock): "
-          + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()) + f"   [{card}]")
-    g = torch.Generator(device=dev).manual_seed(2)
-    convs = []
-    for cin, cout, hw, stride, pad in int8_layers(100):
-        nbytes = BATCH * cin * hw * hw
-        xs = rotation(lambda: torch.randint(-127, 128, (BATCH, cin, hw, hw), generator=g, device=dev,
-                                            dtype=torch.int8).contiguous(memory_format=torch.channels_last),
-                      nbytes)
-        w = torch.randint(-127, 128, (cin, cout, 4, 4), generator=g, device=dev, dtype=torch.int8)
-        xb = [(x.to(torch.bfloat16),) for x in xs]
-        wb = w.to(torch.bfloat16)
-        int8_ms = device_ms(lambda x: tquant.conv_transpose2d_int8(x, w, stride, pad), [(x,) for x in xs])
-        bf16_ms = device_ms(lambda x: conv_transpose2d(x, wb, stride, pad), xb)
-        sub_ms = device_ms(lambda x: conv_transpose2d(x, wb, stride, pad, subpixel=True), xb)
-        convs.append({"layer": f"{cin}->{cout} {hw}->{hw * 2 if stride == 2 else 4}", "int8_ms": int8_ms,
-                      "bf16_cudnn_ms": bf16_ms, "bf16_subpixel_ms": sub_ms})
-        print(f"  convT {cin:>3}->{cout:<3} at {hw:>2}x{hw:<2}: int8 (_int_mm route) {int8_ms * 1e3:9.2f} us, "
-              f"bf16 cuDNN {bf16_ms * 1e3:9.2f} us, bf16 sub-pixel {sub_ms * 1e3:9.2f} us   [{card}]")
-    f32 = []
-    for s, c in G_LAYERS:
-        rows = BATCH * s * s
-        nbytes = rows * c * 4
-        x2ds = rotation(lambda: torch.randn(rows, c, generator=g, device=dev), nbytes)
-        inv = torch.rand(c, generator=g, device=dev) + 0.5
-        shift = torch.randn(c, generator=g, device=dev)
-        ms = device_ms(lambda x: fba.normalize_act(x, inv, shift, "relu"), [(x,) for x in x2ds])
-        plain = device_ms(lambda x: fba.normalize_act_plain(x, inv, shift, "relu"), [(x,) for x in x2ds])
-        bytes_ms = (2 * nbytes + 2 * c * 4) / HBM_BYTES_PER_S * 1e3
-        ops_ms = 3 * rows * c / F32_FLOPS_PER_S * 1e3
-        bound = max(bytes_ms, ops_ms)
-        f32.append({"layer": f"{s}x{s}x{c}", "ms": ms, "bound_ms": bound, "plain_ms": plain})
-        print(f"  f32 kernel {s:>2}x{s:<2}x{c:<3} {ms * 1e3:8.2f} us  bound {bound * 1e3:6.2f} us "
-              f"({100 * bound / ms:5.1f} %)  plain {plain * 1e3:8.2f} us   [{card}]")
-    modes["int8"].sample(BATCH, seed=0)  # warm
-    prof = profile_window(lambda: modes["int8"].sample(8 * BATCH, seed=99),
-                          f"int8 request of {8 * BATCH} images at batch {BATCH}", card)
-    out = {"card": card, "batch": BATCH, "served_img_per_s": rates, "int8_convs": convs,
-           "f32_bn_act": f32, "int8_profile": prof}
-    print("serve_modes " + json.dumps(out))
-    return out
 
 
-def phase_export(path: str, cgan_path: str, svc, tmp: str, dev, card: str):
+def phase_export(path: str, cgan_path: str, tmp: str, dev) -> int:
     """Sealed artifacts exported on the card from the seed-0 checkpoints,
     each loaded in a fresh ``ArtifactService``, the launch counter reset
-    just before each artifact request and read just after. → (the
-    numbers, launches)."""
+    just before each artifact request and read just after; one
+    ``/generate`` through the daemon over the DCGAN ``.pt2``. → kernel
+    launches."""
     import numpy as np
     import torch
 
@@ -1626,19 +1163,15 @@ def phase_export(path: str, cgan_path: str, svc, tmp: str, dev, card: str):
 
     labels = [SERVE_LABELS[i % len(SERVE_LABELS)] for i in range(EXPORT_BATCH)]
     lab_dev = torch.tensor(labels, device=dev)
-    numbers, arts, launches = {}, {}, 0
+    arts, launches = {}, 0
     for what, src, quant, cond in (("dcgan_bf16", path, None, False),
                                    ("cgan_bf16", cgan_path, None, True),
                                    ("dcgan_int8", path, "int8", False)):
         dst = os.path.join(tmp, f"{what}.pt2")
-        t0 = time.perf_counter()
         info = export_generator(src, dst, quant=quant)  # the defaults: cuda, batch 64, bf16
-        export_s = time.perf_counter() - t0
         check(info["platforms"] == ["cuda"] and info["batch_size"] == EXPORT_BATCH
               and info["conditional"] == cond and info["quant"] == quant, f"{what}: {info}")
-        t0 = time.perf_counter()
         art = arts[what] = ArtifactService(dst)
-        load_s = time.perf_counter() - t0
         ref = GeneratorService(src, batch_size=EXPORT_BATCH, quant=quant)
         exact, worst = [], 0
         for seed in (0, 1, 7):
@@ -1665,12 +1198,9 @@ def phase_export(path: str, cgan_path: str, svc, tmp: str, dev, card: str):
                       f"{100 * exact[-1]:.4f} % exactly equal")
         shape = (100, ref.geo.image_size, ref.geo.image_size, ref.geo.channels)
         check(art.sample(100).shape == shape, f"{what}: a request of 100")
-        numbers[what] = {"export_s": export_s, "load_s": load_s, "bytes": info["bytes"],
-                         "vs_plain_max_lsb": worst, "vs_plain_exact": min(exact)}
-        print(f"artifact {what} (batch {EXPORT_BATCH}): exported in {export_s:.2f} s "
-              f"({info['bytes']} bytes), loaded in {load_s:.2f} s; seeds 0, 1, 7: 4 kernel launches "
-              f"each, bit-identical to the service on rng.normal_from_seed's z; vs the plain route "
-              f"max {worst} LSB, {100 * min(exact):.4f} % exactly equal   [{card}]")
+        print(f"artifact {what} (batch {EXPORT_BATCH}, {info['bytes']} bytes): seeds 0, 1, 7: 4 "
+              f"kernel launches each, bit-identical to the service on rng.normal_from_seed's z; vs "
+              f"the plain route max {worst} LSB, {100 * min(exact):.4f} % exactly equal")
     d = Daemon(arts["dcgan_bf16"])
     try:
         code, _, body = d("/healthz")
@@ -1689,27 +1219,9 @@ def phase_export(path: str, cgan_path: str, svc, tmp: str, dev, card: str):
               "/interpolate over a .pt2 is not a 400")
     finally:
         d.close()
-    # served img/s at batch 512: the artifact beside the float sampler, in turns
-    dst = os.path.join(tmp, "dcgan_bf16_512.pt2")
-    t0 = time.perf_counter()
-    export_generator(path, dst, batch_size=BATCH)
-    export_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    art = ArtifactService(dst)
-    load_s = time.perf_counter() - t0
-    rates = {"float": served_rate(svc), "artifact": served_rate(art),
-             "artifact_again": served_rate(art), "float_again": served_rate(svc)}
-    prof = profile_window(lambda: art.sample(8 * BATCH, seed=99),
-                          f"artifact request of {8 * BATCH} images at batch {BATCH}", card)
-    numbers["batch_512"] = {"export_s": export_s, "load_s": load_s, "served_img_per_s": rates,
-                            "profile": prof}
     print(f"/generate over the DCGAN .pt2: 600 npy equal to sample(), {want} kernel launches, "
-          f"/interpolate a 400. At batch "
-          f"{BATCH}: exported in {export_s:.2f} s, loaded in {load_s:.2f} s; served img/s (median "
-          f"of 5 requests of 4096, host clock): " + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
-          + f"   [{card}]")
-    print("export_numbers " + json.dumps({"card": card, **numbers}))
-    return numbers, launches
+          f"/interpolate a 400")
+    return launches
 
 
 def _cli(args, env=None, timeout: float = 600):
@@ -1807,7 +1319,7 @@ def prdc_f64(real, fake, k: int = 3) -> dict:
             "density": float(hit.sum(1).mean() / k), "coverage": float((d.min(0) <= r_r).mean())}
 
 
-def phase_extra_metrics(tr, tmp: str, dev, card: str) -> int:
+def phase_extra_metrics(tr, tmp: str, dev) -> int:
     """``evaluate --kid 1 --prdc 1 --eval_fast_stem 1`` on the CGAN run's
     ``latest.ckpt``; its KID / PRDC against float64 numpy on the same
     features and permutations; the s2d stem against the plain one. →
@@ -1827,28 +1339,18 @@ def phase_extra_metrics(tr, tmp: str, dev, card: str) -> int:
 
     def kid_spy(real, fake, **kw):
         seen["kid"] = (np.asarray(real), np.asarray(fake), kw)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = real_kid(real, fake, **kw)
-        seen["kid_s"] = time.perf_counter() - t0
-        return out
+        return real_kid(real, fake, **kw)
 
     def mm_spy(real, fake, **kw):
         seen["prdc"] = (np.asarray(real), np.asarray(fake), kw)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = real_mm(real, fake, **kw)
-        seen["prdc_s"] = time.perf_counter() - t0
-        return out
+        return real_mm(real, fake, **kw)
 
     latest = os.path.join(tr.save_path, "latest.ckpt")
     extra.kid, extra.manifold_metrics = kid_spy, mm_spy
     zero_launches()
     try:
-        t0 = time.perf_counter()
         res = evaluate.main(["--ckpt", latest, "--dataset", "synthetic", "--kid", "1", "--prdc", "1",
                              "--eval_fast_stem", "1"] + _run_dir_args(tmp, "CGAN")[:4])
-        wall = time.perf_counter() - t0
     finally:
         extra.kid, extra.manifold_metrics = real_kid, real_mm
     launches = fba.LAUNCHES
@@ -1874,10 +1376,7 @@ def phase_extra_metrics(tr, tmp: str, dev, card: str) -> int:
     # a constant would pass: so again on a pair whose manifolds overlap
     half = len(real) // 2
     a, b = real[:half], np.concatenate([real[half:half + 1024], fake[:1000]])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     overlap = extra.manifold_metrics(a, b, device=dev)
-    overlap_s = time.perf_counter() - t0
     ref_overlap = prdc_f64(a, b)
     overlap_gaps = {k: abs(overlap[k] - v) for k, v in ref_overlap.items()}
     check(all(0 < ref_overlap[k] < 1 for k in ("precision", "recall", "coverage"))
@@ -1896,31 +1395,19 @@ def phase_extra_metrics(tr, tmp: str, dev, card: str) -> int:
     rel = ((s2d - plain).abs().max() / plain.abs().max()).item()
     rel16 = ((s2d16 - plain16).abs().max() / plain16.abs().max()).item()
     check(rel <= 1e-3, f"s2d stem features vs the plain stem's, f32: {rel} of the largest")
-    stem = net.Conv2d_1a_3x3
-    xb = x.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-    with torch.inference_mode():
-        stem_ms = device_ms(lambda v: stem(v), [(xb,)])
-        s2d_ms = device_ms(lambda v: stem.stem_s2d(v), [(xb,)])
-    out = {"card": card, "evaluate_s": wall, "kid_s": seen["kid_s"], "prdc_s": seen["prdc_s"],
-           "n_real": len(real), "n_fake": len(fake), "kid_rel_gap_f64": kid_gap,
-           "prdc_abs_gap_f64": gaps, "s2d_rel_diff_f32": rel, "s2d_rel_diff_bf16": rel16,
-           "stem_ms_bs64_bf16": stem_ms, "stem_s2d_ms_bs64_bf16": s2d_ms,
-           "prdc_overlap": overlap, "prdc_overlap_f64": ref_overlap, "prdc_overlap_s": overlap_s}
     print(f"evaluate --kid 1 --prdc 1 --eval_fast_stem 1 on the CGAN run's latest.ckpt: "
-          f"{wall:.3f} s, {launches} kernel launches; kid {res['kid']:.6g} ± {res['kid_std']:.3g} "
+          f"{launches} kernel launches; kid {res['kid']:.6g} ± {res['kid_std']:.3g} "
           f"(float64: gap {kid_gap:.2g} relative), precision {res['precision']:.4f} recall "
           f"{res['recall']:.4f} density {res['density']:.4f} coverage {res['coverage']:.4f} "
-          f"(float64 gaps {gaps}); on overlapping manifolds ({len(a)} real against {len(b)} "
-          f"of real and fake) " + ", ".join(f"{k} {overlap[k]:.4f}" for k in sorted(overlap))
-          + f" (float64 gaps {overlap_gaps}); KID {seen['kid_s']:.3f} s, PRDC {seen['prdc_s']:.3f} s over "
-          f"{len(real)} real / {len(fake)} fake; s2d stem features vs plain: {rel:.2g} (f32), "
-          f"{rel16:.2g} (bf16) of the largest; stem conv at batch 64, bf16: {stem_ms * 1e3:.1f} us, "
-          f"s2d form {s2d_ms * 1e3:.1f} us   [{card}]")
-    print("extra_metrics_numbers " + json.dumps(out))
+          f"(float64 gaps {gaps}) over {len(real)} real / {len(fake)} fake; on overlapping "
+          f"manifolds ({len(a)} real against {len(b)} of real and fake) "
+          + ", ".join(f"{k} {overlap[k]:.4f}" for k in sorted(overlap))
+          + f" (float64 gaps {overlap_gaps}); s2d stem features vs plain: {rel:.2g} (f32), "
+          f"{rel16:.2g} (bf16) of the largest")
     return launches
 
 
-def phase_panel(tmp: str, card: str) -> int:
+def phase_panel(tmp: str) -> int:
     """``python -m jckx_torch panel`` over seeds 0 and 1, DCGAN at full
     width with KID / PRDC and the s2d stem. → the children's kernel
     launches, as each child trainer logged them."""
@@ -1929,9 +1416,7 @@ def phase_panel(tmp: str, card: str) -> int:
             "--extra_metrics", "1", "--eval_fast_stem", "1", "-mlr", str(TRAIN_LR),
             "--log_every", "8", "--eval_every", "16", "--save_root", root,
             "--data_dir", os.path.join(tmp, "data"), "--panel_name", "smoke"]
-    t0 = time.perf_counter()
     out = _cli(argv, timeout=900)
-    wall = time.perf_counter() - t0
     check(out.returncode == 0, f"panel exited {out.returncode}: {out.stderr[-3000:]}")
     verdict = json.loads(out.stdout.strip().splitlines()[-1])
     per = verdict["per_seed"]
@@ -1949,14 +1434,12 @@ def phase_panel(tmp: str, card: str) -> int:
         check_moments(f"the panel's trainer {i}", int(n), int(m))
     agg = verdict["aggregate"]
     print(f"panel of seeds 0, 1 (DCGAN, 64², width 64, bs{TRAIN_BATCH}, 32 steps, 3 evals each, "
-          f"KID / PRDC, s2d stem) through python -m jckx_torch panel: {wall:.1f} s, "
-          f"{wall / 2:.1f} s per seed (process start, data, backbone and real features included); "
-          f"kernel launches {launches}; " + ", ".join(
-              f"{k} {agg[k]['min']:.4g}..{agg[k]['max']:.4g}" for k in sorted(agg))
-          + f"   [{card}]")
-    print("panel_numbers " + json.dumps({"card": card, "wall_s": wall, "per_seed_s": wall / 2,
-                                         "launches": launches, "verdict": verdict}))
+          f"KID / PRDC, s2d stem) through python -m jckx_torch panel: kernel launches "
+          f"{launches}; " + ", ".join(f"{k} {agg[k]['min']:.4g}..{agg[k]['max']:.4g}"
+                                      for k in sorted(agg)))
     return sum(launches)
+
+
 
 
 def _bn_relu_grads(fn, x, scale, bias, dout):
@@ -1968,27 +1451,22 @@ def _bn_relu_grads(fn, x, scale, bias, dout):
     return out.detach(), mean, var, x.grad, scale.grad, bias.grad
 
 
-def phase_bn_relu_train(dev, card: str) -> dict:
+def phase_bn_relu_train(dev) -> None:
     """``ops/norm.bn_relu_train`` (the kernel's forward, the hand-written
     backward) against ``bn_relu_train_plain`` (autograd through plain ops),
-    both on the card, bf16, at the fine-tune's largest stem maps and one
-    Mixed_7c map (bs128, 299²): ``out`` bit-identical to the plain route
-    rounded once; against the plain route as jckx rounds it (whose ReLU
-    mask the backward recomputes) the statistics within 1e-5 relative, dx
-    within one bf16 ulp plus 1e-3 of its largest magnitude (both round an
-    f32 dx to bf16; their f32 sums differ in order), dgamma / dbeta within
-    1e-3 of their largest magnitude (sums of up to 2.8 M products in
-    another order).
-    Then the kernel alone at the largest map, timed against its bound.
-    → the numbers."""
+    both on the card, bf16, at ``FT_BN_SHAPES`` (bs128, 299²): one
+    normalize launch and no moments launch; ``out`` bit-identical to the
+    plain route rounded once; against the plain route as jckx rounds it
+    (whose ReLU mask the backward recomputes) the statistics within 1e-5
+    relative, dx within one bf16 ulp plus 1e-3 of its largest magnitude
+    (both round an f32 dx to bf16; their f32 sums differ in order), dgamma
+    / dbeta within 1e-3 of their largest magnitude (sums of up to 2.8 M
+    products in another order)."""
     import torch
-    import torch.nn.functional as F
 
-    from jckx_torch.kernels import fused_bn_act as fba
     from jckx_torch.ops.norm import bn_relu_train, bn_relu_train_plain
 
     g = torch.Generator(device=dev).manual_seed(3)
-    worst = {}
     for c, side in FT_BN_SHAPES:
         x = (torch.randn(FT_BATCH, c, side, side, generator=g, device=dev) * 2 + 0.5).to(
             torch.bfloat16, memory_format=torch.channels_last)
@@ -2020,37 +1498,10 @@ def phase_bn_relu_train(dev, card: str) -> dict:
         ulp = torch.where(m > 0, torch.exp2(torch.floor(torch.log2(m)) - 7), torch.zeros_like(m))
         check(bool(((dx - ref).abs() <= ulp + 1e-3 * ref.abs().max()).all()), f"dx {gaps}")
         check(gaps["dgamma"] <= 1e-3 and gaps["dbeta"] <= 1e-3, f"dgamma / dbeta {gaps}")
-        for k, v in gaps.items():
-            worst[k] = max(worst.get(k, 0.0), v)
         print(f"bn_relu_train at {FT_BATCH}x{c}x{side}x{side} bf16 on the card: 1 launch; out "
               f"bit-identical to the once-rounded plain route; relative gaps to the plain route "
               + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items()))
-        del x, dout, got, once, plain
-
-    c, side = FT_BN_SHAPES[0]
-    rows = FT_BATCH * side * side
-    nbytes = rows * c * 2
-    xs = rotation(lambda: (torch.randn(rows, c, generator=g, device=dev)).to(torch.bfloat16),
-                  nbytes, cap=4)
-    inv = torch.rand(c, generator=g, device=dev) + 0.5
-    shift = torch.randn(c, generator=g, device=dev)
-    scale = torch.rand(c, generator=g, device=dev) + 0.5
-    bias = torch.randn(c, generator=g, device=dev)
-    ms = device_ms(lambda x: fba.normalize_act(x, inv, shift, "relu"), [(x,) for x in xs])
-    plain = device_ms(lambda x: fba.normalize_act_plain(x, inv, shift, "relu"), [(x,) for x in xs])
-    nchw = [(fba._unrows(x, torch.empty(FT_BATCH, c, side, side, device="meta")),) for x in xs]
-    lib = device_ms(lambda x: F.relu_(F.batch_norm(x, None, None, scale, bias, training=True,
-                                                    eps=1e-3)), nchw)
-    lib2 = device_ms(lambda x: _addcmul_relu(x, inv, shift), [(x,) for x in xs])
-    bound = max((2 * nbytes + 2 * c * 4) / HBM_BYTES_PER_S, 3 * rows * c / F32_FLOPS_PER_S) * 1e3
-    print(f"kernel at the largest fine-tune map ({rows} rows x {c}, bf16): {ms * 1e3:.2f} us, bound "
-          f"{bound * 1e3:.2f} us (bytes; {100 * bound / ms:.1f} %), plain {plain * 1e3:.2f} us, "
-          f"F.batch_norm + relu {lib * 1e3:.2f} us, the same function in two library calls "
-          f"(addcmul, relu_) {lib2 * 1e3:.2f} us   [{card}]")
-    out = {"card": card, "rows": rows, "C": c, "ms": ms, "bound_ms": bound, "plain_ms": plain,
-           "library_ms": lib, "addcmul_relu_ms": lib2, "max_gaps": worst}
-    print("bn_relu_train_numbers " + json.dumps(out))
-    return out
+        del x, dout, got, once, plain, dx, ref, m, ulp
 
 
 def _flat_deltas(before: dict, after: dict) -> dict:
@@ -2067,34 +1518,12 @@ def phase_finetune_vs_cpu(dev) -> None:
     layers' gradients by a few per cent: tests/test_torch_finetune_step.py);
     the running statistics within 1e-3 of their layer's largest; 94 kernel
     launches on the card, none on the CPU. The gaps are printed beside the
-    CPU's own against weights perturbed by 1e-7 relative. Before the step:
-    the branch pool's gradient on a channels_last tensor, the port's and
-    ``F.avg_pool2d``'s, against the CPU's."""
+    CPU's own against weights perturbed by 1e-7 relative."""
     import numpy as np
     import torch
 
-    import torch.nn.functional as F
-
     from jckx_torch.metrics import inception_v3 as tiv
     from jckx_torch.metrics.inception_train import draw_step, make_optimizer, make_train_step
-
-    # the fine-tune's first pool input at bs128 (Mixed_5b, 192 channels at 35²), f32
-    g = torch.Generator().manual_seed(13)
-    x = torch.randn(FT_BATCH, 192, 35, 35, generator=g)
-    dy = torch.randn(FT_BATCH, 192, 35, 35, generator=g)
-    pool_grads = {}
-    for name, pool in (("port", tiv._avg_pool),
-                       ("F.avg_pool2d", lambda t: F.avg_pool2d(t, 3, 1, 1, count_include_pad=True))):
-        for device in ("cpu", dev):
-            t = x.to(device).contiguous(memory_format=torch.channels_last).requires_grad_(True)
-            pool(t).backward(dy.to(device))
-            pool_grads[name, str(device)] = t.grad.cpu()
-    pool_err = {name: float((pool_grads[name, str(dev)] - pool_grads[name, "cpu"]).norm()
-                            / pool_grads[name, "cpu"].norm()) for name in ("port", "F.avg_pool2d")}
-    print(f"branch pool gradient on a channels_last {FT_BATCH}x192x35x35 f32 tensor, card vs CPU: "
-          f"the port's {pool_err['port']:.3g} relative, F.avg_pool2d's {pool_err['F.avg_pool2d']:.3g} "
-          f"(torch {torch.__version__})")
-    check(pool_err["port"] <= 1e-6, f"the port's branch pool gradient on the card: {pool_err}")
 
     n = 8
     g = torch.Generator().manual_seed(11)
@@ -2115,18 +1544,16 @@ def phase_finetune_vs_cpu(dev) -> None:
         step = make_train_step(net, make_optimizer(net, 0.1), torch.float32, FT_SIZE)
         before_flat = tiv.to_jckx_flat(net)
         before = launch_counts()
-        t0 = time.perf_counter()
         loss, acc = step(data.to(device), labels.to(device), idx.to(device),
                          type(draws)(type(draws.crops)(*(t.to(device) for t in draws.crops)),
                                      draws.keep.to(device)))
         loss = float(loss)
-        dt = time.perf_counter() - t0
         want = FT_CONVS if device.type == "cuda" else 0
         check(launch_counts() == (before[0] + want, before[1]),
               f"the fine-tune step on {device} launched {launch_counts()} from {before}, want "
               f"{want} normalize launches and no moments kernel")
-        out.append((loss, float(acc), before_flat, tiv.to_jckx_flat(net), dt))
-    (lc, ac, b0, pc, tc), (_, _, b1, pp, _), (lg, ag, _, pg, tg) = out
+        out.append((loss, float(acc), before_flat, tiv.to_jckx_flat(net)))
+    (lc, ac, b0, pc), (_, _, b1, pp), (lg, ag, _, pg) = out
     check(math.isfinite(lg) and abs(lg - lc) <= 1e-3, f"fine-tune loss card {lg} vs CPU {lc}")
     dc, dg, dp = _flat_deltas(b0, pc), _flat_deltas(b0, pg), _flat_deltas(b1, pp)
     gaps = {k: float(np.linalg.norm(dg[k] - dc[k]) / np.linalg.norm(dc[k])) for k in dc}
@@ -2144,38 +1571,29 @@ def phase_finetune_vs_cpu(dev) -> None:
           f"{gaps[worst]:.3g} of the CPU's in norm at worst ({worst}; <= 0.1), median "
           f"{statistics.median(gaps.values()):.3g} (the CPU with its weights perturbed by 1e-7 "
           f"relative: at worst {max(floor):.3g}, median {statistics.median(floor):.3g}); running "
-          f"statistics {stat_gap:.3g} (<= 1e-3); "
-          f"{FT_CONVS} kernel launches on the card; {tc:.2f} s on the CPU, {tg:.2f} s on the card")
+          f"statistics {stat_gap:.3g} (<= 1e-3); {FT_CONVS} kernel launches on the card")
 
 
-def phase_finetune(ctr, tmp: str, card: str) -> int:
+def phase_finetune(ctr, tmp: str) -> int:
     """``python -m jckx_torch finetune`` in this process through its
     ``train()`` at the notebook's geometry (299², bs128, bf16), 2 epochs of
     8 steps on 2560 synthetic rows, eval on 512: exactly 94 launches per
     step and none from the evals; finite losses; the ``.npz`` files and
     ``summary.json``; ``--resume 1`` starts at epoch 2 and trains nothing;
     ``loss_bset.npz`` as ``--metric_backbone`` of ``evaluate`` on the CGAN
-    run's ``latest.ckpt``. Then img/s, the step's device ms, busy share, top
-    kernels and FLOP share, eval and write seconds, beside the card's name
-    and power limit. → kernel launches (the run's and the evaluate's)."""
-    import torch
-    from torch.utils.flop_counter import FlopCounterMode
-
+    run's ``latest.ckpt``. → kernel launches (the run's and the
+    evaluate's)."""
     from jckx_torch import evaluate
     from jckx_torch.kernels import fused_bn_act as fba
     from jckx_torch.logging.main_logger import MainLogger
-    from jckx_torch.metrics.inception_train import draw_step, get_args, train
+    from jckx_torch.metrics.inception_train import get_args, train
 
     save = os.path.join(tmp, "finetune")
     argv = ["--dataset", "synthetic", "--synthetic_size", "2560", "-b", str(FT_BATCH), "-e", "2",
             "--max_steps_per_epoch", "8", "--image_size", str(FT_SIZE), "--eval_samples", "512",
             "--save_dir", save, "--data_dir", os.path.join(tmp, "data")]
-    torch.cuda.reset_peak_memory_stats()
     zero_launches()
-    t0 = time.perf_counter()
     run = train(get_args(argv))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     launches = fba.LAUNCHES
     MainLogger.reset()
     steps = sum(e["steps"] for e in run.epochs)
@@ -2196,12 +1614,11 @@ def phase_finetune(ctr, tmp: str, card: str) -> int:
         side = json.load(f)
     check(side["epochs_run"] == 2 and side["batch_size"] == FT_BATCH, f"summary {side}")
     print(f"fine-tune through python -m jckx_torch finetune's train(): 2 epochs x 8 steps at "
-          f"bs{FT_BATCH}, {FT_SIZE}², bf16 in {wall:.1f} s (data, init, evals and writes "
-          f"included); {launches} kernel launches = {FT_CONVS} x {steps} steps, 0 from the evals; "
+          f"bs{FT_BATCH}, {FT_SIZE}², bf16: {launches} kernel launches = {FT_CONVS} x {steps} "
+          f"steps, 0 from the evals; "
           + "; ".join(f"epoch {e['epoch']}: train loss {e['train_loss']:.4f}, valid top1 "
-                      f"{e['top1']:.4f} loss {e['loss']:.4f}, eval {e['eval_s']:.3f} s, "
-                      f"{len(e['written'])} files written in {e['write_s']:.3f} s"
-                      for e in run.epochs) + f"   [{card}]")
+                      f"{e['top1']:.4f} loss {e['loss']:.4f}, {len(e['written'])} files written"
+                      for e in run.epochs))
 
     before = launch_counts()
     again = train(get_args(argv + ["--resume", "1"]))
@@ -2211,7 +1628,6 @@ def phase_finetune(ctr, tmp: str, card: str) -> int:
     print("fine-tune --resume 1 on the same save dir: restored epoch 2, nothing left to train")
 
     zero_launches()
-    t0 = time.perf_counter()
     res = evaluate.main(["--ckpt", os.path.join(ctr.save_path, "latest.ckpt"), "--dataset",
                          "synthetic", "--metric_backbone", os.path.join(save, "loss_bset.npz")]
                         + _run_dir_args(tmp, "CGAN")[:4])
@@ -2221,68 +1637,17 @@ def phase_finetune(ctr, tmp: str, card: str) -> int:
           f"evaluate over the fine-tuned backbone: {res}, {ev_launches} launches")
     check_moments("evaluate --metric_backbone", ev_launches)
     print(f"evaluate --metric_backbone finetune/loss_bset.npz on the CGAN run's latest.ckpt: "
-          f"{time.perf_counter() - t0:.3f} s, {ev_launches} kernel launches; fid "
-          f"{res['fid']:.4f} is {res['is']:.4f} intra_fid {res['intra_fid']:.4f}")
-
-    # timing on the trained net, draws from a generator of their own
-    dev = run.data.device
-    gen = torch.Generator(device=dev).manual_seed(99)
-    idx = torch.arange(FT_BATCH, device=dev)
-
-    def one_step():
-        return run.step(run.data, run.labels, idx, draw_step(gen, FT_BATCH, dev))
-
-    walls = []
-    for _ in range(7):
-        t0 = time.perf_counter()
-        one_step()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    rates = [FT_BATCH / w for w in walls[1:]]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(4):
-        one_step()
-    enqueue_ms = (time.perf_counter() - t0) * 1e3 / 4
-    torch.cuda.synchronize()
-    prof = profile_window(lambda: [one_step() for _ in range(4)],
-                          f"4 fine-tune steps at bs{FT_BATCH}, {FT_SIZE}², bf16", card)
-    card_ms = prof["busy_ms"] / 4 if prof else None
-    with FlopCounterMode(display=False) as fc:
-        one_step()
-    flops = fc.get_total_flops()
-    share = flops / (card_ms * 1e-3) / BF16_FLOPS_PER_S if card_ms else None
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"fine-tune img/s at bs{FT_BATCH}, {FT_SIZE}², bf16, host clock: median "
-          f"{statistics.median(rates):.1f} over {len(rates)} steps after the first (min "
-          f"{min(rates):.1f}, max {max(rates):.1f}); host enqueue {enqueue_ms:.3f} ms per step; "
-          f"step on the card " + (f"{card_ms:.3f} ms" if card_ms else "not measured")
-          + f" (profiler busy time / 4); {flops / 1e12:.4f} TFLOP per step "
-          f"(torch.utils.flop_counter), " + (f"{100 * share:.2f} %" if share else "not measured")
-          + f" of the 989 TFLOP/s bf16 peak; peak device memory {peak:.2f} GiB   [{card}]")
-    print("finetune_numbers " + json.dumps({
-        "card": card, "batch": FT_BATCH, "image_size": FT_SIZE, "dtype": "bfloat16",
-        "wall_s": wall, "launches": launches, "steps": steps,
-        "img_per_s_host_median": statistics.median(rates), "step_ms_host": walls[1:],
-        "enqueue_ms": enqueue_ms, "step_ms_card": card_ms, "flops_per_step": flops,
-        "bf16_peak_share": share, "peak_gib": peak, "profile": prof,
-        "epochs": [{k: e[k] for k in ("epoch", "train_loss", "top1", "loss", "train_s", "eval_s",
-                                      "write_s", "written")} for e in run.epochs],
-        "evaluate": res}))
+          f"{ev_launches} kernel launches; fid {res['fid']:.4f} is {res['is']:.4f} intra_fid "
+          f"{res['intra_fid']:.4f}")
     return launches + ev_launches
 
 
-SUPERSTEP_STEPS = 8   # phase_superstep: steps held bit for bit
-SUPERSTEP_TIMED = 4   # GAN steps timed and profiled per turn (cut from 8 for the script's time)
-SUPERSTEP_MODES = [("DCGAN", "DCGAN", ()), ("CGAN", "CGAN", ()),
-                   ("FusedProp", "DCGAN", ("--fused_prop", "1")),
-                   ("--remat both", "DCGAN", ("--remat", "both")),
-                   ("cosine", "DCGAN", ("--lr_schedule", "cosine"))]
+SUPERSTEP_STEPS = 8   # _mesh_graph_gan: steps held bit for bit
 
 
-def _step_trainer(tmp: str, model: str, flags: tuple, run: str, mesh=None):
+def _step_trainer(tmp: str, model: str, run: str, mesh):
     """A trainer at the reference geometry (bs128, bf16, lr 2e-4, EMA
-    0.999) over the 4,096 synthetic rows (over ``mesh`` if given), built as
+    0.999) over the 4,096 synthetic rows, over ``mesh``, built as
     ``train.main.run`` builds it but with no evals: the phase drives its
     launches."""
     import torch
@@ -2296,8 +1661,8 @@ def _step_trainer(tmp: str, model: str, flags: tuple, run: str, mesh=None):
     from jckx_torch.train.state import geometry
 
     cfg = get_arg_parse(["-m", model, "--dataset", "synthetic", "-b", str(TRAIN_BATCH), "-e", "1",
-                         "-mlr", str(TRAIN_LR), "--eval_every", "0", "--ema_decay", "0.999",
-                         *flags] + _run_dir_args(tmp, model, run))
+                         "-mlr", str(TRAIN_LR), "--eval_every", "0", "--ema_decay", "0.999"]
+                        + _run_dir_args(tmp, model, run))
     cfg.save_path = os.path.join(cfg.save_root, model.lower(), run)
     geo, gen = geometry(cfg), torch.Generator().manual_seed(cfg.seed)
     MainLogger.reset()
@@ -2349,416 +1714,38 @@ def _deterministic_cudnn():
         torch.backends.cudnn.deterministic = before
 
 
-def _turns(run_eager, run_graph, steps: int, what: str, card: str):
-    """Eager and graph in turns (eager, graph, graph, eager) on one state:
-    one warm launch, then host ms per step over ``steps`` steps ending in a
-    synchronise (and the ms until the host had enqueued them), then the
-    profiler over ``steps`` more (device busy ms and share, device events
-    and the card's idle gaps over 10 us per step). → {"eager": [...],
-    "graph": [...]}."""
-    import torch
-
-    out = {"eager": [], "graph": []}
-    for turn in ("eager", "graph", "graph", "eager"):
-        run = run_eager if turn == "eager" else run_graph
-        run()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        host_ms = 1e3 * (time.perf_counter() - t0) / steps
-        prof = profile_window(run, f"{steps} {what} steps, {turn}", card,
-                              top_n=10 if not out[turn] else 0)
-        check(bool(prof), f"{what}: the profiler saw no device activity in the {turn} steps")
-        rec = {"host_ms": host_ms, "enqueue_ms": 1e3 * (t1 - t0) / steps,
-               "busy_ms": prof["busy_ms"] / steps,
-               "busy_share": prof["busy_ms"] / prof["window_ms"],
-               "events": prof["events"] / steps,
-               "long_gaps": prof["gaps_over_10us"] / steps,
-               "long_gap_ms": prof["gap_ms_over_10us"] / steps}
-        out[turn].append(rec)
-    for turn, recs in out.items():
-        print(f"{what} step, {turn}: " + "; ".join(
-            f"host {r['host_ms']:.3f} ms (enqueued in {r['enqueue_ms']:.3f}), card busy "
-            f"{r['busy_ms']:.3f} ms ({100 * r['busy_share']:.1f} % of the window), "
-            f"{r['events']:.1f} device events, {r['long_gaps']:.1f} idle gaps over 10 us "
-            f"({r['long_gap_ms']:.3f} ms)" for r in recs) + f"   [{card}]")
-    return out
 
 
-def _replayed_launches(replay, card: str, tries: int = 3, per: int = 2) -> dict:
-    """The fused kernel's launches in one ``replay()`` of a graph (a
-    superstep's or a graphed program's), as the profiler sees its ``bn_act``
-    kernels and as ``LAUNCHES`` counts them, and the moments kernels' as it
-    sees its ``bn_moments`` kernels and ``MOMENTS_LAUNCHES`` counts them
-    (``per`` a normalize launch: ``check_moments``).
-    The profiler may drop a record (CUPTI lost ~0.5 % of one 16.5 k-event
-    window on an H100), never add one: a window that sees more fails, and
-    one that sees fewer is taken again, up to ``tries`` windows."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from jckx_torch.kernels import fused_bn_act as fba
-
-    for attempt in range(1, tries + 1):
-        torch.cuda.synchronize()
-        before = launch_counts()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            replay()
-            torch.cuda.synchronize()
-        added = fba.LAUNCHES - before[0]
-        added_m = launch_counts()[1] - before[1]
-        check(added_m == per * added, f"one replay counted {added_m} moments-kernel launches for "
-                                      f"{added} normalize launches, want {per * added}")
-        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        seen = sum("bn_act" in e.name for e in device)
-        seen_m = sum("bn_moments" in e.name for e in device)
-        print(f"one replay, window {attempt}: the profiler saw {seen} bn_act and {seen_m} "
-              f"bn_moments kernels among {len(device)} device events; the replay added {added} "
-              f"and {added_m} launches   [{card}]")
-        check(seen <= added and seen_m <= added_m,
-              f"the profiler saw {seen} bn_act and {seen_m} bn_moments kernels in one replay, "
-              f"more than the {added} and {added_m} the replay counted")
-        if (seen, seen_m) == (added, added_m):
-            return {"seen": seen, "added": added, "moments_seen": seen_m,
-                    "moments_added": added_m, "windows": attempt}
-    fail(f"the profiler saw fewer bn_act or bn_moments kernels than the replay's {added} and "
-         f"{added_m} in {tries} windows")
 
 
-def phase_superstep(tmp: str, dev, card: str) -> int:
-    """The train step as one CUDA graph (``train/superstep.py``) at full
-    width, bs128, bf16:
-
-    - for DCGAN, CGAN, FusedProp, ``--remat both`` and cosine, two
-      trainers from the same seed step on the same 8 batches: one eagerly,
-      one through its superstep (the first step eager, then the capture,
-      7 replays under ``set_sync_debug_mode("error")``); telemetry,
-      parameters, EMA and Adam's moments and counts bit for bit (cuDNN
-      deterministic for the check);
-    - the fine-tune at 299²: one eager step and the capture, then a launch
-      of K = 8 replays under the same mode, against 9 eager steps from the
-      same weights, rows and draws: loss, accuracy, weights and running
-      statistics bit for bit; 94 launches counted per step either way;
-    - recaptured under the default algorithms, eager and graph in turns on
-      one state (DCGAN, CGAN: 4 steps a turn; the fine-tune: 2): host ms per
-      step, device busy ms and share, device events and idle gaps per
-      step; the capture's seconds and the graph pool's MB; in one fine-tune replay the
-      profiler's ``bn_act`` kernels equal the launches the superstep
-      counted (``_replayed_launches``).
-
-    → the fine-tune's kernel launches."""
-    import numpy as np
-    import torch
-
-    from jckx_torch.kernels import fused_bn_act as fba
-    from jckx_torch.metrics import inception_v3 as tiv
-    from jckx_torch.metrics.inception_train import (draw_step, make_optimizer, make_superstep,
-                                                    make_train_step, step_inputs)
-    from jckx_torch.train.superstep import CudaGraph
-
-    t_phase = time.perf_counter()
-    n = SUPERSTEP_STEPS
-    perm = torch.randperm(4096, generator=torch.Generator().manual_seed(5))
-    rows = [{"idx": r} for r in perm[:n * TRAIN_BATCH].view(n, TRAIN_BATCH).to(dev).unbind()]
-    numbers = {"card": card, "batch": TRAIN_BATCH, "dtype": "bfloat16", "gan": {}, "finetune": {}}
-    timed = {}
-    for name, model, flags in SUPERSTEP_MODES:
-        eager = _step_trainer(tmp, model, flags, "superstep_eager")
-        graphed = _step_trainer(tmp, model, flags, "superstep_graph")
-        check(graphed.superstep is not None and graphed.superstep.graph_cls is CudaGraph,
-              f"{name}: the trainer on the card has no CUDA graph")
-        eager.superstep = None
-        with _deterministic_cudnn():
-            want = eager._launch(rows)
-            got = [graphed._launch(rows[:1])]
-            with _no_host_sync():
-                got.append(graphed._launch(rows[1:]))
-            torch.cuda.synchronize()
-        ss = graphed.superstep
-        check((ss.captures, ss.replays, ss.launches) == (1, n - 1, 0),
-              f"{name}: {ss.captures} captures, {ss.replays} replays, {ss.launches} launches")
-        check(torch.equal(torch.cat(got), want), f"{name}: replayed telemetry differs from eager")
-        a, b = _trainer_tensors(graphed), _trainer_tensors(eager)
-        check(a.keys() == b.keys(), f"{name}: the states hold different tensors")
-        differ = [k for k in a if not torch.equal(a[k], b[k])]
-        check(not differ, f"{name}: replayed steps differ from eager ones in {differ[:5]}")
-        values = sum(v.numel() for v in a.values())
-        print(f"{name} ({graphed.geo.image_size}², width {graphed.geo.base_width}, "
-              f"bs{TRAIN_BATCH}, bf16): {n} steps through the superstep "
-              f"(1 eager, then captured, {n - 1} replayed with no host synchronisation) equal "
-              f"{n} eager steps bit for bit: telemetry and {values:,} values of G, D, the EMA and "
-              f"Adam's moments and counts (cuDNN deterministic)   [{card}]")
-        if name in ("DCGAN", "CGAN"):
-            timed[name] = graphed
-        del eager, graphed, a, b
-        gc.collect()
-    for name, tr in timed.items():
-        ss = tr.superstep
-        ss.invalidate()
-        tr._launch(rows[:1])  # eager, then captured under the default algorithms
-        torch.cuda.synchronize()
-        print(f"{name}: capture {ss.capture_s:.3f} s, graph pool {ss.pool_bytes / 1e6:.1f} MB"
-              f"   [{card}]")
-
-        def as_eager(tr, ss, batches):
-            tr.superstep = None
-            try:
-                return tr._launch(batches)
-            finally:
-                tr.superstep = ss
-
-        k = SUPERSTEP_TIMED
-        res = _turns(lambda tr=tr, ss=ss: as_eager(tr, ss, rows[:k]),
-                     lambda tr=tr: tr._launch(rows[:k]), k,
-                     f"{name} train (bs{TRAIN_BATCH}, bf16)", card)
-        numbers["gan"][name] = {"capture_s": ss.capture_s, "pool_mb": ss.pool_bytes / 1e6, **res}
-    del timed, tr, ss
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # the fine-tune: 9 eager steps against 1 eager + a launch of K = 8 replays
-    g = torch.Generator().manual_seed(21)
-    data = torch.randint(0, 256, (2560, 32, 32, 3), generator=g, dtype=torch.uint8).to(dev)
-    labels = torch.randint(0, 100, (2560,), generator=g).to(dev)
-    order = torch.randperm(2560, generator=g)[:9 * FT_BATCH].view(9, FT_BATCH).to(dev)
-
-    def fresh():
-        net = tiv.init(0, num_classes=100).to(dev)
-        return net, make_train_step(net, make_optimizer(net, 0.1), torch.bfloat16, FT_SIZE)
-
-    def feed(gen, first):
-        return lambda j: step_inputs(order[(first + j) % 9], draw_step(gen, FT_BATCH, dev))
-
-    launches = 0
-    moments_start = launch_counts()[1]
-    with _deterministic_cudnn():
-        net_e, step_e = fresh()
-        gen = torch.Generator(device=dev).manual_seed(7)
-        before = fba.LAUNCHES
-        want = torch.stack([torch.stack(step_e(data, labels, order[i],
-                                               draw_step(gen, FT_BATCH, dev))) for i in range(9)])
-        torch.cuda.synchronize()
-        eager_launches = fba.LAUNCHES - before
-        want_w = tiv.to_jckx_flat(net_e)
-        del net_e, step_e
-        gc.collect()
-        net, step = fresh()
-        ss = make_superstep(step, data, labels, CudaGraph)
-        gen = torch.Generator(device=dev).manual_seed(7)
-        before = fba.LAUNCHES
-        got = [ss.replay(1, feed(gen, 0))]
-        with _no_host_sync():
-            got.append(ss.replay(8, feed(gen, 1)))
-        torch.cuda.synchronize()
-        graph_launches = fba.LAUNCHES - before
-    launches += eager_launches + graph_launches
-    check(eager_launches == graph_launches == 9 * FT_CONVS and ss.launches == FT_CONVS,
-          f"fine-tune launches: eager {eager_launches}, through the superstep {graph_launches} "
-          f"({ss.launches} a replay); want {9 * FT_CONVS}")
-    check(torch.equal(torch.cat(got), want), "fine-tune: replayed loss / accuracy differ from eager")
-    got_w = tiv.to_jckx_flat(net)
-    differ = [k for k in want_w if not np.array_equal(want_w[k], got_w[k])]
-    check(not differ, f"fine-tune: the K = 8 launch differs from its eager run in {differ[:5]}")
-    print(f"fine-tune ({FT_SIZE}², bs{FT_BATCH}, bf16): 1 eager step + a launch of K = 8 replays "
-          f"(no host synchronisation) equal 9 eager steps bit for bit: loss, accuracy and "
-          f"{sum(v.size for v in got_w.values()):,} weights and running statistics; "
-          f"{FT_CONVS} kernel launches per step either way (cuDNN deterministic)   [{card}]")
-
-    ss.invalidate()
-    gen = torch.Generator(device=dev).manual_seed(8)
-    before = fba.LAUNCHES
-    ss.replay(1, feed(gen, 0))  # eager, then captured under the default algorithms
-    torch.cuda.synchronize()
-    print(f"fine-tune: capture {ss.capture_s:.3f} s, graph pool {ss.pool_bytes / 1e6:.1f} MB"
-          f"   [{card}]")
-    k = 2  # cut from 4 for the script's time
-    res = _turns(lambda: [step(data, labels, order[i], draw_step(gen, FT_BATCH, dev))
-                          for i in range(k)],
-                 lambda: ss.replay(k, feed(gen, 0)), k,
-                 f"fine-tune ({FT_SIZE}², bs{FT_BATCH}, bf16)", card)
-    counted = _replayed_launches(lambda: ss.replay(1, feed(gen, 0)), card, per=0)
-    check(counted["added"] == FT_CONVS, f"one fine-tune replay counted {counted['added']} launches")
-    launches += fba.LAUNCHES - before
-    check_moments("phase_superstep, the fine-tune's steps", launches,
-                  launch_counts()[1] - moments_start, per=0)
-    numbers["finetune"] = {"capture_s": ss.capture_s, "pool_mb": ss.pool_bytes / 1e6,
-                           "bn_act_in_one_replay": counted, **res}
-    numbers["phase_s"] = time.perf_counter() - t_phase
-    print("superstep_numbers " + json.dumps(numbers))
-    del ss, step, net
-    gc.collect()
-    torch.cuda.empty_cache()
-    return launches
 
 
-INFER_REQUEST = 8 * BATCH   # phase_inference_graph: a request of 4096 (the served-img/s protocol's)
-FEATURE_TIMED = 10_000      # fakes whose InceptionV3 features are timed, eager against graph
 
 
-@contextlib.contextmanager
-def _renders_without_sync():
-    """Each batch's render inside ``sample()`` (not its drain, which copies
-    to the host) under ``set_sync_debug_mode("error")``."""
-    import jckx_torch.export as texport
-    import jckx_torch.serve as tserve
-
-    real = tserve.pipelined_sample
-
-    def guarded(n, bs, render):
-        def render_no_sync(made):
-            with _no_host_sync():
-                return render(made)
-
-        return real(n, bs, render_no_sync)
-
-    tserve.pipelined_sample = texport.pipelined_sample = guarded
-    try:
-        yield
-    finally:
-        tserve.pipelined_sample = texport.pipelined_sample = real
 
 
-def _serve_turns(obj, what: str, card: str) -> dict:
-    """A service or artifact captured again under the default algorithms,
-    then eager and graph in turns (eager, graph, graph, eager): per turn a
-    warm request, 5 requests of 4096 (median img/s and host ms per batch on
-    the host clock) and one profiled request (busy share, device events per
-    request and per batch, idle gaps over 10 us, the copies' share of the
-    device time). → {"eager": [...], "graph": [...]}."""
-    n = INFER_REQUEST
-    per = math.ceil(n / obj.batch_size)
-    obj.program.invalidate()
-    obj.sample(n, seed=0)  # eager first batch, the capture, replays
-    out = {"eager": [], "graph": []}
-    for turn in ("eager", "graph", "graph", "eager"):
-        with eager_route(obj) if turn == "eager" else contextlib.nullcontext():
-            obj.sample(n, seed=0)
-            walls = []
-            for i in range(5):
-                t0 = time.perf_counter()
-                obj.sample(n, seed=1 + i)
-                walls.append(time.perf_counter() - t0)
-            prof = profile_window(lambda: obj.sample(n, seed=99),
-                                  f"{what}, a request of {n}, {turn}", card,
-                                  top_n=0 if out[turn] else 8)
-        check(bool(prof), f"{what}: the profiler saw no device activity in the {turn} request")
-        wall = statistics.median(walls)
-        out[turn].append({
-            "img_per_s": n / wall, "host_ms_per_batch": 1e3 * wall / per,
-            "busy_share": prof["busy_ms"] / prof["window_ms"],
-            "busy_ms_per_batch": prof["busy_ms"] / per,
-            "events_per_request": prof["events"], "events_per_batch": prof["events"] / per,
-            "gaps_over_10us": prof["gaps_over_10us"], "gap_ms_over_10us": prof["gap_ms_over_10us"],
-            "copy_share": prof["by_kind"].get("copy / cast", 0.0) / sum(prof["by_kind"].values())})
-    for turn, recs in out.items():
-        print(f"{what} at batch {obj.batch_size}, {turn}: " + "; ".join(
-            f"{r['img_per_s']:.1f} img/s, host {r['host_ms_per_batch']:.3f} ms per batch, card "
-            f"busy {100 * r['busy_share']:.1f} % ({r['busy_ms_per_batch']:.3f} ms per batch), "
-            f"{r['events_per_request']} device events per request ({r['events_per_batch']:.1f} "
-            f"per batch), {r['gaps_over_10us']} idle gaps over 10 us ({r['gap_ms_over_10us']:.3f} "
-            f"ms), copies {100 * r['copy_share']:.1f} % of the device time" for r in recs)
-            + f"   [{card}]")
-    return out
 
 
-def phase_inference_graph(tmp: str, dev, card: str, tr, ctr) -> int:
+def phase_inference_graph(tmp: str, dev, tr, ctr) -> int:
     """jckx's jitted inference programs as CUDA graphs
-    (``utils/graphs.GraphedProgram``) at the reference geometry, serving at
-    bs512 bf16, ``.pt2`` artifacts at jckx's batch of 64:
-
-    - bit identity, graph against the eager route of the same object (its
-      program set to None) from the same seed, cuDNN deterministic: a
-      request of 4096 through the float, sub-pixel, int8, truncated (0.7)
-      and CGAN samplers (``--labels`` and random classes) and a DCGAN and a
-      CGAN ``.pt2``, one replay per batch after the capture, with every
-      render (not the drains) under ``set_sync_debug_mode("error")``; an
-      HTTP ``/generate`` of 4096 against ``sample()``; the two trainers'
-      eval renders (``tr``: DCGAN, ``ctr``: CGAN); ``evaluate`` on the CGAN
-      run's ``latest.ckpt``: its renders, features and FID / IS /
-      intra-FID; the real features of 10,000 fakes (the metrics engine's
-      device path);
-    - the fused kernel's launches counted per replay against the
-      profiler's ``bn_act`` kernels in one replay (float and int8);
-    - under the default algorithms, eager and graph in turns: the float
-      and int8 samplers and a ``.pt2`` at batch 512 (``_serve_turns``), and
-      ``extract_features`` s over 10,000 rows; capture s and pool MB of
-      every graph.
-
-    → the kernel launches of the phase."""
+    (``utils/graphs.GraphedProgram``) at the reference geometry beside
+    their eager routes (the program set to None), cuDNN deterministic:
+    the two trainers' eval renders (``tr``: DCGAN, ``ctr``: CGAN);
+    ``evaluate`` on the CGAN run's ``latest.ckpt``: its renders, features
+    and FID / IS / intra-FID; the features of 10,000 fakes (the metrics
+    engine's device path) and of the real set (its slab path, a second key
+    of the program): bit for bit. (The served programs' replays are held
+    by tests/test_torch_gpu.py.) → the kernel launches of the phase."""
     import numpy as np
     import torch
 
     from jckx_torch import evaluate as tevaluate
-    from jckx_torch.export import ArtifactService, export_generator
     from jckx_torch.kernels import fused_bn_act as fba
     from jckx_torch.logging.main_logger import MainLogger
     from jckx_torch.metrics import metrics as tmetrics
-    from jckx_torch.serve import GeneratorService
-    from jckx_torch.utils.graphs import CudaGraph
 
-    t_phase = time.perf_counter()
     start = launch_counts()
-    path, cpath = (os.path.join(tmp, f"graph_{m}.pt") for m in ("dcgan", "cgan"))
-    write_reference_checkpoint(path)
-    write_reference_checkpoint(cpath, conditional=True)
-    numbers = {"card": card, "batch": BATCH, "request": INFER_REQUEST, "turns": {}, "graphs": {}}
-
-    def graph_numbers(name, prog):
-        """Its last capture's seconds and its graphs' pool, as they stand."""
-        numbers["graphs"][name] = {"capture_s": prog.capture_s, "pool_mb": prog.pool_bytes / 1e6,
-                                   "keys": len(prog.keys)}
-
     with _deterministic_cudnn():
-        svc, csvc = GeneratorService(path), GeneratorService(cpath)
-        int8 = GeneratorService(path, quant="int8")
-        arts = {}
-        for what, src in (("DCGAN", path), ("CGAN", cpath)):
-            dst = os.path.join(tmp, f"graph_{what.lower()}.pt2")
-            export_generator(src, dst)  # the defaults: cuda, batch 64, bf16
-            arts[what] = ArtifactService(dst)
-        routes = [("float", svc, None), ("sub-pixel", GeneratorService(path, subpixel=True), None),
-                  ("int8", int8, None),
-                  ("truncation 0.7", GeneratorService(path, truncation=0.7), None),
-                  ("CGAN --labels", csvc, SERVE_LABELS), ("CGAN random classes", csvc, None),
-                  ("DCGAN .pt2", arts["DCGAN"], None), ("CGAN .pt2", arts["CGAN"], SERVE_LABELS)]
-        for name, obj, labels in routes:
-            prog = obj.program
-            check(prog is not None and prog.graph_cls is CudaGraph,
-                  f"{name}: the service on the card has no CUDA graph")
-            if prog.captures == 0:
-                obj.sample(obj.batch_size, labels=labels, seed=0)  # eager, then the capture
-            replays, batches = prog.replays, math.ceil(INFER_REQUEST / obj.batch_size)
-            with _renders_without_sync():
-                got = obj.sample(INFER_REQUEST, labels=labels, seed=3)
-                with eager_route(obj):
-                    want = obj.sample(INFER_REQUEST, labels=labels, seed=3)
-            check(prog.captures == 1 and prog.replays - replays == batches,
-                  f"{name}: {prog.captures} captures, {prog.replays - replays} replays for "
-                  f"{batches} batches")
-            check(got.tobytes() == want.tobytes(),
-                  f"{name}: a request of {INFER_REQUEST} through the graph differs from the eager "
-                  f"route")
-            distinct = {got[i:i + obj.batch_size].tobytes()
-                        for i in range(0, INFER_REQUEST, obj.batch_size)}
-            check(len(distinct) == batches, f"{name}: a request repeats a batch")
-            graph_numbers(f"{name} (batch {obj.batch_size})", prog)
-            print(f"{name}: a request of {INFER_REQUEST} in {batches} replays (no host "
-                  f"synchronisation in a render) equals the eager route byte for byte   [{card}]")
-        d = Daemon(svc)
-        try:
-            with _renders_without_sync():
-                code, _, body = d("/generate", {"n": INFER_REQUEST, "seed": 9, "format": "npy"})
-        finally:
-            d.close()
-        with eager_route(svc):
-            want = svc.sample(INFER_REQUEST, seed=9)
-        check(code == 200 and _npy(body).tobytes() == want.tobytes(),
-              "HTTP /generate through the graph differs from the eager route's sample()")
-        print(f"HTTP /generate of {INFER_REQUEST} (npy) through the graph equals the eager "
-              f"route's sample() byte for byte   [{card}]")
-
         for model, t in (("DCGAN", tr), ("CGAN", ctr)):
             t.eval_program.invalidate()  # captured again under deterministic cuDNN
             t.sample_eval()
@@ -2768,10 +1755,9 @@ def phase_inference_graph(tmp: str, dev, card: str, tr, ctr) -> int:
                 want = t.sample_eval()
             prog = t.eval_program
             check(torch.equal(got, want), f"{model} trainer: replayed eval renders differ from eager")
-            graph_numbers(f"{model} eval sampler ({min(t.eval_z.shape[0], CGAN_CHUNK)} rows)", prog)
             print(f"{model} trainer: the eval renders of {t.eval_z.shape[0]} rows, replayed "
                   f"({prog.captures} capture, {prog.replays} replays), equal the eager route bit "
-                  f"for bit   [{card}]")
+                  f"for bit")
 
         argv = ["--ckpt", os.path.join(ctr.save_path, "latest.ckpt"), "--dataset", "synthetic"
                 ] + _run_dir_args(tmp, "CGAN")[:4]
@@ -2809,118 +1795,34 @@ def phase_inference_graph(tmp: str, dev, card: str, tr, ctr) -> int:
         check(torch.equal(*seen["fake"]) and np.array_equal(*seen["feats"]),
               "evaluate: replayed renders or features differ from the eager route")
         check(scored[0] == scored[1], f"evaluate: {scored[0]} through the graphs, {scored[1]} eager")
-        graph_numbers("evaluate sampler (500 rows)", seen["program"][0])
-        graph_numbers(f"evaluate features (batch {ctr.cfg.eval_batch_size})", seen["engine"][0])
         print(f"evaluate on the CGAN run's latest.ckpt: renders (2 forwards of 500), features and "
               f"{ {k: scored[0][k] for k in ('fid', 'is', 'intra_fid')} } equal the eager route's "
-              f"exactly   [{card}]")
+              f"exactly")
 
         m = tr.metric  # the DCGAN run's engine: batch 256, bf16
-        fakes = (torch.rand((FEATURE_TIMED, tr.geo.image_size, tr.geo.image_size, 3), device=dev,
+        fakes = (torch.rand((FEATURE_ROWS, tr.geo.image_size, tr.geo.image_size, 3), device=dev,
                             generator=torch.Generator(device=dev).manual_seed(6)) * 2 - 1
                  ).to(torch.bfloat16)
         m.program.invalidate()
         got = m.extract_features(fakes)
         with eager_route(m):
             want = m.extract_features(fakes)
-        check(np.array_equal(got, want), "the features of 10,000 rows through the graph differ "
-                                         "from the eager route")
+        check(np.array_equal(got, want), f"the features of {FEATURE_ROWS} rows through the graph "
+                                         f"differ from the eager route")
         real_u8 = tr.data_pre.metric_source[0]  # the host path: slabs of the 32² real set
         got = m._extract_u8(real_u8)  # a second key, in the program's one pool
         with eager_route(m):
             want = m._extract_u8(real_u8)
         check(np.array_equal(got, want) and len(m.program.keys) == 2,
               "the real set's features through the graph differ from the eager route")
-        print(f"the InceptionV3 features of {FEATURE_TIMED} fakes at batch {m.batch_size} and of "
+        print(f"the InceptionV3 features of {FEATURE_ROWS} fakes at batch {m.batch_size} and of "
               f"the {len(real_u8)} real rows (the slab path, a second graph in the program's "
-              f"pool; {m.program.replays} replays) equal the eager route's bit for bit   [{card}]")
-
-    z = torch.randn(BATCH, svc.geo.z_dim, generator=torch.Generator(device=dev).manual_seed(8),
-                    device=dev)
-    for name, obj in (("float", svc), ("int8", int8)):
-        counted = _replayed_launches(lambda obj=obj: obj.render(z), card)
-        check(counted["added"] == svc.geo.n_up,
-              f"{name}: one replay counted {counted['added']} launches, want {svc.geo.n_up}")
-        numbers[f"bn_act_in_one_replay_{name}"] = counted
-
-    art512 = os.path.join(tmp, "graph_dcgan_512.pt2")
-    export_generator(path, art512, batch_size=BATCH)
-    art512 = ArtifactService(art512)
-    for name, obj in (("float", svc), ("int8", int8), (".pt2", art512)):
-        numbers["turns"][name] = _serve_turns(obj, f"{name} serving", card)
-        graph_numbers(f"{name} (batch {obj.batch_size}, default algorithms)", obj.program)
-    m.program.invalidate()
-    m.extract_features(fakes[:m.batch_size])  # the capture under the default algorithms
-    secs = {"eager": [], "graph": []}
-    for turn in ("eager", "graph", "graph", "eager"):
-        with eager_route(m) if turn == "eager" else contextlib.nullcontext():
-            t0 = time.perf_counter()
-            m.extract_features(fakes)
-            secs[turn].append(time.perf_counter() - t0)
-    graph_numbers(f"InceptionV3 features (batch {m.batch_size}, default algorithms)", m.program)
-    numbers["features_s"] = secs
-    print(f"extract_features of {FEATURE_TIMED} rows at batch {m.batch_size}, bf16, in turns: "
-          f"eager {secs['eager']} s, graph {secs['graph']} s   [{card}]")
-    for name, g in numbers["graphs"].items():
-        print(f"  graph {name}: last capture {g['capture_s']:.3f} s, pool {g['pool_mb']:.1f} MB "
-              f"over {g['keys']} key(s)   [{card}]")
+              f"pool; {m.program.replays} replays) equal the eager route's bit for bit")
     launches = fba.LAUNCHES - start[0]
     check_moments("phase_inference_graph", launches, launch_counts()[1] - start[1])
-    numbers["launches"] = launches
-    numbers["phase_s"] = time.perf_counter() - t_phase
-    print("inference_graph_numbers " + json.dumps(numbers))
-    del svc, csvc, int8, arts, routes, art512, fakes
+    del fakes
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
-
-
-def phase_fused_prop_train(tmp: str, card: str) -> int:
-    """DCGAN with ``--fused_prop 1`` through the entry point at full width,
-    as ``phase_train`` (32 steps, evals after 8, 16, 32: 4 launches each,
-    none from the steps); then its step and the faithful step on the same
-    state, in turns (faithful, FusedProp, FusedProp, faithful): device ms
-    and device events per step (profiler busy time of 4 steps / 4) and the
-    host ms, beside the card's name and power limit. → the run's kernel
-    launches."""
-    import copy
-
-    import torch
-
-    from jckx_torch.data.pipeline import decode_batch
-    from jckx_torch.train.steps import make_dcgan_train_step
-
-    tr, steps, _, launches = phase_train(tmp, "DCGAN", ("--fused_prop", "1"), "smoke_fused_prop")
-    n = 4  # steps timed and profiled per turn (cut from 8 for the script's time)
-    check(tr.cfg.fused_prop == 1, "the trainer did not take --fused_prop 1")
-    rates = [r["images_per_sec"] for r in steps[1:]]
-    print(f"DCGAN FusedProp train img/s at batch {TRAIN_BATCH}, bf16, host clock: median "
-          f"{statistics.median(rates):.1f} over the {len(rates)} launches after the first (min "
-          f"{min(rates):.1f}, max {max(rates):.1f})   [{card}]")
-    faithful = copy.copy(tr.cfg)
-    faithful.fused_prop = 0
-    fns = {"faithful": make_dcgan_train_step(faithful, tr.geo), "FusedProp": tr.step_fn}
-    real = decode_batch(tr.images_dev[:TRAIN_BATCH], tr.cfg.image_size, tr.cd)
-    seen = {name: [] for name in fns}
-    for name in ("faithful", "FusedProp", "FusedProp", "faithful"):
-        fn = fns[name]
-        for _ in range(2):
-            fn(tr.state, real)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn(tr.state, real)
-        torch.cuda.synchronize()
-        host_ms = 1e3 * (time.perf_counter() - t0) / n
-        prof = profile_window(lambda: [fn(tr.state, real) for _ in range(n)],
-                              f"{n} DCGAN {name} steps at batch {TRAIN_BATCH}, bf16", card,
-                              top_n=0 if seen[name] else 10)
-        check(bool(prof), f"the profiler saw no device activity in the {name} steps")
-        seen[name].append((prof["busy_ms"] / n, prof["events"] / n, host_ms))
-    for name, runs in seen.items():
-        print(f"DCGAN {name} step at batch {TRAIN_BATCH}, bf16: "
-              + "; ".join(f"{ms:.3f} ms on the card, {ev:.1f} device events, {h:.3f} ms on the "
-                          f"host clock" for ms, ev, h in runs) + f"   [{card}]")
     return launches
 
 
@@ -2929,9 +1831,9 @@ def phase_remat(dev, card: str) -> None:
     under each ``--remat`` mode from the same weights and draws: the
     parameters after the step against ``none``'s (Adam deltas within 5 % of
     lr where ``none``'s gradient clears 1 % of its leaf's maximum, on all
-    but 0.1 % of those elements; the max |diff| printed), the peak device
-    memory of a second step, and the device ms per step (profiler busy time
-    of 4 steps / 4), beside the card's name and power limit."""
+    but 0.1 % of those elements; the max |diff| printed), and the peak
+    device memory of a second step, beside the card's name and power
+    limit."""
     import torch
 
     from jckx_torch.configs import Config
@@ -2966,14 +1868,11 @@ def phase_remat(dev, card: str) -> None:
         step(state, real, draws)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
-        prof = profile_window(lambda: [step(state, real, draws) for _ in range(4)],
-                              f"4 DCGAN steps, --remat {mode}, batch {TRAIN_BATCH}, bf16", card,
-                              top_n=0)
-        out[mode] = (delta, grads, peak, held, prof["busy_ms"] / 4 if prof else None)
+        out[mode] = (delta, grads, peak, held)
         del state, nets, step
         torch.cuda.empty_cache()
     d_none, g_none = out["none"][0], out["none"][1]
-    for mode, (delta, _, peak, held, ms) in out.items():
+    for mode, (delta, _, peak, held) in out.items():
         worst = max(float((delta[k] - d_none[k]).abs().max()) for k in d_none)
         covered = flipped = 0
         for k, gk in g_none.items():
@@ -2985,9 +1884,8 @@ def phase_remat(dev, card: str) -> None:
                   f"remat={mode}: {k}: {bad} of {int(mask.sum())} masked deltas differ from none's")
         print(f"--remat {mode}: parameters after one step max |diff| from none {worst:.3g} "
               f"({flipped} of {covered} masked deltas beyond 5 % of lr); peak device memory of a "
-              f"step {peak / 2**30:.3f} GiB ({(peak - held) / 2**30:.3f} GiB above the state); "
-              + (f"{ms:.3f} ms per step on the card" if ms is not None else "device ms not measured")
-              + f"   [{card}]")
+              f"step {peak / 2**30:.3f} GiB ({(peak - held) / 2**30:.3f} GiB above the state)"
+              f"   [{card}]")
 
 
 def phase_sanitize(dev) -> None:
@@ -3033,22 +1931,20 @@ def phase_sanitize(dev) -> None:
         bad = real.clone()
         bad[0, 5, 7, 1] = float("nan")
         msg = ""
-        t0 = time.perf_counter()
         try:
             one_step(True, bad)
         except RuntimeError as e:
             msg = str(e)
-        dt = time.perf_counter() - t0
     finally:
         torch.backends.cudnn.deterministic = prev
     found = re.search(r"Function '(\w+)' returned nan values", msg)
     check(found is not None, f"a NaN batch under --sanitize did not raise anomaly mode's error: {msg!r}")
     check(not torch.is_anomaly_enabled(), "anomaly detection left on after the run")
     print(f"--sanitize: a clean full-width step equals the plain one bit for bit; a NaN in the "
-          f"real batch raised in {dt:.2f} s naming {found.group(1)}")
+          f"real batch raised naming {found.group(1)}")
 
 
-def phase_profile_dir(tmp: str, card: str) -> int:
+def phase_profile_dir(tmp: str) -> int:
     """A short ``--profile_dir`` run through the entry point (DCGAN, full
     width, 512 synthetic rows, batch 128: 4 steps and one eval): it writes
     one Chrome trace that names the kernel's operator and its device
@@ -3066,9 +1962,7 @@ def phase_profile_dir(tmp: str, card: str) -> int:
             os.path.join(tmp, "save"), "--data_dir", os.path.join(tmp, "data_profile"),
             "-pm", "smoke_profile"]
     zero_launches()
-    t0 = time.perf_counter()
     tr = tmain.main(argv)
-    wall = time.perf_counter() - t0
     launches = fba.LAUNCHES
     MainLogger.reset()
     check(tr.state.step == 4 and tr.evals == [4] and launches == tr.geo.n_up,
@@ -3094,80 +1988,47 @@ def phase_profile_dir(tmp: str, card: str) -> int:
     check(len(replays) == want and len(kernels) >= 3 * 100,
           f"--profile_dir: {len(replays)} graph launches, {len(kernels)} kernels of theirs in the "
           f"trace; want {want} replays (3 steps') and the steps' kernels")
-    print(f"--profile_dir: {wall:.1f} s run of 4 steps + 1 eval wrote {os.path.basename(traces[0])} "
+    print(f"--profile_dir: a run of 4 steps + 1 eval wrote {os.path.basename(traces[0])} "
           f"({os.path.getsize(traces[0]) / 2**20:.1f} MiB, {len(events)} events) naming "
           f"{', '.join(has)}, and {len(kernels)} device kernels of its {len(replays)} graph "
-          f"launches (3 replayed steps, {want - 3} feature batches); {launches} kernel launches"
-          f"   [{card}]")
+          f"launches (3 replayed steps, {want - 3} feature batches); {launches} kernel launches")
     return launches
 
 
-def phase_jckx_ckpt(tmp: str, dev, card: str) -> int:
+def phase_jckx_ckpt(tmp: str) -> int:
     """jckx ``.ckpt`` files read without JAX: the committed fixture
-    (tests/data/jckx_ckpt, written by jckx's trainer on the CPU). Each file
-    served on the card in f32 (``GeneratorService``) and rendered by
-    ``evaluate``'s route (``load_generator`` + ``make_sampler`` +
-    ``sample_eval_images``) on the fixture's 16 latents: through the kernel
-    (2 launches per forward at 16²), within 1 LSB of jckx's own renders,
-    99 % exactly equal; ``evaluate`` end to end (finite IS / FID at step
-    4); ``convert`` to ``.pt`` and ``inspect`` exit 0;
-    and ``train --resume`` of the DCGAN run dir takes one more eval and
-    writes the port's ``latest.ckpt`` at step 8. → the kernel launches."""
+    (tests/data/jckx_ckpt, written by jckx's trainer on the CPU; its renders
+    through the kernel are held by tests/test_torch_gpu.py). Each file
+    through ``evaluate`` end to end on the card (finite IS / FID at step
+    4); ``convert`` to ``.pt`` and ``inspect`` exit 0; and ``train
+    --resume`` of the DCGAN run dir takes one more eval and writes the
+    port's ``latest.ckpt`` at step 8. → the kernel launches."""
     import shutil
     import zipfile
-
-    import numpy as np
-    import torch
 
     from jckx_torch import convert as tconvert
     from jckx_torch import evaluate
     from jckx_torch import inspect as tinspect
     from jckx_torch.checkpoint.checkpoint import load_checkpoint, load_generator
-    from jckx_torch.data.pipeline import one_hot
     from jckx_torch.kernels import fused_bn_act as fba
     from jckx_torch.logging.main_logger import MainLogger
-    from jckx_torch.ops.quant import make_sampler
-    from jckx_torch.serve import GeneratorService, tanh_to_u8
     from jckx_torch.train import main as tmain
-    from jckx_torch.train.gan_trainer import sample_eval_images
 
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "jckx_ckpt")
-    z = torch.from_numpy(np.load(os.path.join(root, "z.npy"))).to(dev)
-    labels = torch.from_numpy(np.load(os.path.join(root, "cgan_labels.npy"))).to(dev)
     data = os.path.join(tmp, "data_jckx")
     total = 0
     for family in ("dcgan", "cgan"):
         cgan = family == "cgan"
         path = os.path.join(root, family, "run", "latest.ckpt")
-        want = tanh_to_u8(torch.from_numpy(np.load(os.path.join(root, f"{family}_renders.npy"))))
-        svc = GeneratorService(path, batch_size=len(z), compute_dtype=torch.float32, device=dev)
-        before = launch_counts()
-        served = svc.render(z, labels if cgan else None).cpu()
         lg = load_generator(path)
-        params, apply = make_sampler(lg.G.to(dev), compute_dtype=torch.float32)
-        onehot = one_hot(labels, lg.num_classes) if cgan else None
-        scored = tanh_to_u8(sample_eval_images(
-            lambda zz, *rest: apply(params, zz, rest[0] if cgan else None), z, onehot,
-            torch.float32)).cpu()
-        n = fba.LAUNCHES - before[0]
-        check(n == 2 * svc.geo.n_up, f"{family} fixture renders launched the kernel {n} times")
-        check_moments(f"{family} fixture renders", n, launch_counts()[1] - before[1])
-        for what, got in (("serve", served), ("evaluate's sampler", scored)):
-            diff = (got.int() - want.int()).abs()
-            exact = (diff == 0).float().mean().item()
-            check(diff.max().item() <= 1 and exact >= 0.99,
-                  f"{family} fixture {what}: {diff.max().item()} LSB, {100 * exact:.4f} % exact")
-            print(f"jckx {family} .ckpt (step {svc.step}, EMA {svc.used_ema}) through {what} on "
-                  f"the card, f32, batch {len(z)}: max diff {diff.max().item()} LSB from jckx's "
-                  f"renders, {100 * exact:.4f} % exactly equal")
         zero_launches()
         res = evaluate.main(["--ckpt", path, "--dataset", "cifar10" if cgan else "synthetic",
                              "--synthetic_size", "512", "--data_dir", data, "--save_root",
                              os.path.join(tmp, "save"), "--compute_dtype", "float32"])
         MainLogger.reset()
-        total += n + fba.LAUNCHES
+        total += fba.LAUNCHES
         check(res["step"] == 4 and math.isfinite(res["fid"]) and math.isfinite(res["is"])
-              and fba.LAUNCHES == svc.geo.n_up, f"evaluate {family} fixture: {res}, "
+              and fba.LAUNCHES == lg.geo.n_up, f"evaluate {family} fixture: {res}, "
               f"{fba.LAUNCHES} launches")
         check_moments(f"evaluate {family} fixture", fba.LAUNCHES)
         pt = os.path.join(tmp, f"jckx_{family}.pt")
@@ -3194,35 +2055,8 @@ def phase_jckx_ckpt(tmp: str, dev, card: str) -> int:
           f"{fba.LAUNCHES} launches")
     check_moments("train --resume of jckx's DCGAN run dir", fba.LAUNCHES)
     print(f"train --resume of jckx's DCGAN run dir (step 4, {tr.cfg.compute_dtype}): one more eval "
-          f"at step 8 ({fba.LAUNCHES} launches), the port's latest.ckpt written at step 8   [{card}]")
+          f"at step 8 ({fba.LAUNCHES} launches), the port's latest.ckpt written at step 8")
     return total + fba.LAUNCHES
-
-
-
-def trace_copies(prof, tmp: str) -> tuple:
-    """→ (host→device copies, device kernels, the window in µs) of a
-    profile; copies are (stream, start µs, duration µs, bytes or None),
-    kernels the same and their name, read from its Chrome trace
-    (``FunctionEvent`` carries no stream)."""
-    path = os.path.join(tmp, "planes_trace.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    os.remove(path)
-    copies, kernels = [], []
-    timed = [e for e in events if "ts" in e and "dur" in e]
-    window = (max(float(e["ts"]) + float(e["dur"]) for e in timed)
-              - min(float(e["ts"]) for e in timed))
-    for e in timed:
-        args = e.get("args") or {}
-        if "stream" not in args:
-            continue
-        rec = (args["stream"], float(e["ts"]), float(e["dur"]), args.get("bytes"))
-        if e.get("cat") == "kernel":
-            kernels.append(rec + (e.get("name", "")[:80],))
-        elif "memcpy" in e.get("cat", "").lower() and "HtoD" in e.get("name", ""):
-            copies.append(rec)
-    return copies, kernels, window
 
 
 def _per_batch_features(m, images, to01):
@@ -3241,40 +2075,18 @@ def _per_batch_features(m, images, to01):
         return torch.cat(outs)[:n].cpu().numpy()
 
 
-def _plane_trainer(cfg, data_pre, metrics, conditional: bool = False):
-    """The trainer ``jckx_torch.train.main.run`` builds, on ``data_pre``."""
-    import torch
-
-    from jckx_torch.models.cgan import CDiscriminator, CGenerator
-    from jckx_torch.models.dcgan import Discriminator, Generator
-    from jckx_torch.train.gan_trainer import CGANTrainer, DCGANTrainer
-    from jckx_torch.train.state import geometry
-
-    geo = geometry(cfg)
-    gen = torch.Generator().manual_seed(cfg.seed)
-    if conditional:
-        return CGANTrainer(cfg, CGenerator(geo, data_pre.num_classes, gen=gen),
-                           CDiscriminator(geo, data_pre.num_classes, gen=gen), data_pre,
-                           metrics=metrics)
-    return DCGANTrainer(cfg, Generator(geo, gen=gen), Discriminator(geo, gen=gen), data_pre,
-                        metrics=metrics)
-
-
-def phase_data_planes(tmp: str, dev, card: str) -> int:
+def phase_data_planes(tmp: str, dev) -> int:
     """The data planes on the card (``data/native_io.py``, ``datasets.py``,
     ``pipeline.py``): the native library loads; a planted CIFAR-100 pickle
     of 50,000 rows is parsed and cached, then mapped; real features of
     10,000 mapped rows through the metrics engine's slab path (8 MB slabs:
-    4 of them) equal the per-batch path's; DCGAN trains 32 steps (K = 8,
-    evals after 8 and 32) on 4,096 mapped rows, resident and streamed
-    (``-w 4``) in turns from the same weights with deterministic
-    algorithms, to the same parameters bit for bit, and once more streamed
-    with its third launch profiled (busy share, the slab's host→device
-    copy, its stream, its overlap with kernels); CGAN
-    streams the whole set under ``auto`` with a 100 MB budget, is cut by
-    SIGTERM after its first launch of 8 steps and evaluated once; and the
-    folder plane trains 4 steps where PIL imports, else refuses naming PIL.
-    → the kernel launches of its evals."""
+    4 of them) equal the per-batch path's, with deterministic algorithms;
+    CGAN streams the whole set under ``auto`` with a 100 MB budget, is cut
+    by SIGTERM after its first launch of 8 steps and evaluated once; and
+    the folder plane trains 4 steps where PIL imports, else refuses naming
+    PIL. (A streamed trainer against a resident one, bit for bit, with its
+    slabs copied on a stream that runs no kernel, is held by
+    tests/test_torch_gpu.py.) → the kernel launches of its evals."""
     import pickle
     import signal
     import threading
@@ -3284,19 +2096,21 @@ def phase_data_planes(tmp: str, dev, card: str) -> int:
 
     from jckx_torch.configs import get_arg_parse
     from jckx_torch.data import datasets, native_io
-    from jckx_torch.data.pipeline import CGANDataPreprocessor, DCGANDataPreprocessor
+    from jckx_torch.data.pipeline import CGANDataPreprocessor
     from jckx_torch.kernels import fused_bn_act as fba
     from jckx_torch.logging.artifacts import encode_png
     from jckx_torch.logging.main_logger import MainLogger
     from jckx_torch.metrics import inception_v3
     from jckx_torch.metrics.metrics import Metrics
+    from jckx_torch.models.cgan import CDiscriminator, CGenerator
     from jckx_torch.train import main as tmain
+    from jckx_torch.train.gan_trainer import CGANTrainer
+    from jckx_torch.train.state import geometry
 
-    t0 = time.perf_counter()
     check(native_io.available(), f"the native I/O library did not load: "
                                  f"{native_io.fallback_reason()}")
     print(f"native I/O library {os.path.basename(native_io.library_path())} built with g++ and "
-          f"loaded in {time.perf_counter() - t0:.2f} s")
+          f"loaded")
 
     data_dir = os.path.join(tmp, "planes_data")
     os.makedirs(os.path.join(data_dir, "cifar-100-python"))
@@ -3305,25 +2119,21 @@ def phase_data_planes(tmp: str, dev, card: str) -> int:
     fine = rng.integers(0, 100, DATA_ROWS)
     with open(os.path.join(data_dir, "cifar-100-python", "train"), "wb") as f:
         pickle.dump({b"data": pix, b"fine_labels": fine.tolist()}, f, protocol=4)
-    t0 = time.perf_counter()
     x1, y1, ncls, _, synthetic = datasets.load_dataset("cifar100", data_dir)
-    parse_s = time.perf_counter() - t0
     cache = os.path.join(data_dir, "jckx_cache_cifar100_train.bin")
     check(os.path.getsize(cache) == 32 + DATA_ROWS * (3072 + 4) and not synthetic,
           f"cache {os.path.getsize(cache)} bytes")
-    t0 = time.perf_counter()
     x, y, _, _, _ = datasets.load_dataset("cifar100", data_dir)
-    map_s = time.perf_counter() - t0
     check(np.array_equal(x, x1) and np.array_equal(y, y1) and not x.flags.writeable
           and np.array_equal(x, pix.reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)),
           "the mapped cache differs from the parsed archive")
-    print(f"CIFAR-100 pickle of {DATA_ROWS} rows: parse + cache write {parse_s:.3f} s, then the "
-          f"cache ({os.path.getsize(cache)} bytes) mapped in {map_s:.4f} s; arrays equal   [{card}]")
+    print(f"CIFAR-100 pickle of {DATA_ROWS} rows: parsed and its cache written "
+          f"({os.path.getsize(cache)} bytes), then the cache mapped; arrays equal")
     del x1, y1, pix
 
-    # the metrics engine's slab path against its per-batch path, and the two
-    # DCGAN planes, with deterministic algorithms (without filling fresh
-    # memory: that would put fill kernels on the copy stream)
+    # the metrics engine's slab path against its per-batch path, with
+    # deterministic algorithms (without filling fresh memory: that would put
+    # fill kernels on the copy stream)
     real = x[:FEATURE_ROWS]
     cd = torch.bfloat16
     deterministic = torch.backends.cudnn.deterministic
@@ -3333,134 +2143,25 @@ def phase_data_planes(tmp: str, dev, card: str) -> int:
     torch.utils.deterministic.fill_uninitialized_memory = False
     saved_slab, Metrics._SLAB_BYTES = Metrics._SLAB_BYTES, FEATURE_SLAB_BYTES
     try:
-        t0 = time.perf_counter()
         eng = Metrics((real, y[:FEATURE_ROWS]), backbone=inception_v3.init(0, num_classes=ncls),
                       batch_size=256, compute_dtype=cd, cache_dir=os.path.join(tmp, "planes_feat"),
                       num_classes=ncls, device=dev)
-        first_s = time.perf_counter() - t0
         to01 = lambda u8: u8.to(cd) / 255.0  # noqa: E731
-        times = {"per-batch": [], "slab": []}
         for path in ("per-batch", "slab"):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             f = (_per_batch_features(eng, real, to01) if path == "per-batch"
                  else eng._extract_u8(real))
-            times[path].append(time.perf_counter() - t0)
             check(np.array_equal(f, eng.real_features), f"{path} features differ from the engine's")
     finally:
         Metrics._SLAB_BYTES = saved_slab
     bs = min(256, FEATURE_ROWS)
     n_slabs = math.ceil(math.ceil(FEATURE_ROWS / bs) / max(1, FEATURE_SLAB_BYTES // (3072 * bs)))
     check(n_slabs >= 2, f"{FEATURE_ROWS} rows fit one slab: the overlap is not exercised")
-    print(f"real features of {FEATURE_ROWS} mapped rows, bs256, bf16, deterministic: slab "
+    print(f"real features of {FEATURE_ROWS} mapped rows, bs256, bf16, deterministic: the slab "
           f"path ({n_slabs} slabs of <= {FEATURE_SLAB_BYTES >> 20} MB, pinned, copied on a side "
-          f"stream) "
-          + ", ".join(f"{t:.3f}" for t in times["slab"]) + " s, per-batch path "
-          + ", ".join(f"{t:.3f}" for t in times["per-batch"]) + f" s (engine's first extraction, "
-          f"backbone init included, {first_s:.3f} s); features equal   [{card}]")
+          f"stream) and the per-batch path equal the engine's")
 
-    launches = 0
     zero_launches()
     try:
-        # DCGAN from the same weights: the planes timed in turns, then one more
-        # streamed run with its third launch profiled (the profiler slows the host)
-        finals, rates, step_ms, prof_out = [], {"hbm": [], "stream": []}, {"hbm": [], "stream": []}, {}
-        for i, (placement, profiled) in enumerate((("hbm", False), ("stream", False),
-                                                   ("stream", False), ("hbm", False),
-                                                   ("stream", True))):
-            argv = ["--dataset", "cifar100", "--data_dir", data_dir, "-b", str(TRAIN_BATCH),
-                    "-e", "1", "-mlr", str(TRAIN_LR), "--log_every", "8", "--eval_every", "32",
-                    "--data_placement", placement, "-w", "4", "--save_root",
-                    os.path.join(tmp, "save"), "-pm", f"smoke_plane_{i}_{placement}"]
-            cfg = get_arg_parse(argv)
-            cfg.save_path = os.path.join(cfg.save_root, "dcgan", cfg.model_path)
-            pre = DCGANDataPreprocessor(cfg)
-            pre.images_u8, pre.labels_np = pre.images_u8[:PLANE_ROWS], pre.labels_np[:PLANE_ROWS]
-            check(not pre.images_u8.flags.writeable, "the plane's rows are not the mapped cache")
-            tr = _plane_trainer(cfg, pre, eng)
-            check(tr._streaming is (placement == "stream"), f"{placement}: streaming {tr._streaming}")
-            if profiled:
-                # from the end of launch 2 to the start of launch 4: launch 3,
-                # whose start enqueues slab 4's gather and copy (launches, not
-                # steps: a launch's steps after the first are graph replays)
-                prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                          torch.profiler.ProfilerActivity.CUDA])
-                calls, real_launch = [0], tr._launch
-
-                def launch(batches, prof=prof, calls=calls, real_launch=real_launch):
-                    calls[0] += 1
-                    if calls[0] == 4:
-                        torch.cuda.synchronize()
-                        prof.stop()
-                        prof_out["prof"] = prof
-                    rows = real_launch(batches)
-                    if calls[0] == 2:
-                        prof.start()
-                    return rows
-
-                tr._launch = launch
-            t0 = time.perf_counter()
-            tr.train()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            MainLogger.reset()
-            check(tr.state.step == 32 and tr.evals == [8, 32], f"{placement}: step "
-                  f"{tr.state.step}, evals {tr.evals}")
-            finals.append((placement, {**{f"G.{k}": v for k, v in tr.state.G.state_dict().items()},
-                                       **{f"D.{k}": v for k, v in tr.state.D.state_dict().items()}}))
-            if profiled:
-                continue
-            with open(os.path.join(tr.save_path, "metrics.jsonl")) as f:
-                recs = [json.loads(line) for line in f if "step_ms" in line]
-            rates[placement] += [r["images_per_sec"] for r in recs[1:]]
-            step_ms[placement] += [r["step_ms"] for r in recs[1:]]
-            print(f"DCGAN --data_placement {placement}{' -w 4' if placement == 'stream' else ''} "
-                  f"(run {i + 1}): 32 steps on {PLANE_ROWS} mapped rows at batch {TRAIN_BATCH}, "
-                  f"bf16, evals after {tr.evals}, {wall:.1f} s; img/s on the host clock "
-                  + ", ".join(f"{r['images_per_sec']:.1f}" for r in recs[1:])
-                  + " over the launches after the first")
-        for placement in ("hbm", "stream"):
-            print(f"DCGAN {placement} plane, bs{TRAIN_BATCH} bf16: median "
-                  f"{statistics.median(rates[placement]):.1f} img/s (min "
-                  f"{min(rates[placement]):.1f}, max {max(rates[placement]):.1f}), "
-                  f"{statistics.median(step_ms[placement]):.3f} ms per step on the host clock, over "
-                  f"{len(rates[placement])} launches of two runs in turns   [{card}]")
-        ref = finals[0][1]
-        diffs = [(i, k) for i, (_, sd) in enumerate(finals[1:], 2) for k in ref
-                 if not torch.equal(ref[k], sd[k])]
-        check(diffs == [], f"parameters differ from the first resident run's: {diffs[:5]}")
-        print(f"DCGAN: all {len(finals)} runs (resident and streamed) end with bit-identical "
-              f"parameters ({sum(v.numel() for v in ref.values())} values incl. BN buffers; "
-              f"deterministic algorithms)")
-        check("prof" in prof_out, "the streamed launch was not profiled")
-        copies, kernels, window = trace_copies(prof_out["prof"], tmp)
-        slab_bytes = 8 * TRAIN_BATCH * 32 * 32 * 3
-        slab = [c for c in copies if c[3] == slab_bytes]
-        check(len(slab) >= 1, f"no host→device copy of a slab ({slab_bytes} bytes) in the "
-                              f"profiled launch: {copies}")
-        compute = {k[0] for k in kernels}
-        copy_streams = {c[0] for c in slab}
-        shared = {k[4] for k in kernels if k[0] in copy_streams}
-        check(not shared, f"slab copies on stream(s) {copy_streams}, which also ran kernels "
-                          f"{sorted(shared)[:5]}")
-        spans = sorted((k[1], k[1] + k[2]) for k in kernels)
-        check(bool(spans), "the profiler saw no kernel in the streamed launch")
-        if spans and slab:
-            overlap = [any(ks < cs + cd_ and cs < ks + kd for _, ks, kd, _, _ in kernels)
-                       for _, cs, cd_, _ in slab]
-            busy, (lo, hi) = 0.0, spans[0]
-            for s, e in spans[1:]:  # union of the kernels' intervals
-                if s > hi:
-                    busy, lo = busy + hi - lo, s
-                hi = max(hi, e)
-            busy += hi - lo
-            print(f"profiled streamed launch: window {window / 1e3:.3f} ms, card busy "
-                  f"{busy / 1e3:.3f} ms ({100 * busy / window:.1f} %), {len(kernels)} kernels; "
-                  f"slab copy " + ", ".join(f"{d / 1e3:.4f} ms ({b_ / d / 1e3:.2f} GB/s)"
-                                            for _, _, d, b_ in slab)
-                  + f" of {slab_bytes} bytes on stream {sorted(copy_streams)}, kernels on "
-                  f"stream(s) {sorted(compute)}; overlapped compute kernels: {overlap}   [{card}]")
-
         # CGAN streams the whole mapped set under auto (153.6 MB > 100 MB)
         argv = ["-m", "CGAN", "--dataset", "cifar100", "--data_dir", data_dir, "-b",
                 str(TRAIN_BATCH), "-e", "1", "-mlr", str(TRAIN_LR), "--log_every", "8",
@@ -3468,7 +2169,10 @@ def phase_data_planes(tmp: str, dev, card: str) -> int:
                 "--save_root", os.path.join(tmp, "save"), "-pm", "smoke_plane_auto"]
         cfg = get_arg_parse(argv)
         cfg.save_path = os.path.join(cfg.save_root, "cgan", cfg.model_path)
-        tr = _plane_trainer(cfg, CGANDataPreprocessor(cfg), eng, conditional=True)
+        data_pre = CGANDataPreprocessor(cfg)
+        geo, gen = geometry(cfg), torch.Generator().manual_seed(cfg.seed)
+        tr = CGANTrainer(cfg, CGenerator(geo, data_pre.num_classes, gen=gen),
+                         CDiscriminator(geo, data_pre.num_classes, gen=gen), data_pre, metrics=eng)
         check(tr._streaming and tr.images_dev is None, "auto did not stream 153.6 MB over a "
                                                         "100 MB budget")
         real_launch, calls = tr._launch, [0]
@@ -3480,10 +2184,8 @@ def phase_data_planes(tmp: str, dev, card: str) -> int:
             return real_launch(batches)
 
         tr._launch = cut
-        t0 = time.perf_counter()
         tr.train()
         tr._evaluate(tr.state.step, [], [])
-        wall = time.perf_counter() - t0
         left = [t.name for t in threading.enumerate() if t.name.startswith(("jckx-upload",
                                                                           "jckx-gather"))]
         with open(next(os.path.join(tr.save_path, f) for f in os.listdir(tr.save_path)
@@ -3495,8 +2197,8 @@ def phase_data_planes(tmp: str, dev, card: str) -> int:
         check(left == [], f"uploader / gather threads left after SIGTERM: {left}")
         print(f"CGAN K = {tr.num_classes} --data_placement auto --hbm_data_budget 100000000 on "
               f"the {DATA_ROWS}-row mapped set: logged {plane_line.split('] ', 1)[-1]!r}; SIGTERM "
-              f"in its first launch saved latest.ckpt at step 8 and stopped the uploader; 8 steps "
-              f"+ one eval in {wall:.1f} s   [{card}]")
+              f"in its first launch saved latest.ckpt at step 8 and stopped the uploader; then one "
+              f"eval")
 
         # the folder plane
         folder = os.path.join(tmp, "planes_folder")
@@ -3536,8 +2238,8 @@ def phase_data_planes(tmp: str, dev, card: str) -> int:
         torch.backends.cudnn.deterministic = deterministic
         torch.use_deterministic_algorithms(False)
         torch.utils.deterministic.fill_uninitialized_memory = True
-    # 4 per G forward: DCGAN 5 runs x 2 evals, CGAN 1 eval of 2 forwards, the folder run's eval
-    want = 4 * (5 * 2 + 2 + (1 if folder_trained else 0))
+    # 4 per G forward: CGAN's eval of 2 forwards, the folder run's eval
+    want = 4 * (2 + (1 if folder_trained else 0))
     check(launches == want, f"the data-plane phase launched the kernel {launches} times, want "
                             f"{want}: 4 per G forward of its evals")
     check_moments("the data-plane phase", launches)
@@ -3550,8 +2252,6 @@ def phase_data_planes(tmp: str, dev, card: str) -> int:
 MESH_STEPS = 4                          # phase_mesh: steps of each run (one launch, one eval;
                                         # cut from 8 for the script's time)
 MESH_ROWS = TRAIN_BATCH * MESH_STEPS    # its synthetic rows: one epoch of MESH_STEPS steps
-MESH_TIMED = 3                          # bf16 steps timed per turn (cut from 6 for the script's time)
-MESH_WARM = 1                           # phase_mesh_model: untimed bf16 steps first (cut from 2)
 # phase_mesh_model's first-step rule: G's f32 gradient at full width is so
 # ill-conditioned that nudging the weights by 1e-6 relative moves it 1.9 %
 # in L2 and flips 20 masked Adam deltas (10 in each of two leaves), and a
@@ -3560,8 +2260,6 @@ MESH_WARM = 1                           # phase_mesh_model: untimed bf16 steps f
 # leaf's gradient must lie within 5 % in L2 of the plain run's (ROADMAP C:
 # rounding error up to ~5 % of a leaf's largest gradient at full width)
 MODEL_GRAD_GAP = 0.05
-MODEL_FLOOR = 1e-6
-GAP_THREADS = 2                         # CPU threads of each rank of the first-step control
 FT_MESH_BATCH = 8                       # fine-tune rows per rank
 
 
@@ -3713,17 +2411,6 @@ def child_train(spec: dict) -> None:
 
     gan_trainer._BaseGANTrainer._train_step = step_and_keep_the_first
     gan_trainer._BaseGANTrainer._launch = launch_and_keep_telemetry
-    if spec.get("perturb"):  # the comparison's noise floor: the same run from nudged weights
-        make_state = gan_trainer.create_dcgan_state
-
-        def nudged(cfg, G, D, mesh=None):
-            with torch.no_grad():
-                g = torch.Generator().manual_seed(5)
-                for p in list(G.parameters()) + list(D.parameters()):
-                    p.mul_(1 + spec["perturb"] * torch.randn(p.shape, generator=g).to(p.device))
-            return make_state(cfg, G, D, mesh)
-
-        gan_trainer.create_dcgan_state = nudged
     zero_launches()
     tr = tmain.run(get_arg_parse(spec["argv"]))
     rank = dist.get_rank() if dist.is_initialized() else 0
@@ -3741,112 +2428,11 @@ def child_train(spec: dict) -> None:
         dist.destroy_process_group()
 
 
-def _count_collectives(counts: dict):
-    """Wrap ``torch.distributed.all_reduce`` / ``all_gather`` to count calls
-    by kind (BN statistics (2, C), the flat gradient buffers, the rest) and
-    their host seconds. → a function that restores them."""
-    import torch.distributed as dist
-
-    real_reduce, real_gather = dist.all_reduce, dist.all_gather
-
-    def timed(fn, kind):
-        def wrapper(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                counts[kind] = counts.get(kind, 0) + 1
-                counts["host_s"] = counts.get("host_s", 0.0) + time.perf_counter() - t0
-        return wrapper
-
-    def all_reduce(t, *args, **kwargs):
-        kind = ("bn_stats" if t.dim() == 2 and t.shape[0] == 2 else
-                "grads" if t.dim() == 1 and t.numel() > 1024 else "other")
-        return timed(real_reduce, kind)(t, *args, **kwargs)
-
-    dist.all_reduce, dist.all_gather = all_reduce, timed(real_gather, "all_gather")
-
-    def restore():
-        dist.all_reduce, dist.all_gather = real_reduce, real_gather
-
-    return restore
 
 
-def child_time(spec: dict) -> None:
-    """bf16 DCGAN steps at full width (global batch 128) on the process
-    group: ``nccl`` — a world of one, timed in turns against the same step
-    without a mesh (plain, mesh, mesh, plain); ``gloo`` — this rank's share
-    of the pair. Host ms per step (each synchronised), the collectives per
-    step by kind and their host share, and a profiled window."""
-    import torch
-    import torch.distributed as dist
-    from torch.profiler import ProfilerActivity, profile
-
-    from jckx_torch.configs import Config
-    from jckx_torch.models.dcgan import Discriminator, GANGeometry, Generator
-    from jckx_torch.parallel import make_mesh
-    from jckx_torch.train.state import create_dcgan_state
-    from jckx_torch.train.steps import make_dcgan_train_step
-
-    dev = _child_init(spec["backend"])
-    torch.use_deterministic_algorithms(False)
-    torch.backends.cudnn.deterministic = False
-    mesh = make_mesh((dist.get_world_size(),), device=dev)
-    cfg, geo = Config(), GANGeometry()
-    cfg.compute_dtype, cfg.max_learning_rate = "bfloat16", TRAIN_LR
-    gen = torch.Generator().manual_seed(0)
-    state = create_dcgan_state(cfg, Generator(geo, gen=gen).to(dev),
-                               Discriminator(geo, gen=gen).to(dev))
-    real = mesh.rows(torch.rand(TRAIN_BATCH, 64, 64, 3, generator=torch.Generator().manual_seed(1))
-                     * 2 - 1).to(dev)
-    steps = {"mesh": make_dcgan_train_step(cfg, geo, mesh)}
-    if spec["backend"] == "nccl":
-        steps["plain"] = make_dcgan_train_step(cfg, geo)
-        turns = ["plain", "mesh", "mesh", "plain"]
-    else:
-        turns = ["mesh", "mesh"]
-
-    def timed(step, n):
-        out = []
-        for _ in range(n):
-            t0 = time.perf_counter()
-            step(state, real)
-            torch.cuda.synchronize()
-            out.append(1e3 * (time.perf_counter() - t0))
-        return out
-
-    for step in steps.values():
-        timed(step, 2)  # warm
-    ms = {name: [] for name in steps}
-    for name in turns:
-        ms[name] += timed(steps[name], MESH_TIMED)
-    counts: dict = {}
-    restore = _count_collectives(counts)
-    try:
-        t0 = time.perf_counter()
-        timed(steps["mesh"], 1)
-        one_step_s = time.perf_counter() - t0
-    finally:
-        restore()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        timed(steps["mesh"], 3)
-        window_us = 1e6 * (time.perf_counter() - t0)
-    comm = {}
-    for e in prof.key_averages():
-        name = e.key.lower()
-        if name.startswith(("gloo:", "nccl:")) or "nccldevkernel" in name or "c10d::" in name:
-            comm[e.key] = (e.cpu_time_total, getattr(e, "device_time_total",
-                                                     getattr(e, "cuda_time_total", 0.0)), e.count)
-    dev_comm = sum(d for _, d, _ in comm.values() if d)
-    rec = {"ms": ms, "counts": counts, "host_share": counts.get("host_s", 0.0) / one_step_s,
-           "profiler_comm": {k: list(v) for k, v in sorted(comm.items(), key=lambda kv: -kv[1][0])},
-           "window_us": window_us, "device_comm_us": dev_comm, "rank": dist.get_rank()}
-    torch.save(rec, f"{spec['out']}.rank{dist.get_rank()}.pt")
-    dist.destroy_process_group()
 
 
-def _ft_step_run(dev, mesh=None, perturb: float = 0.0, steps: int = 2) -> list:
+def _ft_step_run(dev, mesh=None) -> list:
     """Two fine-tune steps at 299², f32, from ``init(0)`` on a global batch
     of ``2 · FT_MESH_BATCH`` (each rank its rows over ``mesh``). → the flat
     weights before and after each step, on the host."""
@@ -3859,16 +2445,11 @@ def _ft_step_run(dev, mesh=None, perturb: float = 0.0, steps: int = 2) -> list:
     g = torch.Generator().manual_seed(11)
     data = torch.randint(0, 256, (64, 32, 32, 3), generator=g, dtype=torch.uint8).to(dev)
     labels = torch.randint(0, 100, (64,), generator=g).to(dev)
-    net = tiv.init(0, num_classes=100)
-    if perturb:
-        with torch.no_grad():
-            for p in net.parameters():
-                p.mul_(1 + perturb * torch.randn(p.shape, generator=torch.Generator().manual_seed(5)))
-    net = net.to(dev)
+    net = tiv.init(0, num_classes=100).to(dev)
     step = make_train_step(net, make_optimizer(net, 0.1), torch.float32, FT_SIZE, mesh)
     draws_gen = torch.Generator().manual_seed(12)
     snaps = [tiv.to_jckx_flat(net)]
-    for _ in range(steps):
+    for _ in range(2):
         idx = torch.randperm(64, generator=g)[:n].to(dev)
         d = draw_step(draws_gen, n)
         step(data, labels, idx, type(d)(type(d.crops)(*(t.to(dev) for t in d.crops)),
@@ -3918,117 +2499,29 @@ def _renders_equal_once(tr) -> tuple:
     return bool(torch.equal(got, once)), tuple(got.shape)
 
 
-def child_time_model(spec: dict) -> None:
-    """bf16 DCGAN steps at full width (global batch 128) on a gloo pair of
-    this card laid out as a (1, 2) mesh in ``spec["mode"]``: host ms per
-    step (each synchronised; ``MESH_WARM`` untimed, then ``MESH_TIMED``),
-    and over the timed steps the mesh's collectives by kind (calls and
-    bytes per step) and their host share of the step."""
-    import torch
-    import torch.distributed as dist
-
-    from jckx_torch.configs import Config
-    from jckx_torch.models.dcgan import Discriminator, GANGeometry, Generator
-    from jckx_torch.parallel import make_mesh
-    from jckx_torch.train.state import create_dcgan_state
-    from jckx_torch.train.steps import make_dcgan_train_step
-
-    dev = _child_init("gloo")
-    torch.use_deterministic_algorithms(False)
-    torch.backends.cudnn.deterministic = False
-    mesh = make_mesh((1, 2), ("data", "model"), device=dev)
-    cfg, geo = Config(), GANGeometry()
-    cfg.compute_dtype, cfg.max_learning_rate = "bfloat16", TRAIN_LR
-    cfg.model_axis_mode = spec["mode"]
-    gen = torch.Generator().manual_seed(0)
-    state = create_dcgan_state(cfg, Generator(geo, gen=gen).to(dev),
-                               Discriminator(geo, gen=gen).to(dev), mesh)
-    real = (torch.rand(TRAIN_BATCH, 64, 64, 3, generator=torch.Generator().manual_seed(1))
-            * 2 - 1).to(dev)
-    step = make_dcgan_train_step(cfg, geo, mesh)
-    ms = []
-    for i in range(MESH_WARM + MESH_TIMED):
-        if i == MESH_WARM:
-            mesh.stats.reset()
-        t0 = time.perf_counter()
-        step(state, real)
-        torch.cuda.synchronize()
-        ms.append(1e3 * (time.perf_counter() - t0))
-    timed = ms[MESH_WARM:]
-    stats = mesh.stats.as_dict()
-    host_s = sum(v["host_s"] for v in stats.values())
-    rec = {"ms": timed, "per_step": {k: {"calls": v["calls"] / MESH_TIMED,
-                                         "bytes": v["bytes"] / MESH_TIMED,
-                                         "host_ms": 1e3 * v["host_s"] / MESH_TIMED}
-                                     for k, v in stats.items()},
-           "host_share": host_s / (1e-3 * sum(timed)), "rank": dist.get_rank()}
-    torch.save(rec, f"{spec['out']}.rank{dist.get_rank()}.pt")
-    dist.destroy_process_group()
-
-
-def child_first_step(spec: dict) -> None:
-    """One DCGAN step at full width (batch 128) from the trainer's initial
-    weights on a seeded batch, on ``spec["device"]`` (the card, or the CPU
-    with ``GAP_THREADS`` threads), alone (``mode`` "") or as a gloo rank of
-    a (1, 2) mesh in ``spec["mode"]``; f32, or with ``spec["f64"]`` the
-    step's compute in f64 (its compute dtype patched; the parameters and
-    Adam stay f32). Rank 0 saves the step's telemetry to ``<out><mode>.pt``."""
-    import torch
-    import torch.distributed as dist
-
-    from jckx_torch.configs import Config
-    from jckx_torch.models.dcgan import Discriminator, GANGeometry, Generator
-    from jckx_torch.parallel import make_mesh
-    from jckx_torch.train import steps
-    from jckx_torch.train.state import create_dcgan_state
-    from jckx_torch.train.steps import make_dcgan_train_step
-
-    if spec.get("f64"):
-        steps.compute_dtype = lambda cfg: torch.float64
-    card = _child_init("gloo" if spec["mode"] else "none")
-    dev = card if spec["device"] == "cuda" else torch.device("cpu")
-    torch.set_num_threads(GAP_THREADS)
-    mesh = make_mesh((1, 2), ("data", "model"), device=dev) if spec["mode"] else None
-    cfg, geo = Config(), GANGeometry()
-    cfg.compute_dtype, cfg.max_learning_rate = "float32", TRAIN_LR
-    cfg.model_axis_mode = spec["mode"] or cfg.model_axis_mode
-    gen = torch.Generator().manual_seed(12345)  # the trainer's seed
-    state = create_dcgan_state(cfg, Generator(geo, gen=gen).to(dev),
-                               Discriminator(geo, gen=gen).to(dev), mesh)
-    real = (torch.rand(TRAIN_BATCH, 64, 64, 3, generator=torch.Generator().manual_seed(1))
-            * 2 - 1).to(dev)
-    m = make_dcgan_train_step(cfg, geo, mesh)(state, real)
-    if not dist.is_initialized() or dist.get_rank() == 0:
-        torch.save({k: float(v) for k, v in m.items()}, f"{spec['out']}{spec['mode']}.pt")
-    if dist.is_initialized():
-        dist.destroy_process_group()
 
 
 def child_planes(spec: dict) -> None:
-    """``phase_data_planes`` in a process of its own: in the script's
-    process, after its earlier profiler windows and CUDA graphs, the
-    profiler missed the slab's host→device copy in 7 of 7 windows over 5
-    full runs on an H100 (fresh processes: 6 of 6 recorded), and the
-    phase's profiled launch reads it. Writes its launches to
-    ``spec["out"]``."""
+    """``phase_data_planes`` in a process of its own: its deterministic
+    algorithms want ``CUBLAS_WORKSPACE_CONFIG`` set before cuBLAS starts
+    (``_start_child`` sets it), and its global settings stay out of the
+    script's process. Writes its launches to ``spec["out"]``."""
     import torch
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    from jckx_torch.kernels import fused_bn_act as fba
-
-    launches = phase_data_planes(spec["tmp"], dev, spec["card"])
+    launches = phase_data_planes(spec["tmp"], dev)
     with open(spec["out"], "w") as f:
         json.dump({"launches": launches, "moments": launch_counts()[1]}, f)
 
 
-def phase_data_planes_alone(tmp: str, card: str) -> int:
+def phase_data_planes_alone(tmp: str) -> int:
     """``phase_data_planes`` in a child process (``child_planes``), its
     lines printed here. → its kernel launches."""
     out = os.path.join(tmp, "planes_out.json")
-    (stdout,) = _join([_start_child("planes", {"tmp": tmp, "card": card, "out": out})],
+    (stdout,) = _join([_start_child("planes", {"tmp": tmp, "out": out})],
                       "phase_data_planes", timeout=900)
     print(stdout, end="")
     with open(out) as f:
@@ -4038,7 +2531,6 @@ def phase_data_planes_alone(tmp: str, card: str) -> int:
 
 
 MESH_GRAPH_WORLDS = ("world of one", "forced-live world of one")
-ONE_RANK_REDUCE = "oneRankReduce"  # NCCL's kernel of a one-rank reduction with a scale
 
 
 def _forced_live_mesh(dev):
@@ -4048,8 +2540,8 @@ def _forced_live_mesh(dev):
     bit-exact. NCCL runs an in-place sum over one rank as no device work at
     all, so the sums go as ``PREMUL_SUM`` by 1.0, which NCCL runs over one
     rank as one ``oneRankReduce`` kernel per call (x · 1.0 = x exactly):
-    each captured collective is then a graph node that the profiler
-    counts."""
+    each captured collective is then a node of the graph, which every
+    replay runs."""
     import torch.distributed as dist
 
     from jckx_torch.parallel.mesh import ProcessMesh
@@ -4079,45 +2571,15 @@ def _check_replayed(one: dict, got: dict, k: int, what: str) -> None:
     check(got == want, f"{what}: mesh.stats over {k} replays {got}, want {want}")
 
 
-def _replayed_collectives(replay, mesh, card: str, tries: int = 3) -> dict:
-    """The all-reduces of one ``replay()`` of a graph over the forced-live
-    mesh, as the profiler sees NCCL's ``oneRankReduce`` kernels and as
-    ``mesh.stats`` counts them (``_replayed_launches``' rule for a dropped
-    record)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    for attempt in range(1, tries + 1):
-        torch.cuda.synchronize()
-        snap = mesh.stats.snapshot()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            replay()
-            torch.cuda.synchronize()
-        counted = _stats_since(mesh.stats, snap)["all_reduce"]
-        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        seen = sum(ONE_RANK_REDUCE in e.name for e in device)
-        print(f"one replay, window {attempt}: the profiler saw {seen} NCCL {ONE_RANK_REDUCE} "
-              f"kernels among {len(device)} device events; mesh.stats counted {counted[0]} "
-              f"all-reduces for it, {counted[2]} of them replayed   [{card}]")
-        check(counted[0] == counted[2] > 0, f"the replay's all-reduces were not counted as "
-                                            f"replayed: {counted}")
-        check(seen <= counted[0], f"the profiler saw {seen} NCCL kernels in one replay, more "
-                                  f"than the {counted[0]} collectives counted")
-        if seen == counted[0]:
-            return {"seen": seen, "counted": counted[0], "windows": attempt}
-    fail(f"the profiler saw fewer NCCL kernels than the replay's {counted[0]} collectives in "
-         f"{tries} windows")
 
 
-def _mesh_graph_gan(tmp: str, mesh, world: str, dev, card: str) -> dict:
+def _mesh_graph_gan(tmp: str, mesh, world: str, dev) -> None:
     """DCGAN and CGAN over ``mesh``, bs128 bf16, 8 steps through the
     superstep (1 eager and captured, 7 replays under
     ``set_sync_debug_mode("error")``) against 8 eager steps of a twin, bit
     for bit (cuDNN deterministic), ``mesh.stats`` over the replays 7 times
     an eager step's; then DCGAN's eval renders (graph and eager) and their
-    InceptionV3 features over the mesh, bit for bit, with one eval replay's
-    ``bn_act`` kernels (and, forced live, NCCL kernels) in the profiler.
-    → the DCGAN trainer for the turns, and the numbers."""
+    InceptionV3 features over the mesh, bit for bit."""
     import numpy as np
     import torch
 
@@ -4126,13 +2588,14 @@ def _mesh_graph_gan(tmp: str, mesh, world: str, dev, card: str) -> dict:
     from jckx_torch.train.superstep import CudaGraph
 
     live = world != MESH_GRAPH_WORLDS[0]
+    tag = "live" if live else "plain"  # the two worlds run at once: their own dirs
     n = SUPERSTEP_STEPS
     perm = torch.randperm(4096, generator=torch.Generator().manual_seed(5))
     rows = [{"idx": r} for r in perm[:n * TRAIN_BATCH].view(n, TRAIN_BATCH).to(dev).unbind()]
-    numbers, keep = {}, None
+    keep = None
     for model in ("DCGAN", "CGAN"):
-        eager = _step_trainer(tmp, model, (), "mesh_graph_eager", mesh)
-        graphed = _step_trainer(tmp, model, (), "mesh_graph_graph", mesh)
+        eager = _step_trainer(tmp, model, f"mesh_graph_{tag}_eager", mesh)
+        graphed = _step_trainer(tmp, model, f"mesh_graph_{tag}_graph", mesh)
         check(graphed.superstep is not None and graphed.superstep.graph_cls is CudaGraph
               and graphed.eval_program is not None,
               f"{model} over the NCCL {world}: the trainer on the card has no CUDA graph")
@@ -4166,24 +2629,20 @@ def _mesh_graph_gan(tmp: str, mesh, world: str, dev, card: str) -> dict:
               f"synchronisation) equal {n} eager steps bit for bit (telemetry and "
               f"{sum(v.numel() for v in a.values()):,} values of G, D, the EMA and Adam); "
               f"{calls} all-reduces a step ({per_step['all_reduce'][1]:,} bytes), counted "
-              f"{n - 1} times over as replayed   [{card}]")
-        numbers[model] = {"all_reduce_per_step": per_step["all_reduce"][:2],
-                          "capture_s": ss.capture_s, "pool_mb": ss.pool_bytes / 1e6}
+              f"{n - 1} times over as replayed")
         if model == "DCGAN":
             keep = graphed
         del eager, graphed, a, b
         gc.collect()
 
     tr = keep
-    if live:
-        numbers["nccl_kernels_in_one_step_replay"] = _replayed_collectives(
-            lambda: tr._launch(rows[:1]), mesh, card)
     g = torch.Generator().manual_seed(23)
     real = torch.randint(0, 256, (EVAL_BATCH, 32, 32, 3), generator=g, dtype=torch.uint8).numpy()
     engine = Metrics((real, np.arange(EVAL_BATCH) % 100), None,
                      backbone=tiv.init(0, num_classes=100), batch_size=EVAL_BATCH,
-                     compute_dtype=torch.bfloat16, cache_dir=os.path.join(tmp, "mesh_graph_cache"),
-                     num_classes=100, device=dev, mesh=mesh)
+                     compute_dtype=torch.bfloat16,
+                     cache_dir=os.path.join(tmp, f"mesh_graph_cache_{tag}"), num_classes=100,
+                     device=dev, mesh=mesh)
     check(engine.program is not None, f"the metrics engine over the NCCL {world} has no graph")
     with _deterministic_cudnn():
         with programs_eager():
@@ -4196,29 +2655,19 @@ def _mesh_graph_gan(tmp: str, mesh, world: str, dev, card: str) -> dict:
         torch.cuda.synchronize()
     check(all(torch.equal(x, want) for x in got) and np.array_equal(got_f, want_f),
           f"the graphed eval renders or features over the NCCL {world} differ from eager")
-    z = tr.eval_z
-    counted = _replayed_launches(lambda: tr.eval_program(z, None), card)
-    check(counted["added"] == 4, f"one eval replay counted {counted['added']} launches")
-    numbers["bn_act_in_one_eval_replay"] = counted
-    if live:
-        numbers["nccl_kernels_in_one_eval_replay"] = _replayed_collectives(
-            lambda: tr.eval_program(z, None), mesh, card)
-    numbers["eval_pool_mb"] = tr.eval_program.pool_bytes / 1e6
-    numbers["features_pool_mb"] = engine.program.pool_bytes / 1e6
     print(f"DCGAN's eval over the NCCL {world}: {EVAL_BATCH} renders through the graph (the "
           f"rows, sync-BN through the kernel and the gather inside it) and their InceptionV3 "
-          f"features through the engine's graph equal the eager ones bit for bit; "
-          f"{counted['seen']} bn_act kernels in one replay as counted   [{card}]")
-    del engine
-    return tr, numbers
+          f"features through the engine's graph equal the eager ones bit for bit")
+    del tr, engine
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
-def _mesh_graph_finetune(mesh, world: str, dev, card: str, turns: bool) -> dict:
+def _mesh_graph_finetune(mesh, world: str, dev) -> int:
     """The fine-tune at 299², bs128, bf16 over ``mesh``: 1 eager step and a
     launch of K = 8 replays against 9 eager steps bit for bit (cuDNN
     deterministic), 94 launches a step either way, ``mesh.stats`` over the
-    replays 8 times an eager step's; with ``turns``, recaptured under the
-    default algorithms and timed against eager in turns. → numbers."""
+    replays 8 times an eager step's. → the kernel launches."""
     import numpy as np
     import torch
 
@@ -4277,27 +2726,11 @@ def _mesh_graph_finetune(mesh, world: str, dev, card: str, turns: bool) -> dict:
     print(f"fine-tune over the NCCL {world} ({FT_SIZE}², bs{FT_BATCH}, bf16): 1 eager step + "
           f"a launch of K = 8 replays equal 9 eager steps bit for bit; {FT_CONVS} kernel "
           f"launches a step either way; {calls} all-reduces a step, counted 8 times over as "
-          f"replayed   [{card}]")
-    numbers = {"all_reduce_per_step": per_step["all_reduce"][:2], "launches": 18 * FT_CONVS}
-    if turns:
-        ss.invalidate()
-        gen = torch.Generator(device=dev).manual_seed(8)
-        before = fba.LAUNCHES
-        ss.replay(1, feed(gen, 0))  # eager, then captured under the default algorithms
-        torch.cuda.synchronize()
-        numbers.update(capture_s=ss.capture_s, pool_mb=ss.pool_bytes / 1e6)
-        print(f"fine-tune over the NCCL {world}: capture {ss.capture_s:.3f} s, graph pool "
-              f"{ss.pool_bytes / 1e6:.1f} MB   [{card}]")
-        k = 2  # cut from 4 for the script's time
-        numbers["turns"] = _turns(
-            lambda: [step(data, labels, order[i], draw_step(gen, FT_BATCH, dev)) for i in range(k)],
-            lambda: ss.replay(k, feed(gen, 0)), k,
-            f"fine-tune over the NCCL {world} ({FT_SIZE}², bs{FT_BATCH}, bf16)", card)
-        numbers["launches"] += fba.LAUNCHES - before
+          f"replayed")
     del ss, step, net
     gc.collect()
     torch.cuda.empty_cache()
-    return numbers
+    return eager_launches + graph_launches
 
 
 def child_mesh_graph(spec: dict) -> None:
@@ -4305,10 +2738,8 @@ def child_mesh_graph(spec: dict) -> None:
     ``env://`` group, brought up by the port's ``init_multihost``), on
     ``spec["world"]``: the plain world's mesh or the forced-live one
     (``_forced_live_mesh``), through ``_mesh_graph_gan`` and
-    ``_mesh_graph_finetune``; with ``spec["turns"]``, the DCGAN step and the
-    fine-tune timed in turns (eager, graph, graph, eager) after a recapture
-    under the default algorithms. Writes the numbers and its kernel
-    launches to ``spec["out"]``."""
+    ``_mesh_graph_finetune``. Writes its kernel launches (the fine-tune's
+    apart) to ``spec["out"]``."""
     import torch
     import torch.distributed as dist
 
@@ -4317,80 +2748,42 @@ def child_mesh_graph(spec: dict) -> None:
 
     dev = _child_init("nccl")
     torch.use_deterministic_algorithms(False)  # cuDNN deterministic for the checks only
-    card, tmp, world, turns = spec["card"], spec["tmp"], spec["world"], spec["turns"]
+    tmp, world = spec["tmp"], spec["world"]
     zero_launches()
-    t0 = time.perf_counter()
     mesh = _forced_live_mesh(dev) if world != MESH_GRAPH_WORLDS[0] else make_mesh((1,), device=dev)
-    tr, numbers = _mesh_graph_gan(tmp, mesh, world, dev, card)
-    if turns:
-        ss = tr.superstep
-        ss.invalidate()
-        perm = torch.randperm(4096, generator=torch.Generator().manual_seed(6))
-        k = SUPERSTEP_TIMED
-        rows = [{"idx": r} for r in perm[:k * TRAIN_BATCH].view(k, TRAIN_BATCH).to(dev).unbind()]
-        tr._launch(rows[:1])  # eager, then captured under the default algorithms
-        torch.cuda.synchronize()
-        numbers["DCGAN"].update(capture_s=ss.capture_s, pool_mb=ss.pool_bytes / 1e6)
-        print(f"DCGAN over the NCCL {world}: capture {ss.capture_s:.3f} s, graph pool "
-              f"{ss.pool_bytes / 1e6:.1f} MB   [{card}]")
-
-        def as_eager(batches):
-            tr.superstep = None
-            try:
-                return tr._launch(batches)
-            finally:
-                tr.superstep = ss
-
-        numbers["DCGAN"]["turns"] = _turns(lambda: as_eager(rows), lambda: tr._launch(rows), k,
-                                           f"DCGAN over the NCCL {world} (bs{TRAIN_BATCH}, bf16)",
-                                           card)
-        del ss, as_eager
-    del tr
-    gc.collect()
-    torch.cuda.empty_cache()
-    numbers["finetune"] = _mesh_graph_finetune(mesh, world, dev, card, turns)
-    numbers["world_s"] = time.perf_counter() - t0
+    _mesh_graph_gan(tmp, mesh, world, dev)
+    finetune = _mesh_graph_finetune(mesh, world, dev)
     with open(spec["out"], "w") as f:
-        json.dump({"card": card, world: numbers, "launches": fba.LAUNCHES,
+        json.dump({"launches": fba.LAUNCHES, "finetune_launches": finetune,
                    "moments": launch_counts()[1]}, f)
     dist.destroy_process_group()
 
 
-def start_mesh_graph(tmp: str, card: str, world: str, turns: bool) -> tuple:
+def start_mesh_graph(tmp: str, world: str) -> tuple:
     """``child_mesh_graph`` on ``world`` started: → ([the process], its
     output file)."""
     out = os.path.join(tmp, f"mesh_graph_{world.replace(' ', '_')}.json")
-    spec = {"tmp": tmp, "card": card, "world": world, "turns": turns, "out": out}
-    return [_start_child("mesh_graph", spec, 0, 1, _free_port())], out
+    return [_start_child("mesh_graph", {"tmp": tmp, "world": world, "out": out}, 0, 1,
+                         _free_port())], out
 
 
-def phase_mesh_graph(tmp: str, card: str, plain_out: str) -> int:
+def phase_mesh_graph(outs: list) -> int:
     """The compiled programs over a NCCL process mesh (``utils/graphs.py``,
     ``graph_for`` over a ``ProcessMesh``) at full width, each world in a
-    child process holding a NCCL world of one (``child_mesh_graph``): the
-    plain world (no collective runs on an axis of one), whose bits
-    ``phase_mesh`` ran beside its own runs (``plain_out``), and here, alone,
-    the forced-live world, whose every step issues its collectives, with
-    its turns. → the kernel launches of both."""
-    procs, out = start_mesh_graph(tmp, card, MESH_GRAPH_WORLDS[1], turns=True)
-    (stdout,) = _join(procs, "phase_mesh_graph", timeout=600)
-    print(stdout, end="")
-    rec = {}
-    for world, path in zip(MESH_GRAPH_WORLDS, (plain_out, out)):
+    child process holding a NCCL world of one (``child_mesh_graph``, run
+    beside ``phase_mesh``'s runs, which print its lines): the plain world
+    (no collective runs on an axis of one) and the forced-live world, whose
+    every step issues its collectives. ``outs``: the two worlds' output
+    files. → the kernel launches of both."""
+    launches = 0
+    for world, path in zip(MESH_GRAPH_WORLDS, outs):
         with open(path) as f:
             one = json.load(f)
         # the GAN's eval renders take the moments kernels, the fine-tune's steps never
-        gan = one["launches"] - one[world]["finetune"]["launches"]
-        check_moments(f"phase_mesh_graph, {world}", gan, one["moments"])
-        rec.update({k: v for k, v in one.items() if k not in ("launches", "moments")},
-                   launches=rec.get("launches", 0) + one["launches"])
-    print("mesh_graph_numbers " + json.dumps(rec))
-    return rec["launches"]
-
-
-CHILDREN = {"train": child_train, "time": child_time, "finetune": child_finetune,
-            "time_model": child_time_model, "first_step": child_first_step,
-            "planes": child_planes, "mesh_graph": child_mesh_graph}
+        check_moments(f"phase_mesh_graph, {world}", one["launches"] - one["finetune_launches"],
+                      one["moments"])
+        launches += one["launches"]
+    return launches
 
 
 def _mesh_argv(tmp: str, model: str, run: str, extra=()) -> list:
@@ -4443,7 +2836,7 @@ def _metrics_of(tmp: str, model: str, run: str) -> dict:
 METRIC_NAMES_ALL = ("loss_d", "gp", "d_x", "d_gz1", "loss_g", "d_gz2", "fid", "is", "intra_fid")
 
 
-def phase_mesh_serve(path: str, svc, dev, card: str) -> int:
+def phase_mesh_serve(path: str, svc, dev) -> int:
     """``GeneratorService`` over a local mesh ``[cuda:0, cuda:0]`` (the
     request batch split over two worker threads, BN statistics summed over
     both) against the unsharded service on the same requests: bs512 bf16,
@@ -4471,21 +2864,14 @@ def phase_mesh_serve(path: str, svc, dev, card: str) -> int:
     exact = float((diff == 0).mean())
     check(diff.max() <= 1 and exact >= 0.99,
           f"sharded renders vs unsharded: max {diff.max()} LSB, {100 * exact:.4f} % exact")
-    rates = {}
-    for name, s in (("unsharded", svc), ("mesh", two), ("mesh", two), ("unsharded", svc)):
-        t0 = time.perf_counter()
-        s.sample(8 * BATCH, seed=1)
-        rates.setdefault(name, []).append(8 * BATCH / (time.perf_counter() - t0))
     print(f"serving over a local mesh [cuda:0, cuda:0] (bs{BATCH} bf16, each device 256 rows, "
           f"global statistics): {launches} kernel launches for 4 batches (4 per device per "
           f"batch); against the unsharded service on the same requests max {diff.max()} LSB, "
-          f"{100 * exact:.4f} % exactly equal; served img/s, in turns: mesh "
-          f"{[round(r, 1) for r in rates['mesh']]}, unsharded "
-          f"{[round(r, 1) for r in rates['unsharded']]}   [{card}]")
+          f"{100 * exact:.4f} % exactly equal")
     return launches
 
 
-def phase_mesh(tmp: str, dev, card: str, also: dict = None) -> int:
+def phase_mesh(tmp: str, dev, also: dict = None) -> int:
     """The data axis of the mesh at full width (64², base width 64, global
     batch 128, ``MESH_STEPS`` steps and one eval of each run, f32, TF32
     off), in child processes (``--child``), most at once:
@@ -4495,8 +2881,8 @@ def phase_mesh(tmp: str, dev, card: str, also: dict = None) -> int:
       ``env://``): its parameters bit-identical to the plain run's;
     - two gloo ranks on this card (``--device cuda:0`` each, gloo copying
       each collective through the host), DCGAN and CGAN, against the plain
-      run by ``phase_train_vs_cpu``'s one-step criteria on their first
-      step (telemetry within 3e-3, masked Adam deltas); the last step's
+      run on their first step (telemetry within 3e-3, masked Adam deltas:
+      ``_masked_gap``); the last step's
       telemetry gap is printed with every step's, not held: GAN training at
       full width parts the two runs about tenfold a step from the
       reassociated sums of the first, where the plain run repeats itself
@@ -4504,20 +2890,15 @@ def phase_mesh(tmp: str, dev, card: str, also: dict = None) -> int:
       the statistics' all-reduce;
     - two fine-tune steps at 299², 8 rows per rank, f32 on the gloo pair
       against the single rank in this process: the first step's deltas
-      within 10 % in norm per leaf; the second's printed beside the single
-      rank's own gap against weights perturbed by 1e-7 (the seeded random
-      backbone's second step is chaotic: tests/test_torch_dp_metrics.py);
+      within 10 % in norm per leaf; the second's printed (the seeded random
+      backbone's second step is chaotic: tests/test_torch_dp_metrics.py).
 
-    then, alone, the bf16 step timed: the NCCL world of one in turns
-    against no mesh, and the gloo pair; collectives per step by kind and
-    their share of the step. ``also`` (name → started processes, no
-    timing among them: ``phase_mesh_graph``'s plain world) runs beside the
-    runs; its output is printed. → the kernel launches of the mesh runs."""
+    ``also`` (name → started processes: ``phase_mesh_graph``'s worlds) runs
+    beside the runs; its output is printed. → the kernel launches of the
+    mesh runs."""
     import numpy as np
     import torch
 
-
-    t_phase = time.perf_counter()
     out = os.path.join(tmp, "mesh_out")
     os.makedirs(out, exist_ok=True)
 
@@ -4538,17 +2919,15 @@ def phase_mesh(tmp: str, dev, card: str, also: dict = None) -> int:
             tmp, "CGAN", "gloo_cgan", ["--device", "cuda:0", "--mesh_shape", "2"]), "gloo"), 2),
         "finetune": _start_group("finetune", spec("finetune"), 2),
     }
-    # the single-rank fine-tune reference, and its noise floor, here meanwhile
+    # the single-rank fine-tune reference, here meanwhile
     ft_one = _ft_step_run(dev)
-    ft_floor = _ft_step_run(dev, perturb=1e-7)
     for name, ps in procs.items():
         _join(ps, f"phase_mesh {name}")
     for name, ps in (also or {}).items():
-        print("".join(_join(ps, name)), end="")
+        print("".join(_join(ps, name, timeout=900)), end="")
     load = lambda name, r=0: torch.load(os.path.join(out, f"{name}.rank{r}.pt"),  # noqa: E731
                                         weights_only=False)
     runs = {name: [load(name, r) for r in range(len(ps))] for name, ps in procs.items()}
-    first_s = time.perf_counter() - t_phase
 
     # (1) NCCL world of one against the plain run: bit for bit
     plain, nccl = runs["plain"][0], runs["nccl"][0]
@@ -4568,7 +2947,7 @@ def phase_mesh(tmp: str, dev, card: str, also: dict = None) -> int:
           f"through the superstep's CUDA graph (1 capture, {MESH_STEPS - 1} replays each): "
           f"{n_params:,} parameter values bit-identical after {MESH_STEPS} steps (DCGAN 64², "
           f"width 64, bs{TRAIN_BATCH}, f32, deterministic algorithms); 4 kernel launches at its "
-          f"eval   [{card}]")
+          f"eval")
 
     # (2) the gloo pairs against the plain runs
     launches = nccl["launches"]
@@ -4604,7 +2983,7 @@ def phase_mesh(tmp: str, dev, card: str, also: dict = None) -> int:
               f"{max(last.values()):.3g} (not held; by step: "
               f"{', '.join(f'{g:.2g}' for g in per_step)}), eval fid {tele['fid']:.6g} vs "
               f"{tele_one['fid']:.6g}; kernel launches {r0['launches']} + {r1['launches']} at "
-              f"the eval (each rank's rows, after the statistics' all-reduce)   [{card}]")
+              f"the eval (each rank's rows, after the statistics' all-reduce)")
 
     # (3) the fine-tune pair against the single rank
     ft = runs["finetune"]
@@ -4615,12 +2994,9 @@ def phase_mesh(tmp: str, dev, card: str, also: dict = None) -> int:
     launches += ft[0]["launches"] + ft[1]["launches"]
     snaps = ft[0]["snaps"]
     for s in (1, 2):
-        d_one = _flat_deltas(ft_one[0], ft_one[s])
-        d_dp, d_fl = _flat_deltas(ft_one[0], snaps[s]), _flat_deltas(ft_floor[0], ft_floor[s])
+        d_one, d_dp = _flat_deltas(ft_one[0], ft_one[s]), _flat_deltas(ft_one[0], snaps[s])
         gap = {k: abs(float(np.linalg.norm(d_dp[k])) - float(np.linalg.norm(d_one[k])))
                / float(np.linalg.norm(d_one[k])) for k in d_one if np.linalg.norm(d_one[k]) > 0}
-        floor = [abs(float(np.linalg.norm(d_fl[k])) - float(np.linalg.norm(d_one[k])))
-                 / float(np.linalg.norm(d_one[k])) for k in gap]
         worst = max(gap, key=gap.get)
         check(all(math.isfinite(v) for v in gap.values()), f"fine-tune pair step {s}: non-finite")
         if s == 1:
@@ -4630,53 +3006,13 @@ def phase_mesh(tmp: str, dev, card: str, also: dict = None) -> int:
               f"against one rank, after step {s}: delta norms at worst {gap[worst]:.3g} apart "
               f"({worst}), median {statistics.median(gap.values()):.3g}"
               + (" (<= 0.1)" if s == 1 else " (not held: chaotic)")
-              + f"; one rank against its weights perturbed by 1e-7: at worst {max(floor):.3g}, "
-                f"median {statistics.median(floor):.3g}; {2 * FT_CONVS} launches per rank   "
-                f"[{card}]")
+              + f"; {2 * FT_CONVS} launches per rank")
 
-    # (4) timing, alone: the NCCL world of one against no mesh, then the gloo pair
-    t0 = time.perf_counter()
-    _join([_start_child("time", spec("time_nccl", backend="nccl"), 0, 1, _free_port())],
-          "phase_mesh time_nccl")
-    _join(_start_group("time", spec("time_gloo", backend="gloo"), 2), "phase_mesh time_gloo")
-    timing_s = time.perf_counter() - t0
-    tn = load("time_nccl")
-    tg = [load("time_gloo", r) for r in range(2)]
-    med = {k: statistics.median(v) for k, v in tn["ms"].items()}
-    gloo_ms = [statistics.median(t["ms"]["mesh"]) for t in tg]
-    numbers = {"card": card, "nccl1_step_ms": med["mesh"], "plain_step_ms": med["plain"],
-               "nccl1_ms_turns": tn["ms"], "gloo_step_ms_per_rank": gloo_ms,
-               "collectives_per_step": tg[0]["counts"], "nccl1_collectives": tn["counts"],
-               "gloo_host_share": [t["host_share"] for t in tg],
-               "nccl1_host_share": tn["host_share"], "nccl1_device_comm_us": tn["device_comm_us"],
-               "gloo_profiler_comm": tg[0]["profiler_comm"],
-               "nccl1_profiler_comm": tn["profiler_comm"],
-               "first_s": first_s, "timing_s": timing_s}
-    c = tg[0]["counts"]
-
-    def c10d_share(t):  # the profiler's c10d ops' host time over its window
-        return sum(v[0] for k, v in t["profiler_comm"].items() if k.startswith("c10d::")) \
-            / t["window_us"]
-
-    numbers["profiler_c10d_share"] = {"gloo": c10d_share(tg[0]), "nccl1": c10d_share(tn)}
-    print(f"bf16 DCGAN step (64², width 64, bs{TRAIN_BATCH} global): NCCL world of one "
-          f"{med['mesh']:.3f} ms against {med['plain']:.3f} ms without a mesh (medians of "
-          f"{2 * MESH_TIMED}, in turns plain, mesh, mesh, plain); two gloo ranks on this card "
-          f"{gloo_ms[0]:.3f} / {gloo_ms[1]:.3f} ms per rank; collectives per step "
-          f"{c.get('bn_stats', 0)} BN-statistics all-reduces, {c.get('grads', 0)} gradient "
-          f"all-reduces, {c.get('other', 0)} other, {c.get('all_gather', 0)} all-gathers; their "
-          f"host share of a step (host clock around each call): gloo "
-          f"{100 * tg[0]['host_share']:.1f} %, NCCL world of one {100 * tn['host_share']:.1f} %; "
-          f"the profiler's c10d ops over its 3-step window: gloo "
-          f"{100 * numbers['profiler_c10d_share']['gloo']:.1f} %, NCCL world of one "
-          f"{100 * numbers['profiler_c10d_share']['nccl1']:.1f} %   [{card}]")
-    print("mesh_numbers " + json.dumps(numbers))
-    print(f"phase_mesh: {time.perf_counter() - t_phase:.1f} s ({first_s:.1f} s the runs at once, "
-          f"{timing_s:.1f} s the timing); {launches} kernel launches on the mesh runs")
+    print(f"phase_mesh: {launches} kernel launches on the mesh runs")
     return launches
 
 
-def phase_mesh_model(tmp: str, card: str) -> int:
+def phase_mesh_model(tmp: str) -> int:
     """The mesh's model axis (``--mesh_shape 1,2 --mesh_axes data,model``)
     at full width (64², base width 64, global batch 128, ``MESH_STEPS``
     steps and one eval, f32, TF32 off), each run a gloo pair of child
@@ -4689,8 +3025,7 @@ def phase_mesh_model(tmp: str, card: str) -> int:
       ``phase_mesh``'s plain run of the same command on the first step:
       telemetry within 3e-3, masked Adam deltas within 5 % of lr on all
       but 0.1 % of each net's, and every leaf's gradient within 5 % in L2
-      (``MODEL_GRAD_GAP`` says why), beside the noise floor of the plain
-      run from weights nudged by ``MODEL_FLOOR``;
+      (``MODEL_GRAD_GAP`` says why);
     - DCGAN under ``spatial --spatial_replicate_grads 0`` (Adam on each
       rank's half of the flat parameters) against ``1``: the first step's
       parameters within 1e-6 of each leaf's largest magnitude, the last
@@ -4699,19 +3034,14 @@ def phase_mesh_model(tmp: str, card: str) -> int:
       generator all-gathered first, then 4 per DCGAN render, 8 per CGAN
       render), and the render bit-identical to ``bn_act_one_rounding``;
     - the TP run's ``latest.ckpt`` (full tensors) served by
-      ``GeneratorService`` (4 launches for a batch of 64);
+      ``GeneratorService`` (4 launches for a batch of 64).
 
-    then the bf16 step of a TP pair and of a spatial pair (1 warm + 3
-    timed steps): ms per rank, the collectives per step by kind and their
-    host share. The first-step control (``_start_first_step``), which
-    times nothing, runs beside the runs. → the kernel launches of the
-    runs' evals and the serve."""
+    → the kernel launches of the runs' evals and the serve."""
     import torch
 
     from jckx_torch.kernels import fused_bn_act as fba
     from jckx_torch.serve import GeneratorService
 
-    t_phase = time.perf_counter()
     out = os.path.join(tmp, "mesh_out")
     pair = ["--device", "cuda:0", "--mesh_shape", "1,2", "--mesh_axes", "data,model",
             "--multihost"]
@@ -4720,31 +3050,16 @@ def phase_mesh_model(tmp: str, card: str) -> int:
             "spatial_rg0": ("DCGAN", ["--model_axis_mode", "spatial",
                                       "--spatial_replicate_grads", "0"]),
             "tp_cgan": ("CGAN", ["--model_axis_mode", "tp"])}
-    # the first-step control (below) checks no time: it runs beside the runs
-    control = _start_first_step(out)
     procs = {name: _start_group("train", {
         "backend": "gloo", "renders": True, "out": os.path.join(out, name),
         "argv": _mesh_argv(tmp, model, name, pair + flags)}, 2)
         for name, (model, flags) in runs.items()}
-    # the comparison's noise floor: the plain run from weights nudged by 1e-6
-    procs["floor"] = [_start_child("train", {
-        "backend": "none", "perturb": MODEL_FLOOR, "out": os.path.join(out, "floor"),
-        "argv": _mesh_argv(tmp, "DCGAN", "floor", ["--device", "cuda"])})]
     for name, ps in procs.items():
         _join(ps, f"phase_mesh_model {name}")
-    runs_s = time.perf_counter() - t_phase
-    _join(control, "phase_mesh_model first-step control", timeout=600)
-    gaps_s = time.perf_counter() - t_phase - runs_s
     load = lambda name, r=0: torch.load(os.path.join(out, f"{name}.rank{r}.pt"),  # noqa: E731
                                         weights_only=False)
     res = {name: [load(name, r) for r in range(2)] for name in runs}
     plain = {"DCGAN": load("plain"), "CGAN": load("plain_cgan")}
-    floor = load("floor")["first"]
-    print(f"noise floor: the plain DCGAN run from weights nudged by {MODEL_FLOOR:g} relative "
-          f"against the plain run, step 1: telemetry max |diff| "
-          f"{max(abs(floor['telemetry'][k] - plain['DCGAN']['first']['telemetry'][k]) for k in floor['telemetry']):.3g}; "
-          + _gaps_text(_pair_gaps(_init_params("DCGAN"), floor, plain["DCGAN"]["first"]))
-          + f" (not held)   [{card}]")
     launches = 0
     for name, (model, _) in runs.items():
         r0, r1 = res[name]
@@ -4787,7 +3102,7 @@ def phase_mesh_model(tmp: str, card: str) -> int:
               + f"; after step {MESH_STEPS} telemetry max |diff| "
               f"{last:.3g} (not held), eval fid {tele['fid']:.6g} vs {tele_one['fid']:.6g}; "
               f"{r0['launches']} + {r1['launches']} kernel launches at the eval, render "
-              f"{r0['renders_equal_once'][1]} bit-identical to bn_act_one_rounding   [{card}]")
+              f"{r0['renders_equal_once'][1]} bit-identical to bn_act_one_rounding")
     on, off = res["spatial"][0], res["spatial_rg0"][0]
     for when in ("first", "last"):
         a = on["first"] if when == "first" else on
@@ -4800,7 +3115,7 @@ def phase_mesh_model(tmp: str, card: str) -> int:
         print(f"--spatial_replicate_grads 0 against 1 (DCGAN spatial, f32) after "
               f"{'step 1' if when == 'first' else f'step {MESH_STEPS}'}: parameters at most "
               f"{gap:.3g} of a leaf's largest magnitude apart"
-              + (" (<= 1e-6)" if when == "first" else " (not held)") + f"   [{card}]")
+              + (" (<= 1e-6)" if when == "first" else " (not held)"))
 
     # the TP run's checkpoint, served
     ckpt = os.path.join(tmp, "mesh_save", "tp", "dcgan", "tp", "latest.ckpt")
@@ -4813,80 +3128,14 @@ def phase_mesh_model(tmp: str, card: str) -> int:
           f"the TP checkpoint served {images.shape} at step {svc.step} with {served} launches")
     launches += served
     print(f"the TP run's latest.ckpt (full tensors, step {svc.step}) served by GeneratorService: "
-          f"64 images, {served} kernel launches   [{card}]")
+          f"64 images, {served} kernel launches")
 
-    # the bf16 step of each layout, timed
-    t0 = time.perf_counter()
-    for mode in ("tp", "spatial"):
-        _join(_start_group("time_model", {"mode": mode, "out": os.path.join(out, f"time_{mode}")},
-                           2), f"phase_mesh_model time_{mode}")
-    timing_s = time.perf_counter() - t0
-    numbers = {"card": card, "runs_s": runs_s, "timing_s": timing_s}
-    for mode in ("tp", "spatial"):
-        t = [load(f"time_{mode}", r) for r in range(2)]
-        med = [statistics.median(x["ms"]) for x in t]
-        numbers[mode] = {"step_ms_per_rank": med, "ms": [x["ms"] for x in t],
-                         "collectives_per_step": t[0]["per_step"],
-                         "host_share": [x["host_share"] for x in t]}
-        c = t[0]["per_step"]
-        kinds = ", ".join(f"{k} {v['calls']:g} calls / {v['bytes'] / 2**20:.2f} MiB / "
-                          f"{v['host_ms']:.2f} ms" for k, v in c.items() if v["calls"])
-        print(f"bf16 DCGAN step (64², width 64, bs{TRAIN_BATCH}) under {mode} on a (1, 2) mesh "
-              f"of two gloo ranks of this card: {med[0]:.3f} / {med[1]:.3f} ms per rank "
-              f"(medians of {MESH_TIMED} after {MESH_WARM} warm steps); collectives per step "
-              f"(rank 0): {kinds}; their host share of a step {100 * t[0]['host_share']:.1f} % / "
-              f"{100 * t[1]['host_share']:.1f} %   [{card}]")
-
-    # the spatial pair's first step against the plain step, on the card (f32,
-    # f64) and on the CPU (f32): which fields differ, and whether without
-    # cuDNN or in f64
-    numbers["first_step_gaps"] = gaps = _first_step_gaps(out)
-    for where, by_field in gaps.items():
-        print(f"first DCGAN step (64², width 64, bs{TRAIN_BATCH}, the same weights, batch and "
-              f"draws) of a spatial (1, 2) gloo pair against the plain step on the {where}: "
-              f"|diff| by field {_fields_text(by_field)}   [{card}]")
-    numbers["gaps_s"] = gaps_s
-    print("mesh_model_numbers " + json.dumps(numbers))
-    print(f"phase_mesh_model: {time.perf_counter() - t_phase:.1f} s ({runs_s:.1f} s the runs at "
-          f"once, {timing_s:.1f} s the timing, {gaps_s:.1f} s more for the first-step control "
-          f"beside them); "
-          f"{launches} kernel launches")
-    return launches, numbers
+    print(f"phase_mesh_model: {launches} kernel launches")
+    return launches
 
 
 def _fields_text(gaps: dict) -> str:
     return ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
-
-
-FIRST_STEP_RUNS = {"card": ("cuda", False), "card, computed in f64": ("cuda", True),
-                   "CPU": ("cpu", False)}  # name: (device, f64)
-
-
-def _start_first_step(out: str) -> list:
-    """``child_first_step`` on the card in f32 and in f64 and on the CPU in
-    f32, each alone and as a spatial gloo pair, all at once. → the
-    processes."""
-    procs = []
-    for i, (where, f64) in enumerate(FIRST_STEP_RUNS.values()):
-        spec = {"device": where, "f64": f64, "out": os.path.join(out, f"first_{i}")}
-        procs += [_start_child("first_step", {**spec, "mode": ""})]
-        procs += _start_group("first_step", {**spec, "mode": "spatial"}, 2)
-    return procs
-
-
-def _first_step_gaps(out: str) -> dict:
-    """After ``_start_first_step``'s processes: {run name
-    (``FIRST_STEP_RUNS``): {field: |pair - plain|}} of the first step's
-    telemetry."""
-    import torch
-
-    gaps = {}
-    for i, name in enumerate(FIRST_STEP_RUNS):
-        load = lambda mode: torch.load(  # noqa: E731
-            os.path.join(out, f"first_{i}{mode}.pt"), weights_only=False)
-        plain, pair = load(""), load("spatial")
-        gaps[name] = {k: abs(pair[k] - plain[k]) for k in plain}
-    return gaps
 
 
 # ---------------------------------------------------------------- the planner
@@ -4939,20 +3188,55 @@ def _real_step_memory(dev) -> dict:
             "peak_mb": (peak - held) / 2**20}
 
 
-def phase_plan(dev, card: str, train_t: dict, mesh_model: dict) -> dict:
+def child_collectives(spec: dict) -> None:
+    """One bf16 DCGAN step at full width (global batch 128) on a gloo pair
+    of this card laid out as a (1, 2) mesh in ``spec["mode"]``, after one
+    warm step: the mesh's collectives by kind (calls and bytes), which
+    rank 0 saves to ``<out>.rank0.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from jckx_torch.configs import Config
+    from jckx_torch.models.dcgan import Discriminator, GANGeometry, Generator
+    from jckx_torch.parallel import make_mesh
+    from jckx_torch.train.state import create_dcgan_state
+    from jckx_torch.train.steps import make_dcgan_train_step
+
+    dev = _child_init("gloo")
+    mesh = make_mesh((1, 2), ("data", "model"), device=dev)
+    cfg, geo = Config(), GANGeometry()
+    cfg.compute_dtype, cfg.max_learning_rate = "bfloat16", TRAIN_LR
+    cfg.model_axis_mode = spec["mode"]
+    gen = torch.Generator().manual_seed(0)
+    state = create_dcgan_state(cfg, Generator(geo, gen=gen).to(dev),
+                               Discriminator(geo, gen=gen).to(dev), mesh)
+    real = (torch.rand(TRAIN_BATCH, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+            * 2 - 1).to(dev)
+    step = make_dcgan_train_step(cfg, geo, mesh)
+    step(state, real)
+    mesh.stats.reset()
+    step(state, real)
+    torch.cuda.synchronize()
+    if dist.get_rank() == 0:
+        torch.save({k: {"calls": v["calls"], "bytes": v["bytes"]}
+                    for k, v in mesh.stats.as_dict().items()}, f"{spec['out']}.rank0.pt")
+    dist.destroy_process_group()
+
+
+def phase_plan(tmp: str, dev) -> None:
     """``python -m jckx_torch plan --device cuda`` at the reference geometry
     (``PLAN_RUNS``, all at once): every report's memory read on the card
     and fitting; the TP and spatial reports' collectives per kind equal to
-    ``phase_mesh_model``'s gloo pairs' per bf16 step (``mesh_model``), and
+    a gloo pair's per bf16 step (``child_collectives``, beside them), and
     their bytes: the report counts a 16-bit tensor at its own width, gloo
     sends it as f32, so 2 x the report's bf16 bytes + its f32 bytes equal
-    gloo's. Prints the unsharded step's floors beside its device ms from
-    ``phase_train_timing`` (``train_t``), the planned memory beside a real
-    one-card step's, and the f32 FLOPs beside jckx's count (within 25 %).
-    Launches no kernel: the planned step is differentiated."""
+    gloo's. The planned memory within 25 % of a real one-card step's
+    temporaries, and the f32 FLOPs within 25 % of jckx's count. Launches no
+    kernel: the planned step is differentiated."""
+    import torch
+
     from jckx_torch.utils.comm import HLO_OPS  # the mesh's kinds → the report's op names
 
-    t0 = time.perf_counter()
     launches = launch_counts()
     here = os.path.dirname(os.path.abspath(__file__))
     base = ["-m", "DCGAN", "-b", str(TRAIN_BATCH), "--image_size", "64", "--base_width", "64",
@@ -4961,6 +3245,9 @@ def phase_plan(dev, card: str, train_t: dict, mesh_model: dict) -> dict:
                                     cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                     text=True)
              for name, flags in PLAN_RUNS.items()}
+    counted = os.path.join(tmp, "plan_collectives")
+    pairs = {mode: _start_group("collectives", {"mode": mode, "out": f"{counted}_{mode}"}, 2)
+             for mode in ("tp", "spatial")}
     reports = {}
     for name, p in procs.items():
         out, err = p.communicate(timeout=300)
@@ -4973,11 +3260,11 @@ def phase_plan(dev, card: str, train_t: dict, mesh_model: dict) -> dict:
               f"plan {name}: backend {r['backend']!r}, memory {mem}")
         ops = {op: (v["count"], v["bytes_total"]) for op, v in r["cross_shard_ops"].items()}
         print(f"plan {name} ({r['geometry']}, mesh {r['mesh']['shape']}): "
-              f"{r['per_chip']['step_flops']:.4g} FLOP, {r['per_chip']['step_hbm_bytes']:.4g} "
-              f"bytes (unfused), memory {mem}, collectives (calls, bytes) {ops}, floors "
-              f"{r['step_floors_us']} µs, bound {r['bound']}   [{card}]")
-    for mode in ("tp", "spatial"):
-        gloo = mesh_model[mode]["collectives_per_step"]
+              f"{r['per_chip']['step_flops']:.4g} FLOP, memory {mem}, collectives (calls, "
+              f"bytes) {ops}")
+    for mode, ps in pairs.items():
+        _join(ps, f"phase_plan, the {mode} pair's collectives")
+        gloo = torch.load(f"{counted}_{mode}.rank0.pt", weights_only=False)
         ops = reports[mode]["cross_shard_ops"]
         for kind, op in HLO_OPS.items():
             mine = ops.get(op, {"count": 0, "bytes_total": 0, "by_dtype": {}})
@@ -4990,15 +3277,9 @@ def phase_plan(dev, card: str, train_t: dict, mesh_model: dict) -> dict:
         inventory = "; ".join(
             f"{op} {v['count']}: " + ", ".join(f"{d} {b['bytes']:,} B" for d, b in v["by_dtype"].items())
             for op, v in ops.items())
-        print(f"plan {mode}: collectives per kind equal to the gloo pair's per bf16 step "
-              f"(phase_mesh_model), bytes equal once gloo's widening to f32 is undone: "
-              f"{inventory}   [{card}]")
+        print(f"plan {mode}: collectives per kind equal to a gloo pair's per bf16 step, bytes "
+              f"equal once gloo's widening to f32 is undone: {inventory}")
     one = reports["one"]
-    floors, busy_ms = one["step_floors_us"], train_t["step_ms_card"]
-    shares = {k: v / (1e3 * busy_ms) for k, v in floors.items()} if busy_ms else {}
-    print(f"the unsharded bf16 DCGAN step's floors {floors} µs (bound {one['bound']}) beside its "
-          f"device busy time {busy_ms} ms (phase_train_timing): the floors' shares of it "
-          + ", ".join(f"{k} {100 * v:.2f} %" for k, v in shares.items()) + f"   [{card}]")
     real = _real_step_memory(dev)
     mem = one["per_chip"]["memory"]
     check(abs(mem["temp_mb"] - real["temp_mb"]) <= 0.25 * real["temp_mb"],
@@ -5008,22 +3289,15 @@ def phase_plan(dev, card: str, train_t: dict, mesh_model: dict) -> dict:
           f"{mem['argument_mb']} MB, temporaries {mem['temp_mb']} MB; a real one-card step "
           f"(torch.cuda.max_memory_allocated, less what this process held before it): peak "
           f"{real['peak_mb']:.1f} MB, arguments {real['argument_mb']:.1f} MB, temporaries "
-          f"{real['temp_mb']:.1f} MB   [{card}]")
+          f"{real['temp_mb']:.1f} MB")
     flops = reports["one_f32"]["per_chip"]["step_flops"]
     ratio = flops / JCKX_PLAN_F32_FLOPS
     check(0.75 <= ratio <= 1.25, f"plan's f32 step FLOPs {flops:.4g} against jckx's "
                                  f"{JCKX_PLAN_F32_FLOPS:.4g}")
     print(f"the unsharded f32 step: {flops:.4g} FLOP (torch.utils.flop_counter's registry) "
-          f"against jckx.plan's {JCKX_PLAN_F32_FLOPS:.4g} (XLA's cost analysis): {ratio:.4f}x; "
-          f"bf16 {one['per_chip']['step_flops']:.4g}   [{card}]")
+          f"against jckx.plan's {JCKX_PLAN_F32_FLOPS:.4g} (XLA's cost analysis): {ratio:.4f}x")
     check(launch_counts() == launches, f"the planner launched a kernel in this process: "
                                        f"{launch_counts()} from {launches}")
-    seconds = time.perf_counter() - t0
-    numbers = {"card": card, "reports": reports, "real_step_memory": real,
-               "floor_shares": shares, "flops_vs_jckx": ratio, "seconds": seconds}
-    print("plan_numbers " + json.dumps(numbers))
-    print(f"phase_plan: {seconds:.1f} s; 0 kernel launches")
-    return numbers
 
 
 def _pair_gaps(start: dict, got: dict, want: dict, grads: bool = True) -> dict:
@@ -5082,6 +3356,10 @@ def keep_latest_of_step(step: int, dst: str):
         BestMetricCheckpointer.save_latest = real
 
 
+CHILDREN = {"train": child_train, "finetune": child_finetune, "collectives": child_collectives,
+            "planes": child_planes, "mesh_graph": child_mesh_graph}
+
+
 _LAP = [time.perf_counter()]
 
 
@@ -5109,7 +3387,6 @@ def main() -> None:
     kind, card = phase_environment()
     lap("start")
     phase_build()
-    max_err = phase_kernel_vs_plain(dev)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "dcgan_seed0.pt")
         geo = write_reference_checkpoint(path)
@@ -5117,75 +3394,65 @@ def main() -> None:
         cgan_path = os.path.join(tmp, "cgan_seed0.pt")
         write_reference_checkpoint(cgan_path, conditional=True)
         csvc, cgan_launches = phase_serve_cgan(cgan_path, geo, dev)
-        phase_int8_exact(dev)
-        modes, mode_launches = phase_serve_modes(path, cgan_path, svc, dev)
-        http_launches, _ = phase_http(svc, csvc, card)
-        _, export_launches = phase_export(path, cgan_path, svc, tmp, dev, card)
+        launches += cgan_launches + phase_serve_modes(path, cgan_path, svc, dev)
+        launches += phase_http(svc, csvc)
+        launches += phase_export(path, cgan_path, tmp, dev)
         phase_tools(path, os.path.join(tmp, "dcgan_bf16.pt2"), tmp, kind)
-        mesh_serve_launches = phase_mesh_serve(path, svc, dev, card)
-    lap("build, serving, HTTP, export, tools, mesh serving")
+        launches += phase_mesh_serve(path, svc, dev)
     phase_serve_vs_plain(svc, dev)
     phase_serve_vs_plain(csvc, dev)
-    t = phase_timing(svc, dev, card)
+    del svc, csvc
+    lap("build, serving, HTTP, export, tools, mesh serving")
+    t = phase_timing(dev, card)
     mt = phase_moments(dev, card)
-    phase_profile(svc, card)
-    phase_modes_timing(svc, modes, dev, card)
+    phase_bn_relu_train(dev)
     phase_train_vs_cpu(dev)
     phase_train_vs_cpu(dev, conditional=True)
     phase_train_vs_cpu(dev, fused_prop=1)
     phase_train_vs_cpu(dev, conditional=True, fused_prop=1)
     phase_remat(dev, card)
     phase_sanitize(dev)
-    phase_bn_relu_train(dev, card)
     phase_finetune_vs_cpu(dev)
-    lap("timings, card-vs-CPU steps, remat, sanitize, bn_relu_train")
+    lap("kernel timings, card-vs-CPU steps, remat, sanitize, the fine-tune step against "
+        "the CPU")
     with tempfile.TemporaryDirectory() as tmp:
         step8 = os.path.join(tmp, "dcgan_step8.ckpt")
         with keep_latest_of_step(8, step8):
-            tr, steps, _, train_launches = phase_train(tmp)
-        watch_launches = phase_watch(step8, os.path.join(tr.save_path, "latest.ckpt"), tmp)
-        train_t = phase_train_timing(tr, steps, tmp, card)
-        fused_launches = phase_fused_prop_train(tmp, card)
-        fused_launches += phase_profile_dir(tmp, card)
-        fused_launches += phase_jckx_ckpt(tmp, dev, card)
-        ctr, csteps, cevals, ctrain_launches = phase_train(tmp, "CGAN")
-        eval_launches = phase_evaluate(ctr, cevals, tmp)
-        eval_launches += phase_evaluate_int8(ctr, tmp)
-        eval_launches += phase_extra_metrics(ctr, tmp, dev, card)
-        phase_train_timing(ctr, csteps, tmp, card)
-        panel_launches = phase_panel(tmp, card)
-        finetune_launches = phase_finetune(ctr, tmp, card)
+            tr, _, n = phase_train(tmp)
+        launches += n + phase_watch(step8, os.path.join(tr.save_path, "latest.ckpt"), tmp)
+        fused, _, n = phase_train(tmp, "DCGAN", ("--fused_prop", "1"), "smoke_fused_prop")
+        check(fused.cfg.fused_prop == 1, "the trainer did not take --fused_prop 1")
+        del fused
+        launches += n + phase_profile_dir(tmp) + phase_jckx_ckpt(tmp)
+        ctr, cevals, n = phase_train(tmp, "CGAN")
+        launches += n + phase_evaluate(ctr, cevals, tmp) + phase_evaluate_int8(ctr, tmp)
+        launches += phase_extra_metrics(ctr, tmp, dev) + phase_panel(tmp)
+        launches += phase_finetune(ctr, tmp)
         lap("training, evaluate, panel, fine-tune")
-        inference_launches = phase_inference_graph(tmp, dev, card, tr, ctr)
+        launches += phase_inference_graph(tmp, dev, tr, ctr)
         lap("phase_inference_graph")
         # the children below share the card: free the trainers' graphs first
         del tr, ctr
         gc.collect()
         torch.cuda.empty_cache()
-        plane_launches = phase_data_planes_alone(tmp, card)
+        launches += phase_data_planes_alone(tmp)
         lap("phase_data_planes")
-        # phase_mesh_graph's plain world checks bits beside phase_mesh's runs
-        plain_graph, plain_out = start_mesh_graph(tmp, card, MESH_GRAPH_WORLDS[0], turns=False)
-        mesh_launches = phase_mesh(tmp, dev, card, also={"phase_mesh_graph, plain": plain_graph})
-        model_launches, mesh_model = phase_mesh_model(tmp, card)
-        mesh_launches += model_launches
-        lap("phase_mesh, phase_mesh_model")
-        mesh_launches += phase_mesh_graph(tmp, card, plain_out)
-        lap("phase_mesh_graph")
-        superstep_launches = phase_superstep(tmp, dev, card)
-        lap("phase_superstep")
-    phase_plan(dev, card, train_t, mesh_model)
-    lap("phase_plan")
+        # phase_mesh_graph's two worlds check bits beside phase_mesh's runs
+        graphs = [start_mesh_graph(tmp, world) for world in MESH_GRAPH_WORLDS]
+        launches += phase_mesh(tmp, dev, also={f"phase_mesh_graph, {world}": procs
+                                               for world, (procs, _) in
+                                               zip(MESH_GRAPH_WORLDS, graphs)})
+        launches += phase_mesh_graph([out for _, out in graphs])
+        launches += phase_mesh_model(tmp)
+        lap("phase_mesh, phase_mesh_graph, phase_mesh_model")
+        phase_plan(tmp, dev)
+        lap("phase_plan")
     print(json.dumps({"kernels": [{
         "name": "fused_bn_act", "route": "cuda",
         "source": "jckx_torch/kernels/csrc/fused_bn_act.cu",
         "replaces": "jckx/kernels/fused_bn_act.py:120",
-        "launches": (launches + train_launches + cgan_launches + ctrain_launches + eval_launches
-                     + mode_launches + http_launches + watch_launches + export_launches
-                     + panel_launches + finetune_launches + fused_launches + plane_launches
-                     + mesh_serve_launches + mesh_launches + superstep_launches
-                     + inference_launches),
-        "max_abs_err": max_err,
+        "launches": launches,
+        "max_abs_err": t["max_abs_err"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
     }, {
@@ -5202,7 +3469,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 4 and sys.argv[1] == "--child":  # a child of phase_mesh(_model)
+    if len(sys.argv) == 4 and sys.argv[1] == "--child":  # a child process of a phase
         count_calibrations()
         CHILDREN[sys.argv[2]](json.loads(sys.argv[3]))
     else:

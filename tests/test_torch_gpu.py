@@ -59,7 +59,11 @@ def _inputs(rows, chans, dev, seed=0):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("act", ACTS)
 @pytest.mark.parametrize("rows,chans", [(512 * 4 * 4, 512), (8 * 32 * 32, 64), (1000, 3),
-                                        (8 * 7 * 7, 100), (1, 1)])
+                                        (8 * 7 * 7, 100), (1, 1),
+                                        (512 * 8 * 8, 256), (512 * 16 * 16, 128),
+                                        (512 * 32 * 32, 64), (64 * 4 * 4, 512),
+                                        (64 * 8 * 8, 256), (64 * 16 * 16, 128),
+                                        (64 * 32 * 32, 64)])
 def test_kernel_matches_plain(rows, chans, act, dtype):
     dev = _card()
     x, inv, shift = _inputs(rows, chans, dev)
@@ -160,19 +164,25 @@ def test_moments_wrapper_refuses_on_the_card():
             fba.bn_moments(x)
 
 
-def test_bn_act_launches_the_moments_kernels_where_no_gradient_is_taken():
-    """One ``bn_act`` without grad: one normalize launch (``LAUNCHES``) and
-    two moments launches (``MOMENTS_LAUNCHES``), each counted once (the
-    profiler's counts of both are held in a served replay, below). With x
-    requiring grad under grad mode, neither kernel."""
+@pytest.mark.parametrize("batch", [512, 64, 500])  # serving, the DCGAN eval, a CGAN eval chunk
+@pytest.mark.parametrize("side,chans", [(4, 512), (8, 256), (16, 128), (32, 64)])
+def test_bn_act_launches_the_moments_kernels_where_no_gradient_is_taken(batch, side, chans):
+    """One ``bn_act`` without grad at one of G's four bf16 BN layers: one
+    normalize launch (``LAUNCHES``) and two moments launches
+    (``MOMENTS_LAUNCHES``), each counted once (the profiler's counts of
+    both are held in a served replay, below); its channels_last output
+    within one bf16 ulp of ``bn_act_plain``'s. With x requiring grad under
+    grad mode, neither kernel."""
     dev = _card()
-    x = torch.randn(64, 128, 16, 16, device=dev).to(torch.bfloat16,
-                                                    memory_format=torch.channels_last)
-    scale, bias = torch.rand(128, device=dev) + 0.5, torch.randn(128, device=dev)
+    x = torch.randn(batch, chans, side, side, device=dev).to(torch.bfloat16,
+                                                             memory_format=torch.channels_last)
+    scale, bias = torch.rand(chans, device=dev) + 0.5, torch.randn(chans, device=dev)
     before = (fba.LAUNCHES, fba.MOMENTS_LAUNCHES)
     with torch.no_grad():
-        fba.bn_act(x, scale, bias, act="relu")
+        y = fba.bn_act(x, scale, bias, act="relu")
     assert (fba.LAUNCHES, fba.MOMENTS_LAUNCHES) == (before[0] + 1, before[1] + 2)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    _assert_close(y, fba.bn_act_plain(x, scale, bias, act="relu"))
     xs = x.clone().requires_grad_()
     before = (fba.LAUNCHES, fba.MOMENTS_LAUNCHES)
     fba.bn_act(xs, scale, bias, act="relu").float().sum().backward()
@@ -216,17 +226,25 @@ def test_bn_act_launches_once_and_refuses_grad():
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()) + 1e-6)
 
 
+@pytest.mark.parametrize("conditional", [False, True])
 @pytest.mark.parametrize("fused_prop", [0, 1])
-def test_train_step_on_card_matches_cpu(fused_prop):
-    """The tiny train step (16², width 8, batch 8, f32, TF32 off), faithful
-    and FusedProp, on the card against the CPU, from the same weights and
-    the same draws: telemetry within 3e-3 (FusedProp: ``d_gz2 == d_gz1``);
-    Adam's deltas within 5 % of lr where the CPU's gradient clears 1 % of
-    its leaf's maximum (elsewhere the sign of a first Adam step is rounding
-    noise, tests/test_step_torch_parity.py:22-35); and no kernel launch."""
+def test_train_step_on_card_matches_cpu(deterministic_cudnn, fused_prop, conditional):
+    """The tiny train step (16², width 8, batch 8, f32, TF32 off, cuDNN
+    deterministic), faithful and FusedProp, DCGAN and CGAN (K = 10, its four
+    dropout masks), on the card against the CPU, from the same weights,
+    draws and labels: telemetry within 3e-3 (FusedProp: ``d_gz2 ==
+    d_gz1``); Adam's deltas within 5 % of lr where the CPU's gradient clears
+    1 % of its leaf's maximum (elsewhere the sign of a first Adam step is
+    rounding noise, tests/test_step_torch_parity.py:22-35); and no kernel
+    launch. cuDNN's default algorithms sum in an order that changes from run
+    to run: at full width one masked delta of CGAN's ``G.norm1.weight``
+    changed sign in 2 of 7 such runs on an H100, in none of 3 with
+    deterministic algorithms."""
     from jckx_torch.configs import Config
+    from jckx_torch.data.pipeline import one_hot
+    from jckx_torch.models.cgan import HIDDEN, CDiscriminator, CGenerator
     from jckx_torch.train.state import create_dcgan_state
-    from jckx_torch.train.steps import StepDraws, make_dcgan_train_step
+    from jckx_torch.train.steps import StepDraws, make_cgan_train_step, make_dcgan_train_step
 
     dev = _card()
     geo = GANGeometry(z_dim=16, image_size=16, channels=3, base_width=8)
@@ -236,16 +254,23 @@ def test_train_step_on_card_matches_cpu(fused_prop):
     draws = [torch.randn(8, 16, 16, 3, generator=g), torch.randn(8, 16, generator=g),
              torch.randn(8, 16, 16, 3, generator=g), torch.rand(8, 1, 1, 1, generator=g)]
     real = torch.rand(8, 16, 16, 3, generator=g) * 2 - 1
+    if conditional:
+        draws += [(torch.rand(8, HIDDEN, generator=g) < 0.75).float() for _ in range(4)]
+        labels = (one_hot(torch.randint(0, 10, (8,), generator=g), 10),)
     out = []
     for device in (torch.device("cpu"), dev):
         gen = torch.Generator().manual_seed(0)
-        G, D = Generator(geo, gen=gen), Discriminator(geo, gen=gen)
+        if conditional:
+            G, D = CGenerator(geo, 10, gen=gen), CDiscriminator(geo, 10, gen=gen)
+            step, extra = make_cgan_train_step(cfg, geo), tuple(t.to(device) for t in labels)
+        else:
+            G, D = Generator(geo, gen=gen), Discriminator(geo, gen=gen)
+            step, extra = make_dcgan_train_step(cfg, geo), ()
         nets = {"G.": G, "D.": D}
         p0 = {p + k: v.clone() for p, net in nets.items() for k, v in net.named_parameters()}
         state = create_dcgan_state(cfg, G.to(device), D.to(device))
         before = fba.LAUNCHES
-        m = make_dcgan_train_step(cfg, geo)(state, real.to(device),
-                                            StepDraws(*(d.to(device) for d in draws)))
+        m = step(state, real.to(device), *extra, StepDraws(*(d.to(device) for d in draws)))
         assert fba.LAUNCHES == before
         out.append(({k: float(v) for k, v in m.items()},
                     {p + k: (v.detach().cpu() - p0[p + k], v.grad.cpu())
@@ -376,10 +401,12 @@ def _with_bn(bn, render):
         GraphedProgram.__call__ = call
 
 
+@pytest.mark.parametrize("batch", [64, 512])  # the artifact's batch, serving's
 @pytest.mark.parametrize("in_dim", [100, 200])
-def test_int_mm_route_is_exact_on_the_card(in_dim, monkeypatch):
-    """Every G layer at 64², base width 64 (batch 64): the card's im2col +
-    ``_int_mm`` route gives the exact f64 route's int32, bit for bit."""
+def test_int_mm_route_is_exact_on_the_card(in_dim, batch, monkeypatch):
+    """Every G layer at 64², base width 64 (batch 64 and 512): the card's
+    im2col + ``_int_mm`` route gives the exact f64 route's int32, bit for
+    bit."""
     import jckx_torch.ops.quant as tquant
 
     dev = _card()
@@ -390,7 +417,7 @@ def test_int_mm_route_is_exact_on_the_card(in_dim, monkeypatch):
     layers = [(in_dim, 512, 1, 1, 0), (512, 256, 4, 2, 1), (256, 128, 8, 2, 1),
               (128, 64, 16, 2, 1), (64, 3, 32, 2, 1)]
     for cin, cout, hw, stride, pad in layers:
-        x = torch.randint(-127, 128, (64, cin, hw, hw), generator=g, device=dev,
+        x = torch.randint(-127, 128, (batch, cin, hw, hw), generator=g, device=dev,
                           dtype=torch.int8).contiguous(memory_format=torch.channels_last)
         w = torch.randint(-127, 128, (cin, cout, 4, 4), generator=g, device=dev, dtype=torch.int8)
         got = tquant.conv_transpose2d_int8(x, w, stride, pad)
@@ -495,9 +522,13 @@ def test_artifact_on_the_card_takes_the_kernel(tmp_path, conditional, quant):
         70, 64, 64, 3)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_bn_relu_train_on_the_card_matches_its_plain_version(dtype):
-    """``bn_relu_train`` at the fine-tune's stem map (bs128, 149², C 32):
+# the stem map C 32 at 149² in both dtypes; the fine-tune's bf16 at its largest
+# stem map and a Mixed_7c map
+@pytest.mark.parametrize("dtype,chans,side", [("float32", 32, 149), ("bfloat16", 32, 149),
+                                              ("bfloat16", 64, 147), ("bfloat16", 448, 8)])
+def test_bn_relu_train_on_the_card_matches_its_plain_version(dtype, chans, side):
+    """``bn_relu_train`` at the fine-tune's two largest stem maps and a
+    Mixed_7c map (bs128, 299²: C 32 at 149², 64 at 147², 448 at 8²):
     one kernel launch; ``out`` bit-identical to the plain route rounded
     once; statistics equal; the hand-written backward against autograd
     through the plain ops: dx within one ulp of its dtype plus 1e-3 of its
@@ -508,11 +539,11 @@ def test_bn_relu_train_on_the_card_matches_its_plain_version(dtype):
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(0)
     dt = getattr(torch, dtype)
-    x = (torch.randn(128, 32, 149, 149, generator=g, device=dev) * 2 + 0.5).to(
+    x = (torch.randn(128, chans, side, side, generator=g, device=dev) * 2 + 0.5).to(
         dt, memory_format=torch.channels_last)
-    scale = torch.rand(32, generator=g, device=dev) + 0.5
-    bias = torch.randn(32, generator=g, device=dev)
-    dout = torch.randn(128, 32, 149, 149, generator=g, device=dev)
+    scale = torch.rand(chans, generator=g, device=dev) + 0.5
+    bias = torch.randn(chans, generator=g, device=dev)
+    dout = torch.randn(128, chans, side, side, generator=g, device=dev)
 
     def run(fn):
         xx = x.detach().requires_grad_(True)
@@ -567,7 +598,9 @@ def test_forward_train_on_the_card_matches_cpu():
             assert abs(a[k] - b[k]).max() <= 1e-3 * abs(b[k]).max(), k
 
 
-def test_branch_pool_backward_on_the_card_matches_cpu():
+# Mixed_5c's pool input at batch 8; Mixed_5b's at the fine-tune's batch of 128
+@pytest.mark.parametrize("batch,chans", [(8, 288), (128, 192)])
+def test_branch_pool_backward_on_the_card_matches_cpu(batch, chans):
     """The InceptionV3 branch pool on a channels_last tensor (the fine-tune
     step's layout): forward and backward on the card against the CPU's
     (f32, within 1e-6 relative). The card's ``F.avg_pool2d`` gradient for
@@ -577,8 +610,8 @@ def test_branch_pool_backward_on_the_card_matches_cpu():
 
     dev = _card()
     g = torch.Generator().manual_seed(0)
-    x = torch.randn(8, 288, 35, 35, generator=g)
-    dy = torch.randn(8, 288, 35, 35, generator=g)
+    x = torch.randn(batch, chans, 35, 35, generator=g)
+    dy = torch.randn(batch, chans, 35, 35, generator=g)
     out = {}
     for d in ("cpu", dev):
         t = x.to(d).contiguous(memory_format=torch.channels_last).detach().requires_grad_(True)
@@ -589,27 +622,46 @@ def test_branch_pool_backward_on_the_card_matches_cpu():
     assert (yg - yc).norm() <= 1e-6 * yc.norm() and (gg - gc).norm() <= 1e-6 * gc.norm()
 
 
+@pytest.mark.parametrize("route", ["serve", "evaluate"])
 @pytest.mark.parametrize("family", ["dcgan", "cgan"])
-def test_jckx_checkpoint_renders_through_the_kernel(family):
-    """The committed jckx fixture (tests/data/jckx_ckpt) served on the card
-    in f32: its batch of 16 renders through the kernel (2 launches per
-    forward at 16²) within 1 LSB of jckx's own renders of the same z."""
+def test_jckx_checkpoint_renders_through_the_kernel(family, route):
+    """The committed jckx fixture (tests/data/jckx_ckpt) on the card in f32,
+    served (``GeneratorService``) or rendered by ``evaluate``'s route
+    (``load_generator`` + ``make_sampler`` + ``sample_eval_images``): its
+    batch of 16 renders through the kernel (2 launches per forward at 16²)
+    within 1 LSB of jckx's own renders of the same z."""
     import os
 
     import numpy as np
 
+    from jckx_torch.checkpoint.checkpoint import load_generator
+    from jckx_torch.data.pipeline import one_hot
+    from jckx_torch.ops.quant import make_sampler
     from jckx_torch.serve import GeneratorService, tanh_to_u8
+    from jckx_torch.train.gan_trainer import sample_eval_images
 
     dev = _card()
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "jckx_ckpt")
     z = torch.from_numpy(np.load(os.path.join(root, "z.npy")))
     labels = torch.from_numpy(np.load(os.path.join(root, "cgan_labels.npy")))
     want = tanh_to_u8(torch.from_numpy(np.load(os.path.join(root, f"{family}_renders.npy"))))
-    svc = GeneratorService(os.path.join(root, family, "run", "latest.ckpt"), batch_size=16,
-                           compute_dtype=torch.float32, device=dev)
+    path = os.path.join(root, family, "run", "latest.ckpt")
+    cgan = family == "cgan"
+    if route == "serve":
+        svc = GeneratorService(path, batch_size=16, compute_dtype=torch.float32, device=dev)
+        n_up = svc.geo.n_up
+        render = lambda: svc.render(z, labels if cgan else None)  # noqa: E731
+    else:
+        lg = load_generator(path)
+        params, apply = make_sampler(lg.G.to(dev), compute_dtype=torch.float32)
+        onehot = one_hot(labels, lg.num_classes).to(dev) if cgan else None
+        n_up = lg.geo.n_up
+        render = lambda: tanh_to_u8(sample_eval_images(  # noqa: E731
+            lambda zz, *rest: apply(params, zz, rest[0] if cgan else None), z.to(dev), onehot,
+            torch.float32))
     before = fba.LAUNCHES
-    got = svc.render(z, labels if family == "cgan" else None).cpu()
-    assert fba.LAUNCHES == before + svc.geo.n_up
+    got = render().cpu()
+    assert fba.LAUNCHES == before + n_up
     diff = (got.int() - want.int()).abs()
     assert diff.max().item() <= 1 and (diff == 0).float().mean().item() >= 0.99
 
@@ -1101,14 +1153,16 @@ def renders_without_sync(monkeypatch):
     monkeypatch.setattr(texport, "pipelined_sample", guarded)
 
 
-@pytest.mark.parametrize("kind", ["dcgan", "cgan", "cgan_random", "pt2_dcgan", "pt2_cgan"])
+@pytest.mark.parametrize("kind", ["dcgan", "cgan", "cgan_random", "pt2_dcgan", "pt2_cgan",
+                                  "int8", "subpixel", "truncation"])
 def test_served_requests_replay_one_graph_per_batch(tmp_path, deterministic_cudnn,
                                                     renders_without_sync, kind):
-    """A bs64 bf16 service at 64² (width 8), or its ``.pt2``: the first
-    request renders eagerly and captures; a request of 4.5 batches is one
-    replay per batch with no host synchronisation in a render, 4 launches
-    counted per batch, and its bytes equal the same object's eager route
-    (its program set to None)."""
+    """A bs64 bf16 service at 64² (width 8; the float, int8, sub-pixel or
+    truncated (0.7) sampler), or its ``.pt2``: the first request renders
+    eagerly and captures; a request of 4.5 batches is one replay per batch
+    with no host synchronisation in a render, 4 launches counted per batch,
+    and its bytes equal the same object's eager route (its program set to
+    None)."""
     import numpy as np
 
     from jckx_torch.export import ArtifactService, export_generator
@@ -1122,7 +1176,9 @@ def test_served_requests_replay_one_graph_per_batch(tmp_path, deterministic_cudn
         export_generator(path, str(tmp_path / "g.pt2"), batch_size=64)
         svc = ArtifactService(str(tmp_path / "g.pt2"))
     else:
-        svc = GeneratorService(path, batch_size=64)
+        sampler = {"int8": {"quant": "int8"}, "subpixel": {"subpixel": True},
+                   "truncation": {"truncation": 0.7}}.get(kind, {})
+        svc = GeneratorService(path, batch_size=64, **sampler)
     labels = [3, 17, 42] if conditional and kind != "cgan_random" else None
     assert svc.program.graph_cls is CudaGraph
     svc.sample(64, labels=labels, seed=1)  # eager, then the capture
@@ -1229,18 +1285,19 @@ def test_a_program_replays_its_keys_in_any_order(tmp_path, deterministic_cudnn):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-def test_profiler_counts_a_served_replay(tmp_path):
-    """In one replay of a served batch's graph the profiler sees the fused
-    kernel as often as the program added to ``LAUNCHES``: 4, and the
-    moments kernels as often as it added to ``MOMENTS_LAUNCHES``: 8 (a
-    window that falls short, a record CUPTI dropped, is taken again, up to
-    three)."""
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_profiler_counts_a_served_replay(tmp_path, quant):
+    """In one replay of a served batch's graph (the float or the int8
+    sampler) the profiler sees the fused kernel as often as the program
+    added to ``LAUNCHES``: 4, and the moments kernels as often as it added
+    to ``MOMENTS_LAUNCHES``: 8 (a window that falls short, a record CUPTI
+    dropped, is taken again, up to three)."""
     from torch.profiler import ProfilerActivity, profile
 
     from jckx_torch.serve import GeneratorService
 
     dev = _card()
-    svc = GeneratorService(_gan_ckpt(str(tmp_path / "g.pt"), False), batch_size=64)
+    svc = GeneratorService(_gan_ckpt(str(tmp_path / "g.pt"), False), batch_size=64, quant=quant)
     z = torch.randn(64, 100, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
     svc.render(z)  # eager, then the capture
     seen = []
