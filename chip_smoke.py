@@ -53,6 +53,8 @@ rates, traces and the per-layer metrics are the benchmark's
    bound, the plain route and one ``torch.sum``); ``phase_timing`` also
    times the fine-tune's largest BN map and holds the kernel within one
    bf16 ulp of its plain version at each shape it times;
+   ``phase_bwd_timing`` (the fine-tune's BN + ReLU backward kernels at
+   three of its maps against their bound and the plain backward);
    ``phase_bn_relu_train``: the fine-tune's BN + ReLU (forward and
    backward) against its plain version at three of its maps, bf16;
 8. one full-width train step (DCGAN and CGAN with K = 100, faithful and
@@ -257,6 +259,10 @@ def eager_route(obj, attr: str = "program"):
 # (``check_moments``), children's included: the kernels line sums them, so
 # ``phase_moments``' own calls are not among them.
 MOMENTS_ON_PATHS = []
+# The BN + ReLU backward's launches of every path that checked them against
+# its normalize launches (``check_bwd``): the kernels line sums them, so
+# ``phase_bwd_timing``' own calls are not among them.
+BWD_ON_PATHS = []
 # The moments kernels' launches inside int8 calibrations since the counters
 # were zeroed (``count_calibrations``).
 CALIBRATION_MOMENTS = [0]
@@ -289,11 +295,12 @@ def count_calibrations() -> None:
 
 
 def zero_launches() -> None:
-    """Zero both kernel counters: the normalize kernel's (``LAUNCHES``) and
-    the BN statistics' moments kernels' (``MOMENTS_LAUNCHES``)."""
+    """Zero the kernel counters: the normalize kernel's (``LAUNCHES``), the
+    BN statistics' moments kernels' (``MOMENTS_LAUNCHES``) and the BN + ReLU
+    backward's (``BWD_LAUNCHES``)."""
     from jckx_torch.kernels import fused_bn_act as fba
 
-    fba.LAUNCHES = fba.MOMENTS_LAUNCHES = CALIBRATION_MOMENTS[0] = 0
+    fba.LAUNCHES = fba.MOMENTS_LAUNCHES = fba.BWD_LAUNCHES = CALIBRATION_MOMENTS[0] = 0
 
 
 def launch_counts() -> tuple:
@@ -317,6 +324,17 @@ def check_moments(what: str, launches: int, moments: int = None, per: int = 2) -
                                f"launches, want {per * launches}")
     MOMENTS_ON_PATHS.append(m)
     return m
+
+
+def check_bwd(what: str, launches: int, bwd: int) -> int:
+    """A path's BN + ReLU backward launches against its normalize launches:
+    three each on the card (the sums, their combine, dx) where every
+    launch was a ``bn_relu_train`` that took a gradient, as each step of
+    the fine-tune does. The count joins the kernels line's. → it."""
+    check(bwd == 3 * launches, f"{what}: {bwd} backward-kernel launches for {launches} "
+                               f"normalize launches, want {3 * launches}")
+    BWD_ON_PATHS.append(bwd)
+    return bwd
 
 
 @contextlib.contextmanager
@@ -621,6 +639,47 @@ def phase_moments(dev, card: str) -> dict:
           f"({100 * out['bound_ms'] / out['ms']:.1f} %), plain {out['plain_ms']:.5f} ms, "
           f"torch.sum {out['library_ms']:.5f} ms   [{card}]")
     return out
+
+
+def phase_bwd_timing(dev, card: str) -> dict:
+    """The fine-tune's BN + ReLU backward at ``FT_BN_SHAPES`` (bs128, 299²,
+    bf16, a channels_last gradient): its kernels' device time (the sums
+    with their combine, and dx) against the bound (x and the gradient read
+    once, dx written once, at 3.35 TB/s), and the plain backward's
+    (``bn_relu_bwd_sums_plain`` + ``bn_relu_bwd_dx_plain``, the route it
+    replaced). → the largest map's (the first) times."""
+    import torch
+
+    from jckx_torch.kernels import fused_bn_act as fba
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    rows_out = []
+    for c, side in FT_BN_SHAPES:
+        rows = FT_BATCH * side * side
+
+        def make():
+            x, grad = ((torch.randn(FT_BATCH, c, side, side, generator=g, device=dev) * 2 + 0.5)
+                       .to(torch.bfloat16, memory_format=torch.channels_last) for _ in range(2))
+            return x, grad, *(torch.randn(c, generator=g, device=dev) for _ in range(5))
+
+        args = rotation(make, 2 * rows * c * 2)
+        sums = device_ms(lambda x, gr, a, sh, *_: fba.bn_relu_bwd_sums(x, gr, a, sh), args)
+        dx = device_ms(fba.bn_relu_bwd_dx, args)
+        plain = device_ms(lambda x, gr, a, sh, m, g1, k: (
+            fba.bn_relu_bwd_sums_plain(x, gr, a, sh),
+            fba.bn_relu_bwd_dx_plain(x, gr, a, sh, m, g1, k)), args)
+        bound = 3 * rows * c * 2 / HBM_BYTES_PER_S * 1e3
+        rows_out.append({"layer": f"{side}x{side}x{c}", "batch": FT_BATCH, "rows": rows, "C": c,
+                         "ms": sums + dx, "sums_ms": sums, "dx_ms": dx, "bound_ms": bound,
+                         "plain_ms": plain})
+        print(f"  BN + ReLU backward {side:>3}x{side:<3}x{c:<3} bs{FT_BATCH} kernels "
+              f"{(sums + dx) * 1e3:8.2f} us (sums {sums * 1e3:.2f}, dx {dx * 1e3:.2f})  bound "
+              f"{bound * 1e3:6.2f} us ({100 * bound / (sums + dx):5.1f} %)  plain "
+              f"{plain * 1e3:8.2f} us   [{card}]")
+        del args
+    print("bn_relu_bwd_layers " + json.dumps({"card": card, "dtype": "bfloat16",
+                                              "layers": rows_out}))
+    return rows_out[0]
 
 
 def _addcmul_relu(x2d, inv, shift):
@@ -1455,15 +1514,16 @@ def phase_bn_relu_train(dev) -> None:
     """``ops/norm.bn_relu_train`` (the kernel's forward, the hand-written
     backward) against ``bn_relu_train_plain`` (autograd through plain ops),
     both on the card, bf16, at ``FT_BN_SHAPES`` (bs128, 299²): one
-    normalize launch and no moments launch; ``out`` bit-identical to the
-    plain route rounded once; against the plain route as jckx rounds it
-    (whose ReLU mask the backward recomputes) the statistics within 1e-5
-    relative, dx within one bf16 ulp plus 1e-3 of its largest magnitude
-    (both round an f32 dx to bf16; their f32 sums differ in order), dgamma
-    / dbeta within 1e-3 of their largest magnitude (sums of up to 2.8 M
-    products in another order)."""
+    normalize launch, no moments launch and three of the backward's
+    kernels; ``out`` bit-identical to the plain route rounded once; against
+    that route (whose ReLU mask, rounded once, the backward's kernels
+    recompute) the statistics within 1e-5 relative, dx within one bf16 ulp
+    plus 1e-3 of its largest magnitude (both round an f32 dx to bf16; their
+    f32 sums differ in order), dgamma / dbeta within 1e-3 of their largest
+    magnitude (sums of up to 2.8 M products in another order)."""
     import torch
 
+    from jckx_torch.kernels import fused_bn_act as fba
     from jckx_torch.ops.norm import bn_relu_train, bn_relu_train_plain
 
     g = torch.Generator(device=dev).manual_seed(3)
@@ -1474,20 +1534,21 @@ def phase_bn_relu_train(dev) -> None:
         bias = torch.randn(c, generator=g, device=dev)
         dout = torch.randn(FT_BATCH, c, side, side, generator=g, device=dev).contiguous(
             memory_format=torch.channels_last)
-        before = launch_counts()
+        before, bwd = launch_counts(), fba.BWD_LAUNCHES
         got = _bn_relu_grads(bn_relu_train, x, scale, bias, dout)
         torch.cuda.synchronize()
         check(launch_counts() == (before[0] + 1, before[1]),
-              "bn_relu_train did not launch the normalize kernel once and the moments kernels never")
-        with torch.no_grad():
-            once = bn_relu_train_plain(x, scale, bias, one_rounding=True)[0]
-        check(torch.equal(got[0], once),
+              "bn_relu_train did not launch the normalize kernel once and the moments kernels "
+              "never")
+        check_bwd(f"bn_relu_train at {FT_BATCH}x{c}x{side}x{side}", 1, fba.BWD_LAUNCHES - bwd)
+        # the backward's kernels recompute the ReLU mask as the forward kernel
+        # rounds it, once: the once-rounded plain route has the same mask
+        plain = _bn_relu_grads(lambda *a: bn_relu_train_plain(*a, one_rounding=True), x, scale,
+                               bias, dout)
+        check(torch.equal(got[0], plain[0]),
               f"bn_relu_train's out at {FT_BATCH}x{c}x{side}x{side} differs from the once-rounded "
               f"plain route")
         check(got[0].is_contiguous(memory_format=torch.channels_last), "out not channels_last")
-        # the backward recomputes the ReLU mask as x·a + sh > 0 rounded twice, as
-        # jckx's does: the twice-rounded plain route has the same mask
-        plain = _bn_relu_grads(bn_relu_train_plain, x, scale, bias, dout)
         gaps = {}
         for name, a, b in zip(("mean", "var", "dx", "dgamma", "dbeta"), got[1:], plain[1:]):
             a, b = a.float(), b.float()
@@ -1501,7 +1562,7 @@ def phase_bn_relu_train(dev) -> None:
         print(f"bn_relu_train at {FT_BATCH}x{c}x{side}x{side} bf16 on the card: 1 launch; out "
               f"bit-identical to the once-rounded plain route; relative gaps to the plain route "
               + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items()))
-        del x, dout, got, once, plain, dx, ref, m, ulp
+        del x, dout, got, plain, dx, ref, m, ulp
 
 
 def _flat_deltas(before: dict, after: dict) -> dict:
@@ -1522,6 +1583,7 @@ def phase_finetune_vs_cpu(dev) -> None:
     import numpy as np
     import torch
 
+    from jckx_torch.kernels import fused_bn_act as fba
     from jckx_torch.metrics import inception_v3 as tiv
     from jckx_torch.metrics.inception_train import draw_step, make_optimizer, make_train_step
 
@@ -1543,7 +1605,7 @@ def phase_finetune_vs_cpu(dev) -> None:
         net = net.to(device)
         step = make_train_step(net, make_optimizer(net, 0.1), torch.float32, FT_SIZE)
         before_flat = tiv.to_jckx_flat(net)
-        before = launch_counts()
+        before, bwd = launch_counts(), fba.BWD_LAUNCHES
         loss, acc = step(data.to(device), labels.to(device), idx.to(device),
                          type(draws)(type(draws.crops)(*(t.to(device) for t in draws.crops)),
                                      draws.keep.to(device)))
@@ -1552,6 +1614,7 @@ def phase_finetune_vs_cpu(dev) -> None:
         check(launch_counts() == (before[0] + want, before[1]),
               f"the fine-tune step on {device} launched {launch_counts()} from {before}, want "
               f"{want} normalize launches and no moments kernel")
+        check_bwd(f"the fine-tune step on {device}", want, fba.BWD_LAUNCHES - bwd)
         out.append((loss, float(acc), before_flat, tiv.to_jckx_flat(net)))
     (lc, ac, b0, pc), (_, _, b1, pp), (lg, ag, _, pg) = out
     check(math.isfinite(lg) and abs(lg - lc) <= 1e-3, f"fine-tune loss card {lg} vs CPU {lc}")
@@ -1571,7 +1634,8 @@ def phase_finetune_vs_cpu(dev) -> None:
           f"{gaps[worst]:.3g} of the CPU's in norm at worst ({worst}; <= 0.1), median "
           f"{statistics.median(gaps.values()):.3g} (the CPU with its weights perturbed by 1e-7 "
           f"relative: at worst {max(floor):.3g}, median {statistics.median(floor):.3g}); running "
-          f"statistics {stat_gap:.3g} (<= 1e-3); {FT_CONVS} kernel launches on the card")
+          f"statistics {stat_gap:.3g} (<= 1e-3); {FT_CONVS} kernel launches and {3 * FT_CONVS} "
+          f"of the backward's on the card, none on the CPU")
 
 
 def phase_finetune(ctr, tmp: str) -> int:
@@ -1594,7 +1658,7 @@ def phase_finetune(ctr, tmp: str) -> int:
             "--save_dir", save, "--data_dir", os.path.join(tmp, "data")]
     zero_launches()
     run = train(get_args(argv))
-    launches = fba.LAUNCHES
+    launches, bwd = fba.LAUNCHES, fba.BWD_LAUNCHES
     MainLogger.reset()
     steps = sum(e["steps"] for e in run.epochs)
     check(steps == 16 and [e["epoch"] for e in run.epochs] == [0, 1],
@@ -1603,6 +1667,7 @@ def phase_finetune(ctr, tmp: str) -> int:
           f"{launches} kernel launches over {steps} fine-tune steps and 2 evals; want "
           f"{FT_CONVS} per step and none from the evals")
     check_moments("the fine-tune's steps and evals", launches, per=0)
+    check_bwd("the fine-tune's steps and evals", launches, bwd)
     check(all(math.isfinite(e["train_loss"]) and math.isfinite(e["loss"]) for e in run.epochs),
           f"fine-tune losses not finite: {run.epochs}")
     wrote = {f for e in run.epochs for f in e["written"]}
@@ -1615,7 +1680,7 @@ def phase_finetune(ctr, tmp: str) -> int:
     check(side["epochs_run"] == 2 and side["batch_size"] == FT_BATCH, f"summary {side}")
     print(f"fine-tune through python -m jckx_torch finetune's train(): 2 epochs x 8 steps at "
           f"bs{FT_BATCH}, {FT_SIZE}², bf16: {launches} kernel launches = {FT_CONVS} x {steps} "
-          f"steps, 0 from the evals; "
+          f"steps, 0 from the evals, and {bwd} of the backward's; "
           + "; ".join(f"epoch {e['epoch']}: train loss {e['train_loss']:.4f}, valid top1 "
                       f"{e['top1']:.4f} loss {e['loss']:.4f}, {len(e['written'])} files written"
                       for e in run.epochs))
@@ -2692,11 +2757,11 @@ def _mesh_graph_finetune(mesh, world: str, dev) -> int:
     with _deterministic_cudnn():
         net_e, step_e = fresh()
         gen = torch.Generator(device=dev).manual_seed(7)
-        snap, before = mesh.stats.snapshot(), fba.LAUNCHES
+        snap, before, bwd = mesh.stats.snapshot(), fba.LAUNCHES, fba.BWD_LAUNCHES
         want = torch.stack([torch.stack(step_e(data, labels, order[i],
                                                draw_step(gen, FT_BATCH, dev))) for i in range(9)])
         torch.cuda.synchronize()
-        eager_launches = fba.LAUNCHES - before
+        eager_launches, eager_bwd = fba.LAUNCHES - before, fba.BWD_LAUNCHES - bwd
         per_step = {k: (c // 9, b // 9, r) for k, (c, b, r) in
                     _stats_since(mesh.stats, snap).items()}
         want_w = tiv.to_jckx_flat(net_e)
@@ -2705,14 +2770,16 @@ def _mesh_graph_finetune(mesh, world: str, dev) -> int:
         net, step = fresh()
         ss = make_superstep(step, data, labels, CudaGraph, mesh)
         gen = torch.Generator(device=dev).manual_seed(7)
-        before = fba.LAUNCHES
+        before, bwd = fba.LAUNCHES, fba.BWD_LAUNCHES
         got = [ss.replay(1, feed(gen, 0))]
         snap = mesh.stats.snapshot()
         with _no_host_sync():
             got.append(ss.replay(8, feed(gen, 1)))
         torch.cuda.synchronize()
         replayed = _stats_since(mesh.stats, snap)
-        graph_launches = fba.LAUNCHES - before
+        graph_launches, graph_bwd = fba.LAUNCHES - before, fba.BWD_LAUNCHES - bwd
+    check_bwd(f"fine-tune over the NCCL {world}, eager", eager_launches, eager_bwd)
+    check_bwd(f"fine-tune over the NCCL {world}, replayed", graph_launches, graph_bwd)
     check(eager_launches == graph_launches == 9 * FT_CONVS and ss.launches == FT_CONVS,
           f"fine-tune over the NCCL {world}: launches eager {eager_launches}, graph "
           f"{graph_launches}; want {9 * FT_CONVS}")
@@ -3405,6 +3472,7 @@ def main() -> None:
     lap("build, serving, HTTP, export, tools, mesh serving")
     t = phase_timing(dev, card)
     mt = phase_moments(dev, card)
+    bt = phase_bwd_timing(dev, card)
     phase_bn_relu_train(dev)
     phase_train_vs_cpu(dev)
     phase_train_vs_cpu(dev, conditional=True)
@@ -3447,6 +3515,8 @@ def main() -> None:
         lap("phase_mesh, phase_mesh_graph, phase_mesh_model")
         phase_plan(tmp, dev)
         lap("phase_plan")
+    from jckx_torch.kernels import fused_bn_act as fba
+
     print(json.dumps({"kernels": [{
         "name": "fused_bn_act", "route": "cuda",
         "source": "jckx_torch/kernels/csrc/fused_bn_act.cu",
@@ -3463,6 +3533,13 @@ def main() -> None:
         "max_rel_err_f64": mt["max_rel_err_f64"],
         "ms": mt["ms"], "plain_ms": mt["plain_ms"], "bound_ms": mt["bound_ms"], "bound_by": "bytes",
         "library_ms": mt["library_ms"],
+    }, {
+        "name": "bn_relu_bwd", "route": "cuda",
+        "source": "jckx_torch/kernels/csrc/bn_relu_bwd.cu",
+        "replaces": "none: jckx's bn_relu_train VJP is jnp (jckx/ops/norm.py:134-156)",
+        "launches": sum(BWD_ON_PATHS),
+        "map": bt["layer"], "ms": bt["ms"], "plain_ms": bt["plain_ms"],
+        "bound_ms": bt["bound_ms"], "bound_by": "bytes",
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))

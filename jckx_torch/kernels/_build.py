@@ -2,8 +2,12 @@
 
 Each ``csrc/<name>.cu`` exports a plain ``extern "C"`` entry and compiles
 on its own into ``build/lib<name>-<hash>.so`` beside this file (listed in
-``.gitignore``), at first use. The hash covers the source and the flags,
-so an edited source builds anew and a stale library is never loaded.
+``.gitignore``). The first use of any of them builds every source that
+has no library yet, one ``nvcc`` each, all started together, so a process
+waits for one build however many kernels it goes on to launch (the
+fine-tune launches the normalize kernel in its forward and the backward's
+kernels after it). The hash covers the source, the headers beside it
+(``csrc/*.cuh``) and the flags, so an edited source builds anew and a stale library is never loaded.
 The sources include no PyTorch header: a build takes seconds, where
 ``torch.utils.cpp_extension.load`` takes minutes. Same pattern as the
 JAX package's native IO library (``native/`` + ``jckx/data/native_io.py``),
@@ -49,8 +53,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the source and every header beside it, which a source may include
+    for f in [name + ".cu"] + sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh")):
+        with open(os.path.join(CSRC_DIR, f), "rb") as src:
+            digest.update(src.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -86,9 +93,10 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu``, building it first if needed
-    (one build at a time in this process)."""
+    """The built library of ``csrc/<name>.cu``, first building every source
+    that has no library yet, in one ``build`` (one build at a time in this
+    process)."""
     with _load_lock:
         if name not in _loaded:
-            _loaded[name] = ctypes.CDLL(build([name])[name])
+            _loaded[name] = ctypes.CDLL(build()[name])
         return _loaded[name]

@@ -55,17 +55,18 @@
 
 #include <type_traits>
 
+#include "_bn_sums.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using bn_sums::kBF16;
+using bn_sums::kCombineCols;
+using bn_sums::kThreads;
+using bn_sums::Plan;
+
 constexpr int kRowThreads = 32;  // most threads that span one row's channels in a block
 constexpr int kUnroll = 8;       // loads in flight per thread
 constexpr int kMinLoads = 8;     // fewest loads per thread before another row block
-constexpr int kCombineCols = 8;  // the combine: 8 channels x 32 lanes a block
-constexpr int kCombineLanes = kThreads / kCombineCols;
-constexpr int kCombineUnroll = 4;
-
-enum DType : int { kF32 = 0, kBF16 = 1 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -157,82 +158,11 @@ bn_moments_partial(const T* __restrict__ x, float* __restrict__ ws, int64_t rows
   }
 }
 
-// out[k, c] = sum over b of ws[b, k, c] in f64, rounded once, b in a fixed
-// order: lane l of a block adds b = l, l + 32, ... (4 loads in flight);
-// then one thread a channel and moment adds the 32 lanes in order.
+// The partials' combine (_bn_sums.cuh) under this kernel's name.
 __global__ void __launch_bounds__(kThreads)
 bn_moments_combine(const float* __restrict__ ws, float* __restrict__ out, int64_t blocks,
                    int64_t C) {
-  __shared__ double sh[2][kCombineLanes][kCombineCols];
-  const int col = threadIdx.x % kCombineCols;
-  const int lane = threadIdx.x / kCombineCols;
-  const int64_t c = (int64_t)blockIdx.x * kCombineCols + col;
-  double a = 0.0, b = 0.0;
-  if (c < C) {
-    const float* w = ws + c;
-    int64_t i = lane;
-    for (; i + (kCombineUnroll - 1) * kCombineLanes < blocks; i += kCombineUnroll * kCombineLanes) {
-      float va[kCombineUnroll], vb[kCombineUnroll];
-#pragma unroll
-      for (int u = 0; u < kCombineUnroll; ++u) {
-        va[u] = w[(i + u * kCombineLanes) * 2 * C];
-        vb[u] = w[(i + u * kCombineLanes) * 2 * C + C];
-      }
-#pragma unroll
-      for (int u = 0; u < kCombineUnroll; ++u) {
-        a += va[u];
-        b += vb[u];
-      }
-    }
-    for (; i < blocks; i += kCombineLanes) {
-      a += w[i * 2 * C];
-      b += w[i * 2 * C + C];
-    }
-  }
-  sh[0][lane][col] = a;
-  sh[1][lane][col] = b;
-  __syncthreads();
-  if (threadIdx.x < 2 * kCombineCols) {
-    const int k = threadIdx.x / kCombineCols;
-    const int j = threadIdx.x % kCombineCols;
-    const int64_t cj = (int64_t)blockIdx.x * kCombineCols + j;
-    double acc = 0.0;
-    for (int l = 0; l < kCombineLanes; ++l) acc += sh[k][l][j];
-    if (cj < C) out[k * C + cj] = (float)acc;
-  }
-}
-
-struct Plan {
-  int vec;              // channels a thread loads at once: 16 bytes' worth, or 1
-  int tpr;              // threads across a row
-  int rpi;              // rows a block takes at once
-  int64_t col_blocks;
-  int64_t row_blocks;
-  int64_t chunk;        // rows a row block sums
-};
-
-// max_blocks: the most blocks of the partial kernel's grid, and the rows of
-// the workspace (the wrapper gives 2 an SM: one wave).
-cudaError_t make_plan(int64_t rows, int64_t C, int dtype, bool aligned, int64_t max_blocks,
-                      Plan* p) {
-  if (rows <= 0 || C <= 0 || max_blocks <= 0 || (dtype != kF32 && dtype != kBF16)) {
-    return cudaErrorInvalidValue;
-  }
-  const int vec = dtype == kBF16 ? 8 : 4;
-  p->vec = aligned && C % vec == 0 ? vec : 1;
-  const int64_t cv = C / p->vec;
-  p->tpr = (int)(cv < kRowThreads ? cv : kRowThreads);
-  p->rpi = kThreads / p->tpr;
-  p->col_blocks = (cv + p->tpr - 1) / p->tpr;
-  if (p->col_blocks > 65535) return cudaErrorInvalidValue;
-  const int64_t passes = (rows + p->rpi - 1) / p->rpi;  // block-wide loads over all rows
-  int64_t rb = (passes + kMinLoads - 1) / kMinLoads;
-  int64_t cap = max_blocks / p->col_blocks;
-  if (cap < 1) cap = 1;
-  if (rb > cap) rb = cap;
-  p->chunk = (passes + rb - 1) / rb * p->rpi;
-  p->row_blocks = (rows + p->chunk - 1) / p->chunk;
-  return cudaSuccess;
+  bn_sums::combine(ws, out, blocks, C);
 }
 
 template <typename T>
@@ -262,7 +192,10 @@ extern "C" int jckx_bn_moments(const void* x, void* ws, void* out, int64_t rows,
                                int dtype, int64_t max_blocks, void* stream) {
   Plan p;
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  cudaError_t err = make_plan(rows, C, dtype, aligned, max_blocks, &p);
+  // max_blocks: the most blocks of the partial kernel's grid, and the rows of
+  // the workspace (the wrapper gives 2 an SM: one wave)
+  cudaError_t err = bn_sums::make_plan(rows, C, C, dtype, aligned, max_blocks, kRowThreads,
+                                       kMinLoads, &p);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);

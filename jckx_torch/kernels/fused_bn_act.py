@@ -34,6 +34,18 @@ at 3.35 TB/s.
   calls wherever x needs no gradient: in ``bn_act``'s kernel route, and in
   ``bn_act_plain`` / ``bn_act_one_rounding`` under ``no_grad``, so all
   three take the same sums.
+- ``bn_relu_bwd_sums`` / ``bn_relu_bwd_dx``: the wrappers of the
+  fine-tune's BN + ReLU backward (``ops/norm.bn_relu_train``), two more
+  hand-written kernels (``csrc/bn_relu_bwd.cu``) that replace no Pallas
+  kernel: jckx's VJP is plain jnp, which XLA fuses into two sweeps, where
+  the plain torch composition takes about fifteen full-size f32 passes. The
+  first reads x and the incoming gradient once and writes this rank's
+  (2, C) f32 sums (Σdz, Σdz·x), the second reads them again and writes dx;
+  sync-BN's all-reduce of the sums runs between them. Their plain versions
+  (``bn_relu_bwd_sums_plain``, ``bn_relu_bwd_dx_plain``) are the port's
+  earlier backward, op for op, and the registered operators
+  ``jckx_torch::bn_relu_bwd_sums`` / ``jckx_torch::bn_relu_bwd_dx`` take
+  them on a CPU tensor, bit for bit.
 - ``bn_act``: routes by grad mode (below).
 
 Activations are either ``(rows, C)`` or NCHW-logical tensors in
@@ -85,19 +97,29 @@ from jckx_torch.kernels import _build
 # launches its kernels without this wrapper: utils/graphs.py adds the warm
 # call's counts per replay (``add_launches``). LAUNCHES counts the
 # normalize kernel alone, MOMENTS_LAUNCHES the moments kernels (two
-# launches a ``bn_moments``: the partial sums, then their combine).
+# launches a ``bn_moments``: the partial sums, then their combine),
+# BWD_LAUNCHES the BN + ReLU backward's (three a backward: the partial
+# sums, their combine, dx; 94 × 3 a fine-tune step, 0 elsewhere).
 LAUNCHES = 0
 MOMENTS_LAUNCHES = 0
+BWD_LAUNCHES = 0
 _LAUNCHES_LOCK = threading.Lock()  # a local mesh launches from one thread per device
 
 
-def add_launches(n: int, moments: int = 0) -> None:
-    """Add ``n`` to ``LAUNCHES`` and ``moments`` to ``MOMENTS_LAUNCHES``
-    (negative: take back what a capture counted)."""
-    global LAUNCHES, MOMENTS_LAUNCHES
+def add_launches(n: int, moments: int = 0, bwd: int = 0) -> None:
+    """Add ``n`` to ``LAUNCHES``, ``moments`` to ``MOMENTS_LAUNCHES`` and
+    ``bwd`` to ``BWD_LAUNCHES`` (negative: take back what a capture
+    counted)."""
+    global LAUNCHES, MOMENTS_LAUNCHES, BWD_LAUNCHES
     with _LAUNCHES_LOCK:
         LAUNCHES += n
         MOMENTS_LAUNCHES += moments
+        BWD_LAUNCHES += bwd
+
+
+def launch_counts() -> tuple:
+    """(``LAUNCHES``, ``MOMENTS_LAUNCHES``, ``BWD_LAUNCHES``): ``add_launches``'s order."""
+    return LAUNCHES, MOMENTS_LAUNCHES, BWD_LAUNCHES
 
 
 _ACTS = {"none": 0, "relu": 1, "leaky_relu": 2}
@@ -118,6 +140,40 @@ def _unrows(y2d: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
         return y2d
     n, c, h, w = like.shape
     return y2d.reshape(n, h, w, c).permute(0, 3, 1, 2)
+
+
+def _axes(x: torch.Tensor) -> tuple:
+    """The axes that hold x's rows: (0, 2, 3) of NCHW, 0 of (rows, C)."""
+    return (0, 2, 3) if x.dim() == 4 else (0,)
+
+
+def _per_channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(C,) → broadcastable against x (NCHW or (rows, C))."""
+    return v[:, None, None] if x.dim() == 4 else v
+
+
+def _gradient_rows(g: torch.Tensor) -> torch.Tensor:
+    """The (rows, C) view of a gradient (NCHW or (rows, C)) whose channels
+    are adjacent and whose rows are equally spaced: a channels_last one, or
+    a channel slice of one, as ``torch.cat``'s backward hands it on (its
+    rows then lie further apart than C). Any other layout: the rows of its
+    channels_last copy."""
+    r = g.permute(0, 2, 3, 1) if g.dim() == 4 else g
+    chans = r.shape[-1]
+    step, span, even = chans, None, r.stride(-1) == 1 or chans == 1
+    for size, stride in zip(reversed(r.shape[:-1]), reversed(r.stride()[:-1])):
+        if size == 1:
+            continue
+        if span is None:
+            step = stride
+        elif stride != span:
+            even = False
+        span = stride * size
+    if even and step >= chans:
+        return r.as_strided((r.numel() // chans, chans), (step, 1))
+    if g.dim() == 4:
+        return _rows(g.contiguous(memory_format=torch.channels_last))
+    return g.contiguous()
 
 
 def bn_moments_plain(x2d: torch.Tensor) -> torch.Tensor:
@@ -243,9 +299,10 @@ def _moments_lib():
 
 
 @functools.lru_cache(maxsize=None)
-def _moments_blocks(index: int) -> int:
-    """The moments grid's most blocks on card ``index``, 2 an SM (one wave),
-    and so the rows of its workspace."""
+def _wave_blocks(index: int) -> int:
+    """The most blocks of the moments' and the backward's grids on card
+    ``index``, 2 an SM (one wave), and so the rows of their sums'
+    workspaces."""
     return 2 * torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -262,7 +319,7 @@ def bn_moments(x2d: torch.Tensor) -> torch.Tensor:
     rows, chans = x2d.shape
     lib = _moments_lib()
     with torch.cuda.device(x2d.device):
-        blocks = _moments_blocks(x2d.device.index)
+        blocks = _wave_blocks(x2d.device.index)
         ws = torch.empty((blocks, 2, chans), dtype=torch.float32, device=x2d.device)
         out = torch.empty((2, chans), dtype=torch.float32, device=x2d.device)
         rc = lib.jckx_bn_moments(x2d.data_ptr(), ws.data_ptr(), out.data_ptr(), rows, chans,
@@ -286,6 +343,136 @@ def bn_moments_op(x2d: torch.Tensor) -> torch.Tensor:
 @bn_moments_op.register_fake
 def _bn_moments_fake(x2d):
     return x2d.new_empty((2, x2d.shape[1]), dtype=torch.float32)
+
+
+def _relu_grad_plain(x, dout, a, sh):
+    """(x in f32, dz): dout in f32 where ``x · a + sh`` (a multiply and an
+    add, each rounded, as jckx's mask) is positive, else 0."""
+    xf = x.float()
+    pos = xf * _per_channel(a, x) + _per_channel(sh, x) > 0.0
+    return xf, torch.where(pos, dout.float(), 0.0)
+
+
+def bn_relu_bwd_sums_plain(x, dout, a, sh):
+    """The backward's per-channel (Σdz, Σdz·x) of x (NCHW or (rows, C)) and
+    its gradient ``dout``, as one (2, C) f32 tensor: the sums kernels'
+    plain version."""
+    xf, dz = _relu_grad_plain(x, dout, a, sh)
+    axes = _axes(x)
+    return torch.stack([dz.sum(axes), (dz * xf).sum(axes)])
+
+
+def bn_relu_bwd_dx_plain(x, dout, a, sh, mean, g1, k):
+    """``a · (dz − g1 − (x − mean) · k)`` in f32, cast to x's dtype (jckx's
+    dx with g1 = dbeta / n and k = inv · dgamma / n): the dx kernel's plain
+    version."""
+    xf, dz = _relu_grad_plain(x, dout, a, sh)
+    pc = functools.partial(_per_channel, x=x)
+    return (pc(a) * (dz - pc(g1) - (xf - pc(mean)) * pc(k))).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib():
+    lib = _build.load("bn_relu_bwd")
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.jckx_bn_relu_bwd_sums.argtypes = [p, p, i64, p, p, p, p, i64, i64, ctypes.c_int, i64, p]
+    lib.jckx_bn_relu_bwd_dx.argtypes = [p, p, i64, p, p, p, p, p, p, i64, i64, ctypes.c_int,
+                                        i64, p]
+    lib.jckx_bn_relu_bwd_sums.restype = lib.jckx_bn_relu_bwd_dx.restype = ctypes.c_int
+    return lib
+
+
+def _bwd_operands(x, dout, vectors):
+    """The kernels' operands, checked: (x's rows, dout's rows, C). x is a
+    CUDA channels_last NCHW or contiguous (rows, C) tensor in bf16 or f32,
+    ``dout`` its gradient in the same dtype (any layout: ``_gradient_rows``),
+    ``vectors`` contiguous f32 (C,) tensors on its device. Raises on
+    anything else."""
+    if x.dtype not in _DTYPES or dout.dtype != x.dtype or dout.shape != x.shape:
+        raise ValueError(f"the BN + ReLU backward takes x and dout of one shape in float32 or "
+                         f"bfloat16, got {x.dtype} {tuple(x.shape)} and {dout.dtype} "
+                         f"{tuple(dout.shape)}")
+    dense = x.is_contiguous(memory_format=torch.channels_last if x.dim() == 4
+                            else torch.contiguous_format)
+    if x.dim() not in (2, 4) or not dense or x.numel() == 0:
+        raise ValueError("the BN + ReLU backward needs a non-empty channels_last NCHW or "
+                         "contiguous (rows, C) x")
+    x2d = _rows(x)
+    chans = x2d.shape[1]
+    for v in vectors:
+        if (v.dtype != torch.float32 or v.device != x.device or v.shape != (chans,)
+                or not v.is_contiguous()):
+            raise ValueError(f"per-channel vectors must be contiguous float32 ({chans},) "
+                             f"tensors on {x.device}")
+    if x.device.type != "cuda" or dout.device != x.device:
+        raise ValueError(f"the BN + ReLU backward launches CUDA kernels; x is on {x.device}, "
+                         f"dout on {dout.device}")
+    return x2d, _gradient_rows(dout), chans
+
+
+def bn_relu_bwd_sums(x, dout, a, sh):
+    """Launch the backward's sums kernels (``_bwd_operands`` says what they
+    take) → this rank's (2, C) f32 Σdz and Σdz·x, a new tensor."""
+    x2d, g2d, chans = _bwd_operands(x, dout, (a, sh))
+    with torch.cuda.device(x.device):
+        blocks = _wave_blocks(x.device.index)
+        ws = torch.empty((blocks, 2, chans), dtype=torch.float32, device=x.device)
+        out = torch.empty((2, chans), dtype=torch.float32, device=x.device)
+        rc = _bwd_lib().jckx_bn_relu_bwd_sums(
+            x2d.data_ptr(), g2d.data_ptr(), g2d.stride(0), a.data_ptr(), sh.data_ptr(),
+            ws.data_ptr(), out.data_ptr(), x2d.shape[0], chans, _DTYPES[x.dtype], blocks,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"jckx_bn_relu_bwd_sums failed with CUDA error {rc}")
+    add_launches(0, 0, 2)
+    return out
+
+
+def bn_relu_bwd_dx(x, dout, a, sh, mean, g1, k):
+    """Launch the backward's dx kernel (``_bwd_operands`` says what it
+    takes) → dx, a new tensor like x (channels_last where x is)."""
+    x2d, g2d, chans = _bwd_operands(x, dout, (a, sh, mean, g1, k))
+    dx = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = _bwd_lib().jckx_bn_relu_bwd_dx(
+            x2d.data_ptr(), g2d.data_ptr(), g2d.stride(0), a.data_ptr(), sh.data_ptr(),
+            mean.data_ptr(), g1.data_ptr(), k.data_ptr(), _rows(dx).data_ptr(), x2d.shape[0],
+            chans, _DTYPES[x.dtype], _wave_blocks(x.device.index),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"jckx_bn_relu_bwd_dx failed with CUDA error {rc}")
+    add_launches(0, 0, 1)
+    return dx
+
+
+@torch.library.custom_op("jckx_torch::bn_relu_bwd_sums", mutates_args=())
+def bn_relu_bwd_sums_op(x: torch.Tensor, dout: torch.Tensor, a: torch.Tensor,
+                        sh: torch.Tensor) -> torch.Tensor:
+    """``bn_relu_bwd_sums`` on a CUDA tensor, ``bn_relu_bwd_sums_plain`` on
+    a CPU one (the kernels have no CPU form)."""
+    if x.device.type == "cuda":
+        return bn_relu_bwd_sums(x, dout, a, sh)
+    return bn_relu_bwd_sums_plain(x, dout, a, sh)
+
+
+@bn_relu_bwd_sums_op.register_fake
+def _bn_relu_bwd_sums_fake(x, dout, a, sh):
+    return x.new_empty((2, a.shape[0]), dtype=torch.float32)
+
+
+@torch.library.custom_op("jckx_torch::bn_relu_bwd_dx", mutates_args=())
+def bn_relu_bwd_dx_op(x: torch.Tensor, dout: torch.Tensor, a: torch.Tensor, sh: torch.Tensor,
+                      mean: torch.Tensor, g1: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``bn_relu_bwd_dx`` on a CUDA tensor, ``bn_relu_bwd_dx_plain`` on a
+    CPU one (the kernel has no CPU form)."""
+    if x.device.type == "cuda":
+        return bn_relu_bwd_dx(x, dout, a, sh, mean, g1, k)
+    return bn_relu_bwd_dx_plain(x, dout, a, sh, mean, g1, k)
+
+
+@bn_relu_bwd_dx_op.register_fake
+def _bn_relu_bwd_dx_fake(x, dout, a, sh, mean, g1, k):
+    return torch.empty_like(x)
 
 
 @torch.library.custom_op("jckx_torch::normalize_act", mutates_args=())

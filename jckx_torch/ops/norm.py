@@ -18,11 +18,17 @@ kernel (one launch per call), on the CPU its plain version. Inside a
 grad-mode rule does not apply here. On the card an NCHW input that is not
 channels_last raises: its row view would be a copy.
 
-Backward, jckx's two passes (``:134-156``): the ReLU mask recomputed from
-x (nothing of size x is saved but x itself), ``dbeta = Σ dz`` and
-``Σ dz · x`` in one sweep, ``dgamma = inv · (Σ dz · x − mean · dbeta)``,
-and ``dx = a · (dz − dbeta / n − (x − mean) · inv · dgamma / n)``. Plain
-torch ops: jckx's VJP is plain jnp, not a Pallas kernel.
+Backward, jckx's two passes (``:134-156``), each a registered operator
+(``kernels/fused_bn_act.py``): ``jckx_torch::bn_relu_bwd_sums`` recomputes
+the ReLU mask from x (nothing of size x is saved but x itself) and takes
+``dbeta = Σ dz`` and ``Σ dz · x`` in one sweep; then, per channel,
+``dgamma = inv · (Σ dz · x − mean · dbeta)``; ``jckx_torch::bn_relu_bwd_dx``
+writes ``dx = a · (dz − dbeta / n − (x − mean) · inv · dgamma / n)``. On the
+card each is a hand-written kernel over x and the incoming gradient as they
+come (a channel slice of a concatenated gradient is read in place), whose
+mask is the forward kernel's, rounded once; on the CPU each is the plain
+torch composition (jckx's VJP is plain jnp, not a Pallas kernel), whose
+mask rounds the multiply and the add apart, as jckx's does.
 
 Over a mesh (``mesh``, ``parallel/mesh.py``; jckx's sync-BN under a
 sharded jit) the forward's sum and sum of squares are summed over the data
@@ -43,16 +49,9 @@ from __future__ import annotations
 
 import torch
 
-from jckx_torch.kernels.fused_bn_act import _rows, _unrows, normalize_act_op
-
-
-def _axes(x: torch.Tensor):
-    return (0, 2, 3) if x.dim() == 4 else (0,)
-
-
-def _per_channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """(C,) → broadcastable against x (NCHW or (rows, C))."""
-    return v[:, None, None] if x.dim() == 4 else v
+from jckx_torch.kernels.fused_bn_act import (_axes, _per_channel, _rows, _unrows,
+                                             bn_relu_bwd_dx_op, bn_relu_bwd_sums_op,
+                                             normalize_act_op)
 
 
 def _moments_affine(xf, scale, bias, eps, mesh=None, axis="data"):
@@ -87,25 +86,20 @@ class _BNReLUTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, _dmean, _dvar):
         x, a, sh, inv, mean = ctx.saved_tensors
-        axes = _axes(x)
         n = x.numel() // a.numel()
-        xf = x.float()
-        pos = xf * _per_channel(a, x) + _per_channel(sh, x) > 0.0
-        dz = torch.where(pos, dout.float(), 0.0)
-        sums = torch.stack([dz.sum(axes), (dz * xf).sum(axes)])  # this rank's Σdz, Σdz·x
+        sums = bn_relu_bwd_sums_op(x, dout, a, sh)  # this rank's Σdz, Σdz·x
         dbeta = sums[0]
         dgamma = inv * (sums[1] - mean * dbeta)
+        dbeta_all, dgamma_all = dbeta, dgamma
         if ctx.mesh is not None:
             # dx needs the global sums; dgamma / dbeta stay this rank's
             # share, which the gradient average over the ranks adds up
             sums = ctx.mesh.all_reduce(sums)
             n *= ctx.mesh.size
-        dbeta_all = sums[0]
-        dgamma_all = inv * (sums[1] - mean * dbeta_all)
-        dx = _per_channel(a, x) * (dz - _per_channel(dbeta_all / n, x)
-                                   - (xf - _per_channel(mean, x))
-                                   * _per_channel(inv * dgamma_all / n, x))
-        return dx.to(x.dtype), dgamma, dbeta, None, None
+            dbeta_all = sums[0]
+            dgamma_all = inv * (sums[1] - mean * dbeta_all)
+        dx = bn_relu_bwd_dx_op(x, dout, a, sh, mean, dbeta_all / n, inv * dgamma_all / n)
+        return dx, dgamma, dbeta, None, None
 
 
 def bn_relu_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-3,
@@ -119,9 +113,10 @@ def bn_relu_train_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor
                         eps: float = 1e-3, one_rounding: bool = False, mesh=None):
     """``bn_relu_train`` as plain torch ops that autograd differentiates
     (through the statistics); ``one_rounding`` takes the multiply-add in
-    f64, rounded once to f32. → (out, mean, biased_var)."""
+    f64, rounded once to f32 (and so its ReLU mask is the kernels'). →
+    (out, mean, biased_var)."""
     xf = x.float()  # one cast: autograd then sums x's gradient in f32 before rounding it
     mean, var, _, a, sh = _moments_affine(xf, scale, bias, eps, mesh)
     a, sh = _per_channel(a, x), _per_channel(sh, x)
-    z = (x.double() * a.double() + sh.double()).float() if one_rounding else xf * a + sh
+    z = (xf.double() * a.double() + sh.double()).float() if one_rounding else xf * a + sh
     return torch.relu(z).to(x.dtype), mean.detach(), var.detach()

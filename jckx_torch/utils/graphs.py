@@ -35,7 +35,7 @@ so a call is one graph launch with no Python op-by-op dispatch.
   hold it across replays.
 
 The kernel wrappers count their launches in Python
-(``kernels/fused_bn_act.LAUNCHES``, ``MOMENTS_LAUNCHES``), and the mesh its collectives
+(``kernels/fused_bn_act.LAUNCHES``, ``MOMENTS_LAUNCHES``, ``BWD_LAUNCHES``), and the mesh its collectives
 (``ProcessMesh.stats``), neither of which a replay runs. The warm call runs
 the program's Python, so its counts are the graph's: a capture takes back
 what it counted (it launches nothing) and every replay adds the warm
@@ -148,6 +148,7 @@ class Captured(NamedTuple):
     stats: object = None  # the mesh's CollectiveStats, or None
     collectives: tuple = ()  # the collectives of one call (stats.since's form): added per replay
     moments_launches: int = 0  # moments-kernel launches in one call: added per replay
+    bwd_launches: int = 0  # BN + ReLU backward launches in one call: added per replay
 
 
 def warm_and_capture(graph_cls: type, device: torch.device, warm: Callable[[], torch.Tensor],
@@ -163,33 +164,38 @@ def warm_and_capture(graph_cls: type, device: torch.device, warm: Callable[[], t
     with spans.span("graph.capture", 1):
         stats = getattr(mesh, "stats", None)
         graph = graph_cls(device)
-        before = (fused_bn_act.LAUNCHES, fused_bn_act.MOMENTS_LAUNCHES)
+        before = fused_bn_act.launch_counts()
         counted = stats.snapshot() if stats is not None else None
         y = graph.warm(warm)
-        launches = fused_bn_act.LAUNCHES - before[0]
-        moments = fused_bn_act.MOMENTS_LAUNCHES - before[1]
+        launches = _since(before)
         collectives = stats.since(counted) if stats is not None else ()
         output = torch.empty_like(y)
-        before = (fused_bn_act.LAUNCHES, fused_bn_act.MOMENTS_LAUNCHES)
+        before = fused_bn_act.launch_counts()
         counted = stats.snapshot() if stats is not None else None
         t0 = time.perf_counter()
         graph.capture(lambda: output.copy_(body()), pool)
         seconds = time.perf_counter() - t0
-        fused_bn_act.add_launches(before[0] - fused_bn_act.LAUNCHES,
-                                  before[1] - fused_bn_act.MOMENTS_LAUNCHES)
+        fused_bn_act.add_launches(*(-n for n in _since(before)))
         if stats is not None:
             stats.restore(counted)
-        return y, Captured(graph, output, launches, seconds, stats, collectives, moments)
+        return y, Captured(graph, output, launches[0], seconds, stats, collectives, launches[1],
+                           launches[2])
+
+
+def _since(before: tuple) -> tuple:
+    """The kernel launches counted since ``fused_bn_act.launch_counts()``
+    read ``before``, in its order."""
+    return tuple(now - then for now, then in zip(fused_bn_act.launch_counts(), before))
 
 
 def replay(cap: Captured) -> None:
     """One replay of ``cap``, its kernel launches and collectives counted
     as its warm call's."""
-    before = (fused_bn_act.LAUNCHES, fused_bn_act.MOMENTS_LAUNCHES)
+    before = fused_bn_act.launch_counts()
     counted = cap.stats.snapshot() if cap.stats is not None else None
     cap.graph.replay()
-    fused_bn_act.add_launches(before[0] + cap.launches - fused_bn_act.LAUNCHES,
-                              before[1] + cap.moments_launches - fused_bn_act.MOMENTS_LAUNCHES)
+    counts = (cap.launches, cap.moments_launches, cap.bwd_launches)
+    fused_bn_act.add_launches(*(want - n for want, n in zip(counts, _since(before))))
     if cap.stats is not None:
         cap.stats.restore(counted)
         cap.stats.add_replayed(cap.collectives)

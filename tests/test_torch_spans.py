@@ -294,3 +294,26 @@ def test_the_finetune_device_readers_on_synthetic_kernels():
                     SimpleNamespace(trace=Trace((0.0, 1.0)), facts=facts, counts={})):
         assert roof(nothing) is None and pool(nothing) is None
     assert roof(SimpleNamespace(trace=tr, facts={}, counts={})) is None
+
+
+def test_the_finetune_backward_reader_on_synthetic_kernels():
+    """``finetune.bn_bwd_roofline``: a step's two backwards (the sums, their
+    combine, dx each) against 1.5 × an average map's forward bytes each;
+    None without a kernel named ``bn_relu_bwd`` (the plain backward's
+    reductions and elementwise kernels)."""
+    ns = "void (anonymous namespace)::"
+    tr = _kernels((ns + "bn_relu_bwd_sums<__nv_bfloat16, 8>", 0.0, 40.0),
+                  (ns + "bn_relu_bwd_combine(float const*, float*, long, long)", 40.0, 5.0),
+                  (ns + "bn_relu_bwd_dx<__nv_bfloat16, 8>", 45.0, 55.0),
+                  ("sm90_xmma_dgrad_implicit_gemm", 100.0, 200.0),
+                  (ns + "bn_relu_bwd_sums<__nv_bfloat16, 8>", 300.0, 40.0),
+                  (ns + "bn_relu_bwd_combine(float const*, float*, long, long)", 340.0, 5.0),
+                  (ns + "bn_relu_bwd_dx<__nv_bfloat16, 8>", 345.0, 55.0))
+    facts = {"bn_act_bytes_per_step": 4.0e9, "bn_act_layers": 94}
+    read = core.reader("finetune.bn_bwd_roofline")
+    got = read(SimpleNamespace(trace=tr, facts=facts, counts={"steps": 1}))
+    assert got == pytest.approx(100.0 * 2 * 1.5 * 4.0e9 / 94 / PEAK_HBM_BYTES / 200e-6)
+    plain = _kernels(("reduce_kernel<512, 1>", 0.0, 10.0),
+                     ("elementwise_kernel<128, 2>", 10.0, 10.0))
+    assert read(SimpleNamespace(trace=plain, facts=facts, counts={})) is None
+    assert read(SimpleNamespace(trace=tr, facts={}, counts={})) is None
