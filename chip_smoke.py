@@ -55,6 +55,11 @@ rates, traces and the per-layer metrics are the benchmark's
    bf16 ulp of its plain version at each shape it times;
    ``phase_bwd_timing`` (the fine-tune's BN + ReLU backward kernels at
    three of its maps against their bound and the plain backward);
+   ``phase_biggan_kernels`` (BigGAN-128's conditional normalize at G's ten
+   conditional maps and its residual sum at the five sums, bs256 bf16:
+   bit for bit their once-rounded and plain versions, their times against
+   their bound and plain versions, and their launches in one served
+   BigGAN replay by the profiler: 10 and 5);
    ``phase_bn_relu_train``: the fine-tune's BN + ReLU (forward and
    backward) against its plain version at three of its maps, bf16;
 8. one full-width train step (DCGAN and CGAN with K = 100, faithful and
@@ -105,7 +110,8 @@ rates, traces and the per-layer metrics are the benchmark's
     pair's, the planned temporaries against a real step's, the f32 FLOPs
     against jckx's count;
 15. prints a ``{"kernels": [...]}`` line (each kernel's launches on the
-    paths above, its error, its times per G forward), then, last, the
+    paths above, BigGAN's two kernels' in one served replay, its error,
+    its times per G forward or BigGAN render), then, last, the
     ``{"ok": true, "device": {...}}`` line.
 
 Wherever a phase reads the normalize kernel's launches (``LAUNCHES``) it
@@ -680,6 +686,150 @@ def phase_bwd_timing(dev, card: str) -> dict:
     print("bn_relu_bwd_layers " + json.dumps({"card": card, "dtype": "bfloat16",
                                               "layers": rows_out}))
     return rows_out[0]
+
+
+# BigGAN-128's ten conditional BN maps at ch 96, (side, channels, up): each
+# block's two, the first writing its output upsampled x2; and its five
+# residual sums, (channels, side of the shortcut s), y twice as wide
+BIGGAN_BATCH = 256
+BIGGAN_CBN_MAPS = [(4, 1536, 2), (8, 1536, 1), (8, 1536, 2), (16, 768, 1), (16, 768, 2),
+                   (32, 384, 1), (32, 384, 2), (64, 192, 1), (64, 192, 2), (128, 96, 1)]
+BIGGAN_SUMS = [(1536, 4), (768, 8), (384, 16), (192, 32), (96, 64)]
+
+
+def biggan_replay_counts(dev) -> dict:
+    """One served BigGAN-128 replay (ch 96, bs256, bf16, the benchmark's
+    seeded weights written as a checkpoint): its kernels by name from the
+    profiler, the counters zeroed just before (a window that falls short, a
+    record the profiler dropped, is taken again, up to three times). → the
+    launches of the conditional normalize, the residual sum, the
+    per-channel normalize and the moments kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from jckx_torch.kernels import fused_bn_act as fba
+    from jckx_torch.serve import GeneratorService
+    from portbench.reference import biggan as ref
+
+    cfg = {"ch": 96, "image_size": 128, "channels": 3, "z_dim": 120, "z_chunks": 6,
+           "shared_dim": 128, "num_classes": 1000, "attention": 64, "bn_eps": 1e-5}
+    want = {"cbn_normalize": 10, "up2_add": 5, "bn_act": 1, "bn_moments": 22}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "biggan.pt")
+        ref.write_checkpoint(path, ref.make_weights(cfg, 11, dev))
+        svc = GeneratorService(path, batch_size=BIGGAN_BATCH)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    z = torch.randn(BIGGAN_BATCH, 120, generator=gen, device=dev)
+    labels = torch.randperm(1000, generator=gen, device=dev)[:BIGGAN_BATCH]
+    svc.render(z, labels)  # eager, then the capture
+    check(svc.program is not None, "the BigGAN service has no graphed program on the card")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        zero_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            svc.render(z, labels)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen = {word: sum(word in k for k in kernels) for word in want}
+        if seen == want:
+            break
+    print(f"one served BigGAN-128 bs{BIGGAN_BATCH} replay, by the profiler: {seen}; counters: "
+          f"normalize {fba.LAUNCHES}, moments {fba.MOMENTS_LAUNCHES}")
+    check(seen == want, f"a BigGAN replay launched {seen}, want {want}")
+    check((fba.LAUNCHES, fba.MOMENTS_LAUNCHES) == (1, 22),
+          f"a BigGAN replay counted {fba.LAUNCHES} normalize and {fba.MOMENTS_LAUNCHES} moments "
+          f"launches, want 1 and 22")
+    del svc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return seen
+
+
+def phase_biggan_kernels(dev, card: str) -> dict:
+    """BigGAN-128's two kernels at bs256 bf16: the conditional normalize
+    through ``cbn_act`` at G's ten conditional maps (up 1 and 2), bit for
+    bit ``cbn_act_one_rounding`` (the same statistics kernels' sums) and
+    channels_last, and the residual sum ``up2_add_`` at its five sums, bit
+    for bit ``up2_add_plain_``, each on its first timed input; per map the
+    kernel's device time (``cbn_normalize_act``, ``up2_add_``) beside its
+    bound at 3.35 TB/s (the conditional one: x read, y written up² times,
+    the (N, C) f32 scale and shift; the sum: y read and written, s read)
+    and its plain version's; the launches of one served replay
+    (``biggan_replay_counts``). → {"cbn_act": ..., "up2_add": ...}, each
+    with its totals and launches."""
+    import torch
+
+    from jckx_torch.kernels import fused_bn_act as fba
+    from jckx_torch.kernels import up2_add as u2
+
+    cl, n = torch.channels_last, BIGGAN_BATCH
+    g = torch.Generator(device=dev).manual_seed(6)
+    rows_out = {"cbn_act": [], "up2_add": []}
+    for side, c, up in BIGGAN_CBN_MAPS:
+        def make():
+            x = (torch.randn(n, c, side, side, generator=g, device=dev) * 2 + 0.5).to(
+                torch.bfloat16, memory_format=cl)
+            return x, torch.randn(n, c, generator=g, device=dev) + 1.0, torch.randn(
+                n, c, generator=g, device=dev)
+
+        args = rotation(make, n * side * side * c * 2 * (1 + up * up))
+        x, scale, bias = args[0]
+        with torch.no_grad():
+            y = fba.cbn_act(x, scale, bias, up=up)
+            same = torch.equal(y, fba.cbn_act_one_rounding(x, scale, bias, up=up))
+        check(same and y.is_contiguous(memory_format=cl)
+              and y.shape == (n, c, up * side, up * side),
+              f"cbn_act at {side}x{side}x{c} up {up} bs{n} bf16 is not channels_last or differs "
+              f"from cbn_act_one_rounding")
+        del y
+        rows = [(fba._rows(x), scale.abs() + 0.5, bias) for x, scale, bias in args]
+        ms = device_ms(lambda x2d, i, t: fba.cbn_normalize_act(x2d, i, t, side, up), rows)
+        plain = device_ms(lambda x2d, i, t: fba.cbn_normalize_act_plain(x2d, i, t, side, up),
+                          rows)
+        bound = ((1 + up * up) * n * side * side * c * 2 + 2 * n * c * 4) / HBM_BYTES_PER_S * 1e3
+        rows_out["cbn_act"].append({"map": f"{side}x{side}x{c}", "up": up, "ms": ms,
+                                    "bound_ms": bound, "plain_ms": plain})
+        print(f"  cbn_normalize {side:>3}x{side:<3}x{c:<4} up {up} bs{n} kernel "
+              f"{ms * 1e3:8.2f} us  bound {bound * 1e3:7.2f} us ({100 * bound / ms:5.1f} %)  plain "
+              f"{plain * 1e3:8.2f} us   [{card}]")
+        del args, rows
+    for c, side in BIGGAN_SUMS:
+        def make():
+            return tuple(torch.randn(n, c, k * side, k * side, generator=g, device=dev).to(
+                torch.bfloat16, memory_format=cl) for k in (2, 1))
+
+        args = rotation(make, n * side * side * c * 2 * 9)
+        y, s = args[0]
+        want = y.clone()
+        u2.up2_add_plain_(want, s)
+        u2.up2_add_(y, s)
+        check(torch.equal(y, want) and y.is_contiguous(memory_format=cl),
+              f"up2_add_ at {2 * side}x{2 * side}x{c} bs{n} bf16 differs from up2_add_plain_")
+        del want
+        ms = device_ms(u2.up2_add_, args)
+        plain = device_ms(u2.up2_add_plain_, args)
+        bound = 9 * n * side * side * c * 2 / HBM_BYTES_PER_S * 1e3
+        rows_out["up2_add"].append({"map": f"{2 * side}x{2 * side}x{c}", "ms": ms,
+                                    "bound_ms": bound, "plain_ms": plain})
+        print(f"  up2_add {2 * side:>3}x{2 * side:<3}x{c:<4} bs{n} kernel {ms * 1e3:8.2f} us  "
+              f"bound {bound * 1e3:7.2f} us ({100 * bound / ms:5.1f} %)  plain (broadcast add) "
+              f"{plain * 1e3:8.2f} us   [{card}]")
+        del args
+    print("biggan_layers " + json.dumps({"card": card, "batch": n, "dtype": "bfloat16",
+                                         **rows_out}))
+    seen = biggan_replay_counts(dev)
+    out = {}
+    for name, word in (("cbn_act", "cbn_normalize"), ("up2_add", "up2_add")):
+        out[name] = {k: sum(r[k] for r in rows_out[name]) for k in ("ms", "bound_ms", "plain_ms")}
+        out[name]["launches"] = seen[word]
+        print(f"per BigGAN-128 render at batch {n}, bf16, {name}: kernels "
+              f"{out[name]['ms']:.5f} ms, bound {out[name]['bound_ms']:.5f} ms "
+              f"({100 * out[name]['bound_ms'] / out[name]['ms']:.1f} %), plain "
+              f"{out[name]['plain_ms']:.5f} ms; {seen[word]} launches a replay   [{card}]")
+    MOMENTS_ON_PATHS.append(seen["bn_moments"])
+    out["bn_act_launches"] = seen["bn_act"]
+    return out
 
 
 def _addcmul_relu(x2d, inv, shift):
@@ -3473,6 +3623,8 @@ def main() -> None:
     t = phase_timing(dev, card)
     mt = phase_moments(dev, card)
     bt = phase_bwd_timing(dev, card)
+    bg = phase_biggan_kernels(dev, card)
+    launches += bg["bn_act_launches"]
     phase_bn_relu_train(dev)
     phase_train_vs_cpu(dev)
     phase_train_vs_cpu(dev, conditional=True)
@@ -3540,6 +3692,20 @@ def main() -> None:
         "launches": sum(BWD_ON_PATHS),
         "map": bt["layer"], "ms": bt["ms"], "plain_ms": bt["plain_ms"],
         "bound_ms": bt["bound_ms"], "bound_by": "bytes",
+    }, {
+        "name": "cbn_act", "route": "cuda",
+        "source": "jckx_torch/kernels/csrc/cbn_act.cu",
+        "replaces": "none: the JAX package has no conditional BN",
+        "launches": bg["cbn_act"]["launches"], "launches_of": "one served BigGAN-128 replay",
+        "ms": bg["cbn_act"]["ms"], "plain_ms": bg["cbn_act"]["plain_ms"],
+        "bound_ms": bg["cbn_act"]["bound_ms"], "bound_by": "bytes",
+    }, {
+        "name": "up2_add", "route": "cuda",
+        "source": "jckx_torch/kernels/csrc/up2_add.cu",
+        "replaces": "none: the JAX package has no BigGAN",
+        "launches": bg["up2_add"]["launches"], "launches_of": "one served BigGAN-128 replay",
+        "ms": bg["up2_add"]["ms"], "plain_ms": bg["up2_add"]["plain_ms"],
+        "bound_ms": bg["up2_add"]["bound_ms"], "bound_by": "bytes",
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))

@@ -31,6 +31,12 @@ of a checkpoint goes through it: ``load_generator`` (serving, the daemon,
 ``load_generator`` is the one reader of a generator for serving and
 scoring (``jckx_torch.serve``, ``jckx_torch.evaluate``), with the EMA
 generator by default where the file holds one (``jckx/serve.py:169-228``).
+It tells the family from G's weights: DCGAN or CGAN (``infer_gan_config``),
+or BigGAN (``models/biggan.biggan_geometry``: a ``shared.weight`` class
+embedding beside ``blocks.0.0.conv1.weight``; its geometry, its class
+count and where attention sits all from the weights). A BigGAN file is the
+reference's dict with G's state dict under ``model_g`` (``model_d`` may be
+empty: the port serves BigGAN, and does not train it).
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import torch
 
 from jckx_torch.checkpoint.jckx_ckpt import read_jckx_checkpoint
 from jckx_torch.checkpoint.torch_convert import infer_gan_config
+from jckx_torch.models.biggan import BigGANGenerator, biggan_geometry
 from jckx_torch.models.cgan import CGenerator
 from jckx_torch.models.dcgan import GANGeometry, Generator
 from jckx_torch.parallel.mesh import reshard, shard_tree
@@ -114,7 +121,7 @@ def checkpoint_step(ckpt: Dict[str, Any]) -> int:
 class LoadedGenerator(NamedTuple):
     G: torch.nn.Module          # on the CPU, no parameter requires grad
     conditional: bool
-    geo: GANGeometry
+    geo: GANGeometry            # a BigGANGeometry for a BigGAN
     num_classes: int
     step: int
     used_ema: bool
@@ -131,7 +138,11 @@ def load_generator(path: str, use_ema: Optional[bool] = None, conditional: Optio
     are jckx's explicit overrides: the weights are the truth, so one that
     contradicts them raises (``jckx/serve.py:155-168``)."""
     ckpt = load_checkpoint(path)
-    inferred_cond, geo, inferred_k = infer_gan_config(ckpt["model_g"], ckpt["model_d"])
+    big = biggan_geometry(ckpt["model_g"])
+    if big is not None:
+        inferred_cond, (geo, inferred_k) = True, big
+    else:
+        inferred_cond, geo, inferred_k = infer_gan_config(ckpt["model_g"], ckpt["model_d"])
     # the port's files name the dataset's class count, which sizes the
     # backbone's head for a DCGAN run too (the weights say only K = 100)
     inferred = {"conditional": inferred_cond, **{f: getattr(geo, f) for f in GEOMETRY_FIELDS},
@@ -150,7 +161,10 @@ def load_generator(path: str, use_ema: Optional[bool] = None, conditional: Optio
                          f"checkpoints and runs without --ema_decay carry none)")
     used_ema = bool("ema_g" in ckpt if use_ema is None else use_ema)
     k = inferred["num_classes"]
-    G = CGenerator(geo, k) if inferred_cond else Generator(geo)
+    if big is not None:
+        G = BigGANGenerator(geo, k)
+    else:
+        G = CGenerator(geo, k) if inferred_cond else Generator(geo)
     G.load_state_dict(ckpt["ema_g"] if used_ema else ckpt["model_g"], strict=True)
     return LoadedGenerator(G.requires_grad_(False), inferred_cond, geo, k, checkpoint_step(ckpt),
                            used_ema)

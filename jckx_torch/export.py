@@ -68,7 +68,7 @@ import numpy as np
 import torch
 
 from jckx_torch import rng
-from jckx_torch.models.dcgan import GANGeometry
+from jckx_torch.models.dcgan import GANGeometry, require_form
 from jckx_torch.serve import (GeneratorService, pipelined_sample, tanh_to_u8,
                               validate_sample_args)
 from jckx_torch.utils.device import resolve_device
@@ -120,6 +120,7 @@ def export_generator(ckpt_path: str, dst: str, batch_size: int = 64,
     svc = GeneratorService(ckpt_path, conditional=conditional, num_classes=num_classes,
                            batch_size=batch_size, compute_dtype=compute_dtype, use_ema=use_ema,
                            geo_overrides=geo_overrides, quant=quant, device=device)
+    require_form(svc.G, "export")
     dev, geo = svc.device, svc.geo
     args = (torch.zeros((), dtype=torch.int32, device=dev),)
     if svc.conditional:

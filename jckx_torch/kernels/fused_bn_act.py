@@ -47,6 +47,17 @@ at 3.35 TB/s.
   ``jckx_torch::bn_relu_bwd_sums`` / ``jckx_torch::bn_relu_bwd_dx`` take
   them on a CPU tensor, bit for bit.
 - ``bn_act``: routes by grad mode (below).
+- ``cbn_act``: BigGAN's class-conditional BN + ReLU
+  (``models/biggan.py``), the same split with an affine a sample: the
+  scale and bias are (N, C), sample n owning the rows [n·HW, (n+1)·HW) of
+  the (N·HW, C) view, and ``up=2`` writes the output upsampled ×2 by
+  nearest neighbour (a GBlock's first BN feeds its convolution so). Its
+  statistics are ``_stats`` (``bn_moments_op`` on the card), its normalize
+  the registered operator ``jckx_torch::cbn_normalize_act``: a hand-written
+  kernel on the card (``csrc/cbn_act.cu``, which replaces no Pallas kernel:
+  the JAX package has no conditional BN), ``cbn_normalize_act_plain`` on
+  the CPU. No counter counts its launches; the profiler names them
+  (``cbn_normalize``).
 
 Activations are either ``(rows, C)`` or NCHW-logical tensors in
 ``torch.channels_last`` memory, whose ``(N·H·W, C)`` row view is free.
@@ -475,6 +486,87 @@ def _bn_relu_bwd_dx_fake(x, dout, a, sh, mean, g1, k):
     return torch.empty_like(x)
 
 
+def _up_rows(y2d: torch.Tensor, samples: int, width: int, up: int) -> torch.Tensor:
+    """(N·H·W, C) rows of N maps ``width`` wide → the rows of their nearest
+    ×``up`` upsampling, (N·up·H·up·W, C)."""
+    if up == 1:
+        return y2d
+    chans = y2d.shape[1]
+    y = y2d.reshape(samples, -1, width, chans)
+    return y.repeat_interleave(up, dim=1).repeat_interleave(up, dim=2).reshape(-1, chans)
+
+
+def cbn_normalize_act_plain(x2d, inv, shift, width=1, up=1):
+    """The conditional kernel's plain version: ``relu(f32(x) * inv[n] +
+    shift[n])`` in x's dtype over the rows of each sample n (``inv`` and
+    ``shift`` (N, C) f32; sample n owns the rows [n·R, (n+1)·R) of the
+    (N·R, C) ``x2d``), a multiply and an add where the kernel fuses them;
+    with ``up`` 2 each sample's map (``width`` columns) upsampled ×2 by
+    nearest neighbour."""
+    n, chans = inv.shape
+    y = x2d.float().reshape(n, -1, chans) * inv[:, None] + shift[:, None]
+    y = torch.relu(y).reshape(x2d.shape).to(x2d.dtype)
+    return _up_rows(y, n, width, up)
+
+
+@functools.lru_cache(maxsize=None)
+def _cbn_entry():
+    fn = _build.load("cbn_act").jckx_cbn_act
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    fn.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, i32, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def cbn_normalize_act(x2d, inv, shift, width=1, up=1):
+    """Launch the conditional kernel: ``x2d`` a non-empty contiguous CUDA
+    ``(N·R, C)`` tensor in bf16 or f32, ``inv`` / ``shift`` contiguous f32
+    ``(N, C)`` on the same device, N dividing the rows; ``up`` 1, or 2 for
+    the nearest ×2 upsampling of each sample's map of ``width`` columns
+    (dividing R). → a new (N·up²·R, C) tensor like ``x2d``. Raises on
+    anything else."""
+    if x2d.device.type != "cuda":
+        raise ValueError(f"cbn_normalize_act launches a CUDA kernel; x is on {x2d.device}")
+    if x2d.dtype not in _DTYPES:
+        raise ValueError(f"cbn_normalize_act takes float32 or bfloat16, got {x2d.dtype}")
+    if up not in (1, 2):
+        raise ValueError(f"upsampling {up}: 1 or 2")
+    if x2d.dim() != 2 or not x2d.is_contiguous() or x2d.numel() == 0:
+        raise ValueError("cbn_normalize_act needs a non-empty contiguous (rows, C) tensor")
+    rows, chans = x2d.shape
+    samples = inv.shape[0] if inv.dim() == 2 else 0
+    for name, v in (("inv", inv), ("shift", shift)):
+        if (v.dtype != torch.float32 or v.device != x2d.device or v.dim() != 2
+                or v.shape != (samples, chans) or not v.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 (N, {chans}) tensor on "
+                             f"{x2d.device}, one row a sample")
+    if samples == 0 or rows % samples or width < 1 or (rows // samples) % width:
+        raise ValueError(f"{samples} samples of maps {width} wide do not divide the {rows} rows")
+    y = x2d.new_empty((rows * up * up, chans))
+    with torch.cuda.device(x2d.device):
+        rc = _cbn_entry()(x2d.data_ptr(), inv.data_ptr(), shift.data_ptr(), y.data_ptr(),
+                          samples, rows // samples, width, chans, _DTYPES[x2d.dtype], up,
+                          torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"jckx_cbn_act failed with CUDA error {rc}")
+    return y
+
+
+@torch.library.custom_op("jckx_torch::cbn_normalize_act", mutates_args=())
+def cbn_normalize_act_op(x2d: torch.Tensor, inv: torch.Tensor, shift: torch.Tensor, width: int,
+                         up: int) -> torch.Tensor:
+    """``cbn_normalize_act`` on a CUDA tensor, ``cbn_normalize_act_plain`` on
+    a CPU one (the kernel has no CPU form)."""
+    if x2d.device.type == "cuda":
+        return cbn_normalize_act(x2d, inv, shift, width, up)
+    return cbn_normalize_act_plain(x2d, inv, shift, width, up)
+
+
+@cbn_normalize_act_op.register_fake
+def _cbn_normalize_act_fake(x2d, inv, shift, width, up):
+    return x2d.new_empty((x2d.shape[0] * up * up, x2d.shape[1]))
+
+
 @torch.library.custom_op("jckx_torch::normalize_act", mutates_args=())
 def normalize_act_op(x2d: torch.Tensor, inv: torch.Tensor, shift: torch.Tensor, act: str,
                      negative_slope: float) -> torch.Tensor:
@@ -500,3 +592,56 @@ def bn_act(x, scale, bias, act="none", negative_slope=0.2, eps=1e-5, mesh=None, 
     x2d = _rows(x)
     inv, shift = _affine(x2d, scale, bias, eps, mesh, axis)
     return _unrows(normalize_act_op(x2d, inv, shift, act, negative_slope), x)
+
+
+def _cbn_affine(x2d, scale, bias, eps):
+    """The conditional BN's (N, C) f32 ``inv`` = scale · rstd and ``shift``
+    = bias − mean · inv from x's batch statistics (``_stats``)."""
+    mean, var = _stats(x2d)
+    inv = torch.rsqrt(var + eps)[None] * scale.float()
+    return inv, bias.float() - mean[None] * inv
+
+
+def _cbn_out(y2d: torch.Tensor, like: torch.Tensor, up: int) -> torch.Tensor:
+    """The NCHW (channels_last) view of a conditional BN's rows, its map
+    ``up`` times ``like``'s."""
+    n, c, h, w = like.shape
+    return y2d.reshape(n, up * h, up * w, c).permute(0, 3, 1, 2)
+
+
+def cbn_act_plain(x, scale, bias, eps=1e-5, up=1):
+    """Class-conditional batch-stat BN + ReLU in plain PyTorch: x (NCHW)
+    normalized by its batch statistics, then ``relu(x̂ · scale[n] +
+    bias[n])`` for sample n (``scale``, ``bias`` (N, C)); with ``up`` 2 the
+    result upsampled ×2 by nearest neighbour."""
+    x2d = _rows(x)
+    inv, shift = _cbn_affine(x2d, scale, bias, eps)
+    y = cbn_normalize_act_plain(x2d, inv, shift, x.shape[3], up)
+    return _cbn_out(y, x, up)
+
+
+def cbn_act_one_rounding(x, scale, bias, eps=1e-5, up=1):
+    """``cbn_act_plain`` with the kernel's rounding: the multiply-add in f64,
+    rounded once to f32, as ``bn_act_one_rounding``."""
+    x2d = _rows(x)
+    inv, shift = _cbn_affine(x2d, scale, bias, eps)
+    n, chans = inv.shape
+    y = (x2d.double().reshape(n, -1, chans) * inv.double()[:, None]
+         + shift.double()[:, None]).float()
+    y = torch.relu(y).reshape(x2d.shape).to(x2d.dtype)
+    return _cbn_out(_up_rows(y, n, x.shape[3], up), x, up)
+
+
+def cbn_act(x, scale, bias, eps=1e-5, up=1):
+    """Class-conditional batch-stat BN fused with ReLU, and with the
+    nearest ×2 upsampling of its output where ``up`` is 2: ``bn_act``'s
+    route by grad mode, with a (N, C) scale and bias (module docstring). x
+    is NCHW, channels_last on the card."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)):
+        return cbn_act_plain(x, scale, bias, eps, up)
+    if x.dim() != 4 or (x.device.type == "cuda"
+                        and not x.is_contiguous(memory_format=torch.channels_last)):
+        raise ValueError("cbn_act needs an NCHW tensor, channels_last on the card")
+    x2d = _rows(x)
+    inv, shift = _cbn_affine(x2d, scale, bias, eps)
+    return _cbn_out(cbn_normalize_act_op(x2d, inv, shift, x.shape[3], up), x, up)

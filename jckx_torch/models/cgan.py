@@ -69,6 +69,8 @@ def weights_init(net: nn.Module, gen: torch.Generator) -> None:
 class CGenerator(Generator):
     """Reference CGAN G: the DCGAN stack on [z, one-hot]."""
 
+    family = "CGAN"
+
     def __init__(self, geo: GANGeometry = GANGeometry(), num_classes: int = 100,
                  gen: Optional[torch.Generator] = None):
         super().__init__(geo, gen=gen, in_dim=geo.z_dim + num_classes)

@@ -96,11 +96,28 @@ def weights_init(net: nn.Module, gen: torch.Generator) -> None:
         init_module(m, gen)
 
 
+# The forms a served generator can take: the float sampler, the int8 one
+# (``ops/quant.make_sampler``), the sub-pixel form of its stride-2 layers, a
+# batch split over a local mesh (``serve.py``) and the ``.pt2`` export
+# (``export.py``). A generator class lists its own in ``forms``.
+FORMS = frozenset({"float", "int8", "subpixel", "mesh", "export"})
+
+
+def require_form(G: nn.Module, form: str) -> None:
+    """Raise a ValueError naming G's family where ``form`` is not among
+    its ``forms``."""
+    if form not in G.forms:
+        raise ValueError(f"a {G.family} generator has no {form} form; it is served as: "
+                         f"{', '.join(sorted(G.forms))}")
+
+
 class Generator(nn.Module):
     """Reference G. ``gen`` draws the init weights; without it the
     parameters stay zero until a state dict is loaded. ``in_dim`` is the
     width of G's input, ``z_dim`` unless a condition is concatenated to z
     (``generator_init(key, geo, in_dim=…)``)."""
+
+    family, forms = "DCGAN", FORMS
 
     def __init__(self, geo: GANGeometry = GANGeometry(), gen: Optional[torch.Generator] = None,
                  in_dim: Optional[int] = None):

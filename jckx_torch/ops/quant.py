@@ -57,7 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from jckx_torch.kernels.fused_bn_act import bn_act, bn_act_plain
-from jckx_torch.models.dcgan import GANGeometry
+from jckx_torch.models.dcgan import GANGeometry, require_form
 from jckx_torch.ops.conv import (conv_transpose2d, conv_transpose2d_subpixel_k4s2p1,
                                  is_subpixel_layer)
 
@@ -272,6 +272,10 @@ def make_sampler(G, *, quant: Optional[str] = None, compute_dtype=torch.bfloat16
     z."""
     if quant not in (None, "int8"):
         raise ValueError(f"quant={quant!r}: supported modes are None (float) and 'int8'")
+    if quant is not None:
+        require_form(G, quant)
+    if subpixel:
+        require_form(G, "subpixel")
     geo = G.geo
     if quant is None:
         def apply(p, z, onehot=None, mesh=None):

@@ -66,6 +66,16 @@ not divide, and a mesh with a ``.pt2`` artifact.
 
 Refused by name: jckx's StableHLO ``.jaxexp`` artifacts, which need JAX
 (``python -m jckx.serve``).
+
+A BigGAN checkpoint (``models/biggan.py``, recognized by its weights) is
+served as a CGAN is: the float sampler in the compute dtype, one graph
+replay a batch, the same drains; its z is 120 wide (``draw_z``, truncation
+included) and its class count the embedding's. Its batch takes ten
+conditional BN kernel launches and one per-channel one. The int8 sampler
+and the sub-pixel form (``make_sampler``), a local mesh and a ``.pt2``
+export raise a ``ValueError`` that names BigGAN: each reads the
+generator's ``forms`` (``models/dcgan.require_form``), and BigGAN's is the
+float form alone.
 """
 
 from __future__ import annotations
@@ -88,6 +98,7 @@ import torch
 from jckx_torch.checkpoint.checkpoint import GEOMETRY_FIELDS, load_generator
 from jckx_torch.data.pipeline import one_hot
 from jckx_torch.logging.artifacts import encode_png, make_grid, save_image_grid
+from jckx_torch.models.dcgan import require_form
 from jckx_torch.ops.quant import make_sampler
 from jckx_torch.parallel.mesh import DATA_AXIS, make_mesh, parse_mesh_shape
 from jckx_torch.utils import spans
@@ -97,8 +108,9 @@ from jckx_torch.utils.graphs import GraphedProgram, graph_for
 # undrained batches a request may hold on the device (6 MiB each at 64², bs512)
 WINDOW = 8
 # the largest reply kept in page-locked memory: the daemon's cap, 4096
-# images at 64² RGB, is 48 MiB
-PINNED_REPLY_BYTES = 64 << 20
+# images at 64² RGB, is 48 MiB; a bulk request of 2048 BigGAN images at 128²
+# RGB is 96 MiB
+PINNED_REPLY_BYTES = 128 << 20
 # requests by their reply's memory (the daemon samples from handler threads)
 REPLIES = {"pinned": 0, "pageable": 0}
 _REPLIES_LOCK = threading.Lock()
@@ -293,6 +305,8 @@ class GeneratorService:
         self.mesh = mesh
         loaded = load_generator(ckpt_path, use_ema=use_ema, conditional=conditional,
                                 num_classes=num_classes, geo_overrides=geo_overrides)
+        if mesh is not None:
+            require_form(loaded.G, "mesh")
         self.conditional, self.geo, self.num_classes = loaded.conditional, loaded.geo, loaded.num_classes
         self.step, self.used_ema = loaded.step, loaded.used_ema
         self.G = loaded.G.to(self.device)
@@ -358,8 +372,8 @@ class GeneratorService:
                seed: Optional[int] = None) -> np.ndarray:
         """→ uint8 images (n, S, S, C). ``seed`` makes the request
         deterministic; without it each request draws fresh noise. ``labels``
-        (CGAN only) cycle over the request's rows; without them each batch
-        draws random classes. On the card a reply of up to 64 MiB
+        (CGAN, BigGAN) cycle over the request's rows; without them each batch
+        draws random classes. On the card a reply of up to 128 MiB
         (``PINNED_REPLY_BYTES``) is page-locked memory from torch's host
         cache, returned to it when the caller drops the array: a caller
         that keeps many replies holds that much locked host memory."""

@@ -194,6 +194,116 @@ def test_bn_act_launches_the_moments_kernels_where_no_gradient_is_taken(batch, s
     assert (fba.LAUNCHES, fba.MOMENTS_LAUNCHES) == before and xs.grad is not None
 
 
+# BigGAN-128's ten conditional BN maps (side, channels, upsampling) at ch 96:
+# each block's two, the first writing its output upsampled x2
+BIGGAN_CBN_MAPS = [(4, 1536, 2), (8, 1536, 1), (8, 1536, 2), (16, 768, 1), (16, 768, 2),
+                   (32, 384, 1), (32, 384, 2), (64, 192, 1), (64, 192, 2), (128, 96, 1)]
+
+
+@pytest.mark.parametrize("side,chans,up", BIGGAN_CBN_MAPS)
+def test_conditional_bn_kernel_at_biggans_maps(side, chans, up):
+    """``cbn_act`` without grad at one of BigGAN-128's conditional maps, bs256
+    bf16 (an affine a sample, (256, C)), upsampled where G upsamples it:
+    bit for bit the plain route with its multiply-add rounded once
+    (``cbn_act_one_rounding``, which takes the same statistics kernels'
+    sums), within one bf16 ulp of ``cbn_act_plain``, and channels_last."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(side + chans)
+    x = (torch.randn(256, chans, side, side, generator=g, device=dev) * 2 + 0.5).to(
+        torch.bfloat16, memory_format=torch.channels_last)
+    scale = torch.randn(256, chans, generator=g, device=dev) + 1.0
+    bias = torch.randn(256, chans, generator=g, device=dev)
+    with torch.no_grad():
+        y = fba.cbn_act(x, scale, bias, up=up)
+        want = fba.cbn_act_one_rounding(x, scale, bias, up=up)
+        plain = fba.cbn_act_plain(x, scale, bias, up=up)
+    torch.cuda.synchronize()
+    assert y.shape == (256, chans, up * side, up * side)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(y, want)
+    _assert_close(y, plain)
+
+
+@pytest.mark.parametrize("up", [1, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("samples,height,width,chans", [(256, 4, 4, 1536), (7, 3, 3, 3),
+                                                        (3, 5, 1, 100), (70000, 1, 1, 8)])
+def test_conditional_normalize_matches_plain(samples, height, width, chans, dtype, up):
+    """The conditional normalize kernel alone, vector and element paths
+    (C = 3, 100), more samples than a grid's rows (70,000), with and
+    without the ×2 upsampling of each sample's map: within the per-channel
+    kernel's tolerance of ``cbn_normalize_act_plain``."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(height * width)
+    rows = samples * height * width
+    x = (torch.randn(rows, chans, generator=g, device=dev) * 2 + 0.5).to(getattr(torch, dtype))
+    inv = torch.rand(samples, chans, generator=g, device=dev) + 0.5
+    shift = torch.randn(samples, chans, generator=g, device=dev)
+    y = fba.cbn_normalize_act(x, inv, shift, width, up)
+    torch.cuda.synchronize()
+    assert y.shape == (rows * up * up, chans)
+    _assert_close(y, fba.cbn_normalize_act_plain(x, inv, shift, width, up))
+
+
+def test_conditional_normalize_refuses_on_the_card():
+    dev = _card()
+    x, inv = torch.zeros(64, 8, device=dev), torch.zeros(4, 8, device=dev)
+    for args in ((x.half(), inv, inv), (x, inv[:, :4], inv), (x, inv.double(), inv),
+                 (x, torch.zeros(3, 8, device=dev), torch.zeros(3, 8, device=dev)),
+                 (x.t(), inv, inv), (x, inv, inv.t().contiguous().t())):
+        with pytest.raises(ValueError):
+            fba.cbn_normalize_act(*args)
+    for width, up in ((3, 1), (4, 3), (0, 2)):  # 16 rows a sample: 3 does not divide them
+        with pytest.raises(ValueError):
+            fba.cbn_normalize_act(x, inv, inv, width, up)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,chans,side", [(256, 1536, 4), (256, 768, 8), (256, 384, 16),
+                                          (256, 192, 32), (256, 96, 64), (5, 3, 7), (3, 100, 2)])
+def test_the_residual_sum_kernel_matches_plain(n, chans, side, dtype):
+    """``up2_add_`` (y += the nearest ×2 upsampling of s, in place) at
+    BigGAN-128's five shortcut sums at bs256 and on the element path (C =
+    3, 100): bit for bit its plain version, a sum in f32 rounded once."""
+    from jckx_torch.kernels.up2_add import up2_add_, up2_add_plain_
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(chans)
+    cl = torch.channels_last
+    y = torch.randn(n, chans, 2 * side, 2 * side, generator=g, device=dev).to(
+        getattr(torch, dtype), memory_format=cl)
+    s = torch.randn(n, chans, side, side, generator=g, device=dev).to(
+        getattr(torch, dtype), memory_format=cl)
+    want = y.clone()
+    up2_add_plain_(want, s)
+    up2_add_(y, s)
+    torch.cuda.synchronize()
+    assert torch.equal(y, want) and y.is_contiguous(memory_format=cl)
+    with pytest.raises(ValueError):
+        up2_add_(y, s.contiguous())
+
+
+def test_biggan_attention_route_matches_plain():
+    """``ops/attention.attention`` on the card at BigGAN-128's widths (4096
+    positions against 1024 pooled, q and k 24 wide, v 96), batch 8, bf16,
+    no 1/√d: within 2 % of the largest output of the f32 plain route (the
+    fused kernel's probabilities round to bf16 before the product with v).
+    The route's kernel is named in a profiled replay, at the end of this
+    file (a profiler opened early in the process can make a later test's
+    profiler miss records)."""
+    from jckx_torch.ops import attention as attn
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k = (torch.randn(8, n, 24, generator=g, device=dev).to(torch.bfloat16) * 0.5
+            for n in (4096, 1024))
+    v = torch.randn(8, 1024, 96, generator=g, device=dev).to(torch.bfloat16)
+    y = attn.attention(q, k, v)
+    want = attn.attention_plain(q, k, v).float()
+    assert y.shape == (8, 4096, 96) and y.dtype == torch.bfloat16
+    assert (y.float() - want).abs().max().item() <= 0.02 * want.abs().max().item()
+
+
 def test_bn_act_launches_once_and_refuses_grad():
     """Without grad, bn_act launches the kernel once; with an input that
     requires grad under grad mode it takes the plain composition instead
@@ -1280,8 +1390,9 @@ def test_served_requests_replay_one_graph_per_batch(tmp_path, deterministic_cudn
 
 def test_a_reply_is_page_locked_up_to_its_limit(tmp_path, deterministic_cudnn, monkeypatch):
     """A bs512 bf16 CGAN service at 64² (width 8): requests of 4096 (48
-    MiB) and 5000 images (59 MiB, more batches than ``WINDOW``) land in
-    page-locked replies, one of 5600 (66 MiB) in a pageable one, each
+    MiB), 5000 (59 MiB, more batches than ``WINDOW``) and 10,900 images
+    (127.7 MiB) land in page-locked replies, one of 11,000 (128.9 MiB) in a
+    pageable one, each
     counted once in ``REPLIES``; every reply equals the same request's
     eager renders copied batch by batch and concatenated (the route before
     the copy stream), and each held reply is unchanged after the later
@@ -1306,7 +1417,8 @@ def test_a_reply_is_page_locked_up_to_its_limit(tmp_path, deterministic_cudnn, m
         return np.concatenate(batches)
 
     replies = []
-    for n, memory in ((4096, "pinned"), (5000, "pinned"), (5600, "pageable")):
+    for n, memory in ((4096, "pinned"), (5000, "pinned"), (10900, "pinned"),
+                      (11000, "pageable")):
         before = dict(tserve.REPLIES)
         got = svc.sample(n, labels=labels, seed=n)
         assert {k: tserve.REPLIES[k] - before[k] for k in before} == {
@@ -1397,3 +1509,79 @@ def test_profiler_counts_a_served_replay(tmp_path, quant):
             break
     assert max(a for a, _ in seen) <= 4 and max(b for _, b in seen) <= 8, seen
     assert seen[-1] == (4, 8), seen
+
+
+def _biggan_ckpt(path, ch=96, classes=1000):
+    """A BigGAN-128 checkpoint at width ``ch`` of the benchmark's seeded
+    weights (``portbench/reference/biggan.py``)."""
+    from portbench.reference import biggan as ref
+
+    cfg = {"ch": ch, "image_size": 128, "channels": 3, "z_dim": 120, "z_chunks": 6,
+           "shared_dim": 128, "num_classes": classes, "attention": 64, "bn_eps": 1e-5}
+    ref.write_checkpoint(path, ref.make_weights(cfg, 11, torch.device("cuda")))
+    return path
+
+
+def test_profiler_counts_a_biggan_replay(tmp_path):
+    """One replay of a served BigGAN-128 batch (ch 96, bs256, bf16): the
+    profiler sees the conditional normalize kernel 10 times, the
+    per-channel one once (the output BN), the statistics' kernels 22 times
+    (two a layer), the residual sum's 5 times (a block) and the attention
+    route's kernel (``ops/attention.ROUTE_KERNELS``), so that a change of
+    route fails here and not in the benchmark's readers (a window that
+    falls short, a record CUPTI dropped, is taken again, up to three). The
+    counters the BN wrappers keep add 1 and 22 a replay."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from jckx_torch.ops.attention import ROUTE_KERNELS
+    from jckx_torch.serve import GeneratorService
+
+    dev = _card()
+    svc = GeneratorService(_biggan_ckpt(str(tmp_path / "g.pt")), batch_size=256)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    z = torch.randn(256, 120, generator=gen, device=dev)
+    labels = torch.randperm(1000, generator=gen, device=dev)[:256]
+    svc.render(z, labels)  # eager, then the capture
+    want = (10, 1, 22, 5)
+    seen = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        before, moments = fba.LAUNCHES, fba.MOMENTS_LAUNCHES
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            svc.render(z, labels)
+            torch.cuda.synchronize()
+        assert (fba.LAUNCHES - before, fba.MOMENTS_LAUNCHES - moments) == (1, 22)
+        kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen.append(tuple(sum(word in k for k in kernels)
+                          for word in ("cbn_normalize", "bn_act", "bn_moments", "up2_add")))
+        attn = sum(any(w in k for w in ROUTE_KERNELS) for k in kernels)
+        if seen[-1] == want and attn:
+            break
+    assert all(a <= b for got in seen for a, b in zip(got, want)), seen
+    assert seen[-1] == want and attn >= 1, (seen, attn)
+
+
+def test_a_biggan_render_never_holds_the_scores(tmp_path):
+    """A BigGAN-128 bs256 bf16 render, eager (every allocation its own), and
+    a replay: each raises the memory peak by less than one (256, 4096, 1024)
+    f32 score buffer (4.3 GB), so neither route materializes the scores;
+    the images are uint8 (256, 128, 128, 3)."""
+    from jckx_torch.serve import GeneratorService
+
+    dev = _card()
+    svc = GeneratorService(_biggan_ckpt(str(tmp_path / "g.pt")), batch_size=256)
+    z = torch.randn(256, 120, generator=torch.Generator(device=dev).manual_seed(6), device=dev)
+    labels = torch.arange(256, device=dev)
+    scores = 256 * 4096 * 1024 * 4
+    program = svc.program
+    for route in ("eager", "replay"):
+        svc.program = None if route == "eager" else program
+        svc.render(z, labels)  # warm: the folded weights, cuDNN's choices, the capture
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        imgs = svc.render(z, labels)
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated(dev) - base
+        assert imgs.shape == (256, 128, 128, 3) and imgs.dtype == torch.uint8
+        assert rise < scores, (route, rise)
