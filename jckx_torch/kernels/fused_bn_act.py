@@ -31,9 +31,10 @@ at 3.35 TB/s.
   f32 sums; ``bn_moments_plain`` its plain version, ``bn_moments_op`` the
   registered operator ``jckx_torch::bn_moments`` (the kernels on a CUDA
   tensor, the plain version, bit for bit, on a CPU one), which ``_stats``
-  calls wherever x needs no gradient: in ``bn_act``'s kernel route, and in
+  calls wherever x needs no gradient: in ``bn_act``'s kernel route, in
   ``bn_act_plain`` / ``bn_act_one_rounding`` under ``no_grad``, so all
-  three take the same sums.
+  three take the same sums, and in the fine-tune's forward
+  (``ops/norm.bn_relu_train``, through ``_terms``).
 - ``bn_relu_bwd_sums`` / ``bn_relu_bwd_dx``: the wrappers of the
   fine-tune's BN + ReLU backward (``ops/norm.bn_relu_train``), two more
   hand-written kernels (``csrc/bn_relu_bwd.cu``) that replace no Pallas
@@ -187,26 +188,28 @@ def _gradient_rows(g: torch.Tensor) -> torch.Tensor:
     return g.contiguous()
 
 
-def bn_moments_plain(x2d: torch.Tensor) -> torch.Tensor:
-    """The per-channel sum and sum of squares of ``(rows, C)`` x in f32, as
-    one (2, C) tensor: the moments kernels' plain version, which autograd
-    differentiates."""
-    xf = x2d.float()
-    return torch.stack([xf.sum(0), (xf * xf).sum(0)])
+def bn_moments_plain(x: torch.Tensor) -> torch.Tensor:
+    """The per-channel sum and sum of squares of x in f32 over its rows
+    (``(rows, C)``, or NCHW over ``_axes``), as one (2, C) tensor: the
+    moments kernels' plain version, which autograd differentiates."""
+    xf = x.float()
+    axes = _axes(xf)
+    return torch.stack([xf.sum(axes), (xf * xf).sum(axes)])
 
 
-def _stats(x2d: torch.Tensor, mesh=None, axis: str = "data"):
-    """f32 batch mean and E[x²] − mean², as jckx's ``_stats`` (``:66-71``):
-    the per-channel sum and sum of squares as one (2, C) tensor, summed
-    over ``mesh``'s ``axis`` when a mesh is given (``"data"``; ``"world"``
-    for a height-sharded activation), over the global row count. The sums
-    are ``bn_moments_plain`` where x's gradient is taken (the train step's
-    grad-of-grad), else ``bn_moments_op`` (the kernels on the card)."""
-    if torch.is_grad_enabled() and x2d.requires_grad:
-        sums = bn_moments_plain(x2d)
+def _stats(x: torch.Tensor, mesh=None, axis: str = "data"):
+    """f32 batch mean and E[x²] − mean² of x (``(rows, C)`` or NCHW), as
+    jckx's ``_stats`` (``:66-71``): the per-channel sum and sum of squares
+    as one (2, C) tensor, summed over ``mesh``'s ``axis`` when a mesh is
+    given (``"data"``; ``"world"`` for a height-sharded activation), over
+    the global row count. The sums are ``bn_moments_plain`` where x's
+    gradient is taken (the train step's grad-of-grad), else
+    ``bn_moments_op`` (the kernels on the card)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        sums = bn_moments_plain(x)
     else:
-        sums = bn_moments_op(x2d)
-    n = x2d.shape[0]
+        sums = bn_moments_op(x)
+    n = x.numel() // x.shape[1]
     if mesh is not None:
         sums = mesh.all_reduce(sums, axis)
         n *= mesh.axis_size(axis)
@@ -215,11 +218,15 @@ def _stats(x2d: torch.Tensor, mesh=None, axis: str = "data"):
     return mean, var
 
 
-def _affine(x2d, scale, bias, eps, mesh=None, axis="data"):
-    mean, var = _stats(x2d, mesh, axis)
-    inv = torch.rsqrt(var + eps) * scale.float()
-    shift = bias.float() - mean * inv
-    return inv, shift
+def _terms(x, scale, bias, eps, mesh=None, axis="data"):
+    """``_stats``' mean and biased variance, ``rstd = rsqrt(var + eps)``, and
+    the normalize's multiplier ``a = rstd · scale`` and shift ``sh = bias −
+    mean · a``: (mean, var, rstd, a, sh), each f32 (C,). ``bn_act``'s
+    routes and the fine-tune's ``ops/norm.bn_relu_train`` take them here."""
+    mean, var = _stats(x, mesh, axis)
+    rstd = torch.rsqrt(var + eps)
+    a = rstd * scale.float()
+    return mean, var, rstd, a, bias.float() - mean * a
 
 
 def _activate(y: torch.Tensor, act: str, negative_slope: float) -> torch.Tensor:
@@ -242,7 +249,7 @@ def bn_act_plain(x, scale, bias, act="none", negative_slope=0.2, eps=1e-5, mesh=
                  axis="data"):
     """Batch-stat BN + activation in plain PyTorch (``_bn_act_xla``)."""
     x2d = _rows(x)
-    inv, shift = _affine(x2d, scale, bias, eps, mesh, axis)
+    inv, shift = _terms(x2d, scale, bias, eps, mesh, axis)[3:]
     return _unrows(normalize_act_plain(x2d, inv, shift, act, negative_slope), x)
 
 
@@ -255,7 +262,7 @@ def bn_act_one_rounding(x, scale, bias, act="none", negative_slope=0.2, eps=1e-5
     version drifts by one ulp here and there and batch statistics carry
     that through the later layers (chip_smoke.py, tests/test_torch_gpu.py)."""
     x2d = _rows(x)
-    inv, shift = _affine(x2d, scale, bias, eps, mesh, axis)
+    inv, shift = _terms(x2d, scale, bias, eps, mesh, axis)[3:]
     y = (x2d.double() * inv.double() + shift.double()).float()
     return _unrows(_activate(y, act, negative_slope).to(x2d.dtype), x)
 
@@ -343,17 +350,18 @@ def bn_moments(x2d: torch.Tensor) -> torch.Tensor:
 
 
 @torch.library.custom_op("jckx_torch::bn_moments", mutates_args=())
-def bn_moments_op(x2d: torch.Tensor) -> torch.Tensor:
-    """``bn_moments`` on a CUDA tensor, ``bn_moments_plain`` on a CPU one
-    (the kernels have no CPU form)."""
-    if x2d.device.type == "cuda":
-        return bn_moments(x2d)
-    return bn_moments_plain(x2d)
+def bn_moments_op(x: torch.Tensor) -> torch.Tensor:
+    """``bn_moments`` of x's rows on a CUDA tensor (``(rows, C)``, or a
+    channels_last NCHW one), ``bn_moments_plain`` on a CPU one (the kernels
+    have no CPU form)."""
+    if x.device.type == "cuda":
+        return bn_moments(_rows(x))
+    return bn_moments_plain(x)
 
 
 @bn_moments_op.register_fake
-def _bn_moments_fake(x2d):
-    return x2d.new_empty((2, x2d.shape[1]), dtype=torch.float32)
+def _bn_moments_fake(x):
+    return x.new_empty((2, x.shape[1]), dtype=torch.float32)
 
 
 def _relu_grad_plain(x, dout, a, sh):
@@ -590,7 +598,7 @@ def bn_act(x, scale, bias, act="none", negative_slope=0.2, eps=1e-5, mesh=None, 
             and not x.is_contiguous(memory_format=torch.channels_last)):
         raise ValueError("bn_act on the card needs a channels_last NCHW tensor")
     x2d = _rows(x)
-    inv, shift = _affine(x2d, scale, bias, eps, mesh, axis)
+    inv, shift = _terms(x2d, scale, bias, eps, mesh, axis)[3:]
     return _unrows(normalize_act_op(x2d, inv, shift, act, negative_slope), x)
 
 

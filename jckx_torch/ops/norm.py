@@ -9,14 +9,17 @@ x is NCHW (channels_last on the card) or ``(rows, C)``.
 Forward, as jckx's ``_bn_relu_fwd_impl`` (``:115-126``): one moment sweep
 (the sum and the sum of squares, accumulated in f32), ``a = scale ·
 rsqrt(var + eps)`` and ``sh = bias − mean · a``, then the normalize + ReLU
-pass ``relu(f32(x) · a + sh)`` cast back. That pass is exactly the
-function of the repo's one TPU kernel, so it goes through the registered
-operator ``jckx_torch::normalize_act`` (``kernels/fused_bn_act.py``) on
-the free ``(N·H·W, C)`` row view of the activation: on the card the hand
-kernel (one launch per call), on the CPU its plain version. Inside a
-``Function``'s forward nothing is differentiated twice, so ``bn_act``'s
-grad-mode rule does not apply here. On the card an NCHW input that is not
-channels_last raises: its row view would be a copy.
+pass ``relu(f32(x) · a + sh)`` cast back. Both go through registered
+operators (``kernels/fused_bn_act.py``) on the free ``(N·H·W, C)`` row
+view of the activation. The sweep and the affine are ``_terms``, the
+helper ``bn_act`` takes them from: a ``Function``'s forward runs with grad
+off, so its sums come from ``jckx_torch::bn_moments`` (on the card the
+moments kernels, which read x once in its dtype; on the CPU their plain
+version, the f32 sums over N, H, W). The pass is exactly the function of
+the repo's one TPU kernel, ``jckx_torch::normalize_act``: on the card the
+hand kernel (one launch per call), on the CPU its plain version. On the
+card an NCHW input that is not channels_last raises: its row view would be
+a copy.
 
 Backward, jckx's two passes (``:134-156``), each a registered operator
 (``kernels/fused_bn_act.py``): ``jckx_torch::bn_relu_bwd_sums`` recomputes
@@ -39,7 +42,8 @@ sums: the train step's gradient average adds the ranks' shares, and would
 leave them R times too large from the global sums.
 
 ``bn_relu_train_plain`` is the same function as one autograd-differentiated
-composition: the reference the card holds the kernel route and the
+composition, its statistics ``_terms`` of an x whose gradient is taken
+(the plain sums): the reference the card holds the kernel route and the
 hand-written backward against (``chip_smoke.py``, ``tests/test_torch_gpu.py``).
 With ``one_rounding`` its multiply-add is rounded once, as the kernel's
 ``fmaf``.
@@ -49,25 +53,9 @@ from __future__ import annotations
 
 import torch
 
-from jckx_torch.kernels.fused_bn_act import (_axes, _per_channel, _rows, _unrows,
+from jckx_torch.kernels.fused_bn_act import (_per_channel, _rows, _terms, _unrows,
                                              bn_relu_bwd_dx_op, bn_relu_bwd_sums_op,
                                              normalize_act_op)
-
-
-def _moments_affine(xf, scale, bias, eps, mesh=None, axis="data"):
-    """x in f32 → (mean, biased var, inv, a, sh), f32, per channel; the
-    sums over ``mesh``'s ``axis`` when a mesh is given."""
-    axes = _axes(xf)
-    n = xf.numel() // xf.shape[1 if xf.dim() == 4 else -1]
-    sums = torch.stack([xf.sum(axes), (xf * xf).sum(axes)])
-    if mesh is not None:
-        sums = mesh.all_reduce(sums, axis)
-        n *= mesh.axis_size(axis)
-    mean = sums[0] / n
-    var = sums[1] / n - mean * mean
-    inv = torch.rsqrt(var + eps)
-    a = scale.float() * inv
-    return mean, var, inv, a, bias.float() - mean * a
 
 
 class _BNReLUTrain(torch.autograd.Function):
@@ -76,8 +64,8 @@ class _BNReLUTrain(torch.autograd.Function):
         if (x.device.type == "cuda" and x.dim() == 4
                 and not x.is_contiguous(memory_format=torch.channels_last)):
             raise ValueError("bn_relu_train on the card needs a channels_last NCHW tensor")
-        mean, var, inv, a, sh = _moments_affine(x.float(), scale, bias, eps, mesh)
-        out = _unrows(normalize_act_op(_rows(x), a.contiguous(), sh.contiguous(), "relu", 0.0), x)
+        mean, var, inv, a, sh = _terms(x, scale, bias, eps, mesh)  # grad off: bn_moments_op
+        out = _unrows(normalize_act_op(_rows(x), a, sh, "relu", 0.0), x)
         ctx.save_for_backward(x, a, sh, inv, mean)
         ctx.mesh = mesh
         ctx.mark_non_differentiable(mean, var)
@@ -116,7 +104,7 @@ def bn_relu_train_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor
     f64, rounded once to f32 (and so its ReLU mask is the kernels'). →
     (out, mean, biased_var)."""
     xf = x.float()  # one cast: autograd then sums x's gradient in f32 before rounding it
-    mean, var, _, a, sh = _moments_affine(xf, scale, bias, eps, mesh)
+    mean, var, _, a, sh = _terms(xf, scale, bias, eps, mesh)
     a, sh = _per_channel(a, x), _per_channel(sh, x)
     z = (xf.double() * a.double() + sh.double()).float() if one_rounding else xf * a + sh
     return torch.relu(z).to(x.dtype), mean.detach(), var.detach()

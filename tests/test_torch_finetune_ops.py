@@ -110,6 +110,43 @@ def test_bn_relu_train_routes_its_normalize_pass_through_the_operator(monkeypatc
     assert out.is_contiguous(memory_format=torch.channels_last)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["channels_last", "nchw"])
+def test_bn_relu_train_takes_its_statistics_from_the_moments_operator(layout, dtype,
+                                                                      monkeypatch):
+    """The forward's sums are ``jckx_torch::bn_moments`` of x, once a call
+    (the moments kernels on the card); on the CPU that operator is the
+    plain f32 sum and sum of squares over N, H, W, so the statistics are
+    those sums over the row count, bit for bit, and nothing launches.
+    ``bn_relu_train_plain``, differentiated through its statistics, takes
+    the plain sums and not the operator."""
+    from jckx_torch.ops.norm import bn_relu_train_plain
+
+    seen = []
+    real = tfba.bn_moments_op
+
+    def spy(x):
+        seen.append((tuple(x.shape), x.dtype))
+        return real(x)
+
+    monkeypatch.setattr(tfba, "bn_moments_op", spy)
+    g = torch.Generator().manual_seed(5)
+    x = (torch.randn(4, 3, 5, 5, generator=g) * 2 + 0.5).to(getattr(torch, dtype))
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    scale, bias = torch.rand(3, generator=g) + 0.5, torch.randn(3, generator=g)
+    x.requires_grad_(True)
+    before = tfba.launch_counts()
+    _, mean, var = bn_relu_train(x, scale, bias)
+    assert seen == [((4, 3, 5, 5), x.dtype)] and tfba.launch_counts() == before
+    xf = x.detach().float()
+    s1, s2 = xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))
+    assert torch.equal(mean, s1 / 100) and torch.equal(var, s2 / 100 - mean * mean)
+    _, mean_p, var_p = bn_relu_train_plain(x, scale, bias)
+    assert len(seen) == 1
+    assert torch.equal(mean_p, mean) and torch.equal(var_p, var)
+
+
 def _jckx_crop_draws(key, n):
     """jckx's per-image draws, rebuilt from its key split (augment.py:34-44)."""
     k_area, k_ratio, k_y, k_x, k_flip = jax.random.split(key, 5)

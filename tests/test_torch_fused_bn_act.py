@@ -195,6 +195,24 @@ def test_statistics_stay_differentiable_where_x_needs_a_gradient(monkeypatch):
         assert torch.equal(a, c)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["channels_last", "nchw"])
+def test_moments_operator_on_cpu_sums_an_nchw_map_over_its_rows(layout, dtype):
+    """``jckx_torch::bn_moments`` of an NCHW map (the fine-tune's forward
+    hands it x as it comes) on the CPU: the f32 sum and sum of squares over
+    N, H, W, bit for bit, as the forward took them before the operator;
+    the same numbers, to f32 rounding, as the sums of its (rows, C) view."""
+    x, _, _ = _inputs((6 * 5 * 7, 12), seed=9)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype)).reshape(6, 5, 7, 12).permute(0, 3, 1, 2)
+    if layout == "nchw":
+        tx = tx.contiguous()
+    got = torch.ops.jckx_torch.bn_moments(tx)
+    xf = tx.float()
+    assert got.shape == (2, 12)
+    assert torch.equal(got, torch.stack([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))]))
+    torch.testing.assert_close(got, _sums_as_before(tfba._rows(tx)), rtol=1e-6, atol=1e-5)
+
+
 @pytest.mark.parametrize("x, match", [
     (torch.zeros(64, 8, dtype=torch.float16), "float32 or bfloat16"),
     (torch.zeros(64, 8, dtype=torch.float64), "float32 or bfloat16"),

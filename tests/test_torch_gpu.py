@@ -15,11 +15,14 @@ route. Whole renders (float, sub-pixel, int8): bit-identical to the plain
 route whose multiply-add is rounded once, within 1 LSB of ``bn_act_plain``.
 The BN statistics' moments kernels: within twice the plain route's error
 against f64 sums of the same x (plus one f32 epsilon of the magnitude), the
-same bits on every call. The fine-tune's BN + ReLU backward kernels: against
-autograd through the plain route rounded once (the kernels' ReLU mask), dx
-within one ulp of its dtype plus 1e-3 of its largest magnitude, dgamma /
-dbeta within 1e-3 of theirs; against jckx's twice-rounded mask, the same
-except on the few elements where the masks differ.
+same bits on every call; the fine-tune's statistics, which the moments
+kernels give, no further off f64 than the plain route's plus one f32 ulp of
+their scale. The fine-tune's BN + ReLU backward kernels: against autograd
+through the plain route rounded once under the same statistics (the
+kernels' ReLU mask), dx within one ulp of its dtype plus 1e-3 of its
+largest magnitude, dgamma / dbeta within 1e-3 of theirs; against jckx's
+twice-rounded mask, the same except on the few elements where the masks
+differ.
 """
 
 import pytest
@@ -661,19 +664,23 @@ def test_bn_relu_train_on_the_card_matches_its_plain_version(dtype, chans, side,
     """``bn_relu_train`` at fine-tune maps (bs128, 299²: C 32 at 149², 64 at
     147², 80 at 73², 192 at 71², 448 at 8², and Mixed_5d's 96 at 35² as
     channels 128–223 of its block's 288, whose gradient ``torch.cat``'s
-    backward hands on as a channel slice): one normalize launch and three of
-    the backward's; ``out`` bit-identical to the plain route rounded once;
-    statistics equal; the hand-written backward against autograd through
-    those plain ops (whose ReLU mask, rounded once, is the kernels'): dx
-    within one ulp of its dtype plus 1e-3 of its largest magnitude, dgamma /
-    dbeta within 1e-3 of theirs (sums of 2.8 M products in another order).
-    Against jckx's twice-rounded route dx is held the same way except where
-    the two masks differ (each such element a whole a·dout off), on at most
-    ``MASK_SHARE`` of the elements; dgamma / dbeta within 1e-3 there too.
-    The kernels read a channel-slice gradient in place, at its row stride,
-    and a gradient of another layout (the dense cases' NCHW) from one
-    channels_last copy."""
-    from jckx_torch.ops.norm import _moments_affine, bn_relu_train, bn_relu_train_plain
+    backward hands on as a channel slice): one normalize launch, the two
+    moments kernels' and three of the backward's. Its statistics come from
+    the moments kernels, so they are held against f64 statistics of the
+    same x (``_stat_errors``): no further off than the plain f32 route's
+    plus one f32 ulp of their scale. ``out`` is bit-identical to the
+    normalize rounded once under the route's own ``a`` and ``sh``. The
+    hand-written backward is held against autograd through the plain ops
+    under the route's statistics (``_route_sums``; their ReLU mask, rounded
+    once, is the kernels'): dx within one ulp of its dtype plus 1e-3 of its
+    largest magnitude, dgamma / dbeta within 1e-3 of theirs (sums of 2.8 M
+    products in another order). Against jckx's twice-rounded route dx is
+    held the same way except where the two masks differ (each such element
+    a whole a·dout off), on at most ``MASK_SHARE`` of the elements; dgamma /
+    dbeta within 1e-3 there too. The kernels read a channel-slice gradient
+    in place, at its row stride, and a gradient of another layout (the
+    dense cases' NCHW) from one channels_last copy."""
+    from jckx_torch.ops.norm import bn_relu_train, bn_relu_train_plain
 
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(0)
@@ -712,15 +719,32 @@ def test_bn_relu_train_on_the_card_matches_its_plain_version(dtype, chans, side,
     before = fba.launch_counts()
     got = run(bn_relu_train)
     torch.cuda.synchronize()
-    assert fba.launch_counts() == (before[0] + 1, before[1], before[2] + 3)
+    assert fba.launch_counts() == (before[0] + 1, before[1] + 2, before[2] + 3)
     assert [name for name, *_ in seen] == ["jckx_bn_relu_bwd_sums", "jckx_bn_relu_bwd_dx"]
     if pad is None:
         assert all(stride == chans for *_, stride in seen)
     else:
         ptr = dout[:, pad[0]:pad[0] + chans].data_ptr()
         assert all(p == ptr and stride == width for _, p, stride in seen)
+    # the statistics: the kernels' sums against the plain f32 route's, both
+    # against f64
+    plain_sums = fba.bn_moments_plain(x)
+    n = x.numel() // chans
+    plain_mean = plain_sums[0] / n
+    plain_var = plain_sums[1] / n - plain_mean * plain_mean
+    err, err_plain = _stat_errors(got[1], got[2], x), _stat_errors(plain_mean, plain_var, x)
+    assert all(e <= e_plain + 2.0 ** -23 for e, e_plain in zip(err, err_plain)), (err, err_plain)
+    # out: the normalize rounded once (the kernel's fmaf) under the route's a, sh
+    a = torch.rsqrt(got[2] + 1e-3) * scale
+    sh = bias - got[1] * a
+    a, sh = a[:, None, None], sh[:, None, None]
+    once = torch.relu((x.double() * a.double() + sh.double()).float()).to(dt)
+    assert torch.equal(got[0], once) and got[0].is_contiguous(memory_format=torch.channels_last)
+    del once
+    # the plain routes from here on take the route's statistics
+    monkeypatch.setattr(fba, "bn_moments_plain", _route_sums(x))
     plain = run(lambda *a: bn_relu_train_plain(*a, one_rounding=True))
-    assert torch.equal(got[0], plain[0]) and got[0].is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got[0], plain[0])
     assert torch.equal(got[1], plain[1]) and torch.equal(got[2], plain[2])
     assert got[3].is_contiguous(memory_format=torch.channels_last)
     dx, ref = got[3].float(), plain[3].float()
@@ -728,13 +752,11 @@ def test_bn_relu_train_on_the_card_matches_its_plain_version(dtype, chans, side,
     ulp = torch.where(m > 0, torch.exp2(torch.floor(torch.log2(m)) - (23 if dtype == "float32" else 7)),
                       torch.zeros_like(m))
     assert bool(((dx - ref).abs() <= ulp + 1e-3 * ref.abs().max()).all())
-    for a, b in zip(got[4:], plain[4:]):
-        assert (a - b).abs().max() <= 1e-3 * b.abs().max()
+    for a_, b_ in zip(got[4:], plain[4:]):
+        assert (a_ - b_).abs().max() <= 1e-3 * b_.abs().max()
     # jckx's mask rounds x·a and + sh apart: against that route dx is off only
     # where the two masks differ, on at most MASK_SHARE of the elements
     twice = run(bn_relu_train_plain)
-    _, _, _, a, sh = _moments_affine(x.float(), scale, bias, 1e-3)
-    a, sh = a[:, None, None], sh[:, None, None]
     xf = x.float()
     differ = ((xf.double() * a.double() + sh.double()) > 0) != (xf * a + sh > 0)
     del xf
@@ -745,10 +767,36 @@ def test_bn_relu_train_on_the_card_matches_its_plain_version(dtype, chans, side,
     off = (dx - ref).abs() > ulp + 1e-3 * ref.abs().max()
     assert not bool((off & ~differ).any())
     assert int(differ.sum()) <= MASK_SHARE * x.numel()
-    for a, b in zip(got[4:], twice[4:]):
-        assert (a - b).abs().max() <= 1e-3 * b.abs().max()
+    for a_, b_ in zip(got[4:], twice[4:]):
+        assert (a_ - b_).abs().max() <= 1e-3 * b_.abs().max()
     with pytest.raises(ValueError, match="channels_last"):
         bn_relu_train(x.contiguous(), scale, bias)
+
+
+def _stat_errors(mean, var, x):
+    """The largest errors of a route's f32 (mean, biased var) of NCHW x
+    against f64 statistics of the same x, each relative to its channel's
+    mean |x| or E[x²] (so every channel counts, and var's cancellation
+    does not)."""
+    xd = x.double()
+    m1, m2, mabs = xd.mean((0, 2, 3)), (xd * xd).mean((0, 2, 3)), xd.abs().mean((0, 2, 3))
+    del xd
+    return (((mean.double() - m1).abs() / mabs.clamp_min(1e-300)).max().item(),
+            ((var.double() - (m2 - m1 * m1)).abs() / m2.clamp_min(1e-300)).max().item())
+
+
+def _route_sums(x):
+    """A stand-in for ``bn_moments_plain`` in the plain routes: the value is
+    the moments kernels' sums of x (the kernel route's statistics, bit for
+    bit), the gradient the plain sums' (autograd through the statistics)."""
+    kernel = fba.bn_moments(fba._rows(x))
+    plain = fba.bn_moments_plain
+
+    def sums(xf):
+        p = plain(xf)
+        return kernel + (p - p.detach())
+
+    return sums
 
 
 def test_forward_train_on_the_card_matches_cpu():
@@ -1169,8 +1217,8 @@ def test_finetune_superstep_equals_its_eager_run(deterministic_cudnn, monkeypatc
     capture, then a launch of K = 4 replays under ``set_sync_debug_mode
     ("error")``, against 5 eager steps from the same weights, rows and
     draws: the weights, running statistics, loss and accuracy bit for
-    bit; 94 normalize launches and 94 × 3 of the BN + ReLU backward's
-    counted per step either way. Every one of the 94 backwards a step reads
+    bit; 94 normalize launches, 94 × 2 of the moments kernels and 94 × 3
+    of the BN + ReLU backward's counted per step either way. Every one of the 94 backwards a step reads
     its incoming gradient in place (none is copied to make its rows
     equally spaced)."""
     from jckx_torch.metrics import inception_v3 as tiv
@@ -1192,7 +1240,7 @@ def test_finetune_superstep_equals_its_eager_run(deterministic_cudnn, monkeypatc
     before = fba.launch_counts()
     want = torch.stack([torch.stack(step_e(data, labels, order[i], draw_step(gen, 8, dev)))
                         for i in range(5)])
-    assert [a - b for a, b in zip(fba.launch_counts(), before)] == [5 * 94, 0, 5 * 94 * 3]
+    assert [a - b for a, b in zip(fba.launch_counts(), before)] == [5 * 94, 5 * 94 * 2, 5 * 94 * 3]
     assert len(in_place) == 5 * 94 * 2 and all(in_place)
 
     net_g, step_g, _, _ = _tiny_finetune(dev)
@@ -1206,7 +1254,7 @@ def test_finetune_superstep_equals_its_eager_run(deterministic_cudnn, monkeypatc
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(fba.launch_counts(), before)] == [5 * 94, 0, 5 * 94 * 3]
+    assert [a - b for a, b in zip(fba.launch_counts(), before)] == [5 * 94, 5 * 94 * 2, 5 * 94 * 3]
     assert ss.launches == 94 and (ss.captures, ss.replays) == (1, 4) and ss.pool_bytes > 0
     assert torch.equal(torch.cat(got), want)
     a, b = tiv.to_jckx_flat(net_g), tiv.to_jckx_flat(net_e)
@@ -1244,6 +1292,44 @@ def test_profiler_counts_the_replayed_kernel_launches():
         if seen[-1] == 94:
             break
     assert max(seen) <= 94 and seen[-1] == 94, seen
+
+
+def test_profiler_counts_the_fine_tune_statistics_kernels_in_a_replay():
+    """In one replay of the fine-tune's graph the 94 BN layers' forward
+    statistics are the moments kernels: the profiler sees 94
+    ``bn_moments_partial`` and 94 ``bn_moments_combine`` kernels, as many
+    as the superstep added to ``MOMENTS_LAUNCHES`` (188), and fewer
+    ``reduce_kernel`` launches than BN layers: none of them comes from a BN
+    forward any more (the plain route took two a layer). A window that
+    sees fewer moments kernels (a record CUPTI dropped) is taken again, up
+    to three."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from jckx_torch.metrics.inception_train import draw_step, make_superstep, step_inputs
+    from jckx_torch.train.superstep import CudaGraph
+
+    dev = _card()
+    _, step, data, labels = _tiny_finetune(dev)
+    ss = make_superstep(step, data, labels, CudaGraph)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    idx = torch.arange(8, device=dev)
+    feed = lambda j: step_inputs(idx, draw_step(gen, 8, dev))  # noqa: E731
+    ss.replay(2, feed)  # the eager step, the capture, one replay
+    seen = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        before = fba.MOMENTS_LAUNCHES
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ss.replay(1, feed)
+            torch.cuda.synchronize()
+        assert fba.MOMENTS_LAUNCHES - before == 2 * 94
+        kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen.append(tuple(sum(word in k for k in kernels)
+                          for word in ("bn_moments_partial", "bn_moments_combine", "reduce_kernel")))
+        if seen[-1][:2] == (94, 94):
+            break
+    assert max(p for p, _, _ in seen) <= 94 and max(c for _, c, _ in seen) <= 94, seen
+    assert seen[-1][:2] == (94, 94) and seen[-1][2] < 94, seen
 
 
 def _forced_live_step_child(rank, store, root):
